@@ -1,0 +1,67 @@
+"""Carry a simulation state between the JAX reference and the port.
+
+``state_from_numpy`` takes a reference ``BrainState`` pulled to the host
+(``jax.device_get``: the same NamedTuple/dataclass tree with numpy leaves)
+and builds the port's ``BrainState``; ``state_to_numpy`` goes the other way,
+to plain nested dicts of numpy arrays. Attribute access only, so this module
+imports neither jax nor the reference package. The tests use it to inject a
+reference state into the port phase by phase.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.engine import BrainState
+from repro_torch.core.neuron import NeuronState
+from repro_torch.telemetry.metrics import Metrics
+
+_NEURON_FIELDS = NeuronState._fields
+
+
+def _t(x, device):
+    return None if x is None else torch.from_numpy(np.array(x)).to(device)
+
+
+def state_from_numpy(tree, device="cpu") -> BrainState:
+    """A reference state (numpy leaves) -> the port's BrainState."""
+    neurons = NeuronState(*(_t(getattr(tree.neurons, f), device)
+                            for f in _NEURON_FIELDS))
+    s = tree.stats
+    stats = Metrics(*({k: _t(v, device).to(torch.float32)
+                       for k, v in dict(d).items()}
+                      for d in (s.counters, s.per_chunk, s.hists, s.gauges)))
+    return BrainState(
+        neurons=neurons,
+        out_edges=_t(tree.out_edges, device).to(torch.int32),
+        in_edges=_t(tree.in_edges, device).to(torch.int32),
+        positions=_t(tree.positions, device).to(torch.float32),
+        rates_table=_t(tree.rates_table, device),
+        subs=_t(tree.subs, device), rate_slots=_t(tree.rate_slots, device),
+        remote_rates=_t(tree.remote_rates, device),
+        chunk=int(np.asarray(tree.chunk)), stats=stats)
+
+
+def _np(x):
+    return None if x is None else x.detach().cpu().numpy()
+
+
+def state_to_numpy(state: BrainState) -> dict:
+    """The port's BrainState -> nested dicts of numpy arrays (the field
+    names of the reference's state)."""
+    s = state.stats
+    return {
+        "neurons": {f: _np(getattr(state.neurons, f))
+                    for f in _NEURON_FIELDS},
+        "out_edges": _np(state.out_edges), "in_edges": _np(state.in_edges),
+        "positions": _np(state.positions),
+        "rates_table": _np(state.rates_table), "subs": _np(state.subs),
+        "rate_slots": _np(state.rate_slots),
+        "remote_rates": _np(state.remote_rates),
+        "chunk": np.int32(state.chunk),
+        "stats": {name: {k: _np(v) for k, v in d.items()}
+                  for name, d in (("counters", s.counters),
+                                  ("per_chunk", s.per_chunk),
+                                  ("hists", s.hists),
+                                  ("gauges", s.gauges))},
+    }

@@ -1,0 +1,182 @@
+"""Build and bind the port's CUDA kernels.
+
+Every ``*.cu`` file under ``repro_torch/csrc/`` is compiled by ``nvcc`` for
+``sm_90a`` (one process per source, all started together) and linked into one
+shared library with a plain C interface, loaded with ``ctypes``. The library
+goes to ``build/repro_torch_kernels/`` at the root of the checkout, named by
+a hash of the sources and flags, so an edited source is rebuilt on first use.
+
+Nothing here runs at import: the CPU tests import every module of the port on
+a machine with no ``nvcc`` and no card. ``library()`` builds on first call.
+
+Each C entry launches on the stream it is given (PyTorch's current stream),
+allocates nothing, and returns ``cudaGetLastError()``; ``check`` raises when
+that is not 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
+    "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+U = ctypes.c_uint
+F = ctypes.c_float
+
+# C entry -> argument types (every pointer and the stream as c_void_p)
+SIGNATURES = {
+    "repro_threefry_words": [P, P, P, P, P, P, I, P],
+    "repro_activity_window": (
+        [P] * 6            # v, u, ca, ax, de, spike_count (in place)
+        + [P, P]           # spiked double buffer (a holds the input)
+        + [P, P, P]        # in_edges, w_table, rates
+        + [P, P]           # bg_mean, bg_std
+        + [P] * 6          # izh a, b, c, d, nu, eps
+        + [P]              # fired counts (num_steps,) int32
+        + [I, I, I, I, U, I, I, F, F, P]),
+    "repro_bh_traverse": (
+        [P, P, P, P, P, P, P, P, P, P]   # counts, cents, members, npos, vac,
+                                         # x, start, gid, valid, sizes
+        + [P, P, P]                      # out tgt, ok, depth
+        + [I, I, I, I, I, I, I, I, U, F, F, I, I, P]),
+}
+
+
+class LaunchCounter:
+    """Launches of one kernel wrapper: the wrapper adds one where it
+    launches its kernel and nowhere else."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.count = 0
+        COUNTERS[name] = self
+
+    def add(self, k: int = 1) -> None:
+        self.count += k
+
+
+COUNTERS: dict = {}
+
+
+def launch_counts() -> dict:
+    return {name: c.count for name, c in COUNTERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for c in COUNTERS.values():
+        c.count = 0
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                           "machine with the CUDA toolkit")
+    return path
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    cu, cuh = _sources()
+    for p in cu + cuh:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build(verbose: bool = False) -> pathlib.Path:
+    """Compile every source (in parallel) and link the shared library, unless
+    a library of the same sources is already built. Returns its path."""
+    so = BUILD_DIR / f"librepro_torch_kernels-{_digest()}.so"
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    cu, _ = _sources()
+    t0 = time.perf_counter()
+    procs = []
+    for src in cu:
+        obj = BUILD_DIR / f"{src.stem}-{os.getpid()}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed, objs = [], []
+    for src, obj, proc in procs:
+        out, _ = proc.communicate()
+        if verbose and out:
+            print(f"[nvcc {src.name}]\n{out}", flush=True)
+        if proc.returncode != 0:
+            failed.append(f"{src.name}:\n{out}")
+        objs.append(str(obj))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run([nvcc, "-shared", *NVCC_FLAGS[:2], *objs, "-o",
+                           str(tmp)], capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError("nvcc link failed:\n" + link.stdout + link.stderr)
+    os.replace(tmp, so)
+    for o in objs:
+        os.remove(o)
+    if verbose:
+        print(f"built {so.name} in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    return so
+
+
+_LIB = None
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use), argtypes declared."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.repro_error_string.argtypes = [ctypes.c_int]
+        lib.repro_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def stream() -> int:
+    """PyTorch's current CUDA stream, as the int the C entries take."""
+    return torch.cuda.current_stream().cuda_stream
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        msg = library().repro_error_string(rc).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} "
+                           f"(cudaError {rc})")
+
+
+def require_cuda(name: str, *tensors) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor."""
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: every operand must be on the same CUDA "
+                             f"device, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")

@@ -1,0 +1,101 @@
+"""The port stands alone: no module of repro_torch, and not chip_smoke.py,
+imports jax or the JAX package (an AST scan, and a fresh interpreter that
+imports all of them and then inspects sys.modules). Entry points run on the
+card unless told otherwise."""
+import ast
+import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    for name in _imported(path):
+        top = name.split(".")[0]
+        assert top not in FORBIDDEN, f"{path.name} imports {name}"
+
+
+def test_fresh_interpreter_loads_no_jax():
+    mods = sorted(
+        "repro_torch." + str(p.relative_to(PKG).with_suffix("")).replace(
+            os.sep, ".").replace(".__init__", "")
+        for p in PKG.rglob("*.py"))
+    code = ("import sys, importlib\n"
+            f"sys.path.insert(0, {str(ROOT)!r})\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "import chip_smoke\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "print(','.join(bad))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+
+
+def test_simulator_defaults_to_the_card():
+    from repro_torch.configs.msp_brain import SMOKE_CONFIG
+    from repro_torch.sim.api import Simulator
+    if torch.cuda.is_available():
+        assert Simulator.from_config(SMOKE_CONFIG).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Simulator.from_config(SMOKE_CONFIG)
+
+
+def test_config_validation_is_eager():
+    from repro_torch.configs.msp_brain import SMOKE_CONFIG
+    with pytest.raises(ValueError, match="activity_impl"):
+        dataclasses.replace(SMOKE_CONFIG, activity_impl="pallas")
+    with pytest.raises(ValueError, match="spike_alg"):
+        dataclasses.replace(SMOKE_CONFIG, activity_impl="fused",
+                            spike_alg="old")
+
+
+def test_chip_smoke_refuses_without_a_card(monkeypatch, capsys):
+    """On a machine with no card chip_smoke exits non-zero and prints no
+    result line."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chip_smoke.main() != 0
+    assert '"ok": true' not in capsys.readouterr().out
+
+
+def test_chip_smoke_refuses_alone_in_a_directory(tmp_path):
+    """Copied alone into a directory (the port not beside it), chip_smoke
+    exits non-zero and prints no result line, even where a card is seen."""
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    code = ("import runpy, sys, torch\n"
+            "torch.cuda.is_available = lambda: True\n"
+            f"runpy.run_path({str(lone)!r}, run_name='__main__')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=tmp_path, env=env)
+    assert out.returncode != 0
+    assert "not beside this script" in out.stderr
+    assert '"ok": true' not in out.stdout

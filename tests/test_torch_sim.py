@@ -1,0 +1,119 @@
+"""The port's main path against the JAX Simulator: three chunks of
+SMOKE_CONFIG with both fused fields (on the CPU the port's fused wrappers run
+their plain versions) against the reference's jnp lowerings, which the JAX
+package's own tests hold bit-identical to its fused ones.
+
+Tolerance: counters equal up to the first chunk touched by a near-tie (the
+activity floats differ from XLA:CPU by a few ulp per step, and a spike flag
+may flip where v grazes the threshold, after which the two runs are different
+but equally valid trajectories); the test reports that chunk. Inside the port
+the fused and reference lowerings agree bitwise."""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.msp_brain import SMOKE_CONFIG as J_SMOKE
+from repro.sim.api import Simulator as JSim
+from repro_torch.configs.msp_brain import SMOKE_CONFIG as T_SMOKE
+from repro_torch.kernels import _build
+from repro_torch.sim.api import Simulator as TSim
+
+CHUNKS = 3
+SLICE = dataclasses.replace(T_SMOKE, activity_impl="fused",
+                            connectivity_impl="fused")
+
+
+def _jax_counters(sim):
+    return {k: float(np.asarray(v).sum())
+            for k, v in jax.device_get(sim.state.stats.counters).items()}
+
+
+def test_three_chunks_against_jax_simulator():
+    jsim = JSim.from_config(J_SMOKE)
+    tsim = TSim.from_config(SLICE, device="cpu")
+    first_divergence = None
+    for c in range(CHUNKS):
+        jsim.step()
+        tsim.step()
+        want = _jax_counters(jsim)
+        got = tsim.stats()
+        js = jax.device_get(jsim.state)
+        same_flags = np.array_equal(np.asarray(js.neurons.spike_count),
+                                    tsim.state.neurons.spike_count.numpy())
+        diff = {k: (want[k], got[k]) for k in want if want[k] != got[k]}
+        if diff or not same_flags:
+            first_divergence = c
+            print(f"first near-tie divergence in chunk {c}: {diff}")
+            break
+        np.testing.assert_array_equal(np.asarray(js.in_edges),
+                                      tsim.state.in_edges.numpy())
+        np.testing.assert_array_equal(np.asarray(js.out_edges),
+                                      tsim.state.out_edges.numpy())
+        np.testing.assert_array_equal(np.asarray(js.neurons.rate),
+                                      tsim.state.neurons.rate.numpy())
+    print(f"counters equal for {CHUNKS if first_divergence is None else first_divergence} "
+          f"of {CHUNKS} chunks")
+    # a divergence is only acceptable after the first chunk has matched
+    assert first_divergence is None or first_divergence >= 1
+    h = tsim.health()
+    assert h["health_flags"] == 0.0
+    assert tsim.stats()["synapses_formed"] > 0
+
+
+def test_fused_equals_reference_inside_the_port():
+    res = {}
+    for impl in ("reference", "fused"):
+        cfg = dataclasses.replace(T_SMOKE, activity_impl=impl,
+                                  connectivity_impl=impl)
+        sim = TSim.from_config(cfg, device="cpu")
+        sim.run(2)
+        res[impl] = sim
+    a, b = res["reference"].state, res["fused"].state
+    for f in a.neurons._fields:
+        assert torch.equal(getattr(a.neurons, f), getattr(b.neurons, f)), f
+    assert torch.equal(a.in_edges, b.in_edges)
+    assert torch.equal(a.out_edges, b.out_edges)
+    sa, sb = res["reference"].stats(), res["fused"].stats()
+    assert {k: v for k, v in sa.items() if not k.startswith("launches/")} == \
+        {k: v for k, v in sb.items() if not k.startswith("launches/")}
+
+
+def test_run_equals_sequential_steps_and_records_the_chunk_ring():
+    a = TSim.from_config(SLICE, device="cpu")
+    b = TSim.from_config(SLICE, device="cpu")
+    a.run(2)
+    b.step()
+    b.step()
+    assert torch.equal(a.state.in_edges, b.state.in_edges)
+    assert a.state.chunk == 2
+    ring = a.state.stats.per_chunk["activity_steps"][0]
+    assert float(ring[0]) == float(ring[1]) == SLICE.rate_period
+
+
+def test_cpu_run_launches_no_kernel():
+    before = _build.launch_counts()
+    sim = TSim.from_config(SLICE, device="cpu")
+    sim.step()
+    assert _build.launch_counts() == before
+    assert all(k in sim.stats() for k in ("launches/activity_window",
+                                          "launches/bh_traverse"))
+
+
+@pytest.mark.parametrize("field,value", [
+    ("connectivity_alg", "old"), ("spike_alg", "old"),
+    ("rate_exchange", "sparse"), ("tree_impl", "fused"),
+    ("apply_impl", "fused")])
+def test_unported_lowerings_name_their_roadmap_item(field, value):
+    cfg = dataclasses.replace(T_SMOKE, **{field: value})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TSim.from_config(cfg, device="cpu")
+
+
+def test_multi_rank_and_scenarios_are_not_ported_yet():
+    with pytest.raises(NotImplementedError, match="item 8"):
+        TSim.from_config(T_SMOKE, num_ranks=4, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 4"):
+        TSim.from_config(T_SMOKE, scenario=object(), device="cpu")
