@@ -40,14 +40,17 @@ def cap_deletions(cfg, lesions: bool = False):
                max(16, (n // 4) * cfg.requests_cap_factor))
 
 
-def route_build_core(flat_other, flat_mine, n: int, num_ranks: int, cap: int):
+def route_build_core(flat_other, flat_mine, n: int, num_ranks: int, cap: int,
+                     ranker):
     """Build the per-destination (num_ranks, cap, 2) notification buffers
     from the flattened (partner gid, my gid) pairs, with stable
-    within-destination slot ranks. Returns (buf, dropped count)."""
+    within-destination slot ranks from ``ranker(ids, buckets)``
+    (``positions_within`` or ``bucket_ranks``: integer-identical). Returns
+    (buf, dropped count)."""
     valid = flat_other >= 0
     dest = torch.where(valid, torch.div(flat_other, n, rounding_mode="floor"),
                        num_ranks)
-    slot = ctree.positions_within(dest, num_ranks + 1)
+    slot = ranker(dest, num_ranks + 1)
     ok = valid & (slot < cap)
     buf = torch.full((num_ranks + 1, cap, 2), -1, dtype=torch.int32,
                      device=flat_other.device)
@@ -68,7 +71,8 @@ def route_deletions(kill, edges, my_gid_col, cfg, num_ranks: int,
     flat_other = torch.where(kill, edges, -1).reshape(-1)
     flat_mine = torch.broadcast_to(my_gid_col, kill.shape).reshape(-1)
     cap = cap_deletions(cfg, lesions)
-    buf, dropped = route_build_core(flat_other, flat_mine, n, num_ranks, cap)
+    buf, dropped = route_build_core(flat_other, flat_mine, n, num_ranks, cap,
+                                    ctree.positions_within)
     return buf.reshape(num_ranks * cap, 2), dropped
 
 

@@ -161,7 +161,9 @@ class ApplyImpl(NamedTuple):
     """One registered implementation of the synapse-apply stages (registry
     domain "apply"): ``deletion`` drains routed retraction messages out of
     one edge table and re-compacts it; ``accept`` admits formation requests;
-    ``route`` builds the per-destination deletion-notification buffers."""
+    ``route`` builds the per-destination deletion-notification buffers.
+    'reference' runs the plain torch ops above; 'fused' runs K4 and K5
+    (``kernels/synapse_apply.py``), one stage per kernel pass."""
     deletion: Callable   # (edges, msg_lid, msg_gid, msg_valid)
     accept: Callable     # (tgt_lid, src_gid, valid, vacant_d, in_edges, key)
     route: Callable      # (kill, edges, my_gid_col, cfg, num_ranks, lesions)
@@ -178,5 +180,53 @@ def _route_reference(kill, edges, my_gid_col, cfg, num_ranks, lesions):
                                    lesions)
 
 
+def _deletion_fused(edges, msg_lid, msg_gid, msg_valid):
+    """K4 with the accept stage disabled (no valid requests): the table
+    leaves the kernel after remove + compact."""
+    from repro_torch.kernels import synapse_apply as ksa  # lazy: imports us
+    n = edges.shape[0]
+    dev = edges.device
+    zi = torch.zeros(8, dtype=torch.int32, device=dev)
+    new_edges, _ = ksa.synapse_apply(
+        edges, msg_lid, msg_gid, msg_valid, zi, zi,
+        torch.zeros(8, dtype=torch.bool, device=dev),
+        torch.zeros(8, dtype=torch.float32, device=dev),
+        torch.zeros(n, dtype=torch.float32, device=dev))
+    return new_edges
+
+
+def _accept_fused(tgt_lid, src_gid, valid, vacant_d, in_edges, key):
+    """K4 with the deletion stage disabled (no valid messages). The
+    priorities are drawn outside the kernel by the reference's
+    ``request_priority``; the table (compacted on entry) passes remove +
+    compact unchanged."""
+    from repro_torch.kernels import synapse_apply as ksa  # lazy: imports us
+    prio = request_priority(key, tgt_lid, src_gid, valid)
+    dev = in_edges.device
+    zi = torch.zeros(8, dtype=torch.int32, device=dev)
+    new_in, acc = ksa.synapse_apply(
+        in_edges, zi, zi, torch.zeros(8, dtype=torch.bool, device=dev),
+        tgt_lid, src_gid, valid, prio, vacant_d)
+    return acc, new_in
+
+
+def _route_fused(kill, edges, my_gid_col, cfg, num_ranks, lesions):
+    """K5 builds the notification buffers; the port has no all-to-all yet."""
+    from repro_torch.connectome import routing  # lazy: routing imports us
+    from repro_torch.kernels import synapse_apply as ksa  # lazy: imports us
+    if num_ranks != 1:
+        raise NotImplementedError(
+            "multi-rank deletion routing: ROADMAP.md Queue 1 item 8")
+    cap = routing.cap_deletions(cfg, lesions)
+    flat_other = torch.where(kill, edges, -1).reshape(-1)
+    flat_mine = torch.broadcast_to(my_gid_col, kill.shape).reshape(-1)
+    buf, dropped = ksa.route_build(flat_other, flat_mine,
+                                   n=cfg.neurons_per_rank,
+                                   num_ranks=num_ranks, cap=cap)
+    return buf.reshape(num_ranks * cap, 2), dropped[0]
+
+
 registry.register_phase("apply", "reference")(
     ApplyImpl(_deletion_reference, accept_requests, _route_reference))
+registry.register_phase("apply", "fused")(
+    ApplyImpl(_deletion_fused, _accept_fused, _route_fused))

@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import morton
+from repro_torch.kernels import radix_sort
 from repro_torch.sim import registry
 
 
@@ -119,6 +120,20 @@ def build_local_tree(positions, weights, rank: int, cfg, num_ranks: int,
     rel = leaf_cells_abs - base_cell * 8 ** cfg.local_levels
     rel = torch.clamp(rel, 0, n_leaf - 1)
     slot = positions_within(rel, n_leaf)
+    return _assemble_tree(positions, weights, rel, slot, cfg, n_leaf,
+                          base_cell, members_cap)
+
+
+@registry.register_phase("tree", "fused")
+def build_local_tree_fused(positions, weights, rank: int, cfg,
+                           num_ranks: int, members_cap: int = 4) -> LocalTree:
+    """The same build with (rel, slot) from the Morton-sort kernel K3
+    (``kernels/radix_sort.py``): one pass for encode, rebase and the stable
+    within-leaf ranks."""
+    leaf_level, n_leaf, base_cell = _tree_geometry(rank, cfg, num_ranks)
+    rel, slot = radix_sort.morton_sort(
+        positions, base_cell * 8 ** cfg.local_levels, leaf_level=leaf_level,
+        n_leaf=n_leaf)
     return _assemble_tree(positions, weights, rel, slot, cfg, n_leaf,
                           base_cell, members_cap)
 

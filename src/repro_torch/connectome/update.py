@@ -7,6 +7,10 @@
       owning rank and acceptance;
   3c  rate refresh + the dense Delta-periodic rate exchange.
 
+A scenario's lesion mask applies before the algorithm branch: dead neurons
+lose every synaptic element (a full retraction whose partners are
+notified), neither search nor offer vacancies, and advertise rate 0.
+
 Randomness: retraction and acceptance use chunk-keyed jax.random priorities
 (``repro_torch.prng``), every Barnes-Hut draw the counter hash keyed by
 (chunk, source gid) — the reference's streams.
@@ -23,6 +27,7 @@ from repro_torch.connectome import traverse
 from repro_torch.connectome import tree as ctree
 from repro_torch.core import morton, spikes
 from repro_torch.core.neuron import refresh_rate
+from repro_torch.scenarios import protocol as proto
 from repro_torch.sim import registry
 
 
@@ -80,7 +85,7 @@ def _retraction(state, ctx, gids, k_out, k_in, stats):
 
     # notify partners; kill masks index the PRE-retraction tables
     apply_impl = registry.resolve("apply", cfg.apply_impl)
-    lesions = False
+    lesions = proto.has_lesions(ctx.scenario)
     msgs_out, ovf_out = apply_impl.route(
         kill_out, state.out_edges, gids[:, None], cfg, num_ranks, lesions)
     msgs_in, ovf_in = apply_impl.route(
@@ -100,7 +105,7 @@ def _retraction(state, ctx, gids, k_out, k_in, stats):
 
 def connectivity_update(state, ctx):
     """One structural-plasticity update. Returns the state with ``chunk``
-    advanced. The slice runs without a scenario (no lesion mask)."""
+    advanced."""
     cfg, rank, num_ranks = ctx.cfg, ctx.rank, ctx.num_ranks
     n = cfg.neurons_per_rank
     dev = state.in_edges.device
@@ -109,6 +114,18 @@ def connectivity_update(state, ctx):
     gid0 = rank * n
     gids = gid0 + torch.arange(n, dtype=torch.int32, device=dev)
     stats = state.stats
+
+    # lesion mask at the update instant (the step right after this chunk's
+    # activity window); dead neurons lose all synaptic elements, so the
+    # retraction below breaks all their synapses and notifies the partners
+    alive = proto.alive_mask(ctx.events, ctx.regions, state.positions,
+                             (state.chunk + 1) * cfg.rate_period) \
+        if ctx.events else None
+    if alive is not None:
+        neu = state.neurons
+        state = state._replace(neurons=neu._replace(
+            ax_elements=torch.where(alive, neu.ax_elements, 0.0),
+            de_elements=torch.where(alive, neu.de_elements, 0.0)))
 
     # ---- deletion by retraction (phase 3a) -------------------------------
     k_out, k_in, k_accept = prng.split(chunk_key, 3)
@@ -129,6 +146,10 @@ def connectivity_update(state, ctx):
         stats = ctx.metrics.tree_built(stats, local_tree)
 
     searching = vac_a >= 1
+    if alive is not None:
+        # dead neurons neither search for partners nor offer vacancies
+        searching = searching & alive
+        vac_d_pos = torch.where(alive, vac_d_pos, 0.0)
     with record_function("repro.conn.phase_a"):
         branch_cell, valid_a = traverse.phase_a(top, state.positions, gids,
                                                 cfg, num_ranks,
@@ -148,7 +169,7 @@ def connectivity_update(state, ctx):
             branch_cell, owner, start_rel, valid_a, k_accept, stats)
 
     # ---- rate refresh + Delta-periodic exchange (phase 3c) ---------------
-    neurons = refresh_rate(state.neurons, cfg)
+    neurons = refresh_rate(state.neurons, cfg, alive)
     exchange = registry.resolve("rate_exchange", cfg.rate_exchange)
     with record_function("repro.conn.exchange"):
         rates_table, subs, rate_slots, remote_rates, stats = exchange(

@@ -5,15 +5,21 @@
 and builds the port's ``BrainState``; ``state_to_numpy`` goes the other way,
 to plain nested dicts of numpy arrays. Attribute access only, so this module
 imports neither jax nor the reference package. The tests use it to inject a
-reference state into the port phase by phase.
+reference state into the port phase by phase, and ``scenario_from_reference``
+to hand one protocol to both sides.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from repro_torch.core.engine import BrainState
 from repro_torch.core.neuron import NeuronState
+from repro_torch.scenarios import protocol
+from repro_torch.scenarios.populations import PopulationSpec
+from repro_torch.scenarios.regions import Region
 from repro_torch.telemetry.metrics import Metrics
 
 _NEURON_FIELDS = NeuronState._fields
@@ -65,3 +71,24 @@ def state_to_numpy(state: BrainState) -> dict:
                                   ("hists", s.hists),
                                   ("gauges", s.gauges))},
     }
+
+
+_EVENTS = {cls.__name__: cls for cls in (protocol.Stimulate, protocol.Lesion,
+                                         protocol.Recover)}
+
+
+def _copy(obj, cls):
+    return cls(**{f.name: getattr(obj, f.name)
+                  for f in dataclasses.fields(cls)})
+
+
+def scenario_from_reference(obj) -> protocol.Scenario:
+    """A reference ``Scenario`` -> the port's, field by field (populations,
+    regions and events by their class names and fields)."""
+    return protocol.Scenario(
+        name=obj.name,
+        populations=tuple(_copy(p, PopulationSpec) for p in obj.populations),
+        regions=tuple(_copy(r, Region) for r in obj.regions),
+        events=tuple(_copy(e, _EVENTS[type(e).__name__])
+                     for e in obj.events),
+        num_chunks=obj.num_chunks)

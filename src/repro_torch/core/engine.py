@@ -40,7 +40,8 @@ def _neuron_params(table: pops.PopulationTable) -> NeuronParams:
 def init_state(cfg, rank: int, num_ranks: int, scenario=None,
                device=None) -> BrainState:
     """The reference's ``init_state``: positions and vacant elements from
-    the same jax.random draws (``repro_torch.prng``), empty edge tables."""
+    the same jax.random draws (``repro_torch.prng``), the scenario's
+    population table, empty edge tables."""
     if cfg.rate_exchange != "dense":
         raise NotImplementedError(
             "the sparse rate exchange is not ported yet (ROADMAP.md Queue 1 "

@@ -28,6 +28,14 @@
 // skip the hash (their draw is masked by `remote & (u < rate)` anyway), and
 // seed, rank and the rank count are runtime arguments.
 //
+// Scenario operands. A stimulus event e adds amp[e] * active * mask[e][i]
+// to the noise, events in order, with active = (t0 <= gstep < t1) as 0 or 1;
+// a lesion window w kills neuron i while mask[w][i] and t0 <= gstep < t1. A
+// dead neuron does not fire, its v is reset to c, its u keeps the value it
+// had before the step, and its axonal and dendritic elements are set to 0 —
+// step_core's order of operations, so the kernel stays bit-equal. The masks
+// are (E, n) f32 and (W, n) uint8, the windows (E, 2) / (W, 2) int32.
+//
 // Bound on the H100: per step the in-edge table (n*S*4 bytes, 8 MB at
 // n=65,536, S=32) is read again; it fits in the 50 MB L2, so after the first
 // step the window is bound by the per-neuron integer and float work (the
@@ -62,6 +70,13 @@ struct WindowArgs {
   const float* izh_d;
   const float* izh_nu;
   const float* izh_eps;
+  const float* stim_mask;
+  const float* stim_amp;
+  const int* stim_t;
+  int num_stim;
+  const unsigned char* lesion_mask;
+  const int* lesion_t;
+  int num_lesions;
   int n;
   int s_max;
   int num_ranks;
@@ -103,10 +118,24 @@ __global__ void activity_step_kernel(WindowArgs a,
     // ---- (b) background noise -------------------------------------------
     const float z = repro::hash_normal(a.seed, repro::NOISE_DOMAIN,
                                        (uint32_t)gstep, dst_gid);
-    const float noise = a.bg_mean[i] + a.bg_std[i] * z;
+    float noise = a.bg_mean[i] + a.bg_std[i] * z;
+    for (int e = 0; e < a.num_stim; ++e) {
+      const float active =
+          (gstep >= a.stim_t[2 * e] && gstep < a.stim_t[2 * e + 1]) ? 1.0f
+                                                                     : 0.0f;
+      noise = noise + a.stim_amp[e] * active * a.stim_mask[(size_t)e * n + i];
+    }
+    bool alive = true;
+    for (int w = 0; w < a.num_lesions; ++w) {
+      if (a.lesion_mask[(size_t)w * n + i] && gstep >= a.lesion_t[2 * w] &&
+          gstep < a.lesion_t[2 * w + 1]) {
+        alive = false;
+      }
+    }
     // ---- (c) Izhikevich + calcium + element growth ----------------------
     float v = a.v[i];
     float u = a.u[i];
+    const float u_prev = u;
     const float i_t = syn_in + noise;
     for (int h = 0; h < 2; ++h) {
       v = v + 0.5f * (0.04f * v * v + 5.0f * v + 140.0f - u + i_t);
@@ -117,14 +146,19 @@ __global__ void activity_step_kernel(WindowArgs a,
       v = a.izh_c[i];
       u = u + a.izh_d[i];
     }
+    if (!alive) {
+      fired = 0;
+      v = a.izh_c[i];
+      u = u_prev;
+    }
     float ca = a.ca[i];
     ca = ca + (-ca * a.ca_decay + a.ca_beta * (fired ? 1.0f : 0.0f));
     const float drive = a.izh_nu[i] * (1.0f - ca / a.izh_eps[i]);
     a.v[i] = v;
     a.u[i] = u;
     a.ca[i] = ca;
-    a.ax[i] = max0(a.ax[i] + drive);
-    a.de[i] = max0(a.de[i] + drive);
+    a.ax[i] = alive ? max0(a.ax[i] + drive) : 0.0f;
+    a.de[i] = alive ? max0(a.de[i] + drive) : 0.0f;
     a.spike_count[i] = a.spike_count[i] + (fired ? 1.0f : 0.0f);
     next[i] = (unsigned char)fired;
   }
@@ -143,8 +177,10 @@ extern "C" int repro_activity_window(
     const void* rates, const void* bg_mean, const void* bg_std,
     const void* izh_a, const void* izh_b, const void* izh_c,
     const void* izh_d, const void* izh_nu, const void* izh_eps,
-    void* fired_counts, int n, int s_max, int num_ranks, int rank,
-    unsigned int seed, int gstep0, int num_steps, float ca_decay,
+    const void* stim_mask, const void* stim_amp, const void* stim_t,
+    int num_stim, const void* lesion_mask, const void* lesion_t,
+    int num_lesions, void* fired_counts, int n, int s_max, int num_ranks,
+    int rank, unsigned int seed, int gstep0, int num_steps, float ca_decay,
     float ca_beta, void* stream) {
   WindowArgs a;
   a.v = (float*)v;
@@ -164,6 +200,13 @@ extern "C" int repro_activity_window(
   a.izh_d = (const float*)izh_d;
   a.izh_nu = (const float*)izh_nu;
   a.izh_eps = (const float*)izh_eps;
+  a.stim_mask = (const float*)stim_mask;
+  a.stim_amp = (const float*)stim_amp;
+  a.stim_t = (const int*)stim_t;
+  a.num_stim = num_stim;
+  a.lesion_mask = (const unsigned char*)lesion_mask;
+  a.lesion_t = (const int*)lesion_t;
+  a.num_lesions = num_lesions;
   a.n = n;
   a.s_max = s_max;
   a.num_ranks = num_ranks;
@@ -177,7 +220,8 @@ extern "C" int repro_activity_window(
                             (unsigned char*)spiked_b};
   for (int t = 0; t < num_steps; ++t) {
     activity_step_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        a, bufs[t % 2], bufs[(t + 1) % 2], gstep0 + t,
+        a, bufs[t % 2], bufs[(t + 1) % 2],
+        (int)((unsigned)gstep0 + (unsigned)t),   // int32 wrap-around
         (int*)fired_counts + t);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;

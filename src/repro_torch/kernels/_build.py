@@ -45,6 +45,8 @@ SIGNATURES = {
         + [P, P, P]        # in_edges, w_table, rates
         + [P, P]           # bg_mean, bg_std
         + [P] * 6          # izh a, b, c, d, nu, eps
+        + [P, P, P, I]     # stimulus masks, amplitudes, windows, count
+        + [P, P, I]        # lesion masks, windows, count
         + [P]              # fired counts (num_steps,) int32
         + [I, I, I, I, U, I, I, F, F, P]),
     "repro_bh_traverse": (
@@ -52,6 +54,9 @@ SIGNATURES = {
                                          # x, start, gid, valid, sizes
         + [P, P, P]                      # out tgt, ok, depth
         + [I, I, I, I, I, I, I, I, U, F, F, I, I, P]),
+    "repro_morton_sort": [P, P, P, P, I, I, I, I, I, P],
+    "repro_synapse_apply": [P] * 14 + [I, I, I, I, P],
+    "repro_route_build": [P] * 6 + [I, I, I, I, I, P],
 }
 
 

@@ -57,10 +57,15 @@ def reconstruct_remote_spikes(seed: int, gstep, all_rates, in_edges, rank,
 
 
 def step_core(state, in_edges, w_table, rates, bg_mean, bg_std, izh,
-              ca_consts, seed: int, gstep: int, rank: int, n: int):
+              ca_consts, seed: int, gstep: int, rank: int, n: int,
+              stim=None, lesions=None):
     """One electrical step. state: (v, u, ca, ax, de, spiked, spike_count);
     izh: (a, b, c, d, nu, eps) scalars or (n,); ca_consts: (calcium_decay,
-    calcium_beta); rates: the dense (R, n) table. Returns the new 7-tuple."""
+    calcium_beta); rates: the dense (R, n) table; stim: ((E, n) f32 masks,
+    ((amplitude, t0, t1), ...)) or None; lesions: ((W, n) bool masks,
+    ((t0, t1), ...)) or None (``scenarios/protocol.py``). The event windows
+    are compared with the int32-wrapped global step, as the reference's
+    traced step counter. Returns the new 7-tuple."""
     v, u, ca, ax, de, spiked, spike_count = state
     # parameters as float32 tensors on the state's device: torch divides a
     # CUDA tensor by a Python scalar as a multiply by its reciprocal, which
@@ -84,8 +89,23 @@ def step_core(state, in_edges, w_table, rates, bg_mean, bg_std, izh,
     gid = rank * n + torch.arange(n, dtype=torch.int64, device=v.device)
     noise = bg_mean + bg_std * chash.normal(seed, chash.NOISE_DOMAIN, gstep,
                                             gid)
+    step = _wrap_i32(gstep)
+    if stim is not None:
+        masks, meta = stim
+        for i, (amp, t0, t1) in enumerate(meta):
+            active = torch.tensor(float(t0 <= step < t1), dtype=torch.float32,
+                                  device=v.device)
+            noise = noise + amp * active * masks[i]
+    alive = None
+    if lesions is not None:
+        masks, meta = lesions
+        alive = torch.ones(n, dtype=torch.bool, device=v.device)
+        for i, (t0, t1) in enumerate(meta):
+            if t0 <= step < t1:
+                alive = alive & ~masks[i]
 
     # ---- (c) Izhikevich + calcium + element growth -----------------------
+    u_prev = u
     i_t = syn_in + noise
     for _ in range(2):  # two half-ms Euler steps (reference Izhikevich impl)
         v = v + 0.5 * (0.04 * v * v + 5.0 * v + 140.0 - u + i_t)
@@ -93,17 +113,26 @@ def step_core(state, in_edges, w_table, rates, bg_mean, bg_std, izh,
     fired = v >= 30.0
     v = torch.where(fired, c, v)
     u = torch.where(fired, u + d, u)
+    if alive is not None:
+        # a dead neuron does not fire, rests at c and keeps its u
+        fired = fired & alive
+        v = torch.where(alive, v, c)
+        u = torch.where(alive, u, u_prev)
     firedf = fired.to(torch.float32)
     ca = ca + (-ca * ca_decay + ca_beta * firedf)
     spike_count = spike_count + firedf
     drive = nu * (1.0 - ca / eps)
     ax = torch.clamp_min(ax + drive, 0.0)
     de = torch.clamp_min(de + drive, 0.0)
+    if alive is not None:
+        ax = torch.where(alive, ax, 0.0)
+        de = torch.where(alive, de, 0.0)
     return v, u, ca, ax, de, fired, spike_count
 
 
 def window_plain(state, in_edges, w_table, rates, bg_mean, bg_std, chunk: int,
-                 rank: int, *, seed: int, num_steps: int, izh, ca_consts):
+                 rank: int, *, seed: int, num_steps: int, izh, ca_consts,
+                 stim=None, lesions=None):
     """``num_steps`` iterations of ``step_core``. Returns ``(state7,
     spikes_per_step)`` with the (num_steps,) f32 per-step fired counts."""
     n = state[0].shape[0]
@@ -111,7 +140,8 @@ def window_plain(state, in_edges, w_table, rates, bg_mean, bg_std, chunk: int,
     counts = []
     for t in range(num_steps):
         st = step_core(st, in_edges, w_table, rates, bg_mean, bg_std, izh,
-                       ca_consts, seed, chunk * num_steps + t, rank, n)
+                       ca_consts, seed, chunk * num_steps + t, rank, n,
+                       stim=stim, lesions=lesions)
         counts.append(torch.sum(st[5].to(torch.float32)))
     return st, torch.stack(counts)
 
@@ -124,12 +154,10 @@ def activity_window(state, in_edges, w_table, rates, bg_mean, bg_std,
     state: 7-tuple (v, u, ca, ax, de, spiked (bool), spike_count), all (n,);
     in_edges: (n, S) int32; w_table: (n,) signed per-source weights; rates:
     the dense (R, n) table; bg_mean/bg_std: scalar or (n,); izh: 6-tuple,
-    scalar or (n,). Returns ``(state7, spikes_per_step)``; the inputs are
-    left unchanged (the kernel updates copies in place)."""
-    if stim is not None or lesions is not None:
-        raise NotImplementedError(
-            "stimulation and lesion tables arrive with the scenario slice "
-            "(ROADMAP.md Queue 1 item 4)")
+    scalar or (n,); stim/lesions: the protocol tables of
+    ``scenarios/protocol.py`` or None. Returns ``(state7,
+    spikes_per_step)``; the inputs are left unchanged (the kernel updates
+    copies in place)."""
     if rate_slots is not None:
         raise NotImplementedError(
             "the sparse rate exchange is not ported yet (ROADMAP.md Queue 1 "
@@ -137,7 +165,8 @@ def activity_window(state, in_edges, w_table, rates, bg_mean, bg_std,
     if in_edges.device.type != "cuda":
         return window_plain(state, in_edges, w_table, rates, bg_mean, bg_std,
                             chunk, rank, seed=seed, num_steps=num_steps,
-                            izh=izh, ca_consts=ca_consts)
+                            izh=izh, ca_consts=ca_consts, stim=stim,
+                            lesions=lesions)
     n = state[0].shape[0]
     s_max = in_edges.shape[1]
     dev = in_edges.device
@@ -157,8 +186,11 @@ def activity_window(state, in_edges, w_table, rates, bg_mean, bg_std,
     bgm, bgs = vec(bg_mean), vec(bg_std)
     izh = [vec(x) for x in izh]
     fired = torch.zeros(num_steps, dtype=torch.int32, device=dev)
+    stim_mask, stim_amp, stim_t = _event_operands(stim, n, f32, dev)
+    les_mask, _, les_t = _event_operands(lesions, n, torch.uint8, dev)
     _build.require_cuda("activity_window", v, u, ca, ax, de, spike_count,
-                        spk_a, edges, w, rates, bgm, bgs, *izh, fired)
+                        spk_a, edges, w, rates, bgm, bgs, *izh, fired,
+                        stim_mask, stim_amp, stim_t, les_mask, les_t)
     if edges.shape != (n, s_max) or rates.shape[1] != n or w.shape != (n,):
         raise ValueError("activity_window: in_edges (n, S), rates (R, n) and "
                          "w_table (n,) must agree on n")
@@ -168,13 +200,31 @@ def activity_window(state, in_edges, w_table, rates, bg_mean, bg_std,
         de.data_ptr(), spike_count.data_ptr(), spk_a.data_ptr(),
         spk_b.data_ptr(), edges.data_ptr(), w.data_ptr(), rates.data_ptr(),
         bgm.data_ptr(), bgs.data_ptr(), *(t.data_ptr() for t in izh),
-        fired.data_ptr(), n, s_max, rates.shape[0], int(rank),
+        stim_mask.data_ptr(), stim_amp.data_ptr(), stim_t.data_ptr(),
+        stim_amp.shape[0], les_mask.data_ptr(), les_t.data_ptr(),
+        les_t.shape[0], fired.data_ptr(), n, s_max, rates.shape[0], int(rank),
         int(seed) & chash.M32, _wrap_i32(chunk * num_steps), num_steps,
         float(ca_consts[0]), float(ca_consts[1]), _build.stream()),
         "activity_window")
     launches.add(num_steps)
     spiked = (spk_a if num_steps % 2 == 0 else spk_b).to(torch.bool)
     return (v, u, ca, ax, de, spiked, spike_count), fired.to(f32)
+
+
+def _event_operands(table, n: int, mask_dtype, dev):
+    """A protocol table as kernel operands: the (E, n) masks, the
+    amplitudes of its stimulus events (entries ``(amplitude, t0, t1)``;
+    lesion entries are ``(t0, t1)``) and the (E, 2) int32 windows."""
+    masks, meta = table if table is not None else (
+        torch.zeros((0, n), device=dev), ())
+    if masks.shape != (len(meta), n):
+        raise ValueError(f"activity_window: event masks {tuple(masks.shape)} "
+                         f"do not match {len(meta)} events of {n} neurons")
+    amps = [float(m[0]) for m in meta if len(m) == 3]
+    windows = [[_wrap_i32(t) for t in m[-2:]] for m in meta]
+    return (masks.to(mask_dtype).contiguous(),
+            torch.tensor(amps, dtype=torch.float32, device=dev),
+            torch.tensor(windows, dtype=torch.int32, device=dev).reshape(-1, 2))
 
 
 def _wrap_i32(x: int) -> int:

@@ -1,11 +1,12 @@
-"""Per-neuron parameter tables: what ``table_for(cfg, None, n)`` gives.
+"""Per-neuron parameter tables: heterogeneous neuron populations.
 
-The slice runs without a scenario, so this is the default two-population
-table of the JAX package's ``scenarios/populations.py`` (RS excitatory and
-inhibitory, split at ``cfg.fraction_excitatory``), built by the same
-``build_table``/``population_sizes`` rules so that mixed populations can be
-handed in as ``PopulationSpec`` tuples. Scenario files (regions, protocols)
-arrive with ROADMAP.md Queue 1 item 4.
+The port's copy of the JAX package's ``scenarios/populations.py``: a scenario
+declares a tuple of ``PopulationSpec``s (mixed Izhikevich types RS/FS/CH/IB/
+LTS, per-population calcium targets, growth rates and synapse weights) and
+``build_table`` compiles them into (n,) tensors, assigned by local id in
+contiguous blocks. Without populations the table is the config's default
+two-population split (RS excitatory and inhibitory at
+``cfg.fraction_excitatory``).
 """
 from __future__ import annotations
 
@@ -109,9 +110,7 @@ def build_table(cfg, pops: Sequence[PopulationSpec], n: int,
 
 
 def table_for(cfg, scenario, n: int, device=None) -> PopulationTable:
-    """The table a scenario implies; the slice supports ``scenario=None``
-    only (the BrainConfig-equivalent default table)."""
-    if scenario is not None:
-        raise NotImplementedError(
-            "scenarios are not ported yet; see ROADMAP.md Queue 1 item 4")
-    return build_table(cfg, default_populations(cfg), n, device=device)
+    """The table a scenario implies (scenario None or without populations
+    -> the BrainConfig-equivalent default table)."""
+    pops = getattr(scenario, "populations", ()) or default_populations(cfg)
+    return build_table(cfg, pops, n, device=device)

@@ -1,7 +1,8 @@
 """The user-facing simulation facade.
 
->>> sim = Simulator.from_config(cfg)          # on the card
+>>> sim = Simulator.from_config(cfg, scenario=scn)   # on the card
 >>> sim.run(5)
+>>> state, rec = sim.run(5, recorder=observables.init_recorder(5, nb))
 >>> sim.stats()["synapses_formed"]
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; without a card
@@ -17,6 +18,8 @@ import torch
 
 from repro_torch.core import engine
 from repro_torch.kernels import _build
+from repro_torch.scenarios import observables
+from repro_torch.scenarios import protocol as proto
 from repro_torch.sim import phases as sim_phases
 from repro_torch.sim import registry
 
@@ -40,17 +43,15 @@ class Simulator:
         if num_ranks != 1:
             raise NotImplementedError(
                 "multi-rank simulation: ROADMAP.md Queue 1 item 8")
-        if scenario is not None:
-            raise NotImplementedError(
-                "scenarios: ROADMAP.md Queue 1 item 4")
         # every selected lowering must exist in the port (raises
         # NotImplementedError naming the ROADMAP item otherwise)
         for domain, field in registry.CONFIG_FIELDS.items():
             registry.resolve(domain, getattr(cfg, field))
         self.cfg = cfg
+        self.scenario = scenario
         self.num_ranks = num_ranks
         self.device = _resolve_device(device)
-        self.ctx = sim_phases.make_context(cfg, 0, num_ranks,
+        self.ctx = sim_phases.make_context(cfg, 0, num_ranks, scenario,
                                            device=self.device)
         self._state: Optional[engine.BrainState] = None
 
@@ -74,7 +75,7 @@ class Simulator:
     def init(self) -> engine.BrainState:
         """(Re)initialize from cfg.seed and return the fresh state."""
         self._state = engine.init_state(self.cfg, 0, self.num_ranks,
-                                        device=self.device)
+                                        self.scenario, device=self.device)
         return self._state
 
     # ------------------------------------------------------------ driving
@@ -83,10 +84,26 @@ class Simulator:
         self._state = sim_phases.sim_chunk(self.state, self.ctx)
         return self._state
 
-    def run(self, num_chunks: int) -> engine.BrainState:
+    def run(self, num_chunks: int, recorder=None):
+        """Advance ``num_chunks`` chunks. With ``recorder`` (an
+        ``observables.Recorder``) one row of per-region observables is
+        recorded after every chunk and ``(state, recorder)`` is returned;
+        without it, the final state."""
         for _ in range(int(num_chunks)):
-            self.step()
-        return self._state
+            st = self.step()
+            if recorder is not None:
+                recorder = self._record(recorder, st)
+        return self.state if recorder is None else (self.state, recorder)
+
+    def _record(self, rec, st):
+        ctx = self.ctx
+        # st.chunk has advanced: the global step at this chunk's end
+        alive = proto.alive_mask(ctx.events, ctx.regions, st.positions,
+                                 st.chunk * self.cfg.rate_period) \
+            if ctx.events else None
+        return observables.record(rec, st.positions, st.neurons.calcium,
+                                  st.neurons.rate, st.out_edges, ctx.regions,
+                                  alive)
 
     # ------------------------------------------------------------ readout
     def stats(self) -> dict:

@@ -1,15 +1,15 @@
 """PhaseContext + the engine-level phase implementations.
 
 ``PhaseContext`` bundles what every phase needs besides the state (config,
-rank, rank count, the population table, the metrics recorder). The activity
-lowerings register here; the connectivity, traversal, tree, apply and
-rate-exchange lowerings register next to their implementations in
-``repro_torch.connectome``.
+rank, rank count, the scenario with its region and event tuples, the
+population table, the metrics recorder). The activity lowerings register
+here; the connectivity, traversal, tree, apply and rate-exchange lowerings
+register next to their implementations in ``repro_torch.connectome``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -17,6 +17,8 @@ from torch.profiler import record_function
 from repro_torch.connectome.update import connectivity_update
 from repro_torch.kernels import activity_fused
 from repro_torch.scenarios import populations as pops
+from repro_torch.scenarios import protocol as proto
+from repro_torch.scenarios import regions as regions_mod
 from repro_torch.sim import registry
 from repro_torch.telemetry import metrics as telemetry_metrics
 
@@ -27,24 +29,42 @@ class PhaseContext:
     cfg: Any
     rank: int
     num_ranks: int
+    scenario: Any = None
     table: Any = None
+    regions: Tuple = ()
+    events: Tuple = ()
     metrics: Any = None
 
 
-def make_context(cfg, rank: int, num_ranks: int, device=None) -> PhaseContext:
-    table = pops.table_for(cfg, None, cfg.neurons_per_rank, device=device)
-    return PhaseContext(cfg=cfg, rank=rank, num_ranks=num_ranks, table=table,
+def make_context(cfg, rank: int, num_ranks: int, scenario=None,
+                 device=None) -> PhaseContext:
+    table = pops.table_for(cfg, scenario, cfg.neurons_per_rank, device=device)
+    regions = scenario.regions if scenario is not None else ()
+    events = scenario.events if scenario is not None else ()
+    return PhaseContext(cfg=cfg, rank=rank, num_ranks=num_ranks,
+                        scenario=scenario, table=table, regions=regions,
+                        events=events,
                         metrics=telemetry_metrics.Recorder(
                             n=cfg.neurons_per_rank))
 
 
 # ================================================================ activity
-def _window_args(ctx: PhaseContext):
+def _window_inputs(state, ctx: PhaseContext):
+    """The per-window tables: Izhikevich parameters, background drive
+    (region overrides), and the protocol's stimulus and lesion tables."""
     cfg, table = ctx.cfg, ctx.table
     izh = (table.izh_a, table.izh_b, table.izh_c, table.izh_d,
            table.growth_rate, table.target_calcium)
-    return dict(seed=cfg.seed, num_steps=cfg.rate_period, izh=izh,
-                ca_consts=(cfg.calcium_decay, cfg.calcium_beta))
+    bg_mean, bg_std = regions_mod.background_tables(state.positions,
+                                                    ctx.regions, cfg)
+    stim = proto.stim_tables(ctx.events, ctx.regions, state.positions) \
+        if ctx.events else None
+    lesions = proto.lesion_tables(ctx.events, ctx.regions, state.positions) \
+        if ctx.events else None
+    return bg_mean, bg_std, dict(
+        seed=cfg.seed, num_steps=cfg.rate_period, izh=izh,
+        ca_consts=(cfg.calcium_decay, cfg.calcium_beta), stim=stim,
+        lesions=lesions)
 
 
 def _st7(neurons):
@@ -66,11 +86,10 @@ def spikes_new(st7, state, ctx: PhaseContext, stats):
 
 
 def _activity(state, ctx: PhaseContext, window):
-    cfg = ctx.cfg
+    bg_mean, bg_std, kw = _window_inputs(state, ctx)
     out, spikes_per_step = window(
         _st7(state.neurons), state.in_edges, ctx.table.synapse_weight,
-        state.rates_table, cfg.background_mean, cfg.background_std,
-        state.chunk, ctx.rank, **_window_args(ctx))
+        state.rates_table, bg_mean, bg_std, state.chunk, ctx.rank, **kw)
     stats = ctx.metrics.activity_window(state.stats, spikes_per_step)
     return state._replace(neurons=_unpack_st7(state.neurons, out),
                           stats=stats)

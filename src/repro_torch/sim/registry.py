@@ -40,9 +40,6 @@ _NOT_PORTED: Dict[Tuple[str, str], str] = {
                              "comparisons)",
     ("rate_exchange", "sparse"): "ROADMAP.md Queue 1 item 9 (the paper's "
                                  "comparisons)",
-    ("tree", "fused"): "ROADMAP.md Queue 2 K3 morton_sort (next slice)",
-    ("apply", "fused"): "ROADMAP.md Queue 2 K4 synapse_apply / K5 "
-                        "route_build (next slice)",
 }
 
 _IMPLS: Dict[Tuple[str, str], Callable] = {}

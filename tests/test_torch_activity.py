@@ -171,14 +171,89 @@ def test_fused_wrapper_on_cpu_is_the_plain_window(steps):
 
 
 def test_window_refuses_what_the_slice_does_not_carry():
+    """The sparse rate view is refused; the scenario tables are carried."""
     state, edges, w, rates, izh = _inputs()
     args = (tuple(_torch(x) for x in state), _torch(edges), _torch(w),
             _torch(rates), 5.0, 1.0, 0, RANK)
     kw = _kw(tuple(_torch(x) for x in izh), 2)
-    with pytest.raises(NotImplementedError, match="scenario"):
-        taf.activity_window(*args, stim=(None, ()), **kw)
     with pytest.raises(NotImplementedError, match="sparse"):
         taf.activity_window(*args, rate_slots=_torch(edges), **kw)
+    stim, lesions = _scenario_tables(np.random.default_rng(9), 0)
+    a, _ = taf.activity_window(*args, stim=_torch_tables(stim),
+                               lesions=_torch_tables(lesions), **kw)
+    b, _ = taf.window_plain(*args, stim=_torch_tables(stim),
+                            lesions=_torch_tables(lesions), **kw)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def _scenario_tables(rng, t0):
+    """Two stimulus events and two lesion windows over random masks; the
+    windows open and close at t0 + 2, t0 + 3 and t0 + 5."""
+    masks = rng.random((3, N)) < 0.4
+    stim = (masks[:2].astype(np.float32),
+            ((4.0, t0 + 2, t0 + 5), (-2.5, t0 - 10, t0 + 3)))
+    lesions = (masks[1:], ((t0 + 3, 1 << 30), (0, t0 + 2)))
+    return stim, lesions
+
+
+def _torch_tables(table):
+    return (_torch(table[0]), table[1])
+
+
+def _jax_tables(table):
+    return (jnp.asarray(table[0]), table[1])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_steps_with_stimulus_and_lesions_against_jax_step_core(seed):
+    """step_core with the protocol tables against the JAX step_core, each
+    step from the reference's state, across windows that open and close
+    mid-window. Lesion-gated values are exact: a dead neuron's flag is
+    False, v equals c, u is the value before the step, ax = de = 0; the
+    rest is held to the tolerance of the step-synced test above."""
+    from repro.kernels.activity_fused import step_core as jax_step_core
+    state, edges, w, rates, izh = _inputs(seed=seed)
+    rng = np.random.default_rng(seed + 20)
+    g0 = CHUNK * T
+    stim, lesions = _scenario_tables(rng, g0)
+    izh_j = tuple(jnp.asarray(x) for x in izh)
+    izh_t = tuple(_torch(x) for x in izh)
+    ca = (CFG.calcium_decay, CFG.calcium_beta)
+    jstep = jax.jit(lambda st, g: jax_step_core(
+        st, jnp.asarray(edges), jnp.asarray(w), jnp.asarray(rates), 5.0,
+        1.0, izh_j, ca, CFG.seed, g, RANK, N, stim=_jax_tables(stim),
+        lesions=_jax_tables(lesions)))
+    st = tuple(jnp.asarray(x) for x in state)
+    near_ties = dead_seen = 0
+    for t in range(8):
+        g = g0 + t
+        want = jax.device_get(jstep(st, jnp.int32(g)))
+        before = tuple(np.asarray(x) for x in jax.device_get(st))
+        got = taf.step_core(tuple(_torch(x) for x in before), _torch(edges),
+                            _torch(w), _torch(rates), 5.0, 1.0, izh_t, ca,
+                            CFG.seed, g, RANK, N,
+                            stim=_torch_tables(stim),
+                            lesions=_torch_tables(lesions))
+        dead = np.zeros(N, bool)
+        for m, (t0, t1) in zip(lesions[0], lesions[1]):
+            dead |= m & (t0 <= g < t1)
+        dead_seen += int(dead.sum())
+        got = tuple(x.numpy() for x in got)
+        for x in (want, got):
+            assert not x[5][dead].any()
+            np.testing.assert_array_equal(x[0][dead], izh[2][dead])
+            np.testing.assert_array_equal(x[1][dead], before[1][dead])
+            assert not x[3][dead].any() and not x[4][dead].any()
+        flip = np.asarray(want[5]) != got[5]
+        for i in np.flatnonzero(flip):
+            assert _flip_is_near_tie(want[0][i], got[0][i]), (t, i)
+        near_ties += int(flip.sum())
+        same = ~flip
+        for name, a, b, x in zip(NAMES[:5], want[:5], got[:5], before[:5]):
+            assert _rel_err(a, b, x)[same].max() <= 1e-5, (name, t)
+        st = tuple(jnp.asarray(x) for x in want)
+    assert dead_seen > 0 and near_ties <= 0.01 * N * 8
 
 
 def test_spike_helpers_match_reference():

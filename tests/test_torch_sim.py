@@ -104,16 +104,54 @@ def test_cpu_run_launches_no_kernel():
 
 @pytest.mark.parametrize("field,value", [
     ("connectivity_alg", "old"), ("spike_alg", "old"),
-    ("rate_exchange", "sparse"), ("tree_impl", "fused"),
-    ("apply_impl", "fused")])
+    ("rate_exchange", "sparse")])
 def test_unported_lowerings_name_their_roadmap_item(field, value):
     cfg = dataclasses.replace(T_SMOKE, **{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TSim.from_config(cfg, device="cpu")
 
 
-def test_multi_rank_and_scenarios_are_not_ported_yet():
+@pytest.mark.parametrize("field,impl", [
+    ("tree_impl", "build_local_tree_fused"), ("apply_impl", "ApplyImpl")])
+def test_tree_and_apply_lowerings_are_ported(field, impl):
+    """The fused tree build and apply resolve to the port's own lowerings,
+    and a chunk with them equals the reference chunk bitwise."""
+    from repro_torch.sim import registry
+    domain = field.split("_")[0]
+    fused = registry.resolve(domain, "fused")
+    assert (type(fused).__name__ if domain == "apply"
+            else fused.__name__) == impl
+    assert (fused.deletion if domain == "apply" else fused).__module__ \
+        .startswith("repro_torch.")
+    out = {}
+    for value in ("reference", "fused"):
+        sim = TSim.from_config(dataclasses.replace(T_SMOKE, **{field: value}),
+                               device="cpu")
+        sim.run(2)
+        out[value] = sim.state
+    assert torch.equal(out["reference"].in_edges, out["fused"].in_edges)
+    assert torch.equal(out["reference"].out_edges, out["fused"].out_edges)
+
+
+def test_multi_rank_is_not_ported_yet():
     with pytest.raises(NotImplementedError, match="item 8"):
         TSim.from_config(T_SMOKE, num_ranks=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TSim.from_config(T_SMOKE, scenario=object(), device="cpu")
+
+
+def test_simulator_runs_a_scenario_with_a_recorder():
+    from repro_torch.scenarios import library, observables
+    from repro_torch.scenarios.protocol import Lesion
+    scn = dataclasses.replace(library.lesion_rewiring(),
+                              events=(Lesion("core", t=100),))
+    sim = TSim.from_config(library.SMOKE_SCENARIO_CONFIG, scenario=scn,
+                           device="cpu")
+    st, rec = sim.run(2, recorder=observables.init_recorder(2, 2))
+    assert st is sim.state and rec.idx == 2
+    hist = observables.flush(rec)
+    # the lesion at step 100 lands at the update closing chunk 0
+    assert hist["alive"][0, 0] == 0 and hist["synapses"][0, 0] == 0
+    from repro_torch.scenarios.regions import region_mask
+    core = region_mask(st.positions, scn.regions[0])
+    assert bool(core.any())
+    assert not bool(st.neurons.ax_elements[core].any())
+    assert not bool(st.neurons.rate[core].any())
