@@ -5,8 +5,11 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a),
 holds each kernel (K0-K5) against its plain torch version on the card at the
-main paths' shapes, and drives two paths at the full width of ``CONFIG``
-(65,536 neurons, S=32):
+main paths' shapes, drives the public kernel API (``repro_torch.kernels.ops``:
+K6 radix argsort, K7 Gaussian probabilities, K8 neuron step, K9 flash
+attention) at the widths the repo uses and holds each call against its plain
+version, and drives two paths at the full width of ``CONFIG`` (65,536
+neurons, S=32):
 
 - the activity + traversal path, ``Simulator.from_config(cfg).run(k)`` with
   ``activity_impl`` and ``connectivity_impl`` fused (K1, K2);
@@ -14,8 +17,9 @@ main paths' shapes, and drives two paths at the full width of ``CONFIG``
   device="cuda").run(12, recorder=rec)`` with all five lowerings fused (K1-K5),
   through the lesion at step 1,000.
 
-For each it checks the kernels really ran there and that a second run is
-bitwise equal, then profiles one chunk of the scenario path, and prints one
+For the kernel API and each path it checks the kernels really ran there (the
+launch counts are set to 0 just before and read just after) and that a second
+run is bitwise equal, then profiles one chunk of the scenario path, and prints one
 JSON line per phase. The last two lines are the kernel table and
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the result
 line. Imports torch and the port only (no jax, no repro).
@@ -31,6 +35,7 @@ import time
 
 H100_BYTES_PER_S = 3.35e12    # HBM3 rate of an H100 SXM (data sheet)
 H100_FP32_OPS_PER_S = 67e12   # FP32 rate outside the tensor cores (data sheet)
+H100_BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core rate (data sheet)
 
 # operation counts used for the bounds (32-bit integer or float operations)
 HASH_OPS = 120        # one Threefry-2x32: 20 rounds of add/rotate/xor + keys
@@ -41,8 +46,19 @@ GUMBEL_OPS = HASH_OPS + 20
 MORTON_OPS = 40       # 3 scale+truncate+clamp, 3 bit spreads, rebase, rank
 APPLY_OPS = 8         # per table slot or message/request: load, compare, move
 ROUTE_OPS = 6         # per flattened entry: load, divide, rank, store
+NEURON_STEP_OPS = 30  # two Euler halves, reset, calcium, division, growth
+SORT_OPS = 12         # per key and digit pass: digit, rank, scatter
+GAUSS_OPS = 30        # 3-lane distance identity, division, exp, weight, sum
+
+# K9 shapes: (label, Hq, Hkv, D, S, window, dtype); B = 1, causal
+ATTENTION_SHAPES = (
+    ("qwen2-7b bf16", 28, 4, 128, 4096, 0, "bfloat16"),
+    ("qwen2-7b f32", 28, 4, 128, 4096, 0, "float32"),
+    ("recurrentgemma-2b local bf16", 10, 1, 256, 8192, 2048, "bfloat16"),
+)
 
 NEAR_TIE_SHARE = 1e-3  # fail above 0.1 % of decisions differing
+SLEEP_CYCLES = 100_000_000  # device-side sleep of device_ms, ~50 ms at 2 GHz
 DEV = "cuda"
 
 
@@ -70,9 +86,30 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return a.elapsed_time(b) / reps
 
 
-def bound(nbytes: float, ops: float):
+def device_ms(fn, reps: int) -> float:
+    """Device time per call, the host's work hidden: after a warm-up the
+    calls are queued behind a device-side sleep long enough for the host to
+    enqueue them all, so the events around them time only the device (the
+    kernels and the gaps between their launches). ``cuda_ms`` also sees a
+    host that cannot keep the device busy. No profiler: a torch.profiler
+    session slows the host's launches for the rest of the process."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float = H100_FP32_OPS_PER_S):
     tb = nbytes / H100_BYTES_PER_S * 1e3
-    to = ops / H100_FP32_OPS_PER_S * 1e3
+    to = ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -418,6 +455,288 @@ def check_k5(cfg):
     return ms, plain_ms, bound(nbytes, m * ROUTE_OPS), diff
 
 
+# ------------------------------------------------ the public kernel API
+def kernel_api_inputs(cfg):
+    """Inputs at the widths the repo uses, made on the card from seeds: K8
+    over CONFIG's neurons (homogeneous, and baseline_growth's RS/CH/FS
+    table) with one rate window of background input; K6 over the Morton
+    codes of CONFIG's positions, one edge table's worth of random 30-bit
+    keys and adversarial sets; K7 from CONFIG's neurons to its 8^4 leaf
+    cells weighted by their vacant elements; K9 at the attention shapes of
+    configs/qwen2_7b.py and configs/recurrentgemma_2b.py."""
+    import torch
+    from repro_torch.connectome import tree as ctree
+    from repro_torch.core import engine, morton
+    from repro_torch.core.neuron import NeuronParams
+    from repro_torch.scenarios import library
+    from repro_torch.scenarios.populations import table_for
+    n, s = cfg.neurons_per_rank, cfg.max_synapses
+    g = torch.Generator(device=DEV).manual_seed(13)
+    st = engine.init_state(cfg, 0, 1, device=DEV)
+    pos = st.positions
+    table = table_for(cfg, library.baseline_growth(), n, device=DEV)
+    hetero = NeuronParams(table.izh_a, table.izh_b, table.izh_c, table.izh_d,
+                          table.growth_rate, table.target_calcium)
+    k8_state = (torch.randn(n, generator=g, device=DEV) * 5 - 60,
+                torch.randn(n, generator=g, device=DEV) * 2 - 13,
+                torch.rand(n, generator=g, device=DEV) * 0.01,
+                torch.rand(n, generator=g, device=DEV) * 2,
+                torch.rand(n, generator=g, device=DEV) * 2)
+    k8_input = cfg.background_mean + cfg.background_std * torch.randn(
+        cfg.rate_period, n, generator=g, device=DEV)
+    top = 2 ** 30 - 1
+    i32 = torch.int32
+    adversarial = {
+        "all_equal": torch.full((n,), 123, dtype=i32, device=DEV),
+        "pre_sorted": torch.arange(n, dtype=i32, device=DEV),
+        "reversed": torch.arange(n, dtype=i32, device=DEV).flip(0),
+        "few_distinct": torch.arange(n, dtype=i32, device=DEV) % 3,
+        "extremes": torch.where(torch.arange(n, device=DEV) % 2 == 0, top,
+                                0).to(i32),
+    }
+    tree = ctree.build_local_tree(pos, st.neurons.de_elements, 0, cfg, 1)
+    cnt, cent = tree.counts[-1], tree.centroids[-1]
+    y = torch.where(cnt[:, None] > 0, cent / cnt.clamp_min(1e-30)[:, None],
+                    torch.full_like(cent, 0.5))
+    attention = []
+    for label, hq, hkv, d, sq, window, dt in ATTENTION_SHAPES:
+        dtype = getattr(torch, dt)
+        q = torch.randn(1, hq, sq, d, generator=g, device=DEV).to(dtype)
+        k = torch.randn(1, hkv, sq, d, generator=g, device=DEV).to(dtype)
+        v = torch.randn(1, hkv, sq, d, generator=g, device=DEV).to(dtype)
+        attention.append((label, (q, k, v), window))
+    return {
+        "k8_state": k8_state, "k8_input": k8_input,
+        "k8_params": {"homogeneous": None, "heterogeneous": hetero},
+        "k6": {"morton": morton.morton_encode(pos, 10),
+               "edge_table": torch.randint(0, 2 ** 30, (n * s,), generator=g,
+                                           device=DEV, dtype=i32),
+               **adversarial},
+        "k7": (pos, y.contiguous(), cnt.contiguous()),
+        "k9": attention,
+    }
+
+
+def neuron_window(step, inp, cfg, params):
+    """One rate window (Delta calls) of a neuron-step function from the
+    same state and inputs: the final state and the window's spike total."""
+    import torch
+    v, u, ca, ax, de = inp["k8_state"]
+    spikes = torch.zeros((), dtype=torch.int64, device=DEV)
+    for t in range(cfg.rate_period):
+        v, u, ca, ax, de, sp = step(v, u, ca, ax, de, inp["k8_input"][t], cfg,
+                                    params=params)
+        spikes = spikes + sp.sum()
+    return v, u, ca, ax, de, sp, spikes
+
+
+def drive_kernel_api(cfg, inp):
+    """The public kernel API on the card: every call goes through
+    ``repro_torch.kernels.ops``. Returns the outputs by case."""
+    from repro_torch.kernels import ops
+    out = {}
+    for name, params in inp["k8_params"].items():
+        out["K8", name] = neuron_window(ops.fused_neuron_step, inp, cfg,
+                                        params)
+    for name, keys in inp["k6"].items():
+        out["K6", name] = ops.radix_argsort(keys, key_bits=30)
+    out["K7"] = ops.gauss_probs(*inp["k7"], sigma=cfg.sigma)
+    for label, qkv, window in inp["k9"]:
+        out["K9", label] = ops.flash_attention(*qkv, causal=True,
+                                               window=window)
+    return out
+
+
+def _same(a, b) -> bool:
+    import torch
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def attention_pairs(s: int, skv: int, window: int) -> int:
+    """Unmasked (q, k) pairs of causal attention with top-left positions."""
+    total = 0
+    for q in range(s):
+        hi = min(q, skv - 1)
+        lo = max(q - window + 1, 0) if window > 0 else 0
+        total += max(hi - lo + 1, 0)
+    return total
+
+
+def check_kernel_api(cfg, inp, out, counts, card):
+    """Each call of the driven API against its plain version on the same
+    inputs, a second call bitwise equal, the launch counts, and times.
+    Returns the kernel-table entries of K6-K9."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import bh_gauss as bg
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import neuron_step as ns
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import radix_sort as rs
+    want = {"neuron_step": 2 * cfg.rate_period,
+            "radix_argsort": len(inp["k6"]), "bh_gauss_probs": 1,
+            "flash_attention": len(inp["k9"])}
+    for name, k in want.items():
+        if counts[name] != k:
+            fail(f"{name} launched {counts[name]} times on the kernel API "
+                 f"path, not {k}")
+    entries, lines = {}, []
+
+    # ---- K8: one rate window per variant, bit-equal ----------------------
+    n = cfg.neurons_per_rank
+    for name, params in inp["k8_params"].items():
+        got = out["K8", name]
+        plain = neuron_window(ns.neuron_step_plain, inp, cfg, params)
+        again = neuron_window(ops.fused_neuron_step, inp, cfg, params)
+        exact = _same(got, plain)
+        x0 = (*inp["k8_state"], inp["k8_input"][0])
+        ms = cuda_ms(lambda: ops.fused_neuron_step(*x0, cfg, params=params),
+                     reps=100)
+        plain_ms = cuda_ms(lambda: ns.neuron_step_plain(*x0, cfg,
+                                                        params=params), reps=10)
+        dev_ms = device_ms(lambda: ops.fused_neuron_step(*x0, cfg,
+                                                         params=params), 100)
+        nbytes = (45 if params is None else 69) * n
+        b = bound(nbytes, n * NEURON_STEP_OPS)
+        lines.append({"kernel": "K8 neuron_step", "variant": name, "n": n,
+                      "calls": cfg.rate_period, "equal": exact,
+                      "deterministic": _same(got, again),
+                      "spikes": int(got[6]), "ms": ms,
+                      "device_ms": dev_ms, "plain_ms": plain_ms,
+                      "bound_ms": b[0], "bound_by": b[1]})
+        if not exact or not _same(got, again):
+            fail(f"K8 ({name}): differs from its plain version or between "
+                 f"two runs")
+        if name == "homogeneous":
+            entries["K8"] = dict(ms=ms, plain_ms=plain_ms, bound=b,
+                                 max_abs_err=0.0, library_ms=None)
+
+    # ---- K6: bit-equal to the plain version and to torch.sort ------------
+    for name, keys in inp["k6"].items():
+        got = out["K6", name]
+        plain = rs.radix_argsort_plain(keys, key_bits=30)
+        srt = torch.sort(keys, stable=True)
+        exact = _same(got, plain) and torch.equal(got[0], srt.values) and \
+            torch.equal(got[1], srt.indices.to(torch.int32))
+        det = _same(got, ops.radix_argsort(keys, key_bits=30))
+        line = {"kernel": "K6 radix_argsort", "keys": name,
+                "n": keys.shape[0], "key_bits": 30, "equal": exact,
+                "deterministic": det}
+        if name in ("morton", "edge_table"):
+            nk = keys.shape[0]
+            line["ms"] = cuda_ms(lambda: ops.radix_argsort(keys, key_bits=30),
+                                 reps=10)
+            line["device_ms"] = device_ms(
+                lambda: ops.radix_argsort(keys, key_bits=30), 10)
+            line["plain_ms"] = cuda_ms(
+                lambda: rs.radix_argsort_plain(keys, key_bits=30), reps=1)
+            line["library_ms"] = cuda_ms(
+                lambda: torch.sort(keys, stable=True), reps=10)
+            b = bound(12 * nk, 4 * nk * SORT_OPS)
+            line["bound_ms"], line["bound_by"] = b
+            if name == "edge_table":
+                entries["K6"] = dict(ms=line["ms"], plain_ms=line["plain_ms"],
+                                     bound=b, max_abs_err=0.0,
+                                     library_ms=line["library_ms"])
+        lines.append(line)
+        if not exact or not det:
+            fail(f"K6 ({name}): differs from its plain version, torch.sort "
+                 f"or between two runs")
+
+    # ---- K7: P bit-equal, row sums within 1e-6 relative ------------------
+    x, y, w = inp["k7"]
+    p, rsum = out["K7"]
+    pp, prs = bg.bh_gauss_plain(x, y, w, sigma=cfg.sigma)
+    p_equal = torch.equal(p, pp)
+    rel = float(((rsum - prs).abs() / prs.abs().clamp_min(1e-30)).max())
+    det = _same((p, rsum), ops.gauss_probs(x, y, w, sigma=cfg.sigma))
+    del pp
+    nq, mc = x.shape[0], y.shape[0]
+    ms = cuda_ms(lambda: ops.gauss_probs(x, y, w, sigma=cfg.sigma), reps=5)
+    dev_ms = device_ms(lambda: ops.gauss_probs(x, y, w, sigma=cfg.sigma), 5)
+    plain_ms = cuda_ms(lambda: bg.bh_gauss_plain(x, y, w, sigma=cfg.sigma),
+                       reps=1)
+    b = bound(12 * nq + 16 * mc + 4 * nq * mc + 4 * nq,
+              nq * mc * GAUSS_OPS)
+    lines.append({"kernel": "K7 bh_gauss_probs", "N": nq, "M": mc,
+                  "sigma": cfg.sigma, "P_equal": p_equal,
+                  "rowsum_max_rel_err": rel, "deterministic": det, "ms": ms,
+                  "device_ms": dev_ms,
+                  "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+                  "P_gib": p.numel() * 4 / 2 ** 30})
+    if not p_equal or rel > 1e-6 or not det:
+        fail(f"K7: P equal {p_equal}, row sums {rel} relative, "
+             f"deterministic {det}")
+    entries["K7"] = dict(ms=ms, plain_ms=plain_ms, bound=b,
+                         max_abs_err=float((rsum - prs).abs().max()),
+                         library_ms=None)
+    del p, rsum, out["K7"]
+
+    # ---- K9: f32 within 2e-5 of the plain version; bf16 within the bound
+    # of its roundings (fa.bf16_error_bound), per element ------------------
+    worst = 0.0
+    for label, (q, k, v), window in inp["k9"]:
+        got = out["K9", label]
+        plain = fa.flash_attention_plain(q, k, v, causal=True, window=window)
+        diff = (got.float() - plain.float()).abs()
+        if q.dtype == torch.bfloat16:
+            tol = "bf16_error_bound"
+            lim = fa.bf16_error_bound(plain, q, k, v, causal=True,
+                                      window=window)
+        else:
+            tol = 2e-5
+            lim = tol + tol * plain.float().abs()
+        err = float(diff.max())
+        ratio = float((diff / lim).max())
+        ok = ratio <= 1.0
+        det = torch.equal(got, ops.flash_attention(q, k, v, causal=True,
+                                                   window=window))
+        del plain, diff, lim
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True,
+                                                 window=window), reps=5)
+        dev_ms = device_ms(lambda: ops.flash_attention(
+            q, k, v, causal=True, window=window), 5)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(
+            q, k, v, causal=True, window=window), reps=1)
+        if window:
+            sq = q.shape[2]
+            pos = torch.arange(sq, device=DEV)
+            mask = (pos[None, :] <= pos[:, None]) & \
+                (pos[:, None] - pos[None, :] < window)
+            lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
+                q, k, v, attn_mask=mask, enable_gqa=True)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
+                q, k, v, is_causal=True, enable_gqa=True)
+        library_ms = cuda_ms(lib, reps=5)
+        bq, hq, sq, d = q.shape
+        pairs = bq * hq * attention_pairs(sq, k.shape[2], window)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        rate = H100_BF16_OPS_PER_S if q.dtype == torch.bfloat16 \
+            else H100_FP32_OPS_PER_S
+        b = bound(nbytes, 4 * d * pairs, rate)
+        lines.append({"kernel": "K9 flash_attention", "shape": label,
+                      "B": bq, "Hq": hq, "Hkv": k.shape[1], "S": sq, "D": d,
+                      "window": window, "dtype": str(q.dtype),
+                      "tolerance": tol, "max_abs_err": err,
+                      "max_err_over_tolerance": ratio, "within": ok,
+                      "deterministic": det, "ms": ms,
+                      "device_ms": dev_ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "bound_ms": b[0],
+                      "bound_by": b[1]})
+        if not ok or not det:
+            fail(f"K9 ({label}): max |kernel - plain| {err}, at most "
+                 f"{ratio} times the tolerance ({tol}), deterministic {det}")
+        if label == ATTENTION_SHAPES[0][0]:
+            entries["K9"] = dict(ms=ms, plain_ms=plain_ms, bound=b,
+                                 library_ms=library_ms)
+    entries["K9"]["max_abs_err"] = worst
+    emit({"phase": "kernel_api", "card": card, "launches": counts,
+          "checks": lines})
+    return entries
+
+
 def run_main_path(cfg, chunks: int, scenario=None):
     """A fresh simulator: one warm-up chunk, then ``chunks`` timed chunks,
     each ``run(1)`` (with the recorder when there is a scenario). Returns
@@ -677,6 +996,16 @@ def main() -> int:
           "K4_accept_bound_ms": k4["accept"][2][0],
           "K5_ms": k5[0], "K5_plain_ms": k5[1]})
 
+    # ---- the public kernel API: K6-K9 at the repo's widths ---------------
+    api_inp = kernel_api_inputs(all_fused)
+    _build.reset_launch_counts()
+    api_out = drive_kernel_api(all_fused, api_inp)
+    torch.cuda.synchronize()
+    api_counts = _build.launch_counts()
+    api = check_kernel_api(all_fused, api_inp, api_out, api_counts, card)
+    del api_inp, api_out
+    torch.cuda.empty_cache()     # the paths start from an empty cache
+
     # ---- fused == reference on the card, small size --------------------
     exact_kernels = k1["exact"] and k1s["exact"] and k2_err == 0
     fused_vs_reference(SMOKE_CONFIG, None, 3, exact_kernels)
@@ -759,6 +1088,21 @@ def main() -> int:
          "ms": k5[0], "plain_ms": k5[1], "bound_ms": k5[2][0],
          "bound_by": k5[2][1], "library_ms": None},
     ]
+    for name, key, source, replaces in (
+            ("radix_argsort", "K6", "radix_argsort.cu", "radix_sort.py:99"),
+            ("bh_gauss_probs", "K7", "bh_gauss.cu", "bh_gauss.py:78"),
+            ("neuron_step", "K8", "neuron_step.cu", "neuron_step.py:90"),
+            ("flash_attention", "K9", "flash_attention.cu",
+             "flash_attention.py:94")):
+        e = api[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/" + source,
+            "replaces": "src/repro/kernels/" + replaces,
+            "launches": api_counts[name], "max_abs_err": e["max_abs_err"],
+            "ms": e["ms"], "plain_ms": e["plain_ms"],
+            "bound_ms": e["bound"][0], "bound_by": e["bound"][1],
+            "library_ms": e["library_ms"]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "card": card})
     emit({"kernels": kernels})

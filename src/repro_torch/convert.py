@@ -5,8 +5,9 @@
 and builds the port's ``BrainState``; ``state_to_numpy`` goes the other way,
 to plain nested dicts of numpy arrays. Attribute access only, so this module
 imports neither jax nor the reference package. The tests use it to inject a
-reference state into the port phase by phase, and ``scenario_from_reference``
-to hand one protocol to both sides.
+reference state into the port phase by phase, ``scenario_from_reference``
+to hand one protocol to both sides, and ``neuron_params_from_numpy`` to hand
+both the same per-neuron constants.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import BrainState
-from repro_torch.core.neuron import NeuronState
+from repro_torch.core.neuron import NeuronParams, NeuronState
 from repro_torch.scenarios import protocol
 from repro_torch.scenarios.populations import PopulationSpec
 from repro_torch.scenarios.regions import Region
@@ -92,3 +93,16 @@ def scenario_from_reference(obj) -> protocol.Scenario:
         events=tuple(_copy(e, _EVENTS[type(e).__name__])
                      for e in obj.events),
         num_chunks=obj.num_chunks)
+
+
+def neuron_params_from_numpy(obj, device="cpu") -> NeuronParams:
+    """A reference ``NeuronParams`` or population table (fields izh_a ..
+    izh_d, growth_rate, target_calcium; numpy arrays or scalars) -> the
+    port's ``NeuronParams``: a scalar stays a Python float, an array becomes
+    a float32 tensor on ``device``."""
+    def conv(x):
+        if np.ndim(x) == 0:
+            return float(x)
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
+
+    return NeuronParams(*(conv(getattr(obj, f)) for f in NeuronParams._fields))

@@ -1,8 +1,12 @@
-"""MSP phase 1+2 state: the per-neuron tensors, their initial draw, and the
-rate refresh that closes a rate window (paper §III-A; parameters §V-D).
+"""MSP phase 1+2 state: the per-neuron tensors, their initial draw, the
+per-step update rules, and the rate refresh that closes a rate window
+(paper §III-A; parameters §V-D).
 
-The per-step update rule itself is ``kernels/activity_fused.py::step_core``
-(the plain version of the activity window, K1).
+The engine's activity phase runs ``kernels/activity_fused.py::step_core``
+(the plain version of the activity window, K1), which absorbed the math of
+``update_activity`` and ``update_elements``. Those two remain the standalone
+form of the model, as in the JAX package: applied in turn they are the plain
+version of K8 (``kernels/neuron_step.py::neuron_step_plain``).
 """
 from __future__ import annotations
 
@@ -64,6 +68,67 @@ def init_neurons(key, cfg, n: int, params: Optional[NeuronParams] = None,
         spike_count=torch.zeros(n, dtype=torch.float32, device=dev),
         rate=torch.zeros(n, dtype=torch.float32, device=dev),
         is_excitatory=exc)
+
+
+def _f32(x, device):
+    """A parameter as a float32 tensor on ``device``: torch divides a CUDA
+    tensor by a Python scalar as a multiply by its reciprocal, which differs
+    in the last bit from the true division of the reference and the
+    kernels."""
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def izhikevich_step(st: NeuronState, syn_input, noise, cfg,
+                    params: Optional[NeuronParams] = None):
+    """One 1 ms step (two 0.5 ms Euler halves). ``noise`` None: the input
+    current is ``syn_input`` itself. Returns (v, u, spiked)."""
+    p = params or params_from_config(cfg)
+    dev = st.v.device
+    a, b, c, d = (_f32(x, dev) for x in (p.izh_a, p.izh_b, p.izh_c, p.izh_d))
+    i_t = syn_input if noise is None else syn_input + noise
+    v, u = st.v, st.u
+    for _ in range(2):
+        v = v + 0.5 * (0.04 * v * v + 5.0 * v + 140.0 - u + i_t)
+    u = u + a * (b * v - u)
+    spiked = v >= 30.0
+    v = torch.where(spiked, c, v)
+    u = torch.where(spiked, u + d, u)
+    return v, u, spiked
+
+
+def update_activity(st: NeuronState, syn_input, noise, cfg,
+                    params: Optional[NeuronParams] = None,
+                    alive=None) -> NeuronState:
+    """Izhikevich step, calcium and spike count. Dead neurons (``alive``
+    False) do not fire, rest at c and keep their u."""
+    p = params or params_from_config(cfg)
+    v, u, spiked = izhikevich_step(st, syn_input, noise, cfg, p)
+    if alive is not None:
+        spiked = spiked & alive
+        v = torch.where(alive, v, torch.broadcast_to(
+            _f32(p.izh_c, v.device), v.shape))
+        u = torch.where(alive, u, st.u)
+    calcium = st.calcium + (-st.calcium * cfg.calcium_decay
+                            + cfg.calcium_beta * spiked)
+    return st._replace(v=v, u=u, spiked=spiked, calcium=calcium,
+                       spike_count=st.spike_count + spiked)
+
+
+def update_elements(st: NeuronState, cfg,
+                    params: Optional[NeuronParams] = None,
+                    alive=None) -> NeuronState:
+    """Homeostasis: elements grow below the target calcium and retract above
+    it (nu = growth rate); dead neurons lose all their elements."""
+    p = params or params_from_config(cfg)
+    dev = st.v.device
+    drive = 1.0 - st.calcium / _f32(p.target_calcium, dev)
+    grow = _f32(p.growth_rate, dev) * drive
+    ax = torch.clamp_min(st.ax_elements + grow, 0.0)
+    de = torch.clamp_min(st.de_elements + grow, 0.0)
+    if alive is not None:
+        ax = torch.where(alive, ax, 0.0)
+        de = torch.where(alive, de, 0.0)
+    return st._replace(ax_elements=ax, de_elements=de)
 
 
 def refresh_rate(st: NeuronState, cfg, alive=None) -> NeuronState:

@@ -57,6 +57,16 @@ SIGNATURES = {
     "repro_morton_sort": [P, P, P, P, I, I, I, I, I, P],
     "repro_synapse_apply": [P] * 14 + [I, I, I, I, P],
     "repro_route_build": [P] * 6 + [I, I, I, I, I, P],
+    "repro_neuron_step": (
+        [P] * 6            # v, u, ca, ax, de, inp
+        + [P] * 6          # per-neuron a, b, c, d, nu, eps (hetero only)
+        + [P] * 6          # out v, u, ca, ax, de, spiked
+        + [I, I]           # n, hetero
+        + [F] * 8          # scalar a, b, c, d, nu, eps; ca decay, beta
+        + [P]),
+    "repro_radix_argsort": [P] * 7 + [I, I, I, P],
+    "repro_bh_gauss": [P] * 6 + [I, I, I, F, P],
+    "repro_flash_attention": [P] * 4 + [I] * 8 + [F, I, P],
 }
 
 

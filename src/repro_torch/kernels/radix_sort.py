@@ -1,4 +1,5 @@
-"""K3: the Morton sort that feeds the octree build (``tree_impl="fused"``).
+"""K3: the Morton sort that feeds the octree build (``tree_impl="fused"``),
+and K6: the stable LSD radix argsort of the public kernel API.
 
 The plain versions are the JAX package's ``kernels/radix_sort.py`` ranks on
 torch tensors: ``bucket_ranks`` (stable rank within a bucket), ``stable_ranks``
@@ -7,9 +8,15 @@ rank, 8-bit digits), all integer-exact. ``morton_sort_plain`` is the pair the
 reference tree build computes: ``rel = clamp(morton_encode(pos, leaf_level) -
 leaf_base, 0, n_leaf - 1)`` and ``slot = #{j < i : rel[j] == rel[i]}``.
 
-``morton_sort`` is the wrapper of the hand-written CUDA kernel
-``csrc/morton_sort.cu``: on a CUDA tensor it launches the kernel or raises; on
-a CPU tensor it runs ``morton_sort_plain``.
+``radix_argsort_plain`` is the JAX package's ``radix_argsort``: the sorted
+keys and the order, one stable 8-bit digit pass per byte of ``key_bits``
+(at least one), so only the low 8 * ceil(key_bits / 8) bits of a key count
+and a negative key sorts by its two's-complement bytes.
+
+``morton_sort`` and ``radix_argsort`` are the wrappers of the hand-written
+CUDA kernels ``csrc/morton_sort.cu`` and ``csrc/radix_argsort.cu``: on a CUDA
+tensor they launch the kernel or raise; on a CPU tensor they run the plain
+version.
 """
 from __future__ import annotations
 
@@ -20,8 +27,10 @@ from repro_torch.kernels import _build
 
 DIGIT_BITS = 8
 TILE = 256          # elements per block of the CUDA kernel (csrc/morton_sort.cu)
+ARGSORT_TILE = 1024  # keys per block of csrc/radix_argsort.cu
 
 launches = _build.LaunchCounter("morton_sort")
+argsort_launches = _build.LaunchCounter("radix_argsort")
 
 
 def bucket_ranks(keys, num_buckets: int):
@@ -111,3 +120,52 @@ def morton_sort(positions, leaf_base: int, *, leaf_level: int, n_leaf: int):
         "morton_sort")
     launches.add()
     return rel, slot
+
+
+def _passes(key_bits: int) -> int:
+    return len(range(0, max(key_bits, 1), DIGIT_BITS))
+
+
+def radix_argsort_plain(keys, *, key_bits: int = 30):
+    """(sorted_keys, order), both (n,) int32: ``order`` is the stable
+    ascending argsort of the keys' low 8 * ceil(key_bits / 8) bits, read as
+    unsigned bytes; ``sorted_keys`` the keys in that order."""
+    k = keys.to(torch.int32)
+    rank = radix_ranks(k, key_bits).to(torch.int64)
+    n = k.shape[0]
+    order = torch.zeros(n, dtype=torch.int32, device=k.device)
+    order[rank] = torch.arange(n, dtype=torch.int32, device=k.device)
+    return torch.zeros_like(k).index_put_((rank,), k), order
+
+
+def radix_argsort(keys, *, key_bits: int = 30):
+    """Stable LSD radix argsort of (n,) int32 keys (K6). Returns
+    ``(sorted_keys, order)``, both (n,) int32."""
+    if keys.device.type != "cuda":
+        return radix_argsort_plain(keys, key_bits=key_bits)
+    if keys.dim() != 1:
+        raise ValueError("radix_argsort: keys must be (n,)")
+    if keys.dtype.is_floating_point:
+        raise TypeError(f"radix_argsort: integer keys only, got {keys.dtype}")
+    if key_bits > 32:
+        raise ValueError(f"radix_argsort: key_bits {key_bits} above 32")
+    n = keys.shape[0]
+    dev = keys.device
+    k = keys.to(torch.int32).contiguous()
+    tiles = max(-(-n // ARGSORT_TILE), 1)
+    out_k = torch.empty(n, dtype=torch.int32, device=dev)
+    out_i = torch.empty(n, dtype=torch.int32, device=dev)
+    tmp_k = torch.empty(n, dtype=torch.int32, device=dev)
+    tmp_i = torch.empty(n, dtype=torch.int32, device=dev)
+    # (256, tiles) per-tile digit counts, scanned in place; 256 digit totals
+    hist = torch.empty((1 << DIGIT_BITS, tiles), dtype=torch.int32, device=dev)
+    totals = torch.empty(1 << DIGIT_BITS, dtype=torch.int32, device=dev)
+    _build.require_cuda("radix_argsort", k, out_k, out_i, tmp_k, tmp_i, hist,
+                        totals)
+    lib = _build.library()
+    _build.check(lib.repro_radix_argsort(
+        k.data_ptr(), out_k.data_ptr(), out_i.data_ptr(), tmp_k.data_ptr(),
+        tmp_i.data_ptr(), hist.data_ptr(), totals.data_ptr(), n, tiles,
+        _passes(key_bits), _build.stream()), "radix_argsort")
+    argsort_launches.add()
+    return out_k, out_i

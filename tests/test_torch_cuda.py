@@ -1,7 +1,16 @@
 """The port's CUDA kernels against their plain versions on the card, at
 small sizes. Marked ``cuda``: they skip on a machine without an NVIDIA GPU
 (the CPU tests hold the plain versions against the JAX package) and run on
-the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``."""
+the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
+
+Tolerances: the integer kernels (K0, K3-K6) and the elementwise float
+kernels built with --fmad=false in the plain versions' order (K1, K2, K7's
+P, K8) are bit-equal. K7's row sums are taken in another fixed order: 1e-6
+relative. K9 sums in another order with an online softmax: 2e-5 in f32,
+the JAX kernel tests' tolerance. In bf16 it also rounds p before P V, and
+each element is held within ``flash_attention.bf16_error_bound`` of the
+plain version (one bf16 ulp of the output plus the spread of the p
+roundings): a fixed 2e-2 would be as large as the output at long rows."""
 import dataclasses
 
 import pytest
@@ -12,9 +21,13 @@ from repro_torch.connectome import traverse
 from repro_torch.connectome import tree as ctree
 from repro_torch.connectome.synapses import compact
 from repro_torch.core import engine
+from repro_torch.core.neuron import NeuronParams
 from repro_torch.kernels import activity_fused as af
+from repro_torch.kernels import bh_gauss as bg
 from repro_torch.kernels import bh_traverse as bt
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import hash as chash
+from repro_torch.kernels import neuron_step as ns
 from repro_torch.kernels import radix_sort as rs
 from repro_torch.kernels import synapse_apply as sa
 from repro_torch.scenarios import library, observables
@@ -221,3 +234,121 @@ def test_all_fused_lowerings_equal_reference_under_scenarios(dev, name):
     assert torch.equal(a[0].neurons.v, b[0].neurons.v)
     for k in observables.FIELDS:
         assert (a[1][k] == b[1][k]).all(), k
+
+
+_ADVERSARIAL = {
+    "all_equal": [123] * 257,
+    "pre_sorted": list(range(3000)),
+    "reversed": list(range(3000))[::-1],
+    "few_distinct": [1, 0, 2] * 1500,
+    "extremes": [2 ** 30 - 1, 0, 2 ** 30 - 1, 5] * 700,
+    "single": [7],
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ADVERSARIAL))
+@pytest.mark.parametrize("key_bits", [10, 30])
+def test_radix_argsort_equals_plain_and_torch_sort(dev, name, key_bits):
+    keys = torch.tensor(_ADVERSARIAL[name], dtype=torch.int32, device=dev)
+    before = rs.argsort_launches.count
+    got = rs.radix_argsort(keys, key_bits=key_bits)
+    want = rs.radix_argsort_plain(keys, key_bits=key_bits)
+    assert rs.argsort_launches.count == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if key_bits == 30:
+        srt = torch.sort(keys, stable=True)
+        assert torch.equal(got[0], srt.values)
+        assert torch.equal(got[1], srt.indices.to(torch.int32))
+
+
+@pytest.mark.parametrize("key_bits", [1, 8, 10, 30])
+def test_radix_argsort_out_of_range_and_negative_keys(dev, key_bits):
+    """Keys above 2**key_bits sort by their low bytes, negative keys by their
+    two's-complement bytes, over several tiles."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    keys = torch.randint(-2 ** 31, 2 ** 31 - 1, (5000,), generator=g,
+                         device=dev, dtype=torch.int32)
+    got = rs.radix_argsort(keys, key_bits=key_bits)
+    want = rs.radix_argsort_plain(keys, key_bits=key_bits)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_bh_gauss_probs_equals_plain(dev):
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.rand(300, 3, generator=g, device=dev)
+    y = torch.rand(257, 3, generator=g, device=dev)
+    w = torch.rand(257, generator=g, device=dev) * 3
+    before = bg.launches.count
+    p, rsum = bg.bh_gauss_probs(x, y, w, sigma=0.25)
+    pp, prs = bg.bh_gauss_plain(x, y, w, sigma=0.25)
+    assert bg.launches.count == before + 1
+    assert torch.equal(p, pp)
+    assert float(((rsum - prs).abs() / prs.abs()).max()) <= 1e-6
+
+
+@pytest.mark.parametrize("hetero", [False, True])
+def test_neuron_step_equals_plain(dev, hetero):
+    n = 1031
+    g = torch.Generator(device=dev).manual_seed(10)
+    args = (torch.randn(n, generator=g, device=dev) * 5 - 60,
+            torch.randn(n, generator=g, device=dev) * 2 - 13,
+            torch.rand(n, generator=g, device=dev),
+            torch.rand(n, generator=g, device=dev) * 2,
+            torch.rand(n, generator=g, device=dev) * 2,
+            torch.randn(n, generator=g, device=dev) * 5)
+    params = None
+    if hetero:
+        fs = torch.arange(n, device=dev) >= 800
+        params = NeuronParams(torch.where(fs, 0.1, 0.02), 0.2,
+                              torch.where(fs, -65.0, -50.0), 2.0, 1e-3,
+                              torch.where(fs, 0.7, 0.4))
+    before = ns.launches.count
+    got = ns.neuron_step(*args, SMOKE_CONFIG, params=params)
+    want = ns.neuron_step_plain(*args, SMOKE_CONFIG, params=params)
+    assert ns.launches.count == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,skv,causal,window", [
+    (200, 200, True, 0), (130, 300, True, 64), (300, 130, False, 0)])
+def test_flash_attention_equals_plain(dev, d, dtype, s, skv, causal, window):
+    """GQA 3:1 over ragged tiles, Skv above and below S, a window."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    q = torch.randn(2, 3, s, d, generator=g, device=dev).to(dtype)
+    k = torch.randn(2, 1, skv, d, generator=g, device=dev).to(dtype)
+    v = torch.randn(2, 1, skv, d, generator=g, device=dev).to(dtype)
+    before = fa.launches.count
+    got = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert fa.launches.count == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.bfloat16:
+        lim = fa.bf16_error_bound(want, q, k, v, causal=causal, window=window)
+        assert bool(((got.float() - want.float()).abs() <= lim).all())
+    else:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_rows_without_a_valid_key(dev):
+    """With a window and Skv < S, rows q >= Skv + window - 1 see no key: the
+    kernel gives the full softmax's answer, the mean of V."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    q = torch.randn(1, 2, 200, 64, generator=g, device=dev)
+    k = torch.randn(1, 2, 70, 64, generator=g, device=dev)
+    v = torch.randn(1, 2, 70, 64, generator=g, device=dev)
+    got = fa.flash_attention_fwd(q, k, v, causal=True, window=32)
+    want = fa.flash_attention_plain(q, k, v, causal=True, window=32)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(got[:, :, 150], v.mean(dim=2), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("d,dtype", [(24, torch.float32), (272, torch.float32),
+                                     (64, torch.float16)])
+def test_flash_attention_refuses_what_it_does_not_take(dev, d, dtype):
+    q = torch.zeros(1, 2, 8, d, device=dev, dtype=dtype)
+    with pytest.raises((ValueError, TypeError)):
+        fa.flash_attention_fwd(q, q, q)
