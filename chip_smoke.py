@@ -18,9 +18,12 @@ neurons, S=32):
   through the lesion at step 1,000.
 
 For the kernel API and each path it checks the kernels really ran there (the
-launch counts are set to 0 just before and read just after) and that a second
-run is bitwise equal, then profiles one chunk of the scenario path, and prints one
-JSON line per phase. The last two lines are the kernel table and
+launch counts are set to 0 just before and read just after; for K9, which of
+its three kernels each shape took) and that a second run is bitwise equal,
+then profiles one chunk of the scenario path, and prints one JSON line per
+phase. Every kernel is timed twice: a call (CUDA events around back-to-back
+calls) and its device time with the host hidden (the calls queued behind a
+device-side sleep). The last two lines are the kernel table and
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the result
 line. Imports torch and the port only (no jax, no repro).
 """
@@ -266,6 +269,7 @@ def k1_timing(cfg, rates_ranks: int, rank: int, lesions=None):
     args = (state, edges, w, rates, cfg.background_mean, cfg.background_std,
             0, rank)
     ms = cuda_ms(lambda: af.activity_window(*args, **kw), reps=5)
+    dev_ms = device_ms(lambda: af.activity_window(*args, **kw), 5)
     plain_ms = cuda_ms(lambda: af.window_plain(*args, **kw), reps=1)
     n, s, steps = cfg.neurons_per_rank, cfg.max_synapses, cfg.rate_period
     valid = int((edges >= 0).sum())
@@ -275,7 +279,7 @@ def k1_timing(cfg, rates_ranks: int, rank: int, lesions=None):
               + (0 if lesions is None else lesions[0].numel()))
     ops = steps * (n * (HASH_OPS + NEURON_OPS) + valid * EDGE_OPS
                    + remote * HASH_OPS)
-    return ms, plain_ms, bound(nbytes, ops)
+    return ms, dev_ms, plain_ms, bound(nbytes, ops)
 
 
 def k2_inputs(cfg):
@@ -320,6 +324,7 @@ def k2_compare_and_time(cfg):
     if max(diff_t, diff_d) > NEAR_TIE_SHARE * q:
         fail(f"K2: {diff_t} targets / {diff_d} depths differ")
     ms = cuda_ms(lambda: bt.bh_traverse(*args, **kw), reps=5)
+    dev_ms = device_ms(lambda: bt.bh_traverse(*args, **kw), 5)
     plain_ms = cuda_ms(lambda: phase_b_core(*args, **kw), reps=1)
     n_levels = kw["n_levels"]
     rounds = int(kd.sum())
@@ -328,7 +333,8 @@ def k2_compare_and_time(cfg):
     ops = rounds * (n_levels * 8 * NODE_OPS + 8 * (NODE_OPS + GUMBEL_OPS)) \
         + q * m * (NODE_OPS + GUMBEL_OPS)
     nbytes = sum(a.numel() * a.element_size() for a in args[:9]) + q * 9
-    return ms, plain_ms, bound(nbytes, ops), max(diff_t, diff_d), max_abs
+    return (ms, dev_ms, plain_ms, bound(nbytes, ops), max(diff_t, diff_d),
+            max_abs)
 
 
 def _int_diff(got, want) -> float:
@@ -365,9 +371,10 @@ def check_k3(cfg):
                         {"n": n, "leaf_level": leaf_level, "n_leaf": n_leaf,
                          "max_slot": int(got[1].max())})
     ms = cuda_ms(lambda: rs.morton_sort(pos, base, **kw), reps=5)
+    dev_ms = device_ms(lambda: rs.morton_sort(pos, base, **kw), 5)
     plain_ms = cuda_ms(lambda: rs.morton_sort_plain(pos, base, **kw), reps=1)
-    nbytes = n * 3 * 4 + 4 + 2 * n * 4        # radix_sort.py:154-157
-    return ms, plain_ms, bound(nbytes, n * MORTON_OPS), diff
+    nbytes = n * 3 * 4 + 4 + 2 * n * 4        # the positions in, rel and slot
+    return ms, plain_ms, bound(nbytes, n * MORTON_OPS), diff, dev_ms
 
 
 def _apply_bytes(n, s, qm, qr):
@@ -419,9 +426,11 @@ def check_k4(cfg):
                                                  .sum()),
                              "accepted": int(got[1].sum())})
         ms = cuda_ms(lambda: sa.synapse_apply(*args), reps=5)
+        dev_ms = device_ms(lambda: sa.synapse_apply(*args), 5)
         plain_ms = cuda_ms(lambda: sa.synapse_apply_plain(*args), reps=1)
         ops = (n * s + q[0] + q[1]) * APPLY_OPS
-        res[name] = (ms, plain_ms, bound(_apply_bytes(n, s, *q), ops), diff)
+        res[name] = (ms, plain_ms, bound(_apply_bytes(n, s, *q), ops), diff,
+                     dev_ms)
     return res
 
 
@@ -449,10 +458,11 @@ def check_k5(cfg):
                          "valid": int((other >= 0).sum()),
                          "dropped": float(got[1][0])})
     ms = cuda_ms(lambda: sa.route_build(other, mine, **kw), reps=5)
+    dev_ms = device_ms(lambda: sa.route_build(other, mine, **kw), 5)
     plain_ms = cuda_ms(lambda: sa.route_build_plain(other, mine, **kw),
                        reps=1)
-    nbytes = 2 * m * 4 + cap * 2 * 4 + 4      # synapse_apply.py:117-121
-    return ms, plain_ms, bound(nbytes, m * ROUTE_OPS), diff
+    nbytes = 2 * m * 4 + cap * 2 * 4 + 4      # pairs in, buffer and count out
+    return ms, plain_ms, bound(nbytes, m * ROUTE_OPS), diff, dev_ms
 
 
 # ------------------------------------------------ the public kernel API
@@ -562,10 +572,13 @@ def attention_pairs(s: int, skv: int, window: int) -> int:
     return total
 
 
-def check_kernel_api(cfg, inp, out, counts, card):
+def check_kernel_api(cfg, inp, out, counts, k9_kernels, card):
     """Each call of the driven API against its plain version on the same
-    inputs, a second call bitwise equal, the launch counts, and times.
-    Returns the kernel-table entries of K6-K9."""
+    inputs, a second call bitwise equal (its kernels' launches counted in
+    the C sources: K6's device launches a call, K9's kernel), the launch
+    counts (and, for K9, ``k9_kernels``: which kernels the sources counted
+    on the driven path), and times. Returns the kernel-table entries of
+    K6-K9."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import bh_gauss as bg
@@ -580,6 +593,12 @@ def check_kernel_api(cfg, inp, out, counts, card):
         if counts[name] != k:
             fail(f"{name} launched {counts[name]} times on the kernel API "
                  f"path, not {k}")
+    chosen = {}
+    for _, (q, _, _), _ in inp["k9"]:
+        kernel = fa.kernel_for(q.dtype, q.shape[3])
+        chosen[kernel] = chosen.get(kernel, 0) + 1
+    if {k: v for k, v in k9_kernels.items() if v} != chosen:
+        fail(f"K9's source counted {k9_kernels} launches, not {chosen}")
     entries, lines = {}, []
 
     # ---- K8: one rate window per variant, bit-equal ----------------------
@@ -608,20 +627,27 @@ def check_kernel_api(cfg, inp, out, counts, card):
             fail(f"K8 ({name}): differs from its plain version or between "
                  f"two runs")
         if name == "homogeneous":
-            entries["K8"] = dict(ms=ms, plain_ms=plain_ms, bound=b,
-                                 max_abs_err=0.0, library_ms=None)
+            entries["K8"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                                 bound=b, max_abs_err=0.0, library_ms=None)
 
     # ---- K6: bit-equal to the plain version and to torch.sort ------------
+    k6_most = 1 + 4          # a digit count, then one launch a pass
     for name, keys in inp["k6"].items():
         got = out["K6", name]
         plain = rs.radix_argsort_plain(keys, key_bits=30)
         srt = torch.sort(keys, stable=True)
         exact = _same(got, plain) and torch.equal(got[0], srt.values) and \
             torch.equal(got[1], srt.indices.to(torch.int32))
+        rs.device_launches(reset=True)
         det = _same(got, ops.radix_argsort(keys, key_bits=30))
+        k6_launches = rs.device_launches(reset=True)
+        if k6_launches > k6_most:
+            fail(f"K6 ({name}): {k6_launches} device launches in one call, "
+                 f"not at most {k6_most}")
         line = {"kernel": "K6 radix_argsort", "keys": name,
                 "n": keys.shape[0], "key_bits": 30, "equal": exact,
-                "deterministic": det}
+                "deterministic": det, "device_kernel": "onesweep",
+                "device_launches_per_call": k6_launches}
         if name in ("morton", "edge_table"):
             nk = keys.shape[0]
             line["ms"] = cuda_ms(lambda: ops.radix_argsort(keys, key_bits=30),
@@ -632,12 +658,17 @@ def check_kernel_api(cfg, inp, out, counts, card):
                 lambda: rs.radix_argsort_plain(keys, key_bits=30), reps=1)
             line["library_ms"] = cuda_ms(
                 lambda: torch.sort(keys, stable=True), reps=10)
+            line["library_device_ms"] = device_ms(
+                lambda: torch.sort(keys, stable=True), 10)
             b = bound(12 * nk, 4 * nk * SORT_OPS)
             line["bound_ms"], line["bound_by"] = b
             if name == "edge_table":
-                entries["K6"] = dict(ms=line["ms"], plain_ms=line["plain_ms"],
-                                     bound=b, max_abs_err=0.0,
-                                     library_ms=line["library_ms"])
+                entries["K6"] = dict(
+                    ms=line["ms"], device_ms=line["device_ms"],
+                    plain_ms=line["plain_ms"], bound=b, max_abs_err=0.0,
+                    library_ms=line["library_ms"],
+                    extra={"device_kernel": "onesweep",
+                           "device_launches_per_call": k6_launches})
         lines.append(line)
         if not exact or not det:
             fail(f"K6 ({name}): differs from its plain version, torch.sort "
@@ -667,7 +698,7 @@ def check_kernel_api(cfg, inp, out, counts, card):
     if not p_equal or rel > 1e-6 or not det:
         fail(f"K7: P equal {p_equal}, row sums {rel} relative, "
              f"deterministic {det}")
-    entries["K7"] = dict(ms=ms, plain_ms=plain_ms, bound=b,
+    entries["K7"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound=b,
                          max_abs_err=float((rsum - prs).abs().max()),
                          library_ms=None)
     del p, rsum, out["K7"]
@@ -689,8 +720,14 @@ def check_kernel_api(cfg, inp, out, counts, card):
         err = float(diff.max())
         ratio = float((diff / lim).max())
         ok = ratio <= 1.0
+        fa.device_launches(reset=True)
         det = torch.equal(got, ops.flash_attention(q, k, v, causal=True,
                                                    window=window))
+        ran = {nm: n for nm, n in fa.device_launches(reset=True).items()
+               if n}
+        kernel = fa.kernel_for(q.dtype, q.shape[3])
+        if ran != {kernel: 1}:
+            fail(f"K9 ({label}): one call launched {ran}, not {kernel} once")
         del plain, diff, lim
         worst = max(worst, err)
         ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True,
@@ -710,6 +747,7 @@ def check_kernel_api(cfg, inp, out, counts, card):
             lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
                 q, k, v, is_causal=True, enable_gqa=True)
         library_ms = cuda_ms(lib, reps=5)
+        library_dev_ms = device_ms(lib, 5)
         bq, hq, sq, d = q.shape
         pairs = bq * hq * attention_pairs(sq, k.shape[2], window)
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
@@ -717,23 +755,29 @@ def check_kernel_api(cfg, inp, out, counts, card):
             else H100_FP32_OPS_PER_S
         b = bound(nbytes, 4 * d * pairs, rate)
         lines.append({"kernel": "K9 flash_attention", "shape": label,
+                      "device_kernel": kernel,
+                      "device_launches_per_call": sum(ran.values()),
                       "B": bq, "Hq": hq, "Hkv": k.shape[1], "S": sq, "D": d,
                       "window": window, "dtype": str(q.dtype),
                       "tolerance": tol, "max_abs_err": err,
                       "max_err_over_tolerance": ratio, "within": ok,
                       "deterministic": det, "ms": ms,
                       "device_ms": dev_ms, "plain_ms": plain_ms,
-                      "library_ms": library_ms, "bound_ms": b[0],
+                      "library_ms": library_ms,
+                      "library_device_ms": library_dev_ms, "bound_ms": b[0],
                       "bound_by": b[1]})
         if not ok or not det:
             fail(f"K9 ({label}): max |kernel - plain| {err}, at most "
                  f"{ratio} times the tolerance ({tol}), deterministic {det}")
         if label == ATTENTION_SHAPES[0][0]:
-            entries["K9"] = dict(ms=ms, plain_ms=plain_ms, bound=b,
-                                 library_ms=library_ms)
+            entries["K9"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                                 bound=b, library_ms=library_ms,
+                                 extra={"device_kernel": kernel,
+                                        "device_launches_per_call":
+                                        sum(ran.values())})
     entries["K9"]["max_abs_err"] = worst
     emit({"phase": "kernel_api", "card": card, "launches": counts,
-          "checks": lines})
+          "flash_attention_kernels": k9_kernels, "checks": lines})
     return entries
 
 
@@ -979,30 +1023,40 @@ def main() -> int:
     k1 = k1_compare(slice_cfg)
     k1s = k1_compare(all_fused, num_ranks=1, rank=0,
                      tables=k1_scenario_tables(all_fused, chunk=2))
-    k1_ms, k1_plain, (k1_bound, k1_by) = k1_timing(
+    k1_ms, k1_dev, k1_plain, (k1_bound, k1_by) = k1_timing(
         all_fused, 1, 0, lesions=scenario_lesions(all_fused, scn))
-    k2_ms, k2_plain, (k2_bound, k2_by), k2_err, k2_abs = \
+    k2_ms, k2_dev, k2_plain, (k2_bound, k2_by), k2_err, k2_abs = \
         k2_compare_and_time(slice_cfg)
     k3 = check_k3(all_fused)
     k4 = check_k4(all_fused)
     k5 = check_k5(all_fused)
+    # device_ms: the calls queued behind a device-side sleep, the host's
+    # work hidden (K1: one 100-step window, 100 launches)
     emit({"phase": "kernel_times", "card": card, "K1_ms": k1_ms,
-          "K1_plain_ms": k1_plain, "K2_ms": k2_ms, "K2_plain_ms": k2_plain,
-          "K3_ms": k3[0], "K3_plain_ms": k3[1],
-          "K4_drain_ms": k4["drain"][0], "K4_drain_plain_ms": k4["drain"][1],
+          "K1_device_ms": k1_dev, "K1_plain_ms": k1_plain, "K2_ms": k2_ms,
+          "K2_device_ms": k2_dev, "K2_plain_ms": k2_plain,
+          "K3_ms": k3[0], "K3_device_ms": k3[4], "K3_plain_ms": k3[1],
+          "K4_drain_ms": k4["drain"][0],
+          "K4_drain_device_ms": k4["drain"][4],
+          "K4_drain_plain_ms": k4["drain"][1],
           "K4_drain_bound_ms": k4["drain"][2][0],
           "K4_accept_ms": k4["accept"][0],
+          "K4_accept_device_ms": k4["accept"][4],
           "K4_accept_plain_ms": k4["accept"][1],
           "K4_accept_bound_ms": k4["accept"][2][0],
-          "K5_ms": k5[0], "K5_plain_ms": k5[1]})
+          "K5_ms": k5[0], "K5_device_ms": k5[4], "K5_plain_ms": k5[1]})
 
     # ---- the public kernel API: K6-K9 at the repo's widths ---------------
+    from repro_torch.kernels import flash_attention as fa
     api_inp = kernel_api_inputs(all_fused)
     _build.reset_launch_counts()
+    fa.device_launches(reset=True)
     api_out = drive_kernel_api(all_fused, api_inp)
     torch.cuda.synchronize()
     api_counts = _build.launch_counts()
-    api = check_kernel_api(all_fused, api_inp, api_out, api_counts, card)
+    k9_kernels = fa.device_launches(reset=True)
+    api = check_kernel_api(all_fused, api_inp, api_out, api_counts,
+                           k9_kernels, card)
     del api_inp, api_out
     torch.cuda.empty_cache()     # the paths start from an empty cache
 
@@ -1059,33 +1113,36 @@ def main() -> int:
          "replaces": "src/repro/kernels/activity_fused.py:279",
          "launches": counts["activity_window"],
          "max_abs_err": max(k1["max_abs_err"], k1s["max_abs_err"]),
-         "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": None},
+         "ms": k1_ms, "device_ms": k1_dev, "plain_ms": k1_plain,
+         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
         {"name": "bh_traverse", "route": "cuda",
          "source": "src/repro_torch/csrc/bh_traverse.cu",
          "replaces": "src/repro/kernels/bh_traverse.py:77",
          "launches": counts["bh_traverse"], "max_abs_err": k2_abs,
-         "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": None},
+         "ms": k2_ms, "device_ms": k2_dev, "plain_ms": k2_plain,
+         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
         {"name": "morton_sort", "route": "cuda",
          "source": "src/repro_torch/csrc/morton_sort.cu",
          "replaces": "src/repro/kernels/radix_sort.py:135",
          "launches": counts["morton_sort"], "max_abs_err": k3[3],
-         "ms": k3[0], "plain_ms": k3[1], "bound_ms": k3[2][0],
+         "ms": k3[0], "device_ms": k3[4], "plain_ms": k3[1],
+         "bound_ms": k3[2][0],
          "bound_by": k3[2][1], "library_ms": None},
         {"name": "synapse_apply", "route": "cuda",
          "source": "src/repro_torch/csrc/synapse_apply.cu",
          "replaces": "src/repro/kernels/synapse_apply.py:63",
          "launches": counts["synapse_apply"],
          "max_abs_err": max(k4["drain"][3], k4["accept"][3]),
-         "ms": k4["drain"][0], "plain_ms": k4["drain"][1],
+         "ms": k4["drain"][0], "device_ms": k4["drain"][4],
+         "plain_ms": k4["drain"][1],
          "bound_ms": k4["drain"][2][0], "bound_by": k4["drain"][2][1],
          "library_ms": None},
         {"name": "route_build", "route": "cuda",
          "source": "src/repro_torch/csrc/synapse_apply.cu",
          "replaces": "src/repro/kernels/synapse_apply.py:95",
          "launches": counts["route_build"], "max_abs_err": k5[3],
-         "ms": k5[0], "plain_ms": k5[1], "bound_ms": k5[2][0],
+         "ms": k5[0], "device_ms": k5[4], "plain_ms": k5[1],
+         "bound_ms": k5[2][0],
          "bound_by": k5[2][1], "library_ms": None},
     ]
     for name, key, source, replaces in (
@@ -1100,9 +1157,10 @@ def main() -> int:
             "source": "src/repro_torch/csrc/" + source,
             "replaces": "src/repro/kernels/" + replaces,
             "launches": api_counts[name], "max_abs_err": e["max_abs_err"],
-            "ms": e["ms"], "plain_ms": e["plain_ms"],
+            "ms": e["ms"], "device_ms": e["device_ms"],
+            "plain_ms": e["plain_ms"],
             "bound_ms": e["bound"][0], "bound_by": e["bound"][1],
-            "library_ms": e["library_ms"]})
+            "library_ms": e["library_ms"], **e.get("extra", {})})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "card": card})
     emit({"kernels": kernels})

@@ -15,6 +15,7 @@ import torch
 from repro_torch import prng
 from repro_torch.core import morton
 from repro_torch.core.neuron import NeuronParams, NeuronState, init_neurons
+from repro_torch.device import resolve_device
 from repro_torch.scenarios import populations as pops
 from repro_torch.telemetry import metrics as telemetry_metrics
 
@@ -41,11 +42,13 @@ def init_state(cfg, rank: int, num_ranks: int, scenario=None,
                device=None) -> BrainState:
     """The reference's ``init_state``: positions and vacant elements from
     the same jax.random draws (``repro_torch.prng``), the scenario's
-    population table, empty edge tables."""
+    population table, empty edge tables. On the card unless ``device``
+    names another (``device.resolve_device``)."""
     if cfg.rate_exchange != "dense":
         raise NotImplementedError(
             "the sparse rate exchange is not ported yet (ROADMAP.md Queue 1 "
             "item 9)")
+    device = resolve_device(device)
     n = cfg.neurons_per_rank
     key = prng.fold_in(prng.key(cfg.seed, device=device), rank)
     kp, kn = prng.split(key)

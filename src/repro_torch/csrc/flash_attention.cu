@@ -18,36 +18,54 @@
 //
 // Design. The TPU kernel ran a (b, h, q tile, kv tile) grid whose kv axis was
 // sequential, with (m, l, acc) in VMEM scratch. Here one block takes one
-// (batch, q head, 64-row q tile) and loops over the 64-key kv tiles itself,
-// skipping the tiles wholly above the diagonal or wholly outside the window;
-// the q tiles with the most work are launched first. K and V tiles go through
-// shared memory; m, l and the accumulator stay in registers. Keys past Skv
-// (the ragged tile) score -inf, so they add exactly 0. A row with no valid
-// key at all (only with a window, q_pos >= Skv + window - 1) would depend on
-// which tiles are skipped; its q tile skips none, so the row gets the full
-// softmax's answer, the mean of V.
-//   bf16: 4 warps, each owns 16 rows; S = Q K^T and O += P V are
-//   mma.sync.m16n8k16 (bf16 in, f32 accumulate); P goes from the S
-//   accumulators to the A operand in registers, rounded to bf16. V is stored
-//   transposed in shared memory so that its B fragments are 32-bit loads;
-//   row strides padded by 8 elements keep the fragment loads free of bank
-//   conflicts.
-//   f32: no tensor cores (TF32 would lose the 2e-5 agreement). 256 threads,
-//   each owns 4 rows x 4 keys of S (explicit fmaf from transposed Q and K
-//   tiles, float4 loads) and the same 4 rows x D/16 columns of O; P goes
-//   through shared memory.
-// D is a runtime value, a multiple of 16 in [16, 256]; the register arrays
-// are sized by the next of 64, 128, 192, 256.
+// (batch, q head, q tile) and loops over the kv tiles itself, skipping the
+// tiles wholly above the diagonal or wholly outside the window; the q tiles
+// with the most work are launched first. m, l and the accumulator stay in
+// registers. Keys past Skv (the ragged tile) score -inf, so they add exactly
+// 0. A row with no valid key at all (only with a window, q_pos >= Skv +
+// window - 1) would depend on which tiles are skipped; its q tile skips
+// none, so the row gets the full softmax's answer, the mean of V.
+//   bf16 at D = 64, 128, 256 (flash_bf16_wgmma): Hopper's warpgroup products.
+//   A block of three warpgroups takes a 128-row q tile. Warpgroup 2 gives
+//   its registers back (setmaxnreg) and one of its threads issues TMA loads:
+//   Q once, then K and V tiles (128 keys; 64 at D = 256) through two-stage
+//   rings, K and V each with a "full" and an "empty" mbarrier per stage, so
+//   a K slot frees as soon as S is done. 3-D tensor maps (D, S, B * heads)
+//   zero-fill a ragged tile without reading the next head's rows; the
+//   128-byte swizzle lays a row out as 64-column boxes. Warpgroups 0 and 1
+//   own 64 q rows each: S = Q K^T is wgmma m64nBKk16 with both operands in
+//   shared memory; the online softmax runs on the accumulators (quad
+//   shuffles for the row max and sum) with the exponent 2^(s c - m c),
+//   c = scale log2(e), as one fused multiply-add and one ex2.approx; O += P V
+//   is a wgmma with P rounded to bf16 in registers as the A operand and V
+//   read in its [key][D] layout through the transposed-B descriptor. Only
+//   tiles that cross the diagonal, the window's edge or Skv are masked.
+//   bf16 at other D (flash_bf16): 4 warps, each owns 16 of 64 rows; S = Q K^T
+//   and O += P V are mma.sync.m16n8k16 (bf16 in, f32 accumulate); P goes
+//   from the S accumulators to the A operand in registers, rounded to bf16.
+//   K and V tiles (64 keys) are loaded synchronously into shared memory, V
+//   transposed so that its B fragments are 32-bit loads; row strides padded
+//   by 8 elements keep the fragment loads free of bank conflicts.
+//   f32 (flash_f32): no tensor cores (TF32 would lose the 2e-5 agreement).
+//   256 threads over a 64-row tile, each owns 4 rows x 4 keys of S
+//   (explicit fmaf from transposed Q and K tiles, float4 loads) and the same
+//   4 rows x D/16 columns of O; P goes through shared memory.
+// In flash_bf16 and flash_f32 D is a runtime value, a multiple of 16 in
+// [16, 256]; the register arrays are sized by the next of 64, 128, 192, 256.
 //
 // Bound on the H100: operations. 4 D flops per unmasked (q, k) pair (two
 // products) against 989 TFLOP/s (bf16 tensor cores) or 67 TFLOP/s (f32);
-// q, k, v and out are read or written once. This first kernel loads its
-// tiles synchronously (no cp.async or TMA pipeline) and uses mma.sync, not
-// wgmma: later work.
+// q, k, v and out are read or written once. In the wgmma kernel each
+// warpgroup runs S, softmax and P V in turn; the softmax overlaps only the
+// other warpgroup's products, and blocks do not stay resident across q
+// tiles.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -60,15 +78,17 @@ struct Attn {
   float scale;
 };
 
-// The kv tiles [lo, hi] that q tile starting at q0 must visit.
+// The kv tiles [lo, hi] of `bk` keys that the `bq`-row q tile starting at
+// q0 must visit. A tile holding a row with no valid key skips none.
 __device__ __forceinline__ void kv_range(const Attn& a, int q0, int* lo,
-                                         int* hi) {
-  const int q_last = min(q0 + kBQ, a.S) - 1;
+                                         int* hi, int bq = kBQ,
+                                         int bk = kBK) {
+  const int q_last = min(q0 + bq, a.S) - 1;
   *lo = 0;
-  *hi = (a.Skv + kBK - 1) / kBK - 1;
+  *hi = (a.Skv + bk - 1) / bk - 1;
   if (a.window > 0 && q_last >= a.Skv + a.window - 1) return;  // a dead row
-  if (a.causal) *hi = min(*hi, q_last / kBK);
-  if (a.window > 0) *lo = max(0, q0 - a.window + 1) / kBK;
+  if (a.causal) *hi = min(*hi, q_last / bk);
+  if (a.window > 0) *lo = max(0, q0 - a.window + 1) / bk;
 }
 
 __device__ __forceinline__ float masked(const Attn& a, float s, int q, int k) {
@@ -399,6 +419,377 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// ---- bf16 on wgmma + TMA (D = 64, 128, 256) ------------------------------
+// One block: one (batch, q head, 128-row q tile); warpgroups 0 and 1
+// consume (64 q rows each), warpgroup 2 produces (one thread issues TMA).
+// Shared memory holds every tile as 64-column boxes of 128-byte rows in
+// the 128-byte swizzle: Q [D/64][128][64], and per stage K and V
+// [D/64][BK][64].
+constexpr int kWgBQ = 128;
+constexpr int kWgStages = 2;
+constexpr int kWgThreads = 384;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D, int BK>
+struct WgTile {
+  static constexpr int kQBytes = kWgBQ * D * 2;
+  static constexpr int kKVBytes = BK * D * 2;       // one K or V tile
+  static constexpr int kBarriers = 1 + 4 * kWgStages;
+  static constexpr size_t kSmem = 1024 + kQBytes + 2 * kWgStages * kKVBytes +
+                                  8 * kBarriers;
+};
+
+// raw (unscaled) score; -inf past Skv, NEG where masked
+__device__ __forceinline__ float masked_raw(const Attn& a, float s, int q,
+                                            int k) {
+  if (k >= a.Skv) return -INFINITY;
+  if (a.causal && k > q) return kNeg;
+  if (a.window > 0 && q - k >= a.window) return kNeg;
+  return s;
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_s(float* d, uint64_t a, uint64_t b,
+                                        int acc) {
+  if constexpr (N == 64) hopper::wgmma_ss_n64(d, a, b, acc);
+  else hopper::wgmma_ss_n128(d, a, b, acc);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a,
+                                         uint64_t b) {
+  if constexpr (N == 64) hopper::wgmma_rs_n64(d, a, b, 1);
+  else if constexpr (N == 128) hopper::wgmma_rs_n128(d, a, b, 1);
+  else hopper::wgmma_rs_n256(d, a, b, 1);
+}
+
+// S = Q K^T (raw scores), 64 x BK in registers, from the warpgroup's 64 q
+// rows at q_base and the K tile at k_base; committed, not awaited.
+template <int D, int BK>
+__device__ __forceinline__ void issue_s(float* sacc, uint32_t q_base,
+                                        uint32_t k_base) {
+#pragma unroll
+  for (int j = 0; j < BK / 2; ++j) hopper::reg_fence(sacc[j]);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t qa = q_base + (kk / 4) * kWgBQ * 128 + (kk % 4) * 32;
+    const uint32_t kb = k_base + (kk / 4) * BK * 128 + (kk % 4) * 32;
+    wgmma_s<BK>(sacc, hopper::sw128_desc(qa, 16, 1024),
+                hopper::sw128_desc(kb, 16, 1024), kk > 0);
+  }
+  hopper::wgmma_commit();
+}
+
+// 2^x by one MUFU.EX2 (subnormal results flush to 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Online softmax of one tile's raw scores in place: updates the rows' max
+// m and sum l, leaves p in sacc and the accumulator's correction in corr.
+// EDGE: the tile may hold masked keys (masks them, and gives a row with
+// every key so far masked the plain softmax's 1 each); otherwise every key
+// of the tile is valid for every row.
+template <int BK, bool EDGE>
+__device__ __forceinline__ void online_softmax(float* sacc, float* m_r,
+                                               float* l_r, float* corr,
+                                               const Attn& a, float c,
+                                               int row0, int k0, int tq4) {
+  if (EDGE) {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sacc[4 * j + e] = masked_raw(a, sacc[4 * j + e], row0 + 8 * (e >> 1),
+                                     k0 + 8 * j + 2 * tq4 + (e & 1));
+      }
+    }
+  }
+  float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      tmax[e >> 1] = fmaxf(tmax[e >> 1], sacc[4 * j + e]);
+    }
+  }
+  float mc[2], tsum[2] = {0.0f, 0.0f};
+  bool dead[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
+    tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
+    const float m_new = fmaxf(m_r[r], tmax[r]);
+    corr[r] = fast_exp2((m_r[r] - m_new) * c);
+    mc[r] = m_new * c;
+    // every key so far masked: the plain softmax of NEG scores, 1 each
+    // (fmaf would leave the rounding error of NEG c)
+    dead[r] = EDGE && m_new == kNeg;
+    m_r[r] = m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      float& x = sacc[4 * j + e];
+      const float p = fast_exp2(fmaf(x, c, -mc[r]));
+      x = EDGE && dead[r] ? (x == kNeg ? 1.0f : 0.0f) : p;
+      tsum[r] += x;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    tsum[r] += __shfl_xor_sync(0xffffffffu, tsum[r], 1);
+    tsum[r] += __shfl_xor_sync(0xffffffffu, tsum[r], 2);
+    l_r[r] = l_r[r] * corr[r] + tsum[r];
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void rescale(float* oacc, const float* corr) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    oacc[4 * j + 0] *= corr[0];
+    oacc[4 * j + 1] *= corr[0];
+    oacc[4 * j + 2] *= corr[1];
+    oacc[4 * j + 3] *= corr[1];
+  }
+}
+
+// P rounded to bf16 in the layout of wgmma's register A operand (that of
+// the S accumulators: rows g and g + 8, keys 2 t, 2 t + 1 and + 8)
+template <int BK>
+__device__ __forceinline__ void pack_p(uint32_t (*pf)[4], const float* sacc) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    pf[kk][0] = pack_bf16(sacc[8 * kk + 0], sacc[8 * kk + 1]);
+    pf[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
+    pf[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
+    pf[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
+  }
+}
+
+// O += P V from the V tile at v_base ([key][D] is MN-major for B: 64-column
+// boxes BK * 128 bytes apart, 8 keys 1,024 bytes apart); committed, not
+// awaited.
+template <int D, int BK>
+__device__ __forceinline__ void issue_pv(float* oacc, uint32_t (*pf)[4],
+                                         uint32_t v_base) {
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) hopper::reg_fence(oacc[j]);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    wgmma_pv<D>(oacc, pf[kk],
+                hopper::sw128_desc(v_base + kk * 16 * 128, BK * 128, 1024));
+  }
+  hopper::wgmma_commit();
+}
+
+template <int D, int BK>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bf16_wgmma(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     uint16_t* __restrict__ o, Attn a) {
+  using T = WgTile<D, BK>;
+  constexpr int kHalves = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint16_t* Qs = reinterpret_cast<uint16_t*>(smem);
+  uint16_t* Ks = Qs + kWgBQ * D;                 // [stage][BK * D]
+  uint16_t* Vs = Ks + kWgStages * BK * D;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + kWgStages * BK * D);
+  uint64_t* k_full = q_full + 1;             // [stage], one ring per operand
+  uint64_t* v_full = k_full + kWgStages;
+  uint64_t* k_empty = v_full + kWgStages;
+  uint64_t* v_empty = k_empty + kWgStages;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kWgBQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (a.Hq / a.Hkv);
+  int lo, hi;
+  kv_range(a, q0, &lo, &hi, kWgBQ, BK);
+  const int n_tiles = hi - lo + 1;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&k_empty[s], 2 * 128);
+      hopper::mbar_init(&v_empty[s], 2 * 128);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer: Q once, then K and V through their rings -----------
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      hopper::mbar_expect_tx(q_full, T::kQBytes);
+      for (int c = 0; c < kHalves; ++c) {
+        hopper::tma_load_3d(Qs + c * kWgBQ * 64, &tq, q_full, c * 64, q0,
+                            b * a.Hq + h);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kWgStages;
+        const uint32_t free_par = ((i / kWgStages) & 1) ^ 1;
+        const int row = (lo + i) * BK, plane = b * a.Hkv + kvh;
+        hopper::mbar_wait(&k_empty[s], free_par);
+        hopper::mbar_expect_tx(&k_full[s], T::kKVBytes);
+        for (int c = 0; c < kHalves; ++c) {
+          hopper::tma_load_3d(Ks + s * BK * D + c * BK * 64, &tk, &k_full[s],
+                              c * 64, row, plane);
+        }
+        hopper::mbar_wait(&v_empty[s], free_par);
+        hopper::mbar_expect_tx(&v_full[s], T::kKVBytes);
+        for (int c = 0; c < kHalves; ++c) {
+          hopper::tma_load_3d(Vs + s * BK * D + c * BK * 64, &tv, &v_full[s],
+                              c * 64, row, plane);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 q rows each ------------------------------------
+    hopper::setmaxnreg_inc<240>();
+    const int t = threadIdx.x % 128, w = t / 32, lane = t % 32;
+    const int g = lane >> 2, tq4 = lane & 3;
+    const int rq0 = q0 + wg * 64;              // this warpgroup's first row
+    const int row0 = rq0 + w * 16 + g;         // rows row0 and row0 + 8
+    const float c = a.scale * kLog2e;
+    float oacc[D / 2];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) oacc[j] = 0.0f;
+    float m_r[2] = {kNeg, kNeg}, l_r[2] = {0.0f, 0.0f};
+    const uint32_t q_base = hopper::smem_u32(Qs) + wg * 64 * 128;
+    float sacc[BK / 2];
+    hopper::mbar_wait(q_full, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % kWgStages;
+      const uint32_t par = (i / kWgStages) & 1;
+      hopper::mbar_wait(&k_full[s], par);
+      issue_s<D, BK>(sacc, q_base, hopper::smem_u32(Ks + s * BK * D));
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j) hopper::reg_fence(sacc[j]);
+      hopper::mbar_arrive(&k_empty[s]);
+      float corr[2];
+      const int k0 = (lo + i) * BK;
+      // only tiles that cross the diagonal, the window's edge or Skv mask
+      const bool edge = k0 + BK > a.Skv ||
+                        (a.causal && k0 + BK - 1 > rq0) ||
+                        (a.window > 0 && rq0 + 63 - k0 >= a.window);
+      if (edge) {
+        online_softmax<BK, true>(sacc, m_r, l_r, corr, a, c, row0, k0, tq4);
+      } else {
+        online_softmax<BK, false>(sacc, m_r, l_r, corr, a, c, row0, k0, tq4);
+      }
+      rescale<D>(oacc, corr);
+      uint32_t pf[BK / 16][4];
+      pack_p<BK>(pf, sacc);
+      hopper::mbar_wait(&v_full[s], par);
+      issue_pv<D, BK>(oacc, pf, hopper::smem_u32(Vs + s * BK * D));
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) hopper::reg_fence(oacc[j]);
+      hopper::mbar_arrive(&v_empty[s]);
+    }
+    uint16_t* ob = o + (size_t)(b * a.Hq + h) * a.S * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= a.S) continue;
+      const float den = fmaxf(l_r[r], 1e-30f);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(ob + (size_t)row * D + j * 8 + 2 * tq4) =
+            pack_bf16(oacc[4 * j + 2 * r] / den,
+                      oacc[4 * j + 2 * r + 1] / den);
+      }
+    }
+  }
+}
+
+// Launches of each kernel (0 wgmma bf16, 1 mma.sync bf16, 2 FFMA f32),
+// counted beside each launch.
+int g_launches[3] = {0, 0, 0};
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, found through the runtime's entry
+// point query: no -lcuda in the link line.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// A (d, rows, planes) bf16 tensor as boxes of 64 columns x box_rows rows,
+// swizzled by 128 bytes; rows past the end read as zeros.
+bool tensor_map(CUtensorMap* map, const void* base, int d, int rows,
+                int planes, int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
+                                 (cuuint64_t)rows * d * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, int BK>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 const Attn& a, cudaStream_t s) {
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, q, D, a.S, a.B * a.Hq, kWgBQ) ||
+      !tensor_map(&tk, k, D, a.Skv, a.B * a.Hkv, BK) ||
+      !tensor_map(&tv, v, D, a.Skv, a.B * a.Hkv, BK)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  constexpr size_t smem = WgTile<D, BK>::kSmem;
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_bf16_wgmma<D, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    sized = true;
+  }
+  const dim3 grid((a.S + kWgBQ - 1) / kWgBQ, a.Hq, a.B);
+  flash_bf16_wgmma<D, BK><<<grid, kWgThreads, smem, s>>>(tq, tk, tv,
+                                                        (uint16_t*)o, a);
+  ++g_launches[0];
+  return (int)cudaGetLastError();
+}
+
 template <int DCAP>
 int launch(bool bf16, const void* q, const void* k, const void* v, void* o,
            const Attn& a, cudaStream_t s) {
@@ -413,6 +804,7 @@ int launch(bool bf16, const void* q, const void* k, const void* v, void* o,
     flash_bf16<DCAP><<<grid, 128, smem, s>>>(
         (const uint16_t*)q, (const uint16_t*)k, (const uint16_t*)v,
         (uint16_t*)o, a);
+    ++g_launches[1];
   } else {
     const size_t smem = ((size_t)a.D * (kBQ + kBK) + (size_t)kBK * a.D +
                          (size_t)kBK * kBQ) * sizeof(float);
@@ -422,6 +814,7 @@ int launch(bool bf16, const void* q, const void* k, const void* v, void* o,
     if (err != cudaSuccess) return (int)err;
     flash_f32<DCAP><<<grid, 256, smem, s>>>((const float*)q, (const float*)k,
                                             (const float*)v, (float*)o, a);
+    ++g_launches[2];
   }
   return (int)cudaGetLastError();
 }
@@ -447,4 +840,32 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   if (D <= 128) return launch<128>(bf16 != 0, q, k, v, o, a, s);
   if (D <= 192) return launch<192>(bf16 != 0, q, k, v, o, a, s);
   return launch<256>(bf16 != 0, q, k, v, o, a, s);
+}
+
+// The bf16 kernel on wgmma and TMA, for D = 64, 128 or 256 (the wrapper
+// takes it for those); arguments as repro_flash_attention.
+extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
+                                           const void* v, void* o, int B,
+                                           int Hq, int Hkv, int S, int Skv,
+                                           int D, int causal, int window,
+                                           float scale, void* stream) {
+  if ((D != 64 && D != 128 && D != 256) || Hkv <= 0 || Hq % Hkv != 0 ||
+      Skv <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (B <= 0 || Hq <= 0 || S <= 0) return (int)cudaGetLastError();
+  const Attn a{B, Hq, Hkv, S, Skv, D, causal, window, scale};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (D == 64) return launch_wgmma<64, 128>(q, k, v, o, a, s);
+  if (D == 128) return launch_wgmma<128, 128>(q, k, v, o, a, s);
+  return launch_wgmma<256, 64>(q, k, v, o, a, s);
+}
+
+// Launches of kernel `kernel` (0 wgmma bf16, 1 mma.sync bf16, 2 FFMA f32)
+// since the last reset; reset != 0 sets that count to 0 after reading it.
+extern "C" int repro_flash_attention_device_launches(int kernel, int reset) {
+  if (kernel < 0 || kernel > 2) return -1;
+  const int n = g_launches[kernel];
+  if (reset) g_launches[kernel] = 0;
+  return n;
 }

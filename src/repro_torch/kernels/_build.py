@@ -64,9 +64,12 @@ SIGNATURES = {
         + [I, I]           # n, hetero
         + [F] * 8          # scalar a, b, c, d, nu, eps; ca decay, beta
         + [P]),
-    "repro_radix_argsort": [P] * 7 + [I, I, I, P],
+    "repro_radix_argsort": [P] * 4 + [ctypes.c_longlong, I, I, P],
+    "repro_radix_argsort_device_launches": [I],
     "repro_bh_gauss": [P] * 6 + [I, I, I, F, P],
     "repro_flash_attention": [P] * 4 + [I] * 8 + [F, I, P],
+    "repro_flash_attention_wgmma": [P] * 4 + [I] * 8 + [F, P],
+    "repro_flash_attention_device_launches": [I, I],
 }
 
 
@@ -169,6 +172,8 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        lib.repro_radix_argsort_workspace.argtypes = [I, I]
+        lib.repro_radix_argsort_workspace.restype = ctypes.c_longlong
         lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -5,10 +5,13 @@ attention_ref``: the naive full softmax in float32 over K and V repeated to
 the q heads (kv head = q head // (Hq // Hkv)), masked scores set to
 NEG = -1e30, top-left positions (k_pos <= q_pos for causal, q_pos - k_pos <
 window for a window), the output cast to q's dtype. ``flash_attention_fwd``
-is the wrapper of the hand-written CUDA kernel ``csrc/flash_attention.cu``
-(``mma.sync`` for bf16, FFMA for f32): on a CUDA tensor it launches the
-kernel or raises (a dtype other than f32/bf16, or a head dimension that is
-not a multiple of 16 in [16, 256]); on a CPU tensor it runs the plain version.
+is the wrapper of the hand-written CUDA kernels ``csrc/flash_attention.cu``:
+on a CUDA tensor it launches one of them or raises (a dtype other than
+f32/bf16, or a head dimension that is not a multiple of 16 in [16, 256]); on
+a CPU tensor it runs the plain version. ``kernel_for`` picks the kernel from
+the dtype and head dimension alone, before any launch: bf16 at D = 64, 128
+or 256 runs on ``wgmma`` with TMA loads, other bf16 head dimensions on
+``mma.sync``, f32 on FFMA.
 """
 from __future__ import annotations
 
@@ -21,6 +24,24 @@ from repro_torch.kernels import _build
 NEG = -1e30
 
 launches = _build.LaunchCounter("flash_attention")
+WGMMA_HEAD_DIMS = (64, 128, 256)
+KERNELS = ("wgmma_bf16", "mma_sync_bf16", "ffma_f32")
+
+
+def kernel_for(dtype, d: int) -> str:
+    """The kernel that takes q of this dtype and head dimension."""
+    if dtype == torch.float32:
+        return "ffma_f32"
+    return "wgmma_bf16" if d in WGMMA_HEAD_DIMS else "mma_sync_bf16"
+
+
+def device_launches(*, reset: bool = False) -> dict:
+    """Launches of each kernel on the card, counted in
+    ``csrc/flash_attention.cu`` beside each launch (not by this wrapper);
+    ``reset`` sets the counts to 0 after reading them."""
+    lib = _build.library()
+    return {name: int(lib.repro_flash_attention_device_launches(i, int(reset)))
+            for i, name in enumerate(KERNELS)}
 
 
 def _window(window, s: int) -> int:
@@ -100,14 +121,24 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0):
                          f"multiple of 16 in [16, 256]")
     if skv == 0:
         raise ValueError("flash_attention: no keys")
+    kernel = kernel_for(q.dtype, d)
     qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    if kernel == "wgmma_bf16":
+        # TMA reads from 16-byte aligned bases only: a view that starts
+        # mid-row is copied (the allocator's own tensors are aligned)
+        qc, kc, vc = (t if t.data_ptr() % 16 == 0 else t.clone()
+                      for t in (qc, kc, vc))
     out = torch.empty_like(qc)
     _build.require_cuda("flash_attention", qc, kc, vc, out)
     lib = _build.library()
-    _build.check(lib.repro_flash_attention(
-        qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(), b, hq,
-        hkv, s, skv, d, int(bool(causal)), _window(window, s),
-        1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16), _build.stream()),
-        "flash_attention")
+    args = (qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(), b,
+            hq, hkv, s, skv, d, int(bool(causal)), _window(window, s),
+            1.0 / math.sqrt(d))
+    if kernel == "wgmma_bf16":
+        rc = lib.repro_flash_attention_wgmma(*args, _build.stream())
+    else:
+        rc = lib.repro_flash_attention(
+            *args, int(q.dtype == torch.bfloat16), _build.stream())
+    _build.check(rc, "flash_attention")
     launches.add()
     return out

@@ -14,11 +14,14 @@ keys and the order, one stable 8-bit digit pass per byte of ``key_bits``
 and a negative key sorts by its two's-complement bytes.
 
 ``morton_sort`` and ``radix_argsort`` are the wrappers of the hand-written
-CUDA kernels ``csrc/morton_sort.cu`` and ``csrc/radix_argsort.cu``: on a CUDA
-tensor they launch the kernel or raise; on a CPU tensor they run the plain
-version.
+CUDA kernels ``csrc/morton_sort.cu`` and ``csrc/radix_argsort.cu`` (a
+onesweep sort: one digit-count launch, then one launch a pass with
+decoupled look-back): on a CUDA tensor they launch the kernel or raise; on a
+CPU tensor they run the plain version.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -27,7 +30,9 @@ from repro_torch.kernels import _build
 
 DIGIT_BITS = 8
 TILE = 256          # elements per block of the CUDA kernel (csrc/morton_sort.cu)
-ARGSORT_TILE = 1024  # keys per block of csrc/radix_argsort.cu
+ARGSORT_TILE = 4096  # keys per onesweep tile of csrc/radix_argsort.cu
+ARGSORT_HIST_BLOCKS = 128  # at most, for its digit-count launch
+ARGSORT_MAX_KEYS = 1 << 30  # prefixes are 30-bit counts
 
 launches = _build.LaunchCounter("morton_sort")
 argsort_launches = _build.LaunchCounter("radix_argsort")
@@ -138,6 +143,20 @@ def radix_argsort_plain(keys, *, key_bits: int = 30):
     return torch.zeros_like(k).index_put_((rank,), k), order
 
 
+@functools.lru_cache(maxsize=64)
+def _argsort_workspace(n: int, passes: int) -> int:
+    """int32 words of scratch a call takes (laid out by the C entry)."""
+    return int(_build.library().repro_radix_argsort_workspace(n, passes))
+
+
+def device_launches(*, reset: bool = False) -> int:
+    """Kernel launches ``radix_argsort`` has made on the card, counted in
+    ``csrc/radix_argsort.cu`` beside each launch (one digit count, then one
+    onesweep launch a pass); ``reset`` sets the count to 0 after reading."""
+    return int(_build.library().repro_radix_argsort_device_launches(
+        int(reset)))
+
+
 def radix_argsort(keys, *, key_bits: int = 30):
     """Stable LSD radix argsort of (n,) int32 keys (K6). Returns
     ``(sorted_keys, order)``, both (n,) int32."""
@@ -150,22 +169,19 @@ def radix_argsort(keys, *, key_bits: int = 30):
     if key_bits > 32:
         raise ValueError(f"radix_argsort: key_bits {key_bits} above 32")
     n = keys.shape[0]
-    dev = keys.device
-    k = keys.to(torch.int32).contiguous()
-    tiles = max(-(-n // ARGSORT_TILE), 1)
-    out_k = torch.empty(n, dtype=torch.int32, device=dev)
-    out_i = torch.empty(n, dtype=torch.int32, device=dev)
-    tmp_k = torch.empty(n, dtype=torch.int32, device=dev)
-    tmp_i = torch.empty(n, dtype=torch.int32, device=dev)
-    # (256, tiles) per-tile digit counts, scanned in place; 256 digit totals
-    hist = torch.empty((1 << DIGIT_BITS, tiles), dtype=torch.int32, device=dev)
-    totals = torch.empty(1 << DIGIT_BITS, dtype=torch.int32, device=dev)
-    _build.require_cuda("radix_argsort", k, out_k, out_i, tmp_k, tmp_i, hist,
-                        totals)
-    lib = _build.library()
-    _build.check(lib.repro_radix_argsort(
-        k.data_ptr(), out_k.data_ptr(), out_i.data_ptr(), tmp_k.data_ptr(),
-        tmp_i.data_ptr(), hist.data_ptr(), totals.data_ptr(), n, tiles,
-        _passes(key_bits), _build.stream()), "radix_argsort")
+    if n >= ARGSORT_MAX_KEYS:
+        raise ValueError(f"radix_argsort: {n} keys; the look-back's 30-bit "
+                         f"prefixes take fewer than 2**30")
+    k = keys if keys.dtype == torch.int32 and keys.is_contiguous() else \
+        keys.to(torch.int32).contiguous()
+    passes = _passes(key_bits)
+    words = _argsort_workspace(n, passes) if n else 0
+    out_k = torch.empty(n, dtype=torch.int32, device=k.device)
+    out_i = torch.empty(n, dtype=torch.int32, device=k.device)
+    work = torch.empty(max(words, 1), dtype=torch.int32, device=k.device)
+    _build.require_cuda("radix_argsort", k, out_k, out_i)
+    _build.check(_build.library().repro_radix_argsort(
+        k.data_ptr(), out_k.data_ptr(), out_i.data_ptr(), work.data_ptr(),
+        words, n, passes, _build.stream()), "radix_argsort")
     argsort_launches.add()
     return out_k, out_i

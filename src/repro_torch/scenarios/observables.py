@@ -20,6 +20,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.scenarios import regions as regions_mod
 
 RATE_HIST_MAX = 0.5   # rates are spikes/ms; 0.5 == 500 Hz ceiling
@@ -38,6 +39,10 @@ class Recorder(NamedTuple):
 
 def init_recorder(cap: int, nb: int, bins: int = 16,
                   device=None) -> Recorder:
+    """An empty ring of ``cap`` chunks over ``nb`` region buckets, on the
+    card unless ``device`` names another (``device.resolve_device``)."""
+    device = resolve_device(device)
+
     def z(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=device)
     return Recorder(0, z(cap, nb), z(cap, nb), z(cap, nb), z(cap, nb),

@@ -6,7 +6,9 @@
 >>> sim.stats()["synapses_formed"]
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; without a card
-and without that argument it raises instead of silently running on the CPU.
+and without that argument it raises instead of silently running on the CPU
+(``repro_torch.device.resolve_device``, which ``observables.init_recorder``
+and ``engine.init_state`` share, so the recorder above lands on the card too).
 ``run(k)`` is ``k`` sequential ``step()`` calls: all randomness is keyed by
 the chunk counter carried in the state and the per-step hash.
 """
@@ -14,25 +16,13 @@ from __future__ import annotations
 
 from typing import Optional
 
-import torch
-
 from repro_torch.core import engine
+from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
 from repro_torch.scenarios import observables
 from repro_torch.scenarios import protocol as proto
 from repro_torch.sim import phases as sim_phases
 from repro_torch.sim import registry
-
-
-def _resolve_device(device) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "Simulator runs on an NVIDIA GPU by default and none is "
-                "visible; pass device='cpu' to run the plain torch versions "
-                "on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 class Simulator:
@@ -50,7 +40,7 @@ class Simulator:
         self.cfg = cfg
         self.scenario = scenario
         self.num_ranks = num_ranks
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.ctx = sim_phases.make_context(cfg, 0, num_ranks, scenario,
                                            device=self.device)
         self._state: Optional[engine.BrainState] = None
@@ -89,6 +79,12 @@ class Simulator:
         ``observables.Recorder``) one row of per-region observables is
         recorded after every chunk and ``(state, recorder)`` is returned;
         without it, the final state."""
+        if recorder is not None and \
+                recorder.calcium.device != self.state.positions.device:
+            raise ValueError(
+                f"run: the recorder lies on {recorder.calcium.device} and "
+                f"the simulator on {self.device}; build it with "
+                f"observables.init_recorder(..., device=sim.device)")
         for _ in range(int(num_chunks)):
             st = self.step()
             if recorder is not None:

@@ -112,6 +112,22 @@ def test_fused_simulator_equals_reference_on_the_card(dev):
     assert torch.equal(out["reference"].neurons.v, out["fused"].neurons.v)
 
 
+def test_facade_docstring_example_runs_on_the_card(dev):
+    """``sim/api.py``'s own example, no device named anywhere: the
+    simulator, its state and the recorder all land on the card."""
+    scn = dataclasses.replace(library.lesion_rewiring(),
+                              events=(Lesion("core", t=100),))
+    nb = len(scn.regions) + 1
+    cfg = library.SMOKE_SCENARIO_CONFIG
+    sim = Simulator.from_config(cfg, scenario=scn)
+    sim.run(1)
+    state, rec = sim.run(1, recorder=observables.init_recorder(1, nb))
+    assert sim.stats()["synapses_formed"] >= 0
+    assert state.positions.device.type == "cuda"
+    assert rec.calcium.device.type == "cuda" and rec.idx == 1
+    assert engine.init_state(cfg, 0, 1).positions.device.type == "cuda"
+
+
 def _window_case(dev, n=1000, s=8, steps=13, num_ranks=1):
     g = torch.Generator(device=dev).manual_seed(1)
     state = (torch.randn(n, generator=g, device=dev) * 5 - 60,
@@ -273,6 +289,36 @@ def test_radix_argsort_out_of_range_and_negative_keys(dev, key_bits):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("n", [1, rs.ARGSORT_TILE - 1, rs.ARGSORT_TILE,
+                               rs.ARGSORT_TILE + 1, 77 * rs.ARGSORT_TILE + 3])
+@pytest.mark.parametrize("key_bits", [8, 30, 32])
+def test_radix_argsort_tiles_and_repeat(dev, n, key_bits):
+    """n of 1, one tile +- 1 and many tiles (the look-back crosses dozens):
+    bit-equal to the plain version, and a second call bitwise equal."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    keys = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=g,
+                         device=dev, dtype=torch.int32)
+    got = rs.radix_argsort(keys, key_bits=key_bits)
+    want = rs.radix_argsort_plain(keys, key_bits=key_bits)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    again = rs.radix_argsort(keys, key_bits=key_bits)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+@pytest.mark.parametrize("key_bits", [1, 10, 30])
+def test_radix_argsort_device_launches_per_call(dev, key_bits):
+    """One digit-count launch and one onesweep launch a pass, as counted in
+    csrc/radix_argsort.cu beside each launch, over two calls."""
+    keys = torch.randint(0, 2 ** 30, (100_000,), device=dev,
+                         dtype=torch.int32)
+    rs.device_launches(reset=True)
+    for _ in range(2):
+        rs.radix_argsort(keys, key_bits=key_bits)
+    torch.cuda.synchronize()
+    passes = -(-key_bits // 8)
+    assert rs.device_launches(reset=True) == 2 * (1 + passes)
+
+
 def test_bh_gauss_probs_equals_plain(dev):
     g = torch.Generator(device=dev).manual_seed(9)
     x = torch.rand(300, 3, generator=g, device=dev)
@@ -332,18 +378,95 @@ def test_flash_attention_equals_plain(dev, d, dtype, s, skv, causal, window):
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
-def test_flash_attention_rows_without_a_valid_key(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_rows_without_a_valid_key(dev, dtype):
     """With a window and Skv < S, rows q >= Skv + window - 1 see no key: the
-    kernel gives the full softmax's answer, the mean of V."""
+    kernel gives the full softmax's answer, the mean of V (bf16: the wgmma
+    kernel, whose 128-row tiles hold such rows)."""
     g = torch.Generator(device=dev).manual_seed(12)
-    q = torch.randn(1, 2, 200, 64, generator=g, device=dev)
-    k = torch.randn(1, 2, 70, 64, generator=g, device=dev)
-    v = torch.randn(1, 2, 70, 64, generator=g, device=dev)
+    q = torch.randn(1, 2, 200, 64, generator=g, device=dev).to(dtype)
+    k = torch.randn(1, 2, 70, 64, generator=g, device=dev).to(dtype)
+    v = torch.randn(1, 2, 70, 64, generator=g, device=dev).to(dtype)
     got = fa.flash_attention_fwd(q, k, v, causal=True, window=32)
     want = fa.flash_attention_plain(q, k, v, causal=True, window=32)
-    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
-    torch.testing.assert_close(got[:, :, 150], v.mean(dim=2), rtol=2e-5,
-                               atol=2e-5)
+    mean = v.float().mean(dim=2).to(dtype)
+    if dtype == torch.bfloat16:
+        lim = fa.bf16_error_bound(want, q, k, v, causal=True, window=32)
+        assert bool(((got.float() - want.float()).abs() <= lim).all())
+        lim_row = 2.0 ** -7 * mean.float().abs() + 1e-6
+        assert bool(((got[:, :, 150].float() - mean.float()).abs()
+                     <= lim_row).all())
+    else:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+        torch.testing.assert_close(got[:, :, 150], mean, rtol=2e-5,
+                                   atol=2e-5)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("ratio", [1, 4, 7])
+@pytest.mark.parametrize("s,skv,window", [
+    (127, 127, 0), (128, 128, 0), (129, 129, 0), (129, 127, 0),
+    (127, 129, 0), (300, 300, 100)])
+def test_flash_attention_wgmma_tiles(dev, d, ratio, s, skv, window):
+    """The bf16 wgmma kernel around its 128-row / 128-key (64 at D 256)
+    tiles, GQA ratios 1, 4 and 7, B = 2 (a tile crossing a head's end
+    would read the next head's rows), each element within the bound, and
+    a second call bitwise equal."""
+    g = torch.Generator(device=dev).manual_seed(s * 1000 + skv + d + ratio)
+    bf = torch.bfloat16
+    q = torch.randn(2, 2 * ratio, s, d, generator=g, device=dev).to(bf)
+    k = torch.randn(2, 2, skv, d, generator=g, device=dev).to(bf)
+    v = torch.randn(2, 2, skv, d, generator=g, device=dev).to(bf)
+    fa.device_launches(reset=True)
+    got = fa.flash_attention_fwd(q, k, v, causal=True, window=window)
+    assert fa.device_launches(reset=True)["wgmma_bf16"] == 1
+    want = fa.flash_attention_plain(q, k, v, causal=True, window=window)
+    lim = fa.bf16_error_bound(want, q, k, v, causal=True, window=window)
+    assert bool(((got.float() - want.float()).abs() <= lim).all())
+    again = fa.flash_attention_fwd(q, k, v, causal=True, window=window)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("d,dtype,kernel", [
+    (64, torch.bfloat16, "wgmma_bf16"), (128, torch.bfloat16, "wgmma_bf16"),
+    (256, torch.bfloat16, "wgmma_bf16"), (192, torch.bfloat16,
+                                          "mma_sync_bf16"),
+    (32, torch.bfloat16, "mma_sync_bf16"), (128, torch.float32, "ffma_f32")])
+def test_flash_attention_kernel_per_shape(dev, d, dtype, kernel):
+    """Each shape launches the kernel ``kernel_for`` names, once, as the
+    launches counted in csrc/flash_attention.cu show."""
+    q = torch.randn(1, 2, 64, d, device=dev).to(dtype)
+    fa.device_launches(reset=True)
+    fa.flash_attention_fwd(q, q, q)
+    assert fa.device_launches(reset=True) == {
+        k: int(k == kernel) for k in fa.KERNELS}
+
+
+@pytest.mark.parametrize("offset", [1, 8])
+def test_flash_attention_wgmma_takes_unaligned_views(dev, offset):
+    """TMA needs 16-byte aligned bases: q, k and v that start ``offset``
+    bf16 elements into their storage give the aligned inputs' output,
+    bitwise, on the wgmma kernel."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    bf = torch.bfloat16
+    n = 2 * 4 * 200 * 128
+
+    def view(heads):
+        base = torch.randn(offset + n // 4 * heads, generator=g,
+                           device=dev).to(bf)
+        return base[offset:].view(2, heads, 200, 128)
+
+    q, k, v = view(4), view(1), view(1)
+    assert q.data_ptr() % 16 == 2 * offset % 16
+    fa.device_launches(reset=True)
+    got = fa.flash_attention_fwd(q, k, v, causal=True)
+    assert fa.device_launches(reset=True)["wgmma_bf16"] == 1
+    want = fa.flash_attention_fwd(q.clone(), k.clone(), v.clone(),
+                                  causal=True)
+    assert torch.equal(got, want)
+    plain = fa.flash_attention_plain(q, k, v, causal=True)
+    lim = fa.bf16_error_bound(plain, q, k, v, causal=True)
+    assert bool(((got.float() - plain.float()).abs() <= lim).all())
 
 
 @pytest.mark.parametrize("d,dtype", [(24, torch.float32), (272, torch.float32),

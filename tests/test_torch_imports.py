@@ -63,6 +63,32 @@ def test_simulator_defaults_to_the_card():
             Simulator.from_config(SMOKE_CONFIG)
 
 
+def test_constructors_default_to_the_card():
+    """``init_recorder`` and ``init_state`` without a device resolve it as
+    the facade does: with no card they raise rather than build on the CPU
+    (the card tests check that they land on ``cuda`` where there is one)."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: tests/test_torch_cuda.py covers it")
+    from repro_torch.configs.msp_brain import SMOKE_CONFIG
+    from repro_torch.core import engine
+    from repro_torch.scenarios import observables
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        observables.init_recorder(4, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        engine.init_state(SMOKE_CONFIG, 0, 1)
+
+
+def test_run_refuses_a_recorder_on_another_device():
+    from repro_torch.configs.msp_brain import SMOKE_CONFIG
+    from repro_torch.scenarios import observables
+    from repro_torch.sim.api import Simulator
+    sim = Simulator.from_config(SMOKE_CONFIG, device="cpu")
+    rec = observables.init_recorder(2, 2, device="meta")
+    with pytest.raises(ValueError, match="recorder lies on meta"):
+        sim.run(1, recorder=rec)
+    assert sim.state.chunk == 0
+
+
 def test_config_validation_is_eager():
     from repro_torch.configs.msp_brain import SMOKE_CONFIG
     with pytest.raises(ValueError, match="activity_impl"):

@@ -88,6 +88,103 @@ def test_radix_argsort_out_of_range_and_negative_keys(key_bits):
     _assert_argsort(keys, key_bits, torch_sort=False)
 
 
+def _onesweep(keys, key_bits, tile, schedule_seed):
+    """The CUDA kernel's onesweep algorithm (``csrc/radix_argsort.cu``) in
+    torch: digit counts by rows of ``ARGSORT_HIST_BLOCKS`` strided blocks,
+    then per pass a stable rank of each tile's keys (8 warps of tile / 8
+    keys, each with its running digit counts) and a decoupled look-back over
+    (flag, count) words, the tiles publishing and resolving in a random
+    order (a tile waits while a word it needs is still 0)."""
+    k = torch.as_tensor(np.asarray(keys, np.int32)).to(torch.int64)
+    n, passes = k.shape[0], rs._passes(key_bits)
+    u = k & 0xFFFFFFFF
+    tiles = -(-n // tile)
+    blocks = min(tiles, rs.ARGSORT_HIST_BLOCKS)
+    hist_threads = 512
+    row = (torch.arange(n) % (blocks * hist_threads)) // hist_threads
+    rows = torch.zeros((blocks, passes, 256), dtype=torch.int64)
+    for p in range(passes):
+        rows[:, p].index_put_((row, (u >> 8 * p) & 255),
+                              torch.ones(n, dtype=torch.int64),
+                              accumulate=True)
+    rng = np.random.default_rng(schedule_seed)
+    src_k, src_i = k.clone(), torch.arange(n)
+    for p in range(passes):
+        digit = ((src_k & 0xFFFFFFFF) >> 8 * p) & 255
+        pad = tiles * tile - n
+        dpad = torch.cat([digit, torch.full((pad,), 256)]).view(tiles, tile)
+        onehot = torch.nn.functional.one_hot(dpad, 257)[..., :256]
+        warp = onehot.view(tiles, 8, tile // 8, 256)
+        rank = (warp.cumsum(2) - warp).mul(warp).sum(-1).view(tiles, tile)
+        wcount = warp.sum(2)                              # (tiles, 8, 256)
+        woff = wcount.cumsum(1) - wcount
+        count = wcount.sum(1)                             # (tiles, 256)
+        loc = count.cumsum(1) - count
+        totals = rows[:, p].sum(0)
+        start = totals.cumsum(0) - totals
+        status = [None] * tiles          # None: 0; ("A" | "I", counts)
+        before = [None] * tiles
+        published = [t == 0 for t in range(tiles)]
+        while any(b is None for b in before):
+            t = int(rng.integers(tiles))
+            if before[t] is not None:
+                continue
+            if not published[t]:
+                status[t], published[t] = ("A", count[t]), True
+                continue
+            if t == 0:
+                acc = start.clone()
+            else:
+                acc, j = torch.zeros(256, dtype=torch.int64), t - 1
+                while status[j] is not None and status[j][0] == "A":
+                    acc, j = acc + status[j][1], j - 1
+                if status[j] is None:
+                    continue                     # still waiting on tile j
+                acc = acc + status[j][1]
+            before[t] = acc
+            status[t] = ("I", acc + count[t])
+        dst_k = torch.zeros(n, dtype=torch.int64)
+        dst_i = torch.zeros(n, dtype=torch.int64)
+        for t in range(tiles):
+            e = torch.arange(t * tile, min((t + 1) * tile, n))
+            j = e - t * tile
+            d = digit[e]
+            w = j // (tile // 8)
+            pos_in_tile = loc[t, d] + woff[t, w, d] + rank[t, j]
+            dst = before[t][d] + pos_in_tile - loc[t, d]
+            dst_k[dst], dst_i[dst] = src_k[e], src_i[e]
+        src_k, src_i = dst_k, dst_i
+    return src_k.to(torch.int32), src_i.to(torch.int32)
+
+
+def _onesweep_cases():
+    rng = np.random.default_rng(11)
+    out = {name: keys for name, keys in ADVERSARIAL.items()}
+    out["one"] = np.array([5])
+    out["random_ragged"] = rng.integers(-2 ** 31, 2 ** 31 - 1, 3 * 1024 + 5)
+    for m in (1023, 1025, 4095, 4097):
+        out[f"one_tile_{m}"] = rng.integers(0, 2 ** 30, m)
+    return out
+
+
+ONESWEEP_CASES = _onesweep_cases()
+
+
+@pytest.mark.parametrize("name", sorted(ONESWEEP_CASES))
+@pytest.mark.parametrize("tile", [256, 1024, rs.ARGSORT_TILE])
+@pytest.mark.parametrize("key_bits", [1, 8, 10, 30, 32])
+def test_onesweep_emulation_equals_plain(name, tile, key_bits):
+    """The kernel's algorithm, whatever order its tiles finish in, is
+    bit-equal to the plain version: several tile sizes, n of 1, one tile
+    +- 1, ragged, all-equal and every adversarial set, negative keys."""
+    keys = ONESWEEP_CASES[name]
+    want = rs.radix_argsort_plain(_t(np.asarray(keys, np.int32)),
+                                  key_bits=key_bits)
+    for seed in (0, 1):
+        got = _onesweep(keys, key_bits, tile, schedule_seed=seed)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 # ------------------------------------------------------------------ K7
 @pytest.mark.parametrize("n,m", [(64, 64), (128, 192), (100, 60), (300, 257)])
 @pytest.mark.parametrize("sigma", [0.1, 0.25, 0.75])

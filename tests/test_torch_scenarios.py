@@ -153,7 +153,7 @@ def test_record_and_flush():
     rng = np.random.default_rng(3)
     n, s, cap = 150, 6, 3
     jrec = jobs.init_recorder(cap, 3)
-    trec = tobs.init_recorder(cap, 3)
+    trec = tobs.init_recorder(cap, 3, device="cpu")
     for k in range(5):                            # wraps the ring
         pos = _positions(n, seed=k)
         ca = rng.random(n).astype(np.float32)
@@ -192,7 +192,8 @@ def test_lesion_run_against_jax_simulator():
     tsim = TSim.from_config(dataclasses.replace(tlib.SMOKE_SCENARIO_CONFIG,
                                                 **FUSED), scenario=tscn,
                             device="cpu")
-    jrec, trec = jobs.init_recorder(chunks, 2), tobs.init_recorder(chunks, 2)
+    jrec = jobs.init_recorder(chunks, 2)
+    trec = tobs.init_recorder(chunks, 2, device="cpu")
     first_divergence = None
     for c in range(chunks):
         jst, jrec = jsim.run(1, recorder=jrec)
@@ -236,7 +237,7 @@ def test_fused_equals_reference_under_each_scenario(name):
                                   **{k: impl for k in FUSED})
         sim = TSim.from_config(cfg, scenario=scn, device="cpu")
         st, rec = sim.run(4, recorder=tobs.init_recorder(
-            4, len(scn.regions) + 1))
+            4, len(scn.regions) + 1, device="cpu"))
         out[impl] = (st, tobs.flush(rec), sim.stats())
     a, b = out["reference"], out["fused"]
     for f in a[0].neurons._fields:

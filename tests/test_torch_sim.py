@@ -145,7 +145,8 @@ def test_simulator_runs_a_scenario_with_a_recorder():
                               events=(Lesion("core", t=100),))
     sim = TSim.from_config(library.SMOKE_SCENARIO_CONFIG, scenario=scn,
                            device="cpu")
-    st, rec = sim.run(2, recorder=observables.init_recorder(2, 2))
+    st, rec = sim.run(2, recorder=observables.init_recorder(2, 2,
+                                                             device="cpu"))
     assert st is sim.state and rec.idx == 2
     hist = observables.flush(rec)
     # the lesion at step 100 lands at the update closing chunk 0
