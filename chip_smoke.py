@@ -39,13 +39,25 @@ import time
 H100_BYTES_PER_S = 3.35e12    # HBM3 rate of an H100 SXM (data sheet)
 H100_FP32_OPS_PER_S = 67e12   # FP32 rate outside the tensor cores (data sheet)
 H100_BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core rate (data sheet)
+# INT32: an SM issues 64 INT32 results a clock (half its 128 FP32 lanes;
+# Hopper white paper), on 132 SMs at the 1,980 MHz boost clock that also
+# gives the FP32 figure (128 x 2 x 132 x 1.98e9 = 67e12): 16.7e12 a second.
+# The integer kernels' (K1, K3-K6, and K2's hashing) integer operations are
+# counted at this rate, their float operations at the FP32 rate; the two
+# pipes issue side by side, so the bound takes the larger time.
+H100_INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
 # operation counts used for the bounds (32-bit integer or float operations)
-HASH_OPS = 120        # one Threefry-2x32: 20 rounds of add/rotate/xor + keys
+# one Threefry-2x32 (csrc/hash.cuh): 2 initial adds, 20 rounds of add,
+# rotate (one funnel shift) and xor, 5 key injections of 2 adds (the key
+# schedule is loop-invariant)
+HASH_OPS = 2 + 20 * 3 + 5 * 2
 NEURON_OPS = 60       # Box-Muller tail + Izhikevich + calcium + elements
-EDGE_OPS = 8          # load, test, rank split, flag/rate load, add
+# a slot of K1's row a step (rank split and rate are decoded once a window):
+# code load, local test, word index, word load, bit shift, bit test
+SLOT_OPS = 6
 NODE_OPS = 40         # node statistics: 3 divisions, distance, sqrt, exp
-GUMBEL_OPS = HASH_OPS + 20
+GUMBEL_LOG_OPS = 20   # the two logs of a Gumbel draw (float)
 MORTON_OPS = 40       # 3 scale+truncate+clamp, 3 bit spreads, rebase, rank
 APPLY_OPS = 8         # per table slot or message/request: load, compare, move
 ROUTE_OPS = 6         # per flattened entry: load, divide, rank, store
@@ -110,9 +122,13 @@ def device_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def bound(nbytes: float, ops: float, ops_per_s: float = H100_FP32_OPS_PER_S):
+def bound(nbytes: float, int_ops: float = 0.0, fp_ops: float = 0.0,
+          fp_ops_per_s: float = H100_FP32_OPS_PER_S):
+    """The least time for the work: bytes at the HBM rate, or integer and
+    float operations at their own rates (run side by side), whichever is
+    longer. Returns (ms, "bytes" or "operations")."""
     tb = nbytes / H100_BYTES_PER_S * 1e3
-    to = ops / ops_per_s * 1e3
+    to = max(int_ops / H100_INT32_OPS_PER_S, fp_ops / fp_ops_per_s) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -259,8 +275,11 @@ def k1_compare(cfg, num_ranks=4, rank=1, chunk=2, tables=None):
 
 
 def k1_timing(cfg, rates_ranks: int, rank: int, lesions=None):
-    """Times at the main path's shapes (R=1: every edge local; the scenario
-    path's one lesion window)."""
+    """Times of one window at the main path's shapes (R=1: every edge local;
+    the scenario path's one lesion window) or with remote edges (R=4, rank
+    1), and the kernel's device launches in one call (read from the
+    source's counter)."""
+    import torch
     from repro_torch.kernels import activity_fused as af
     state, edges, w, rates, izh = k1_inputs(cfg, rates_ranks, rank)
     kw = dict(seed=cfg.seed, num_steps=cfg.rate_period, izh=izh,
@@ -268,6 +287,10 @@ def k1_timing(cfg, rates_ranks: int, rank: int, lesions=None):
               lesions=lesions)
     args = (state, edges, w, rates, cfg.background_mean, cfg.background_std,
             0, rank)
+    af.device_launches(reset=True)
+    af.activity_window(*args, **kw)
+    torch.cuda.synchronize()
+    per_window = af.device_launches(reset=True)
     ms = cuda_ms(lambda: af.activity_window(*args, **kw), reps=5)
     dev_ms = device_ms(lambda: af.activity_window(*args, **kw), 5)
     plain_ms = cuda_ms(lambda: af.window_plain(*args, **kw), reps=1)
@@ -277,9 +300,11 @@ def k1_timing(cfg, rates_ranks: int, rank: int, lesions=None):
     nbytes = (25 * n + 4 * n * s + 4 * n + 4 * rates.numel() + 8 * n
               + 24 * n + 25 * n + 4 * steps
               + (0 if lesions is None else lesions[0].numel()))
-    ops = steps * (n * (HASH_OPS + NEURON_OPS) + valid * EDGE_OPS
-                   + remote * HASH_OPS)
-    return ms, dev_ms, plain_ms, bound(nbytes, ops)
+    # a step: the noise draw a neuron, SLOT_OPS a used slot, and a Threefry
+    # draw a remote slot
+    int_ops = steps * (n * HASH_OPS + valid * SLOT_OPS + remote * HASH_OPS)
+    fp_ops = steps * n * NEURON_OPS
+    return ms, dev_ms, plain_ms, bound(nbytes, int_ops, fp_ops), per_window
 
 
 def k2_inputs(cfg):
@@ -329,12 +354,15 @@ def k2_compare_and_time(cfg):
     n_levels = kw["n_levels"]
     rounds = int(kd.sum())
     m = int(args[2].shape[1])
-    # at least the 8 children per expansion sub-round and 8 sampled entries
-    ops = rounds * (n_levels * 8 * NODE_OPS + 8 * (NODE_OPS + GUMBEL_OPS)) \
-        + q * m * (NODE_OPS + GUMBEL_OPS)
+    # at least the 8 children per expansion sub-round and 8 sampled entries,
+    # each a Gumbel draw (a Threefry and two logs)
+    draws = rounds * 8 + q * m
+    int_ops = draws * HASH_OPS
+    fp_ops = rounds * n_levels * 8 * NODE_OPS + draws * (NODE_OPS
+                                                         + GUMBEL_LOG_OPS)
     nbytes = sum(a.numel() * a.element_size() for a in args[:9]) + q * 9
-    return (ms, dev_ms, plain_ms, bound(nbytes, ops), max(diff_t, diff_d),
-            max_abs)
+    return (ms, dev_ms, plain_ms, bound(nbytes, int_ops, fp_ops),
+            max(diff_t, diff_d), max_abs)
 
 
 def _int_diff(got, want) -> float:
@@ -418,19 +446,25 @@ def check_k4(cfg):
     res = {}
     for name, args, q in (("drain", drain, (qm, 8)),
                           ("accept", accept, (8, qr))):
+        sa.device_launches(reset=True)
         got = sa.synapse_apply(*args)
+        torch.cuda.synchronize()
+        per_call = sa.device_launches(reset=True)
         want = sa.synapse_apply_plain(*args)
         diff = _check_exact(f"K4 synapse_apply ({name})", got, want,
                             {"n": n, "S": s, "qm": q[0], "qr": q[1],
                              "changed_rows": int((got[0] != edges).any(1)
                                                  .sum()),
-                             "accepted": int(got[1].sum())})
+                             "accepted": int(got[1].sum()),
+                             "device_launches_per_call": per_call})
+        if per_call != 1:
+            fail(f"K4 ({name}): {per_call} device launches in one call")
         ms = cuda_ms(lambda: sa.synapse_apply(*args), reps=5)
         dev_ms = device_ms(lambda: sa.synapse_apply(*args), 5)
         plain_ms = cuda_ms(lambda: sa.synapse_apply_plain(*args), reps=1)
         ops = (n * s + q[0] + q[1]) * APPLY_OPS
         res[name] = (ms, plain_ms, bound(_apply_bytes(n, s, *q), ops), diff,
-                     dev_ms)
+                     dev_ms, per_call)
     return res
 
 
@@ -616,7 +650,7 @@ def check_kernel_api(cfg, inp, out, counts, k9_kernels, card):
         dev_ms = device_ms(lambda: ops.fused_neuron_step(*x0, cfg,
                                                          params=params), 100)
         nbytes = (45 if params is None else 69) * n
-        b = bound(nbytes, n * NEURON_STEP_OPS)
+        b = bound(nbytes, fp_ops=n * NEURON_STEP_OPS)
         lines.append({"kernel": "K8 neuron_step", "variant": name, "n": n,
                       "calls": cfg.rate_period, "equal": exact,
                       "deterministic": _same(got, again),
@@ -688,7 +722,7 @@ def check_kernel_api(cfg, inp, out, counts, k9_kernels, card):
     plain_ms = cuda_ms(lambda: bg.bh_gauss_plain(x, y, w, sigma=cfg.sigma),
                        reps=1)
     b = bound(12 * nq + 16 * mc + 4 * nq * mc + 4 * nq,
-              nq * mc * GAUSS_OPS)
+              fp_ops=nq * mc * GAUSS_OPS)
     lines.append({"kernel": "K7 bh_gauss_probs", "N": nq, "M": mc,
                   "sigma": cfg.sigma, "P_equal": p_equal,
                   "rowsum_max_rel_err": rel, "deterministic": det, "ms": ms,
@@ -753,7 +787,7 @@ def check_kernel_api(cfg, inp, out, counts, k9_kernels, card):
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         rate = H100_BF16_OPS_PER_S if q.dtype == torch.bfloat16 \
             else H100_FP32_OPS_PER_S
-        b = bound(nbytes, 4 * d * pairs, rate)
+        b = bound(nbytes, fp_ops=4 * d * pairs, fp_ops_per_s=rate)
         lines.append({"kernel": "K9 flash_attention", "shape": label,
                       "device_kernel": kernel,
                       "device_launches_per_call": sum(ran.values()),
@@ -866,7 +900,7 @@ def fused_vs_reference(base_cfg, scenario, chunks: int, exact_kernels: bool):
 
 
 def check_path(label, sim, cfg, warm, per_chunk, flags, counts,
-               scenario=None, rec=None):
+               scenario=None, rec=None, device_counts=None):
     """Health, finiteness and shapes of a main-path run, and for the
     scenario path the recorder's rows of the lesioned region. Returns the
     counter names compared by the determinism check."""
@@ -892,7 +926,8 @@ def check_path(label, sim, cfg, warm, per_chunk, flags, counts,
         "neurons": n, "S": cfg.max_synapses, "chunks": len(per_chunk) + 1,
         "warmup_chunk_ms": warm, "chunk_ms": per_chunk,
         "median_chunk_ms": sorted(per_chunk)[len(per_chunk) // 2],
-        "launches": counts, "health_flags_per_chunk": flags,
+        "launches": counts, "device_launches": device_counts,
+        "health_flags_per_chunk": flags,
         "counters": {k: stats[k] for k in shown}, "finite": finite,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     hist = None
@@ -1023,23 +1058,35 @@ def main() -> int:
     k1 = k1_compare(slice_cfg)
     k1s = k1_compare(all_fused, num_ranks=1, rank=0,
                      tables=k1_scenario_tables(all_fused, chunk=2))
-    k1_ms, k1_dev, k1_plain, (k1_bound, k1_by) = k1_timing(
+    k1_ms, k1_dev, k1_plain, (k1_bound, k1_by), k1_launches = k1_timing(
         all_fused, 1, 0, lesions=scenario_lesions(all_fused, scn))
+    k1r4 = k1_timing(all_fused, 4, 1)
+    for per_window in (k1_launches, k1r4[4]):
+        if sum(per_window.values()) != 1 or per_window["staged"] != 1:
+            fail(f"K1: {per_window} device launches in one window, not one "
+                 f"staged launch")
     k2_ms, k2_dev, k2_plain, (k2_bound, k2_by), k2_err, k2_abs = \
         k2_compare_and_time(slice_cfg)
     k3 = check_k3(all_fused)
     k4 = check_k4(all_fused)
     k5 = check_k5(all_fused)
     # device_ms: the calls queued behind a device-side sleep, the host's
-    # work hidden (K1: one 100-step window, 100 launches)
+    # work hidden (K1: one 100-step window, one launch)
     emit({"phase": "kernel_times", "card": card, "K1_ms": k1_ms,
-          "K1_device_ms": k1_dev, "K1_plain_ms": k1_plain, "K2_ms": k2_ms,
+          "K1_device_ms": k1_dev, "K1_plain_ms": k1_plain,
+          "K1_bound_ms": k1_bound,
+          "K1_device_launches_per_window": k1_launches,
+          "K1_R4_ms": k1r4[0], "K1_R4_device_ms": k1r4[1],
+          "K1_R4_plain_ms": k1r4[2], "K1_R4_bound_ms": k1r4[3][0],
+          "K1_R4_bound_by": k1r4[3][1],
+          "K1_R4_device_launches_per_window": k1r4[4], "K2_ms": k2_ms,
           "K2_device_ms": k2_dev, "K2_plain_ms": k2_plain,
           "K3_ms": k3[0], "K3_device_ms": k3[4], "K3_plain_ms": k3[1],
           "K4_drain_ms": k4["drain"][0],
           "K4_drain_device_ms": k4["drain"][4],
           "K4_drain_plain_ms": k4["drain"][1],
           "K4_drain_bound_ms": k4["drain"][2][0],
+          "K4_device_launches_per_call": k4["drain"][5],
           "K4_accept_ms": k4["accept"][0],
           "K4_accept_device_ms": k4["accept"][4],
           "K4_accept_plain_ms": k4["accept"][1],
@@ -1075,8 +1122,9 @@ def main() -> int:
     chunks = len(per_chunk) + 1
     keys = check_path("main_path", sim, slice_cfg, warm, per_chunk, flags,
                       counts)
-    if counts["activity_window"] != chunks * slice_cfg.rate_period:
-        fail(f"K1 launched {counts['activity_window']} times")
+    if counts["activity_window"] != chunks:
+        fail(f"K1 launched {counts['activity_window']} times, not once a "
+             f"window")
     if counts["bh_traverse"] < chunks:
         fail(f"K2 launched {counts['bh_traverse']} times")
     sim2, _, _, _, _ = run_main_path(slice_cfg, 2)
@@ -1090,19 +1138,30 @@ def main() -> int:
 
     # ---- path 2: the scenario through the lesion, all five kernels ------
     chunks = 12
+    from repro_torch.kernels import activity_fused as af
+    from repro_torch.kernels import synapse_apply as sa
     _build.reset_launch_counts()
+    af.device_launches(reset=True)
+    sa.device_launches(reset=True)
     sim, rec, warm, per_chunk, flags = run_main_path(all_fused, chunks - 1,
                                                      scn)
     counts = _build.launch_counts()
+    device_counts = {"activity_window": af.device_launches(reset=True),
+                     "synapse_apply": sa.device_launches(reset=True)}
     keys = check_path("scenario_path", sim, all_fused, warm, per_chunk,
-                      flags, counts, scenario=scn, rec=rec)
-    want = {"activity_window": chunks * all_fused.rate_period,
-            "morton_sort": chunks, "synapse_apply": 3 * chunks,
-            "route_build": 2 * chunks}
+                      flags, counts, scenario=scn, rec=rec,
+                      device_counts=device_counts)
+    want = {"activity_window": chunks, "morton_sort": chunks,
+            "synapse_apply": 3 * chunks, "route_build": 2 * chunks}
     for name, k in want.items():
         if counts[name] != k:
             fail(f"{name} launched {counts[name]} times on the scenario "
                  f"path, not {k}")
+    if device_counts["activity_window"] != {"staged": chunks,
+                                            "streaming": 0} or \
+            device_counts["synapse_apply"] != 3 * chunks:
+        fail(f"the sources counted {device_counts} device launches on the "
+             f"scenario path, not {chunks} staged K1 and {3 * chunks} K4")
     if counts["bh_traverse"] < chunks:
         fail(f"K2 launched {counts['bh_traverse']} times")
     scenario_determinism(sim, rec, all_fused, scn, chunks, keys, card)
@@ -1114,7 +1173,10 @@ def main() -> int:
          "launches": counts["activity_window"],
          "max_abs_err": max(k1["max_abs_err"], k1s["max_abs_err"]),
          "ms": k1_ms, "device_ms": k1_dev, "plain_ms": k1_plain,
-         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
+         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
+         "device_launches_per_window": sum(k1_launches.values()),
+         "R4": {"ms": k1r4[0], "device_ms": k1r4[1], "plain_ms": k1r4[2],
+                "bound_ms": k1r4[3][0], "bound_by": k1r4[3][1]}},
         {"name": "bh_traverse", "route": "cuda",
          "source": "src/repro_torch/csrc/bh_traverse.cu",
          "replaces": "src/repro/kernels/bh_traverse.py:77",
@@ -1136,7 +1198,10 @@ def main() -> int:
          "ms": k4["drain"][0], "device_ms": k4["drain"][4],
          "plain_ms": k4["drain"][1],
          "bound_ms": k4["drain"][2][0], "bound_by": k4["drain"][2][1],
-         "library_ms": None},
+         "library_ms": None, "device_launches_per_call": k4["drain"][5],
+         "accept": {"ms": k4["accept"][0], "device_ms": k4["accept"][4],
+                    "plain_ms": k4["accept"][1],
+                    "bound_ms": k4["accept"][2][0]}},
         {"name": "route_build", "route": "cuda",
          "source": "src/repro_torch/csrc/synapse_apply.cu",
          "replaces": "src/repro/kernels/synapse_apply.py:95",

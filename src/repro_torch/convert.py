@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import BrainState
+from repro_torch.device import resolve_device
 from repro_torch.core.neuron import NeuronParams, NeuronState
 from repro_torch.scenarios import protocol
 from repro_torch.scenarios.populations import PopulationSpec
@@ -30,8 +31,10 @@ def _t(x, device):
     return None if x is None else torch.from_numpy(np.array(x)).to(device)
 
 
-def state_from_numpy(tree, device="cpu") -> BrainState:
-    """A reference state (numpy leaves) -> the port's BrainState."""
+def state_from_numpy(tree, device=None) -> BrainState:
+    """A reference state (numpy leaves) -> the port's BrainState on
+    ``device`` (the card when None, as every entry point)."""
+    device = resolve_device(device)
     neurons = NeuronState(*(_t(getattr(tree.neurons, f), device)
                             for f in _NEURON_FIELDS))
     s = tree.stats
@@ -95,11 +98,13 @@ def scenario_from_reference(obj) -> protocol.Scenario:
         num_chunks=obj.num_chunks)
 
 
-def neuron_params_from_numpy(obj, device="cpu") -> NeuronParams:
+def neuron_params_from_numpy(obj, device=None) -> NeuronParams:
     """A reference ``NeuronParams`` or population table (fields izh_a ..
     izh_d, growth_rate, target_calcium; numpy arrays or scalars) -> the
     port's ``NeuronParams``: a scalar stays a Python float, an array becomes
-    a float32 tensor on ``device``."""
+    a float32 tensor on ``device`` (the card when None, as every entry
+    point)."""
+    device = resolve_device(device)
     def conv(x):
         if np.ndim(x) == 0:
             return float(x)

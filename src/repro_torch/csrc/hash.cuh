@@ -6,8 +6,9 @@
 // Barnes-Hut traversal (K2); repro_torch/kernels/hash.py is the plain torch
 // version and the two are held bit-equal on the card.
 //
-// Bound on the H100: pure 32-bit integer work (20 rounds of add / rotate /
-// xor), about 120 integer operations per call, no memory traffic. The callers
+// Bound on the H100: pure 32-bit integer work, 72 operations per call (2
+// initial adds, 20 rounds of add / rotate / xor, 5 key injections of 2 adds;
+// the key schedule is loop-invariant), no memory traffic. The callers
 // skip it where its result is masked anyway (local or empty edges, invalid
 // frontier entries).
 //

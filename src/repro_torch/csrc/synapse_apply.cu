@@ -21,18 +21,31 @@
 // agree bit for bit.
 //
 // K4 design. The JAX form lexsorts the q + n*S message and slot items; here
-// the work is per row. Messages and requests are grouped by row with atomic
-// counters (count, one-block exclusive scan, place): the placement order
-// inside a row is arbitrary, and nothing downstream depends on it, because
+// the work is per row. Messages and requests are grouped by row, and the
+// placement order inside a row is arbitrary: nothing downstream depends on
+// it, because
 //   - a slot j holding gid g dies iff #{k < j : edge[k] == g} is below the
 //     number of valid messages (row, g) — a count, not an order;
 //   - the accepted requests are the cap smallest by the total order
 //     (priority, request index), found by cap rounds of a warp argmin over
 //     the row's requests, each round above the previous pick.
-// One warp per row (S <= 32: one lane per slot) kills, compacts by ballot and
-// popc, and writes the accepted sources at base + rank. A row's cost is
-// O(S * (S + messages / 32) + cap * requests / 32): a row swamped with
-// requests costs cap passes over them, not a sort.
+// The grouping and the rows are ONE cooperative launch (every block
+// resident, cudaLaunchCooperativeKernel), in five phases with a grid.sync()
+// between them, so nothing has to be zero beforehand and no phase is a
+// single block:
+//   0. zero the 2n per-row counts and write the accept mask in full (0);
+//   1. count: each valid message or request takes its rank inside its row
+//      from the atomicAdd that counts it (grid-stride, coalesced);
+//   2. scan: block b owns a contiguous range of rows and scans the two count
+//      arrays over it in coalesced tiles of 256 (a block scan with a carry),
+//      writing row offsets local to the range and the range's totals;
+//   3. every block scans the ranges' totals into shared memory (a thread a
+//      run of them, one block scan), so a row's offset is its local offset
+//      plus its range's prefix; the items are placed at offset + rank;
+//   4. rows: one warp per row (S <= 32: one lane per slot) kills, compacts by
+//      ballot and popc, and writes the accepted sources at base + rank. A
+//      row's cost is O(S * (S + messages / 32) + cap * requests / 32): a row
+//      swamped with requests costs cap passes over them, not a sort.
 //
 // K5 design. A stable partition is three passes: per-tile bucket counts
 // (tiles of 2,048 entries, shared-memory counters), one block that scans the
@@ -43,12 +56,18 @@
 //
 // Bound on the H100: both move bytes with a few integer operations each. K4
 // reads the (n, S) table and writes it back (16.8 MB at n = 65,536, S = 32)
-// plus the messages and requests; K5 reads 2 * n * S int32 (16.8 MB) and
-// writes R * cap * 8 bytes. Both are several launches (counts, scan, place,
-// rows), and the one-block scans are serial over n / 1024 or tiles / 1024
-// items per thread; those are what a later PR would fuse.
+// plus the messages and requests, and about 24 bytes a row and 16 an item of
+// its own scratch, with four grid barriers. K5 reads 2 * n * S int32 (16.8
+// MB) and writes R * cap * 8 bytes in three launches; its one-block scan
+// runs over tiles / 1024 items a thread (1,024 tiles at n = 65,536), cheap
+// beside its passes.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "device_facts.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -89,90 +108,44 @@ __device__ int block_exclusive_sum(int x, int* total) {
 }
 
 // ------------------------------------------------------------------ K4
-__global__ void apply_count(const int* __restrict__ msg_lid,
-                            const unsigned char* __restrict__ msg_valid,
-                            const int* __restrict__ req_lid,
-                            const unsigned char* __restrict__ req_valid,
-                            int* __restrict__ msg_cnt,
-                            int* __restrict__ req_cnt, int qm, int qr, int n) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k < qm && msg_valid[k]) {
-    const int r = msg_lid[k];
-    if (r >= 0 && r < n) atomicAdd(msg_cnt + r, 1);
-  }
-  if (k < qr && req_valid[k]) {
-    const int r = req_lid[k];
-    if (r >= 0 && r < n) atomicAdd(req_cnt + r, 1);
-  }
-}
+constexpr int kApplyThreads = 256;
+constexpr int kApplyMaxGrid = 2048;
 
-// One block: off[i] = sum(cnt[0..i)) for both arrays (len n each).
-__global__ void apply_scan(const int* __restrict__ msg_cnt,
-                           const int* __restrict__ req_cnt,
-                           int* __restrict__ msg_off,
-                           int* __restrict__ req_off, int n) {
-  const int per = (n + blockDim.x - 1) / blockDim.x;
-  const int lo = min((int)threadIdx.x * per, n);
-  const int hi = min(lo + per, n);
-  for (int a = 0; a < 2; ++a) {
-    const int* cnt = a == 0 ? msg_cnt : req_cnt;
-    int* off = a == 0 ? msg_off : req_off;
-    int local = 0;
-    for (int k = lo; k < hi; ++k) local += cnt[k];
-    int run = block_exclusive_sum(local, nullptr);
-    for (int k = lo; k < hi; ++k) {
-      off[k] = run;
-      run += cnt[k];
-    }
-  }
-}
+struct ApplyArgs {
+  const int* edges;
+  int* out;
+  const int* msg_lid;
+  const int* msg_gid;
+  const unsigned char* msg_valid;
+  const int* req_lid;
+  const int* req_src;
+  const unsigned char* req_valid;
+  const float* req_prio;
+  const float* vacant;
+  unsigned char* accept;
+  int* cnt;        // 2n: messages, then requests, per row
+  int* off;        // 2n: offsets local to the block's range of rows
+  int* rank;       // qm + qr: an item's rank inside its row
+  int* items;      // qm + qr: item ids grouped by row
+  int* agg;        // 2 x grid: each range's totals
+  int n, s_max, qm, qr;
+  int rows;        // rows a block owns in the scan
+};
 
-__global__ void apply_place(const int* __restrict__ msg_lid,
-                            const unsigned char* __restrict__ msg_valid,
-                            const int* __restrict__ req_lid,
-                            const unsigned char* __restrict__ req_valid,
-                            const int* __restrict__ msg_off,
-                            const int* __restrict__ req_off,
-                            int* __restrict__ msg_cur,
-                            int* __restrict__ req_cur,
-                            int* __restrict__ msg_items,
-                            int* __restrict__ req_items, int qm, int qr,
-                            int n) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k < qm && msg_valid[k]) {
-    const int r = msg_lid[k];
-    if (r >= 0 && r < n) msg_items[msg_off[r] + atomicAdd(msg_cur + r, 1)] = k;
-  }
-  if (k < qr && req_valid[k]) {
-    const int r = req_lid[k];
-    if (r >= 0 && r < n) req_items[req_off[r] + atomicAdd(req_cur + r, 1)] = k;
-  }
-}
-
-__global__ void apply_rows(const int* __restrict__ edges,
-                           int* __restrict__ out,
-                           const int* __restrict__ msg_gid,
-                           const int* __restrict__ req_src,
-                           const float* __restrict__ req_prio,
-                           const float* __restrict__ vacant,
-                           const int* __restrict__ msg_cnt,
-                           const int* __restrict__ req_cnt,
-                           const int* __restrict__ msg_off,
-                           const int* __restrict__ req_off,
-                           const int* __restrict__ msg_items,
-                           const int* __restrict__ req_items,
-                           unsigned char* __restrict__ accept, int n,
-                           int s_max) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= n) return;                       // warp-uniform
-  const int e = lane < s_max ? edges[(size_t)row * s_max + lane] : -1;
+// One row: remove, compact, accept (m0/mc: the row's messages in
+// a.items[m0, m0 + mc); r0/rc: its requests in a.items[qm + r0, ...)).
+__device__ void apply_row(const ApplyArgs& a, int row, int lane, int m0,
+                          int mc, int r0, int rc) {
+  const int s_max = a.s_max;
+  const int* msg_items = a.items;
+  const int* req_items = a.items + a.qm;
+  const int e = lane < s_max ? a.edges[(size_t)row * s_max + lane] : -1;
 
   // ---- remove: valid messages (row, e) against earlier equal slots -----
-  const int m0 = msg_off[row], mc = msg_cnt[row];
   int matches = 0;
   for (int base = 0; base < mc; base += 32) {
-    const int g = base + lane < mc ? msg_gid[msg_items[m0 + base + lane]] : -1;
+    const int g = base + lane < mc ? a.msg_gid[msg_items[m0 + base + lane]]
+                                   : -1;
     const int lim = min(32, mc - base);
     for (int k = 0; k < lim; ++k) matches += __shfl_sync(kFull, g, k) == e;
   }
@@ -185,14 +158,13 @@ __global__ void apply_rows(const int* __restrict__ edges,
   // ---- compact ----------------------------------------------------------
   const unsigned kept = __ballot_sync(kFull, keep);
   const int base = __popc(kept);
-  int* orow = out + (size_t)row * s_max;
+  int* orow = a.out + (size_t)row * s_max;
   if (keep) orow[__popc(kept & ((1u << lane) - 1u))] = e;
 
   // ---- accept: the cap smallest (priority, index) of the row -----------
-  const int r0 = req_off[row], rc = req_cnt[row];
   int accepted = 0;
   if (rc > 0) {
-    const float fl = floorf(vacant[row]);
+    const float fl = floorf(a.vacant[row]);
     const float freef = (float)(s_max - base);
     const float cap = (fl < freef || isnan(fl)) ? fl : freef;
     float pp = 0.0f;
@@ -202,7 +174,7 @@ __global__ void apply_rows(const int* __restrict__ edges,
       int bi = kNone;
       for (int k = lane; k < rc; k += 32) {
         const int idx = req_items[r0 + k];
-        const float p = req_prio[idx];
+        const float p = a.req_prio[idx];
         const bool above = pi < 0 || p > pp || (p == pp && idx > pi);
         const bool below = bi == kNone || p < bp || (p == bp && idx < bi);
         if (above && below) {
@@ -221,8 +193,8 @@ __global__ void apply_rows(const int* __restrict__ edges,
         }
       }
       if (lane == 0) {
-        orow[base + accepted] = req_src[bi];
-        accept[bi] = 1;
+        orow[base + accepted] = a.req_src[bi];
+        a.accept[bi] = 1;
       }
       pp = bp;
       pi = bi;
@@ -230,6 +202,95 @@ __global__ void apply_rows(const int* __restrict__ edges,
     }
   }
   if (lane < s_max && lane >= base + accepted) orow[lane] = -1;
+}
+
+__global__ void __launch_bounds__(kApplyThreads)
+    synapse_apply_kernel(ApplyArgs a) {
+  extern __shared__ int pre_s[];                 // 2 x gridDim.x
+  cg::grid_group grid = cg::this_grid();
+  const int n = a.n;
+  const int tid = threadIdx.x;
+  const int gtid = blockIdx.x * kApplyThreads + tid;
+  const int gsize = gridDim.x * kApplyThreads;
+  const int grid_n = gridDim.x;
+
+  // ---- 0: zero the counts, the accept mask in full ----------------------
+  for (int k = gtid; k < 2 * n; k += gsize) a.cnt[k] = 0;
+  for (int k = gtid; k < a.qr; k += gsize) a.accept[k] = 0;
+  grid.sync();
+
+  // ---- 1: count, and each item's rank inside its row ---------------------
+  for (int k = gtid; k < a.qm; k += gsize) {
+    const int r = a.msg_lid[k];
+    if (a.msg_valid[k] && r >= 0 && r < n) a.rank[k] = atomicAdd(a.cnt + r, 1);
+  }
+  for (int k = gtid; k < a.qr; k += gsize) {
+    const int r = a.req_lid[k];
+    if (a.req_valid[k] && r >= 0 && r < n) {
+      a.rank[a.qm + k] = atomicAdd(a.cnt + n + r, 1);
+    }
+  }
+  grid.sync();
+
+  // ---- 2: each block scans its range of rows, coalesced tiles -----------
+  const int lo = (int)min((long long)blockIdx.x * a.rows, (long long)n);
+  const int hi = min(lo + a.rows, n);
+  for (int arr = 0; arr < 2; ++arr) {
+    const int* cnt = a.cnt + (size_t)arr * n;
+    int* off = a.off + (size_t)arr * n;
+    int carry = 0;
+    for (int base = lo; base < hi; base += kApplyThreads) {
+      const int r = base + tid;
+      const int x = r < hi ? cnt[r] : 0;
+      int total;
+      const int ex = block_exclusive_sum(x, &total);
+      if (r < hi) off[r] = carry + ex;
+      carry += total;
+    }
+    if (tid == 0) a.agg[arr * grid_n + blockIdx.x] = carry;
+  }
+  grid.sync();
+
+  // ---- 3: the ranges' prefixes (every block), then place ----------------
+  // thread t sums a contiguous run of `per` totals (independent loads), one
+  // block scan gives each run's start, and the thread writes its run's
+  // prefixes
+  const int per = (grid_n + kApplyThreads - 1) / kApplyThreads;
+  for (int arr = 0; arr < 2; ++arr) {
+    const int* agg = a.agg + arr * grid_n;
+    const int b0 = min(tid * per, grid_n);
+    const int b1 = min(b0 + per, grid_n);
+    int run = 0;
+    for (int b = b0; b < b1; ++b) run += agg[b];
+    run = block_exclusive_sum(run, nullptr);
+    for (int b = b0; b < b1; ++b) {
+      pre_s[arr * grid_n + b] = run;
+      run += agg[b];
+    }
+  }
+  __syncthreads();
+  for (int k = gtid; k < a.qm; k += gsize) {
+    const int r = a.msg_lid[k];
+    if (a.msg_valid[k] && r >= 0 && r < n) {
+      a.items[pre_s[r / a.rows] + a.off[r] + a.rank[k]] = k;
+    }
+  }
+  for (int k = gtid; k < a.qr; k += gsize) {
+    const int r = a.req_lid[k];
+    if (a.req_valid[k] && r >= 0 && r < n) {
+      a.items[a.qm + pre_s[grid_n + r / a.rows] + a.off[n + r] +
+              a.rank[a.qm + k]] = k;
+    }
+  }
+  grid.sync();
+
+  // ---- 4: the rows, a warp each ------------------------------------------
+  const int lane = tid & 31;
+  for (int row = gtid >> 5; row < n; row += gsize >> 5) {   // warp-uniform
+    const int b = row / a.rows;
+    apply_row(a, row, lane, pre_s[b] + a.off[row], a.cnt[row],
+              pre_s[grid_n + b] + a.off[n + row], a.cnt[n + row]);
+  }
 }
 
 // ------------------------------------------------------------------ K5
@@ -331,50 +392,86 @@ __global__ void route_scatter(const int* __restrict__ other,
   }
 }
 
+// Kernel launches of K4, counted beside each launch.
+int g_apply_launches = 0;
+
+long long apply_words(int n, int qm, int qr) {
+  return 4LL * n + 2LL * ((long long)qm + qr) + 2LL * kApplyMaxGrid;
+}
+
 }  // namespace
 
+// K4's device launches since the last reset; reset != 0 sets the count to 0
+// after reading it.
+extern "C" int repro_synapse_apply_device_launches(int reset) {
+  const int k = g_apply_launches;
+  if (reset) g_apply_launches = 0;
+  return k;
+}
+
+// int32 words of workspace a call of K4 needs.
+extern "C" long long repro_synapse_apply_workspace(int n, int qm, int qr) {
+  return apply_words(n, qm, qr);
+}
+
 // edges (n, s_max) -> out (n, s_max); msg_* (qm,), req_* (qr,); accept (qr,)
-// uint8 zeroed by the caller; scratch: 4n int32 zeroed (msg_cnt, req_cnt,
-// msg_cur, req_cur), 2n int32 (msg_off, req_off), qm + qr int32 (items).
+// bytes of 0 or 1, written in full. work: int32 workspace of `words` words
+// (repro_synapse_apply_workspace), any contents. One cooperative launch.
 extern "C" int repro_synapse_apply(
     const void* edges, void* out, const void* msg_lid, const void* msg_gid,
     const void* msg_valid, const void* req_lid, const void* req_src,
     const void* req_valid, const void* req_prio, const void* vacant,
-    void* accept, void* zeroed, void* offsets, void* items, int n, int s_max,
-    int qm, int qr, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  int* msg_cnt = (int*)zeroed;
-  int* req_cnt = msg_cnt + n;
-  int* msg_cur = req_cnt + n;
-  int* req_cur = msg_cur + n;
-  int* msg_off = (int*)offsets;
-  int* req_off = msg_off + n;
-  int* msg_items = (int*)items;
-  int* req_items = msg_items + qm;
-  const int q = qm > qr ? qm : qr;
+    void* accept, void* work, long long words, int n, int s_max, int qm,
+    int qr, void* stream) {
+  if (n < 0 || s_max < 1 || s_max > 32 || words < apply_words(n, qm, qr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int dev;
+  repro::DeviceFacts dv;
   cudaError_t err;
-  if (q > 0) {
-    apply_count<<<(q + 255) / 256, 256, 0, s>>>(
-        (const int*)msg_lid, (const unsigned char*)msg_valid,
-        (const int*)req_lid, (const unsigned char*)req_valid, msg_cnt,
-        req_cnt, qm, qr, n);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if ((err = repro::current_device(&dev, &dv)) != cudaSuccess) return (int)err;
+  // the occupancy with the most shared memory any grid could ask for
+  int occ = 0;
+  if ((err = repro::resident_blocks((const void*)synapse_apply_kernel, dev,
+                                    kApplyThreads,
+                                    2 * kApplyMaxGrid * sizeof(int),
+                                    dv.smem_optin, &occ)) != cudaSuccess) {
+    return (int)err;
   }
-  apply_scan<<<1, 1024, 0, s>>>(msg_cnt, req_cnt, msg_off, req_off, n);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if (q > 0) {
-    apply_place<<<(q + 255) / 256, 256, 0, s>>>(
-        (const int*)msg_lid, (const unsigned char*)msg_valid,
-        (const int*)req_lid, (const unsigned char*)req_valid, msg_off,
-        req_off, msg_cur, req_cur, msg_items, req_items, qm, qr, n);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-  const int warps_per_block = 8;
-  apply_rows<<<(n + warps_per_block - 1) / warps_per_block,
-               warps_per_block * 32, 0, s>>>(
-      (const int*)edges, (int*)out, (const int*)msg_gid, (const int*)req_src,
-      (const float*)req_prio, (const float*)vacant, msg_cnt, req_cnt, msg_off,
-      req_off, msg_items, req_items, (unsigned char*)accept, n, s_max);
+  if (occ < 1) return (int)cudaErrorInvalidConfiguration;
+  long long grid = (long long)dv.sms * occ;
+  if (grid > kApplyMaxGrid) grid = kApplyMaxGrid;
+  ApplyArgs a;
+  a.rows = n > grid ? (int)((n + grid - 1) / grid) : 1;
+  grid = n > 0 ? (n + a.rows - 1) / a.rows : 1;
+  int* w = (int*)work;
+  a.edges = (const int*)edges;
+  a.out = (int*)out;
+  a.msg_lid = (const int*)msg_lid;
+  a.msg_gid = (const int*)msg_gid;
+  a.msg_valid = (const unsigned char*)msg_valid;
+  a.req_lid = (const int*)req_lid;
+  a.req_src = (const int*)req_src;
+  a.req_valid = (const unsigned char*)req_valid;
+  a.req_prio = (const float*)req_prio;
+  a.vacant = (const float*)vacant;
+  a.accept = (unsigned char*)accept;
+  a.cnt = w;
+  a.off = w + 2LL * n;
+  a.rank = w + 4LL * n;
+  a.items = a.rank + (long long)qm + qr;
+  a.agg = a.items + (long long)qm + qr;
+  a.n = n;
+  a.s_max = s_max;
+  a.qm = qm;
+  a.qr = qr;
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel((const void*)synapse_apply_kernel,
+                                    dim3((unsigned)grid), dim3(kApplyThreads),
+                                    args, 2 * grid * sizeof(int),
+                                    (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  ++g_apply_launches;
   return (int)cudaGetLastError();
 }
 

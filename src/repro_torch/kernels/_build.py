@@ -40,8 +40,9 @@ F = ctypes.c_float
 SIGNATURES = {
     "repro_threefry_words": [P, P, P, P, P, P, I, P],
     "repro_activity_window": (
-        [P] * 6            # v, u, ca, ax, de, spike_count (in place)
-        + [P, P]           # spiked double buffer (a holds the input)
+        [P] * 7            # v, u, ca, ax, de, spike_count, spiked (inputs)
+        + [P] * 7          # the same seven outputs
+        + [P]              # spike bitmap scratch (2 x ceil(n / 32) words)
         + [P, P, P]        # in_edges, w_table, rates
         + [P, P]           # bg_mean, bg_std
         + [P] * 6          # izh a, b, c, d, nu, eps
@@ -49,13 +50,15 @@ SIGNATURES = {
         + [P, P, I]        # lesion masks, windows, count
         + [P]              # fired counts (num_steps,) int32
         + [I, I, I, I, U, I, I, F, F, P]),
+    "repro_activity_window_device_launches": [I, I],
     "repro_bh_traverse": (
         [P, P, P, P, P, P, P, P, P, P]   # counts, cents, members, npos, vac,
                                          # x, start, gid, valid, sizes
         + [P, P, P]                      # out tgt, ok, depth
         + [I, I, I, I, I, I, I, I, U, F, F, I, I, P]),
     "repro_morton_sort": [P, P, P, P, I, I, I, I, I, P],
-    "repro_synapse_apply": [P] * 14 + [I, I, I, I, P],
+    "repro_synapse_apply": [P] * 11 + [P, ctypes.c_longlong, I, I, I, I, P],
+    "repro_synapse_apply_device_launches": [I],
     "repro_route_build": [P] * 6 + [I, I, I, I, I, P],
     "repro_neuron_step": (
         [P] * 6            # v, u, ca, ax, de, inp
@@ -174,6 +177,8 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.repro_radix_argsort_workspace.argtypes = [I, I]
         lib.repro_radix_argsort_workspace.restype = ctypes.c_longlong
+        lib.repro_synapse_apply_workspace.argtypes = [I, I, I]
+        lib.repro_synapse_apply_workspace.restype = ctypes.c_longlong
         lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -5,8 +5,9 @@
 iterates it (the plain version, and the ``reference`` activity lowering).
 ``activity_window`` is the wrapper of the hand-written CUDA kernel
 ``csrc/activity_window.cu``: on a CUDA tensor it launches the kernel (one
-launch per step, Delta per window) or raises; on a CPU tensor it runs the
-plain version, as the JAX package's Pallas kernel runs in interpret mode.
+cooperative launch per window, a grid barrier between steps) or raises; on a
+CPU tensor it runs the plain version, as the JAX package's Pallas kernel runs
+in interpret mode.
 
 All randomness is the counter hash of ``kernels/hash.py`` keyed by
 ``(seed, domain, global step, neuron/edge id)``, so both versions draw the
@@ -20,6 +21,21 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import hash as chash
 
 launches = _build.LaunchCounter("activity_window")
+
+# how the kernel held a block's rows, chosen in the C entry from the shape:
+# staged in shared memory when they fit, streamed from global memory else
+DEVICE_MODES = ("staged", "streaming")
+# the return code of repro_activity_window that is not a CUDA error
+_NO_COOPERATIVE_LAUNCH = -2
+
+
+def device_launches(*, reset: bool = False) -> dict:
+    """Device launches of K1 by mode since the last reset, as counted in
+    ``csrc/activity_window.cu`` beside each launch; ``reset`` sets the counts
+    to 0 after reading them."""
+    lib = _build.library()
+    return {name: int(lib.repro_activity_window_device_launches(i, int(reset)))
+            for i, name in enumerate(DEVICE_MODES)}
 
 
 def _split_src(in_edges, n: int):
@@ -156,8 +172,7 @@ def activity_window(state, in_edges, w_table, rates, bg_mean, bg_std,
     the dense (R, n) table; bg_mean/bg_std: scalar or (n,); izh: 6-tuple,
     scalar or (n,); stim/lesions: the protocol tables of
     ``scenarios/protocol.py`` or None. Returns ``(state7,
-    spikes_per_step)``; the inputs are left unchanged (the kernel updates
-    copies in place)."""
+    spikes_per_step)``; the inputs are left unchanged."""
     if rate_slots is not None:
         raise NotImplementedError(
             "the sparse rate exchange is not ported yet (ROADMAP.md Queue 1 "
@@ -173,42 +188,55 @@ def activity_window(state, in_edges, w_table, rates, bg_mean, bg_std,
     f32 = torch.float32
 
     def vec(x):
-        return torch.broadcast_to(torch.as_tensor(x, dtype=f32, device=dev),
-                                  (n,)).contiguous()
+        # a scalar is filled on the card: torch.as_tensor(x, device=cuda)
+        # would copy it from the host and wait for the stream
+        if not isinstance(x, torch.Tensor):
+            return torch.full((n,), float(x), dtype=f32, device=dev)
+        return torch.broadcast_to(x.to(dev, f32), (n,)).contiguous()
 
-    v, u, ca, ax, de, spike_count = (state[i].to(f32).clone()
+    v, u, ca, ax, de, spike_count = (state[i].to(f32).contiguous()
                                      for i in (0, 1, 2, 3, 4, 6))
-    spk_a = state[5].to(torch.uint8).clone()
-    spk_b = torch.empty_like(spk_a)
+    # the flags are bytes of 0 or 1 to the kernel: a bool tensor as it is
+    spk = state[5] if state[5].dtype in (torch.bool, torch.uint8) \
+        else state[5].to(torch.bool)
+    spk = spk.contiguous()
+    out = [torch.empty_like(x) for x in (v, u, ca, ax, de, spike_count)]
+    out.append(torch.empty(n, dtype=torch.bool, device=dev))
+    bits = torch.empty(2 * (-(-n // 32)), dtype=torch.int32, device=dev)
     edges = in_edges.to(torch.int32).contiguous()
     w = w_table.to(f32).contiguous()
     rates = rates.to(f32).contiguous()
     bgm, bgs = vec(bg_mean), vec(bg_std)
     izh = [vec(x) for x in izh]
-    fired = torch.zeros(num_steps, dtype=torch.int32, device=dev)
+    fired = torch.empty(num_steps, dtype=torch.int32, device=dev)
     stim_mask, stim_amp, stim_t = _event_operands(stim, n, f32, dev)
     les_mask, _, les_t = _event_operands(lesions, n, torch.uint8, dev)
     _build.require_cuda("activity_window", v, u, ca, ax, de, spike_count,
-                        spk_a, edges, w, rates, bgm, bgs, *izh, fired,
-                        stim_mask, stim_amp, stim_t, les_mask, les_t)
+                        spk, *out, bits, edges, w, rates, bgm, bgs, *izh,
+                        fired, stim_mask, stim_amp, stim_t, les_mask, les_t)
     if edges.shape != (n, s_max) or rates.shape[1] != n or w.shape != (n,):
         raise ValueError("activity_window: in_edges (n, S), rates (R, n) and "
                          "w_table (n,) must agree on n")
     lib = _build.library()
-    _build.check(lib.repro_activity_window(
+    rc = lib.repro_activity_window(
         v.data_ptr(), u.data_ptr(), ca.data_ptr(), ax.data_ptr(),
-        de.data_ptr(), spike_count.data_ptr(), spk_a.data_ptr(),
-        spk_b.data_ptr(), edges.data_ptr(), w.data_ptr(), rates.data_ptr(),
-        bgm.data_ptr(), bgs.data_ptr(), *(t.data_ptr() for t in izh),
-        stim_mask.data_ptr(), stim_amp.data_ptr(), stim_t.data_ptr(),
-        stim_amp.shape[0], les_mask.data_ptr(), les_t.data_ptr(),
-        les_t.shape[0], fired.data_ptr(), n, s_max, rates.shape[0], int(rank),
+        de.data_ptr(), spike_count.data_ptr(), spk.data_ptr(),
+        *(t.data_ptr() for t in out), bits.data_ptr(), edges.data_ptr(),
+        w.data_ptr(), rates.data_ptr(), bgm.data_ptr(), bgs.data_ptr(),
+        *(t.data_ptr() for t in izh), stim_mask.data_ptr(),
+        stim_amp.data_ptr(), stim_t.data_ptr(), stim_amp.shape[0],
+        les_mask.data_ptr(), les_t.data_ptr(), les_t.shape[0],
+        fired.data_ptr(), n, s_max, rates.shape[0], int(rank),
         int(seed) & chash.M32, _wrap_i32(chunk * num_steps), num_steps,
-        float(ca_consts[0]), float(ca_consts[1]), _build.stream()),
-        "activity_window")
-    launches.add(num_steps)
-    spiked = (spk_a if num_steps % 2 == 0 else spk_b).to(torch.bool)
-    return (v, u, ca, ax, de, spiked, spike_count), fired.to(f32)
+        float(ca_consts[0]), float(ca_consts[1]), _build.stream())
+    shape = f"n={n}, S={s_max}, R={rates.shape[0]}, steps={num_steps}"
+    if rc == _NO_COOPERATIVE_LAUNCH:
+        raise RuntimeError(f"activity_window: the device does not take a "
+                           f"cooperative launch ({shape})")
+    _build.check(rc, f"activity_window ({shape})")
+    launches.add()
+    *state_out, spiked = out
+    return (*state_out[:5], spiked, state_out[5]), fired.to(f32)
 
 
 def _event_operands(table, n: int, mask_dtype, dev):
@@ -222,9 +250,12 @@ def _event_operands(table, n: int, mask_dtype, dev):
                          f"do not match {len(meta)} events of {n} neurons")
     amps = [float(m[0]) for m in meta if len(m) == 3]
     windows = [[_wrap_i32(t) for t in m[-2:]] for m in meta]
+    # non_blocking: a host tensor's bytes are staged at once, and the stream
+    # is not waited for (torch.tensor(..., device=cuda) would wait)
     return (masks.to(mask_dtype).contiguous(),
-            torch.tensor(amps, dtype=torch.float32, device=dev),
-            torch.tensor(windows, dtype=torch.int32, device=dev).reshape(-1, 2))
+            torch.tensor(amps, dtype=torch.float32).to(dev, non_blocking=True),
+            torch.tensor(windows, dtype=torch.int32).reshape(-1, 2).to(
+                dev, non_blocking=True))
 
 
 def _wrap_i32(x: int) -> int:

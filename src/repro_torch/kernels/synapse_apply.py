@@ -9,8 +9,9 @@ stage of ``synapse_apply`` is disabled by passing no valid messages or no
 valid requests: the other stage then leaves the (compacted) table as it is.
 
 ``synapse_apply`` and ``route_build`` are the wrappers of the hand-written
-CUDA kernels in ``csrc/synapse_apply.cu``: on CUDA tensors they launch the
-kernel or raise; on CPU tensors they run the plain versions. Priorities are
+CUDA kernels in ``csrc/synapse_apply.cu`` (K4: one cooperative launch a
+call; K5: three launches): on CUDA tensors they launch the kernel or raise;
+on CPU tensors they run the plain versions. Priorities are
 computed outside the kernels, by the caller, with the same expression the
 reference uses.
 
@@ -32,6 +33,14 @@ MAX_RANKS = 64        # destination buckets the routing kernel holds
 
 apply_launches = _build.LaunchCounter("synapse_apply")
 route_launches = _build.LaunchCounter("route_build")
+
+
+def device_launches(*, reset: bool = False) -> int:
+    """K4's device launches since the last reset, as counted in
+    ``csrc/synapse_apply.cu`` beside each launch; ``reset`` sets the count to
+    0 after reading it."""
+    return int(_build.library().repro_synapse_apply_device_launches(
+        int(reset)))
 
 
 def synapse_apply_plain(edges, msg_lid, msg_gid, msg_valid, req_lid, req_src,
@@ -77,26 +86,24 @@ def synapse_apply(edges, msg_lid, msg_gid, msg_valid, req_lid, req_src,
     prio = req_prio.to(torch.float32).contiguous()
     vac = vacant_d.to(torch.float32).contiguous()
     out = torch.empty_like(tbl)
-    accept = torch.zeros(qr, dtype=torch.uint8, device=dev)
-    zeroed = torch.zeros(4 * n, dtype=i32, device=dev)
-    offsets = torch.empty(2 * n, dtype=i32, device=dev)
-    items = torch.empty(max(qm + qr, 1), dtype=i32, device=dev)
+    accept = torch.empty(qr, dtype=torch.bool, device=dev)   # bytes 0 / 1
+    lib = _build.library()
+    words = lib.repro_synapse_apply_workspace(n, qm, qr)
+    work = torch.empty(words, dtype=i32, device=dev)
     _build.require_cuda("synapse_apply", tbl, mlid, mgid, mval, rlid, rsrc,
-                        rval, prio, vac, out, accept, zeroed, offsets, items)
+                        rval, prio, vac, out, accept, work)
     if (mgid.shape[0], mval.shape[0]) != (qm, qm) or \
             (rsrc.shape[0], rval.shape[0], prio.shape[0]) != (qr, qr, qr) or \
             vac.shape != (n,):
         raise ValueError("synapse_apply: message, request and vacancy "
                          "operands disagree in length")
-    lib = _build.library()
     _build.check(lib.repro_synapse_apply(
         tbl.data_ptr(), out.data_ptr(), mlid.data_ptr(), mgid.data_ptr(),
         mval.data_ptr(), rlid.data_ptr(), rsrc.data_ptr(), rval.data_ptr(),
-        prio.data_ptr(), vac.data_ptr(), accept.data_ptr(), zeroed.data_ptr(),
-        offsets.data_ptr(), items.data_ptr(), n, s_max, qm, qr,
-        _build.stream()), "synapse_apply")
+        prio.data_ptr(), vac.data_ptr(), accept.data_ptr(), work.data_ptr(),
+        words, n, s_max, qm, qr, _build.stream()), "synapse_apply")
     apply_launches.add()
-    return out, accept.to(torch.bool)
+    return out, accept
 
 
 def route_build(flat_other, flat_mine, *, n: int, num_ranks: int, cap: int):

@@ -187,6 +187,31 @@ def test_window_refuses_what_the_slice_does_not_carry():
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("events", [False, True])
+def test_fused_wrapper_on_cpu_leaves_its_inputs_unchanged(events):
+    """The window returns new tensors: the state, rows, rates and event
+    tables it was given hold the same values after the call."""
+    state, edges, w, rates, izh = _inputs(seed=4)
+    ins = (tuple(_torch(x) for x in state), _torch(edges), _torch(w),
+           _torch(rates))
+    copies = (tuple(x.clone() for x in ins[0]),
+              *(x.clone() for x in ins[1:]))
+    kw = _kw(tuple(_torch(x) for x in izh), 3)
+    if events:
+        stim, lesions = _scenario_tables(np.random.default_rng(9), CHUNK * 3)
+        kw.update(stim=_torch_tables(stim), lesions=_torch_tables(lesions))
+    evs = [kw[k] for k in ("stim", "lesions") if k in kw]
+    masks = [e[0].clone() for e in evs]
+    out, _ = taf.activity_window(*ins, 5.0, 1.0, CHUNK, RANK, **kw)
+    for x, y in zip(ins[0], copies[0]):
+        assert torch.equal(x, y)
+    for x, y in zip(ins[1:], copies[1:]):
+        assert torch.equal(x, y)
+    for e, m in zip(evs, masks):
+        assert torch.equal(e[0], m)
+    assert not any(o is x for o, x in zip(out, ins[0]))
+
+
 def _scenario_tables(rng, t0):
     """Two stimulus events and two lesion windows over random masks; the
     windows open and close at t0 + 2, t0 + 3 and t0 + 5."""

@@ -5,7 +5,10 @@ the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 
 Tolerances: the integer kernels (K0, K3-K6) and the elementwise float
 kernels built with --fmad=false in the plain versions' order (K1, K2, K7's
-P, K8) are bit-equal. K7's row sums are taken in another fixed order: 1e-6
+P, K8) are bit-equal. K1 sums a row in another order than ``torch.sum``:
+bit-equal with integer weights (the model's), and with non-integer weights
+within 1e-5 relative, step-synced, spike flags differing only at near-ties
+(|v - 30| < 1e-3), as ``chip_smoke.py`` holds it. K7's row sums are taken in another fixed order: 1e-6
 relative. K9 sums in another order with an online softmax: 2e-5 in f32,
 the JAX kernel tests' tolerance. In bf16 it also rounds p before P V, and
 each element is held within ``flash_attention.bf16_error_bound`` of the
@@ -74,7 +77,7 @@ def test_activity_window_equals_plain(dev, num_ranks, rank):
                                   **kw)
     b, b_spk = af.window_plain(state, edges, w, rates, 5.0, 1.0, 2, rank,
                                **kw)
-    assert af.launches.count == before + steps
+    assert af.launches.count == before + 1       # one launch a window
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     assert torch.equal(a_spk, b_spk)
@@ -165,6 +168,161 @@ def test_activity_window_with_stimulus_and_lesions_equals_plain(dev):
     assert not bool(a[3][dead].any()) and not bool(a[4][dead].any())
 
 
+_IZH = (0.02, 0.2, -65.0, 8.0, 1e-3, 0.7)
+
+
+def _k1_both(dev, n, s, steps, num_ranks=1, rank=0, chunk=2, w=None,
+             empty_share=0.0, **tables):
+    """K1 and its plain version on one random window, with a share of the
+    slots emptied anywhere in the rows. Returns (kernel out, plain out, the
+    kernel's device launches by mode)."""
+    state, edges, w0, rates, _ = _window_case(dev, n=n, s=s, steps=steps,
+                                              num_ranks=num_ranks)
+    if empty_share:
+        g = torch.Generator(device=dev).manual_seed(22)
+        edges = torch.where(torch.rand(n, s, generator=g, device=dev)
+                            < empty_share, -1, edges)
+    kw = dict(seed=3, num_steps=steps, izh=_IZH, ca_consts=(1e-4, 2.4e-3),
+              **tables)
+    args = (state, edges, w0 if w is None else w, rates, 5.0, 1.0, chunk,
+            rank)
+    af.device_launches(reset=True)
+    got = af.activity_window(*args, **kw)
+    torch.cuda.synchronize()
+    ran = af.device_launches(reset=True)
+    return got, af.window_plain(*args, **kw), ran
+
+
+def _assert_window_equal(got, want):
+    for x, y in zip(got[0], want[0]):
+        assert torch.equal(x, y)
+    assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("n,s", [(1000, 1), (1000, 8), (4099, 17),
+                                 (4099, 32), (100_003, 8)])
+def test_activity_window_shapes_equal_plain(dev, n, s):
+    """n not a multiple of a block's range (nor of 32), S of 1, 8, 17 and
+    32, a block holding two tiles of 512 neurons (n = 100,003 at S = 8), R =
+    4 rank 1, all in the staged mode."""
+    got, want, ran = _k1_both(dev, n, s, 13, num_ranks=4, rank=1)
+    _assert_window_equal(got, want)
+    assert ran == {"staged": 1, "streaming": 0}
+
+
+@pytest.mark.parametrize("empty_share", [0.7, 1.0])
+def test_activity_window_sparse_rows_equal_plain(dev, empty_share):
+    """Rows with empty slots anywhere (not compacted), most of them empty,
+    or all: the slot loop stops after a row's last used slot."""
+    got, want, _ = _k1_both(dev, 3000, 32, 13, num_ranks=4, rank=1,
+                            empty_share=empty_share)
+    _assert_window_equal(got, want)
+
+
+@pytest.mark.parametrize("steps", [1, 2, 12, 13])
+def test_activity_window_step_parity_equals_plain(dev, steps):
+    """An odd and an even number of steps: the window ends in either buffer
+    of the double-buffered spike bitmap."""
+    got, want, _ = _k1_both(dev, 3000, 8, steps)
+    _assert_window_equal(got, want)
+
+
+def test_activity_window_gstep_wraps_past_int32(dev):
+    """A window whose global steps cross 2**31 (int32 wrap-around, as the
+    reference's traced step counter), with a lesion window that opens at
+    the wrap."""
+    steps = 13
+    chunk = (2 ** 31 - 6) // steps
+    start = chunk * steps
+    assert start < 2 ** 31 < start + steps
+    _, _, _, _, masks = _window_case(dev)
+    lesions = (masks[:1], ((-2 ** 31, -2 ** 31 + 30),))
+    got, want, _ = _k1_both(dev, 1000, 8, steps, chunk=chunk,
+                            lesions=lesions)
+    _assert_window_equal(got, want)
+    assert not bool(got[0][5][masks[0]].any())
+
+
+def test_activity_window_non_integer_weights_within_tolerance(dev):
+    """Weights that are not integers: the row sums' order differs from
+    torch.sum's, so each step from the plain state is held within 1e-5
+    relative, and a spike flag may differ only where v sat within 1e-3 of
+    the threshold."""
+    n, s, steps = 3000, 32, 20
+    state, edges, _, rates, _ = _window_case(dev, n=n, s=s, steps=steps,
+                                             num_ranks=4)
+    g = torch.Generator(device=dev).manual_seed(21)
+    w = torch.randn(n, generator=g, device=dev) * 7.3
+    kw = dict(seed=3, num_steps=1, izh=_IZH, ca_consts=(1e-4, 2.4e-3))
+    st, flips = state, 0
+    for t in range(steps):
+        args = (st, edges, w, rates, 5.0, 1.0, 40 + t, 1)
+        a, _ = af.activity_window(*args, **kw)
+        b, _ = af.window_plain(*args, **kw)
+        flip = a[5] != b[5]
+        v_other = torch.where(a[5], b[0], a[0])[flip]
+        assert bool(((v_other - 30.0).abs() < 1e-3).all())
+        flips += int(flip.sum())
+        same = ~flip
+        for x, y in zip(a[:5], b[:5]):
+            rel = (x - y).abs()[same] / y.abs()[same].clamp_min(1.0)
+            assert float(rel.max()) <= 1e-5
+        st = b
+    assert flips <= 1e-3 * n * steps
+
+
+def _streaming_tables(dev, n, chunk=2, steps=5):
+    """Stimulus and lesion windows over random masks that open and close
+    inside the window of ``chunk``."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    masks = torch.rand(3, n, generator=g, device=dev) < 0.4
+    t = chunk * steps
+    return {"stim": (masks[:2].to(torch.float32),
+                     ((4.0, t + 1, t + 3), (-2.5, t - 4, 1 << 30))),
+            "lesions": (masks[1:], ((t + 2, 1 << 30), (0, t + 4)))}
+
+
+# (n, S, R, rank, empty share, with events): shapes whose rows do not fit a
+# block's shared memory on an H100 (132 SMs, 227 KB a block)
+_STREAMING = {
+    "R1-S32": (150_000, 32, 1, 0, 0.0, False),
+    "R4-rank1-S32": (150_000, 32, 4, 1, 0.0, False),
+    "R4-rank1-S17-odd-n": (150_001, 17, 4, 1, 0.0, False),
+    "R4-rank1-S8": (262_144, 8, 4, 1, 0.0, False),
+    "R4-rank1-S1": (524_288, 1, 4, 1, 0.0, False),
+    "R4-rank1-sparse-rows": (150_000, 32, 4, 1, 0.7, False),
+    "R1-S32-stimulus-lesions": (150_000, 32, 1, 0, 0.0, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_STREAMING))
+def test_activity_window_rows_that_do_not_fit_shared_memory(dev, case):
+    """A block's rows exceed shared memory, and K1 streams them from global
+    memory, bit-equal to the plain version: R = 1 and R = 4 rank 1, S of 32,
+    17, 8 and 1, n not a multiple of 32, sparse rows, and stimulus and
+    lesion windows opening and closing mid-window."""
+    n, s, ranks, rank, empty, events = _STREAMING[case]
+    tables = _streaming_tables(dev, n) if events else {}
+    got, want, ran = _k1_both(dev, n, s, 5, num_ranks=ranks, rank=rank,
+                              empty_share=empty, **tables)
+    _assert_window_equal(got, want)
+    assert ran == {"staged": 0, "streaming": 1}
+
+
+def test_activity_window_one_device_launch_per_window(dev):
+    """Two 100-step windows at CONFIG's width: two device launches, as
+    counted in csrc/activity_window.cu beside the launch."""
+    state, edges, w, rates, _ = _window_case(dev, n=65_536, s=32,
+                                             steps=100)
+    kw = dict(seed=3, num_steps=100, izh=_IZH,
+              ca_consts=(1e-4, 2.4e-3))
+    af.device_launches(reset=True)
+    for chunk in range(2):
+        af.activity_window(state, edges, w, rates, 5.0, 1.0, chunk, 0, **kw)
+    torch.cuda.synchronize()
+    assert af.device_launches(reset=True) == {"staged": 2, "streaming": 0}
+
+
 @pytest.mark.parametrize("clustered", [False, True])
 def test_morton_sort_equals_plain(dev, clustered):
     g = torch.Generator(device=dev).manual_seed(2)
@@ -209,6 +367,51 @@ def test_synapse_apply_equals_plain(dev, crowd):
     want = sa.synapse_apply_plain(*args)
     assert sa.apply_launches.count == before + 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _apply_case(dev, n, qm, qr, seed=3):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    s = 32
+    edges = torch.randint(-1, 2 * n, (n, s), generator=g, device=dev,
+                          dtype=torch.int32)
+    edges = compact(torch.where(torch.rand(n, s, generator=g,
+                                           device=dev) < 0.5, -1, edges))
+    live = torch.nonzero(edges >= 0)
+    pick = live[torch.randint(0, live.shape[0], (qm,), generator=g,
+                              device=dev)]
+    mgid = edges[pick[:, 0], pick[:, 1]]
+    return (edges, pick[:, 0].to(torch.int32), mgid,
+            torch.rand(qm, generator=g, device=dev) < 0.9,
+            torch.randint(0, n, (qr,), generator=g, device=dev,
+                          dtype=torch.int32),
+            torch.randint(0, 2 * n, (qr,), generator=g, device=dev,
+                          dtype=torch.int32),
+            torch.rand(qr, generator=g, device=dev) < 0.9,
+            torch.randint(0, 50, (qr,), generator=g, device=dev) / 50.0,
+            torch.rand(n, generator=g, device=dev) * 40)
+
+
+@pytest.mark.parametrize("n", [3000, 65_537, 1 << 20])
+@pytest.mark.parametrize("qm,qr", [(4000, 6000), (0, 6000), (4000, 0)])
+def test_synapse_apply_sizes_equal_plain(dev, n, qm, qr):
+    """n from 3,000 rows to 2**20 (the scan runs over hundreds of blocks'
+    ranges), and no messages or no requests at all."""
+    args = _apply_case(dev, n, qm, qr)
+    got = sa.synapse_apply(*args)
+    want = sa.synapse_apply_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_synapse_apply_one_device_launch_per_call(dev):
+    """One cooperative launch a call, as counted in csrc/synapse_apply.cu
+    beside the launch, over three calls; and the calls are bitwise equal."""
+    args = _apply_case(dev, 65_536, 32_768, 20_000)
+    sa.device_launches(reset=True)
+    outs = [sa.synapse_apply(*args) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert sa.device_launches(reset=True) == 3
+    for o in outs[1:]:
+        assert torch.equal(o[0], outs[0][0]) and torch.equal(o[1], outs[0][1])
 
 
 @pytest.mark.parametrize("num_ranks,cap", [(1, 4096), (1, 1 << 20), (3, 900)])

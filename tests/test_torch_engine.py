@@ -47,7 +47,7 @@ def test_init_state_matches_reference(seed):
 
 def test_state_round_trip_through_numpy():
     want = jax.device_get(jengine.init_state(J_SMOKE, 0, 1))
-    st = convert.state_from_numpy(want)
+    st = convert.state_from_numpy(want, device="cpu")
     back = convert.state_to_numpy(st)
     np.testing.assert_array_equal(back["positions"],
                                   np.asarray(want.positions))
@@ -60,7 +60,8 @@ def test_state_round_trip_through_numpy():
         type("S", (), {**{k: v for k, v in back.items()
                           if k not in ("neurons", "stats")},
                        "neurons": type("N", (), back["neurons"]),
-                       "stats": type("M", (), back["stats"])}))
+                       "stats": type("M", (), back["stats"])}),
+        device="cpu")
     assert torch.equal(again.in_edges, st.in_edges)
 
 

@@ -78,6 +78,27 @@ def test_constructors_default_to_the_card():
         engine.init_state(SMOKE_CONFIG, 0, 1)
 
 
+def test_converters_default_to_the_card():
+    """``convert.state_from_numpy`` and ``neuron_params_from_numpy`` without
+    a device resolve it as every entry point does: with no card they raise
+    rather than build on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the converters then land on cuda")
+    import types
+
+    import numpy as np
+    from repro_torch import convert
+    from repro_torch.core.neuron import NeuronParams
+    params = NeuronParams(*(np.full(4, x, np.float32)
+                            for x in (0.02, 0.2, -65.0, 8.0, 1e-3, 0.7)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.neuron_params_from_numpy(params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.state_from_numpy(types.SimpleNamespace())
+    assert convert.neuron_params_from_numpy(
+        params, device="cpu").izh_a.device.type == "cpu"
+
+
 def test_run_refuses_a_recorder_on_another_device():
     from repro_torch.configs.msp_brain import SMOKE_CONFIG
     from repro_torch.scenarios import observables

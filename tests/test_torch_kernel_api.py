@@ -258,7 +258,7 @@ def test_fused_neuron_step(n, hetero):
         jparams = JParams(t.izh_a, t.izh_b, t.izh_c, t.izh_d, t.growth_rate,
                           t.target_calcium)
         tparams = convert.neuron_params_from_numpy(
-            JParams(*(np.asarray(f) for f in jparams)))
+            JParams(*(np.asarray(f) for f in jparams)), device="cpu")
     jx = [jnp.asarray(a) for a in x]
     tx = [_t(a) for a in x]
     jout = jops.fused_neuron_step(*jx, jcfg, params=jparams, interpret=True)
@@ -273,13 +273,13 @@ def test_fused_neuron_step(n, hetero):
 
 def test_neuron_params_from_numpy_carries_a_population_table():
     t = _rs_ch_fs(JConfig(), 64)
-    p = convert.neuron_params_from_numpy(t)
+    p = convert.neuron_params_from_numpy(t, device="cpu")
     assert isinstance(p, neuron.NeuronParams)
     for f in neuron.NeuronParams._fields:
         np.testing.assert_array_equal(getattr(p, f).numpy(),
                                       np.asarray(getattr(t, f)))
-    scal = convert.neuron_params_from_numpy(JParams(0.02, 0.2, -65.0, 8.0,
-                                                    1e-3, 0.7))
+    scal = convert.neuron_params_from_numpy(
+        JParams(0.02, 0.2, -65.0, 8.0, 1e-3, 0.7), device="cpu")
     assert scal == neuron.NeuronParams(0.02, 0.2, -65.0, 8.0, 1e-3, 0.7)
 
 
@@ -298,7 +298,7 @@ def test_update_activity_and_elements_match_jax(hetero):
         jparams = JParams(t.izh_a, t.izh_b, t.izh_c, t.izh_d, t.growth_rate,
                           t.target_calcium)
         tparams = convert.neuron_params_from_numpy(
-            JParams(*(np.asarray(f) for f in jparams)))
+            JParams(*(np.asarray(f) for f in jparams)), device="cpu")
     zeros = np.zeros(n, np.float32)
     flags = np.zeros(n, bool)
 
