@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a),
-holds each kernel (K0-K5) against its plain torch version on the card at the
-main paths' shapes, drives the public kernel API (``repro_torch.kernels.ops``:
+holds each kernel (K0-K5, and the retraction and synapse-priority kernels of
+``csrc/retract.cu``) against its plain torch version on the card at the main
+paths' shapes, drives the public kernel API (``repro_torch.kernels.ops``:
 K6 radix argsort, K7 Gaussian probabilities, K8 neuron step, K9 flash
 attention) at the widths the repo uses and holds each call against its plain
 version, and drives two paths at the full width of ``CONFIG`` (65,536
@@ -14,8 +15,10 @@ neurons, S=32):
 - the activity + traversal path, ``Simulator.from_config(cfg).run(k)`` with
   ``activity_impl`` and ``connectivity_impl`` fused (K1, K2);
 - the scenario path, ``Simulator.from_config(cfg, scenario=lesion_rewiring(),
-  device="cuda").run(12, recorder=rec)`` with all five lowerings fused (K1-K5),
-  through the lesion at step 1,000.
+  device="cuda").run(12, recorder=rec)`` with all five lowerings fused (K1-K5,
+  retraction and the acceptance priorities; K0's kernel draws
+  ``init_state``'s positions and vacancies), through the lesion at step
+  1,000.
 
 For the kernel API and each path it checks the kernels really ran there (the
 launch counts are set to 0 just before and read just after; for K9, which of
@@ -56,7 +59,13 @@ NEURON_OPS = 60       # Box-Muller tail + Izhikevich + calcium + elements
 # a slot of K1's row a step (rank split and rate are decoded once a window):
 # code load, local test, word index, word load, bit shift, bit test
 SLOT_OPS = 6
-NODE_OPS = 40         # node statistics: 3 divisions, distance, sqrt, exp
+# K2's node statistics from a packed node (count, centre): |y|^2, <x,y>
+# and d2 (13), two clamps, sqrt, two divisions, exp, the weight's product
+# and two compares; earlier slices counted 40 (with the centre's three
+# divisions, now made once a node a call)
+NODE_OPS = 24
+NODE_OPS_EARLIER = 40
+RANK_OPS = 3          # a slot pair of retract's rank: shuffle, two compares
 GUMBEL_LOG_OPS = 20   # the two logs of a Gumbel draw (float)
 MORTON_OPS = 40       # 3 scale+truncate+clamp, 3 bit spreads, rebase, rank
 APPLY_OPS = 8         # per table slot or message/request: load, compare, move
@@ -156,8 +165,12 @@ def phase_build():
           "library": so.name})
 
 
-def check_k0():
+def check_k0(cfg):
+    """K0's kernel (threefry_words) against the plain int64 Threefry on 1M
+    random counters, and timed at the main path's largest draw: the (n, 3)
+    position offsets of ``init_state`` (``prng.uniform``)."""
     import torch
+    from repro_torch import prng
     from repro_torch.kernels import hash as chash
     g = torch.Generator(device=DEV).manual_seed(0)
     words = [torch.randint(0, 2 ** 32, (1 << 20,), generator=g,
@@ -166,10 +179,115 @@ def check_k0():
     got = chash.threefry_words(*words)
     want = chash.threefry2x32(*words)
     bad = int((got[0] != want[0]).sum() + (got[1] != want[1]).sum())
+    n = 3 * cfg.neurons_per_rank
+    k = prng.key(cfg.seed, device=DEV)
+    i = torch.arange(n, dtype=torch.int64, device=DEV)
+    ops = (k[0], k[1], i >> 32, i & chash.M32)
+    same = _same(chash.threefry_words(*ops), chash.threefry2x32(*ops))
     emit({"phase": "check", "kernel": "K0 threefry2x32", "words": 1 << 21,
-          "mismatches": bad})
-    if bad:
+          "mismatches": bad, "init_draw_equal": same})
+    if bad or not same:
         fail(f"K0: {bad} threefry words differ from the plain version")
+    ms = cuda_ms(lambda: chash.threefry_words(*ops), reps=10)
+    dev_ms = device_ms(lambda: chash.threefry_words(*ops), 10)
+    plain_ms = cuda_ms(lambda: chash.threefry2x32(*ops), reps=3)
+    # counters in (two words a draw), both words out, as int32
+    return ms, dev_ms, plain_ms, bound(n * 16, n * HASH_OPS), 0.0
+
+
+def retract_cases(cfg):
+    """Retraction inputs at CONFIG's shape (n, S): full random rows with
+    random deletion counts, the scenario's sparse rows (about 0.25 synapses
+    a neuron, a few to delete), lesion rows (n_delete at or above the count
+    on half the rows) and rows holding partners twice (tied priorities, the
+    slot order decides)."""
+    import torch
+    n, s = cfg.neurons_per_rank, cfg.max_synapses
+    g = torch.Generator(device=DEV).manual_seed(8)
+    i32 = torch.int32
+
+    def ri(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=g, device=DEV,
+                             dtype=i32)
+
+    gids = torch.arange(n, dtype=i32, device=DEV)
+    full = ri(0, n, n, s)
+    sparse = torch.where(torch.rand(n, s, generator=g, device=DEV) < 0.25 / s,
+                         ri(0, n, n, s), -1)
+    lesion = torch.where(torch.rand(n, s, generator=g, device=DEV) < 0.5,
+                         ri(0, n, n, s), -1)
+    dup = ri(0, 4, n, s) + (gids[:, None] % 1000)
+    dup = torch.where(torch.rand(n, s, generator=g, device=DEV) < 0.2, -1,
+                      dup)
+    cnt = lambda e: (e >= 0).sum(1, dtype=i32)    # noqa: E731
+    return {
+        "full": (full, ri(0, s + 1, n)),
+        "scenario_sparse": (sparse, torch.clamp_min(
+            cnt(sparse) - ri(0, 2, n), 0)),
+        "lesion": (lesion, torch.where(gids % 2 == 0, cnt(lesion) + ri(0, 3, n),
+                                       ri(0, 4, n))),
+        "duplicates": (dup, ri(0, s + 1, n)),
+    }, gids
+
+
+def check_retract(cfg):
+    """The retraction kernel bit-equal to ``retract_synapses`` and the
+    priority entry to ``request_priority`` at CONFIG's shapes (keys as the
+    chunk derives them), each timed beside its plain version and bound."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.connectome import routing
+    from repro_torch.connectome import synapses as syn
+    from repro_torch.kernels import retract as kr
+    k_out, _, k_accept = prng.split_words(
+        prng.fold_in_words(prng.key_words(cfg.seed + 2), 3), 3)
+    t_out = prng.key_tensor(k_out, DEV)
+    cases, gids = retract_cases(cfg)
+    n, s = cfg.neurons_per_rank, cfg.max_synapses
+    res, worst = {}, 0.0
+    for name, (edges, nd) in cases.items():
+        got = kr.retract(k_out, edges, nd, gids)
+        want = syn.retract_synapses(t_out, edges, nd, gids)
+        occ = edges >= 0
+        counts = occ.sum(1)
+        drawing = (nd > 0) & (nd < counts)
+        worst = max(worst, _check_exact(
+            f"retract ({name})", got, want,
+            {"n": n, "S": s, "occupied": int(occ.sum()),
+             "killed": int(got[1].sum()),
+             "rows_that_draw": int(drawing.sum())}))
+        if name in ("full", "scenario_sparse"):
+            ms = cuda_ms(lambda: kr.retract(k_out, edges, nd, gids), reps=10)
+            dev_ms = device_ms(lambda: kr.retract(k_out, edges, nd, gids),
+                               10)
+            plain_ms = cuda_ms(lambda: syn.retract_synapses(
+                t_out, edges, nd, gids), reps=2)
+            slots = int((occ & drawing[:, None]).sum())
+            int_ops = (int(drawing.sum()) + 2 * slots) * HASH_OPS \
+                + slots * s * RANK_OPS
+            res[name] = (ms, dev_ms, plain_ms,
+                         bound(n * s * 9 + 8 * n, int_ops))
+    # the acceptance priorities of a full request buffer
+    q = routing.cap_requests(cfg, 1)
+    g = torch.Generator(device=DEV).manual_seed(9)
+    tgt = torch.randint(0, n, (q,), generator=g, device=DEV,
+                        dtype=torch.int32)
+    src = torch.randint(0, n, (q,), generator=g, device=DEV,
+                        dtype=torch.int32)
+    valid = torch.rand(q, generator=g, device=DEV) < 0.7
+    t_acc = prng.key_tensor(k_accept, DEV)
+    got = kr.edge_priority(k_accept, src, tgt, valid)
+    want = syn.request_priority(t_acc, tgt, src, valid)
+    worst_p = _check_exact("edge_priority (request buffer)", (got,), (want,),
+                           {"Q": q, "valid": int(valid.sum())})
+    p_ms = cuda_ms(lambda: kr.edge_priority(k_accept, src, tgt, valid),
+                   reps=10)
+    p_dev = device_ms(lambda: kr.edge_priority(k_accept, src, tgt, valid), 10)
+    p_plain = cuda_ms(lambda: syn.request_priority(t_acc, tgt, src, valid),
+                      reps=2)
+    res["priority"] = (p_ms, p_dev, p_plain,
+                       bound(q * 13, q * 3 * HASH_OPS))
+    return res, max(worst, worst_p)
 
 
 def k1_inputs(cfg, num_ranks: int, rank: int):
@@ -324,45 +442,149 @@ def k2_inputs(cfg):
     args = (stacked.counts, stacked.centroids, tree.leaf_members,
             st.positions, vac, st.positions, torch.zeros_like(gids), gids,
             torch.ones(n, dtype=torch.bool, device=DEV), 0, 0)
-    return args, kw
+    # the main path packs the tree's real level widths (traverse.phase_b_fused)
+    widths = tuple(c.shape[0] for c in tree.counts)
+    return args, kw, widths
+
+
+def k2_work(args, kw):
+    """The work K2's search needs on these inputs, replayed with the plain
+    version's arithmetic (``traverse.expand_and_sample``, ``bh_search``,
+    ``select_member``): node evaluations (each frontier entry's statistics
+    once, for the sub-rounds up to the fixed point and the settled
+    frontier), Gumbel draws of the valid nonempty settled entries and of the
+    valid leaf members, and the frontier entries of every sub-round the
+    search runs up to its fixed point (the count the per-entry evaluation
+    would take). Returns a dict of counts."""
+    import torch
+    from repro_torch.connectome import traverse as tv
+    (counts, cents, members, npos, vac, x, start, gid, _, chunk,
+     gid_base) = args
+    f, n_levels = kw["frontier"], kw["n_levels"]
+    last = n_levels - 1
+    tree = tv.StackedTree(counts, cents, tuple(kw["sizes"]), 0)
+    q = x.shape[0]
+    dev = x.device
+    i32 = torch.int32
+    js = torch.arange(8, dtype=i32, device=dev)
+    cell = start.to(i32)
+    rel = torch.zeros(q, dtype=i32, device=dev)
+    done = torch.zeros(q, dtype=torch.bool, device=dev)
+    evals = draws = entries = rounds = 0
+    for i in range(n_levels):
+        active = ~done
+        rounds += int(active.sum())
+        at_leaf = rel >= last
+        cells = torch.zeros((q, f), dtype=i32, device=dev)
+        lvls = torch.zeros((q, f), dtype=i32, device=dev)
+        valid = torch.zeros((q, f), dtype=torch.bool, device=dev)
+        cells[:, :8] = torch.where(at_leaf, cell, cell * 8)[:, None] + \
+            torch.where(at_leaf[:, None], 0, js[None, :])
+        lvls[:, :8] = torch.where(at_leaf, rel, rel + 1)[:, None]
+        valid[:, :8] = torch.where(at_leaf[:, None], js[None] == 0, True)
+        evals += int((valid & active[:, None]).sum())
+        settled = torch.zeros(q, dtype=torch.bool, device=dev)
+        for _ in range(n_levels):
+            cnt, _, crit = tv._node_stats(tree, lvls, cells, x, kw["sigma"])
+            nonempty = cnt > 1e-9
+            expand = valid & nonempty & ~((crit < kw["theta"]) |
+                                          (lvls >= last))
+            keep = valid & ~expand & nonempty
+            need = torch.where(expand, 8, torch.where(keep, 1, 0))
+            fits = tv._excl_cumsum(need) + need <= f
+            need2 = torch.where(expand & fits, 8,
+                                torch.where(keep | (expand & ~fits), 1, 0))
+            off2 = tv._excl_cumsum(need2)
+            need2 = torch.where(off2 + need2 <= f, need2, 0)
+            run = active & ~settled
+            entries += int((valid & run[:, None]).sum())
+            settled = settled | ~torch.any(valid & (need2 != 1), dim=1)
+            grow = run & ~settled
+            evals += int(((need2 == 8) & grow[:, None]).sum()) * 8
+            nc = torch.zeros((q, f + 1), dtype=i32, device=dev)
+            nl = torch.zeros((q, f + 1), dtype=i32, device=dev)
+            nv = torch.zeros((q, f + 1), dtype=torch.bool, device=dev)
+            one = need2 == 1
+            t1 = torch.where(one, off2, f)
+            nc.scatter_(1, t1, cells)
+            nl.scatter_(1, t1, lvls)
+            nv.scatter_(1, t1, one)
+            t8 = torch.where((need2 == 8)[..., None], off2[..., None] + js,
+                             f).reshape(q, -1)
+            nc.scatter_(1, t8, (cells[..., None] * 8 + js).reshape(q, -1))
+            nl.scatter_(1, t8, (lvls[..., None] + 1).expand(q, f, 8)
+                        .reshape(q, -1))
+            nv.scatter_(1, t8, (need2 == 8)[..., None].expand(q, f, 8)
+                        .reshape(q, -1))
+            cells, lvls, valid = nc[:, :f], nl[:, :f], nv[:, :f]
+        cnt, _, _ = tv._node_stats(tree, lvls, cells, x, kw["sigma"])
+        live = valid & (cnt > 1e-9)
+        draws += int((live & active[:, None]).sum())
+        ncell, nrel, nvalid, _ = tv.expand_and_sample(
+            tree, x, cell, rel, gid, tv.PHASE_B_ROUND_BASE + i,
+            seed=kw["seed"], chunk=chunk, theta=kw["theta"],
+            sigma=kw["sigma"], frontier=f, n_levels=n_levels)
+        cell = torch.where(done, cell, ncell)
+        rel = torch.where(done, rel, nrel)
+        done = done | (rel >= last) | ~nvalid
+    leaf = torch.clamp(cell.to(torch.int64), 0, members.shape[0] - 1)
+    mem = members[leaf]
+    msafe = torch.where(mem >= 0, mem, 0).to(torch.int64)
+    mvalid = (mem >= 0) & (gid_base + msafe != gid[:, None])
+    w = torch.where(mvalid, vac[msafe], 0.0) * tv._gauss(
+        tv.pairwise_d2(x, npos[msafe]), kw["sigma"])
+    member_draws = int((mvalid & (w > 1e-12)).sum())
+    return {"queries": q, "rounds": rounds, "node_evaluations": evals,
+            "frontier_draws": draws, "member_draws": member_draws,
+            "subround_entries": entries}
 
 
 def k2_compare_and_time(cfg):
     from repro_torch.connectome.traverse import phase_b_core
     from repro_torch.kernels import bh_traverse as bt
-    args, kw = k2_inputs(cfg)
-    kt, kok, kd = bt.bh_traverse(*args, **kw)
+    args, kw, widths = k2_inputs(cfg)
+    kt, kok, kd = bt.bh_traverse(*args, **kw, widths=widths)
     pt, pok, pd = phase_b_core(*args, **kw)
     q = kt.shape[0]
     diff_t = int((kt != pt).sum())
     diff_d = int((kd != pd).sum())
+    diff_ok = int((kok != pok).sum())
     max_abs = float(max((kt - pt).abs().max(), (kd - pd).abs().max()))
-    emit({"phase": "check", "kernel": "K2 bh_traverse",
-          "shape": {"Q": q, "L": int(args[0].shape[0]),
-                    "C": int(args[0].shape[1]),
-                    "M": int(args[2].shape[1]), "F": cfg.frontier_cap},
-          "tolerance": "target_gid and depth equal except near-ties "
-                       "(<=0.1% of queries)",
-          "target_mismatches": diff_t, "depth_mismatches": diff_d,
-          "ok_mismatches": int((kok != pok).sum()),
-          "found": int(kok.sum())})
-    if max(diff_t, diff_d) > NEAR_TIE_SHARE * q:
-        fail(f"K2: {diff_t} targets / {diff_d} depths differ")
-    ms = cuda_ms(lambda: bt.bh_traverse(*args, **kw), reps=5)
-    dev_ms = device_ms(lambda: bt.bh_traverse(*args, **kw), 5)
+    ms = cuda_ms(lambda: bt.bh_traverse(*args, **kw, widths=widths), reps=5)
+    dev_ms = device_ms(lambda: bt.bh_traverse(*args, **kw, widths=widths), 5)
     plain_ms = cuda_ms(lambda: phase_b_core(*args, **kw), reps=1)
     n_levels = kw["n_levels"]
     rounds = int(kd.sum())
     m = int(args[2].shape[1])
-    # at least the 8 children per expansion sub-round and 8 sampled entries,
-    # each a Gumbel draw (a Threefry and two logs)
-    draws = rounds * 8 + q * m
-    int_ops = draws * HASH_OPS
-    fp_ops = rounds * n_levels * 8 * NODE_OPS + draws * (NODE_OPS
-                                                         + GUMBEL_LOG_OPS)
-    nbytes = sum(a.numel() * a.element_size() for a in args[:9]) + q * 9
-    return (ms, dev_ms, plain_ms, bound(nbytes, int_ops, fp_ops),
-            max(diff_t, diff_d), max_abs)
+    # the bound of earlier slices: 8 node evaluations a sub-round, every
+    # sub-round, and 8 frontier and M member draws
+    old_draws = rounds * 8 + q * m
+    old = bound(sum(a.numel() * a.element_size() for a in args[:9]) + q * 9,
+                old_draws * HASH_OPS,
+                rounds * n_levels * 8 * NODE_OPS_EARLIER
+                + old_draws * (NODE_OPS_EARLIER + GUMBEL_LOG_OPS))
+    # the work this search needs (k2_work): each frontier entry's statistics
+    # once, a Gumbel draw (a Threefry and two logs) for each valid nonempty
+    # settled entry and valid member
+    work = k2_work(args, kw)
+    draws = work["frontier_draws"] + work["member_draws"]
+    nbytes = (sum(a.numel() * a.element_size() for a in args[2:9])
+              + 16 * sum(widths) + q * 9)
+    b = bound(nbytes, draws * HASH_OPS,
+              work["node_evaluations"] * NODE_OPS + draws * GUMBEL_LOG_OPS)
+    emit({"phase": "check", "kernel": "K2 bh_traverse",
+          "shape": {"Q": q, "L": int(args[0].shape[0]),
+                    "C": int(args[0].shape[1]), "widths": list(widths),
+                    "M": m, "F": cfg.frontier_cap},
+          "tolerance": "bit-equal (target_gid, ok, depth on every row)",
+          "target_mismatches": diff_t, "depth_mismatches": diff_d,
+          "ok_mismatches": diff_ok, "found": int(kok.sum()),
+          "work": work, "bound_ms": b[0], "bound_by": b[1],
+          "bound_ms_earlier_slices": old[0]})
+    if diff_t or diff_d or diff_ok:
+        fail(f"K2: {diff_t} targets / {diff_d} depths / {diff_ok} ok flags "
+             f"differ from the plain version")
+    return ms, dev_ms, plain_ms, b, max(diff_t, diff_d, diff_ok), max_abs
 
 
 def _int_diff(got, want) -> float:
@@ -1054,7 +1276,8 @@ def main() -> int:
     scn = library.lesion_rewiring()
 
     # ---- kernels against their plain versions --------------------------
-    check_k0()
+    k0 = check_k0(all_fused)
+    kr_res, kr_err = check_retract(all_fused)
     k1 = k1_compare(slice_cfg)
     k1s = k1_compare(all_fused, num_ranks=1, rank=0,
                      tables=k1_scenario_tables(all_fused, chunk=2))
@@ -1091,7 +1314,22 @@ def main() -> int:
           "K4_accept_device_ms": k4["accept"][4],
           "K4_accept_plain_ms": k4["accept"][1],
           "K4_accept_bound_ms": k4["accept"][2][0],
-          "K5_ms": k5[0], "K5_device_ms": k5[4], "K5_plain_ms": k5[1]})
+          "K5_ms": k5[0], "K5_device_ms": k5[4], "K5_plain_ms": k5[1],
+          "K2_bound_ms": k2_bound,
+          "retract_ms": kr_res["full"][0],
+          "retract_device_ms": kr_res["full"][1],
+          "retract_plain_ms": kr_res["full"][2],
+          "retract_bound_ms": kr_res["full"][3][0],
+          "retract_sparse_ms": kr_res["scenario_sparse"][0],
+          "retract_sparse_device_ms": kr_res["scenario_sparse"][1],
+          "retract_sparse_plain_ms": kr_res["scenario_sparse"][2],
+          "retract_sparse_bound_ms": kr_res["scenario_sparse"][3][0],
+          "edge_priority_ms": kr_res["priority"][0],
+          "edge_priority_device_ms": kr_res["priority"][1],
+          "edge_priority_plain_ms": kr_res["priority"][2],
+          "edge_priority_bound_ms": kr_res["priority"][3][0],
+          "K0_ms": k0[0], "K0_device_ms": k0[1], "K0_plain_ms": k0[2],
+          "K0_bound_ms": k0[3][0]})
 
     # ---- the public kernel API: K6-K9 at the repo's widths ---------------
     from repro_torch.kernels import flash_attention as fa
@@ -1152,11 +1390,15 @@ def main() -> int:
                       flags, counts, scenario=scn, rec=rec,
                       device_counts=device_counts)
     want = {"activity_window": chunks, "morton_sort": chunks,
-            "synapse_apply": 3 * chunks, "route_build": 2 * chunks}
+            "synapse_apply": 3 * chunks, "route_build": 2 * chunks,
+            "retract": 2 * chunks, "edge_priority": chunks}
     for name, k in want.items():
         if counts[name] != k:
             fail(f"{name} launched {counts[name]} times on the scenario "
                  f"path, not {k}")
+    if counts["threefry_words"] < 1:
+        fail("threefry_words did not run on the scenario path (init_state's "
+             "draws)")
     if device_counts["activity_window"] != {"staged": chunks,
                                             "streaming": 0} or \
             device_counts["synapse_apply"] != 3 * chunks:
@@ -1167,6 +1409,33 @@ def main() -> int:
     scenario_determinism(sim, rec, all_fused, scn, chunks, keys, card)
 
     kernels = [
+        {"name": "threefry_words", "route": "cuda",
+         "source": "src/repro_torch/csrc/hash_words.cu",
+         "replaces": "src/repro/kernels/hash.py:57",
+         "launches": counts["threefry_words"], "max_abs_err": k0[4],
+         "ms": k0[0], "device_ms": k0[1], "plain_ms": k0[2],
+         "bound_ms": k0[3][0], "bound_by": k0[3][1], "library_ms": None},
+        {"name": "retract", "route": "cuda",
+         "source": "src/repro_torch/csrc/retract.cu",
+         "replaces": "src/repro/connectome/synapses.py:117 (jnp)",
+         "launches": counts["retract"], "max_abs_err": kr_err,
+         "ms": kr_res["full"][0], "device_ms": kr_res["full"][1],
+         "plain_ms": kr_res["full"][2], "bound_ms": kr_res["full"][3][0],
+         "bound_by": kr_res["full"][3][1], "library_ms": None,
+         "scenario_sparse": {
+             "ms": kr_res["scenario_sparse"][0],
+             "device_ms": kr_res["scenario_sparse"][1],
+             "plain_ms": kr_res["scenario_sparse"][2],
+             "bound_ms": kr_res["scenario_sparse"][3][0],
+             "bound_by": kr_res["scenario_sparse"][3][1]}},
+        {"name": "edge_priority", "route": "cuda",
+         "source": "src/repro_torch/csrc/retract.cu",
+         "replaces": "src/repro/connectome/synapses.py:56 (jnp)",
+         "launches": counts["edge_priority"], "max_abs_err": kr_err,
+         "ms": kr_res["priority"][0], "device_ms": kr_res["priority"][1],
+         "plain_ms": kr_res["priority"][2],
+         "bound_ms": kr_res["priority"][3][0],
+         "bound_by": kr_res["priority"][3][1], "library_ms": None},
         {"name": "activity_window", "route": "cuda",
          "source": "src/repro_torch/csrc/activity_window.cu",
          "replaces": "src/repro/kernels/activity_fused.py:279",

@@ -45,7 +45,9 @@ def lexsort(keys):
 
 def edge_priority(key, a_gid, b_gid):
     """Deterministic per-(a,b) uniform — ``uniform(fold_in(fold_in(key, a),
-    b))`` for every pair, independent of buffer ordering."""
+    b))`` for every pair, independent of buffer ordering. ``key``: a key
+    tensor or two u32 words (``prng.as_key``)."""
+    key = prng.as_key(key, a_gid.device)
     return prng.uniform(prng.fold_in(prng.fold_in(key, a_gid), b_gid))
 
 
@@ -161,12 +163,17 @@ class ApplyImpl(NamedTuple):
     """One registered implementation of the synapse-apply stages (registry
     domain "apply"): ``deletion`` drains routed retraction messages out of
     one edge table and re-compacts it; ``accept`` admits formation requests;
-    ``route`` builds the per-destination deletion-notification buffers.
+    ``route`` builds the per-destination deletion-notification buffers;
+    ``retract`` breaks the synapses that lost elements no longer carry.
     'reference' runs the plain torch ops above; 'fused' runs K4 and K5
-    (``kernels/synapse_apply.py``), one stage per kernel pass."""
+    (``kernels/synapse_apply.py``), one stage per kernel pass, and the
+    retraction and acceptance priorities of ``kernels/retract.py``. Keys are
+    key tensors or two u32 words (the fused entries take the words by
+    value)."""
     deletion: Callable   # (edges, msg_lid, msg_gid, msg_valid)
     accept: Callable     # (tgt_lid, src_gid, valid, vacant_d, in_edges, key)
     route: Callable      # (kill, edges, my_gid_col, cfg, num_ranks, lesions)
+    retract: Callable    # (key, edges, n_delete, row_gids)
 
 
 def _deletion_reference(edges, msg_lid, msg_gid, msg_valid):
@@ -197,11 +204,12 @@ def _deletion_fused(edges, msg_lid, msg_gid, msg_valid):
 
 def _accept_fused(tgt_lid, src_gid, valid, vacant_d, in_edges, key):
     """K4 with the deletion stage disabled (no valid messages). The
-    priorities are drawn outside the kernel by the reference's
-    ``request_priority``; the table (compacted on entry) passes remove +
-    compact unchanged."""
+    priorities are ``request_priority``'s, drawn before the kernel by
+    ``kernels/retract.py::edge_priority``; the table (compacted on entry)
+    passes remove + compact unchanged."""
+    from repro_torch.kernels import retract as kr  # lazy: imports us
     from repro_torch.kernels import synapse_apply as ksa  # lazy: imports us
-    prio = request_priority(key, tgt_lid, src_gid, valid)
+    prio = kr.edge_priority(key, src_gid, tgt_lid, valid)
     dev = in_edges.device
     zi = torch.zeros(8, dtype=torch.int32, device=dev)
     new_in, acc = ksa.synapse_apply(
@@ -226,7 +234,13 @@ def _route_fused(kill, edges, my_gid_col, cfg, num_ranks, lesions):
     return buf.reshape(num_ranks * cap, 2), dropped[0]
 
 
+def _retract_fused(key, edges, n_delete, row_gids):
+    from repro_torch.kernels import retract as kr  # lazy: imports us
+    return kr.retract(key, edges, n_delete, row_gids)
+
+
 registry.register_phase("apply", "reference")(
-    ApplyImpl(_deletion_reference, accept_requests, _route_reference))
+    ApplyImpl(_deletion_reference, accept_requests, _route_reference,
+              retract_synapses))
 registry.register_phase("apply", "fused")(
-    ApplyImpl(_deletion_fused, _accept_fused, _route_fused))
+    ApplyImpl(_deletion_fused, _accept_fused, _route_fused, _retract_fused))

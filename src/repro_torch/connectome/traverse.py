@@ -307,12 +307,13 @@ def phase_b_reference(stacked, local, neuron_pos, vacant_d, pos,
 @registry.register_phase("traversal", "fused")
 def phase_b_fused(stacked, local, neuron_pos, vacant_d, pos, start_cell_rel,
                   src_gid, valid_in, chunk, gid_base, kw):
-    """The traversal kernel K2 (kernels/bh_traverse.py)."""
+    """The traversal kernel K2 (kernels/bh_traverse.py), packing only the
+    tree's real level widths."""
     from repro_torch.kernels import bh_traverse   # lazy: it imports us
     return bh_traverse.bh_traverse(
         stacked.counts, stacked.centroids, local.leaf_members, neuron_pos,
         vacant_d, pos, start_cell_rel, src_gid, valid_in, chunk, gid_base,
-        **kw)
+        widths=tuple(c.shape[0] for c in local.counts), **kw)
 
 
 def phase_b(local, neuron_pos, vacant_d, pos, src_gid, start_cell_rel,

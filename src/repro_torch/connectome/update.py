@@ -13,7 +13,10 @@ notified), neither search nor offer vacancies, and advertise rate 0.
 
 Randomness: retraction and acceptance use chunk-keyed jax.random priorities
 (``repro_torch.prng``), every Barnes-Hut draw the counter hash keyed by
-(chunk, source gid) — the reference's streams.
+(chunk, source gid) — the reference's streams. The chunk's keys are derived
+on the host as u32 words (``prng.fold_in_words``, ``split_words``) from the
+seed and the host-side chunk counter: nothing is copied to the card for
+them; the reference lowering makes key tensors of them.
 """
 from __future__ import annotations
 
@@ -77,14 +80,13 @@ def _retraction(state, ctx, gids, k_out, k_in, stats):
         out_cnt - torch.floor(state.neurons.ax_elements).to(torch.int32), 0)
     del_in = torch.clamp_min(
         in_cnt - torch.floor(state.neurons.de_elements).to(torch.int32), 0)
-    out_edges, kill_out = syn.retract_synapses(k_out, out_edges, del_out,
-                                               gids)
-    in_edges, kill_in = syn.retract_synapses(k_in, in_edges, del_in, gids)
+    apply_impl = registry.resolve("apply", cfg.apply_impl)
+    out_edges, kill_out = apply_impl.retract(k_out, out_edges, del_out, gids)
+    in_edges, kill_in = apply_impl.retract(k_in, in_edges, del_in, gids)
     stats = stats.count("synapses_deleted",
                         torch.sum(kill_out) + torch.sum(kill_in))
 
     # notify partners; kill masks index the PRE-retraction tables
-    apply_impl = registry.resolve("apply", cfg.apply_impl)
     lesions = proto.has_lesions(ctx.scenario)
     msgs_out, ovf_out = apply_impl.route(
         kill_out, state.out_edges, gids[:, None], cfg, num_ranks, lesions)
@@ -110,7 +112,7 @@ def connectivity_update(state, ctx):
     n = cfg.neurons_per_rank
     dev = state.in_edges.device
     # rank-independent chunk key: every rank derives the same stream
-    chunk_key = prng.fold_in(prng.key(cfg.seed + 2, device=dev), state.chunk)
+    chunk_key = prng.fold_in_words(prng.key_words(cfg.seed + 2), state.chunk)
     gid0 = rank * n
     gids = gid0 + torch.arange(n, dtype=torch.int32, device=dev)
     stats = state.stats
@@ -128,7 +130,7 @@ def connectivity_update(state, ctx):
             de_elements=torch.where(alive, neu.de_elements, 0.0)))
 
     # ---- deletion by retraction (phase 3a) -------------------------------
-    k_out, k_in, k_accept = prng.split(chunk_key, 3)
+    k_out, k_in, k_accept = prng.split_words(chunk_key, 3)
     with record_function("repro.conn.retraction"):
         out_edges, in_edges, stats = _retraction(state, ctx, gids, k_out,
                                                  k_in, stats)

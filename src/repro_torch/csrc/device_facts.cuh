@@ -2,10 +2,10 @@
 // CUDA runtime once per device (and once per kernel and shared-memory
 // size), so that a C entry called every chunk does not query them again.
 //
-// Used by K1 (activity_window.cu) and K4 (synapse_apply.cu), which size their
-// grids to the resident blocks. The tables are guarded by a mutex: ctypes
-// releases the GIL around a C entry, so two Python threads may call in at
-// once.
+// Used by K1 (activity_window.cu), K2 (bh_traverse.cu) and K4
+// (synapse_apply.cu), which size their grids to the resident blocks. The
+// tables are guarded by a mutex: ctypes releases the GIL around a C entry,
+// so two Python threads may call in at once.
 #pragma once
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -20,6 +20,8 @@ struct DeviceFacts {
   int sms = 0;          // streaming multiprocessors
   int cooperative = 0;  // takes cudaLaunchCooperativeKernel
   int smem_optin = 0;   // bytes of dynamic shared memory a block may opt in to
+  int smem_sm = 0;      // bytes of shared memory of one SM
+  int smem_reserved = 0;  // bytes of an SM's shared memory held per block
 };
 
 // The current device's index and facts.
@@ -40,7 +42,13 @@ inline cudaError_t current_device(int* dev, DeviceFacts* facts) {
             cudaSuccess ||
         (err = cudaDeviceGetAttribute(
              &f.smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, *dev)) !=
-            cudaSuccess) {
+            cudaSuccess ||
+        (err = cudaDeviceGetAttribute(
+             &f.smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, *dev)) !=
+            cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&f.smem_reserved,
+                                      cudaDevAttrReservedSharedMemoryPerBlock,
+                                      *dev)) != cudaSuccess) {
       return err;
     }
     known[*dev] = f;

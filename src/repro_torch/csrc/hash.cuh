@@ -2,9 +2,11 @@
 //
 // Replaces the JAX package's kernels/hash.py (threefry2x32, uniform, normal,
 // gumbel, bh_ctr), which the TPU kernels inline into their bodies. Here it is
-// a set of __device__ functions included by the activity window (K1) and the
-// Barnes-Hut traversal (K2); repro_torch/kernels/hash.py is the plain torch
-// version and the two are held bit-equal on the card.
+// a set of __device__ functions included by the activity window (K1), the
+// Barnes-Hut traversal (K2), the retraction and priority kernels
+// (retract.cu) and the elementwise threefry_words kernel (hash_words.cu);
+// repro_torch/kernels/hash.py is the plain torch version and the two are
+// held bit-equal on the card.
 //
 // Bound on the H100: pure 32-bit integer work, 72 operations per call (2
 // initial adds, 20 rounds of add / rotate / xor, 5 key injections of 2 adds;

@@ -1,10 +1,12 @@
-// Elementwise Threefry-2x32 over four u32 arrays: the check kernel that holds
-// the K0 device functions (hash.cuh) bit-equal to the plain torch version
-// (repro_torch/kernels/hash.py::threefry2x32) on the card. Not on the
-// simulation path; K1 and K2 inline the same functions.
+// Elementwise Threefry-2x32 over four u32 arrays: the K0 device function
+// (hash.cuh) over tensors. repro_torch/prng.py runs its key derivations and
+// draws on a CUDA tensor through it (init_state's positions and vacancies,
+// the reference lowering's keys), and the card holds it bit-equal to the
+// plain torch version (repro_torch/kernels/hash.py::threefry2x32). K1, K2
+// and retract.cu inline the same functions.
 //
-// Bound on the H100: integer operations (~120 per element); one thread per
-// element, grid-stride.
+// Bound on the H100: integer operations (72 per element, hash.cuh) or the
+// four words read and two written; one thread per element, grid-stride.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -52,11 +52,15 @@ SIGNATURES = {
         + [I, I, I, I, U, I, I, F, F, P]),
     "repro_activity_window_device_launches": [I, I],
     "repro_bh_traverse": (
-        [P, P, P, P, P, P, P, P, P, P]   # counts, cents, members, npos, vac,
-                                         # x, start, gid, valid, sizes
-        + [P, P, P]                      # out tgt, ok, depth
+        [P] * 9            # counts, cents, members, npos, vac, x, start, gid,
+                           # valid
+        + [P, P]           # host arrays: level sizes (float), widths (int)
+        + [P]              # packed nodes scratch (float4 a node)
+        + [P, P, P]        # out tgt, ok, depth
         + [I, I, I, I, I, I, I, I, U, F, F, I, I, P]),
     "repro_morton_sort": [P, P, P, P, I, I, I, I, I, P],
+    "repro_retract": [P] * 5 + [I, I, U, U, P],
+    "repro_edge_priority": [P] * 4 + [I, U, U, P],
     "repro_synapse_apply": [P] * 11 + [P, ctypes.c_longlong, I, I, I, I, P],
     "repro_synapse_apply_device_launches": [I],
     "repro_route_build": [P] * 6 + [I, I, I, I, I, P],

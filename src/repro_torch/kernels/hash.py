@@ -9,9 +9,12 @@ Barnes-Hut counter packing, so every stream is bit-equal to the reference's.
 Plain version: int64 tensors holding u32 values, masked with ``& 0xFFFFFFFF``
 after every add and shift (``torch.uint32`` has no add or shift on the CPU).
 Device version: the ``__device__`` functions of ``csrc/hash.cuh``, inlined
-into K1 and K2. ``threefry_words`` runs them elementwise over tensors on the
-card through their own small kernel so they can be held against the plain
-version.
+into K1, K2 and ``csrc/retract.cu``. ``threefry_words`` runs them
+elementwise over tensors on the card through their own small kernel:
+``prng``'s draws on a CUDA tensor go through it, and the card holds it
+against the plain version. ``threefry2x32_int`` is the same hash on Python
+ints, for keys derived on the host (a few int operations, where the tensor
+version would take some sixty small CPU tensor operations).
 """
 from __future__ import annotations
 
@@ -74,6 +77,21 @@ def threefry2x32(k0, k1, c0, c1):
     return x0, x1
 
 
+def threefry2x32_int(k0: int, k1: int, c0: int, c1: int):
+    """The same Threefry-2x32 on Python ints (their low 32 bits): the host's
+    derivation of keys that kernels take by value. Returns two ints."""
+    ks = (k0 & M32, k1 & M32, (k0 ^ k1 ^ _PARITY) & M32)
+    x0 = (c0 + ks[0]) & M32
+    x1 = (c1 + ks[1]) & M32
+    for g in range(5):
+        for r in (_ROT_A if g % 2 == 0 else _ROT_B):
+            x0 = (x0 + x1) & M32
+            x1 = (((x1 << r) & M32) | (x1 >> (32 - r))) ^ x0
+        x0 = (x0 + ks[(g + 1) % 3]) & M32
+        x1 = (x1 + ks[(g + 2) % 3] + g + 1) & M32
+    return x0, x1
+
+
 def bits(seed: int, domain: int, ctr, entity):
     """Two u32 words of hash output for (seed, domain, ctr, entity)."""
     return threefry2x32(seed, domain, ctr, entity)
@@ -120,19 +138,27 @@ launches = _build.LaunchCounter("threefry_words")
 
 
 def threefry_words(k0, k1, c0, c1):
-    """Elementwise Threefry-2x32 over four same-shape integer tensors (their
-    low 32 bits). A CUDA tensor runs the ``csrc/hash.cuh`` device function
-    through the ``threefry_words`` kernel; a CPU tensor runs the plain
-    version. Returns two int64 tensors holding u32 words."""
-    if k0.device.type != "cuda":
+    """Elementwise Threefry-2x32 over four operands (integer tensors that
+    broadcast together, or Python ints; their low 32 bits). When one of them
+    is a CUDA tensor this runs the ``csrc/hash.cuh`` device function through
+    the ``threefry_words`` kernel (Python ints are filled on the card, not
+    copied there); otherwise the plain version. Returns two int64 tensors
+    holding u32 words."""
+    dev = _device_of(k0, k1, c0, c1)
+    if dev.type != "cuda":
         return threefry2x32(k0, k1, c0, c1)
-    shape = k0.shape
-    ins = [(t.reshape(-1).to(torch.int64) & M32).to(torch.int32).contiguous()
-           for t in (k0, k1, c0, c1)]
-    for t in ins[1:]:
-        if t.shape != ins[0].shape or t.device != ins[0].device:
-            raise ValueError("threefry_words needs four tensors of one shape "
-                             "on one device")
+    ops = (k0, k1, c0, c1)
+    for t in ops:
+        if isinstance(t, torch.Tensor) and t.device != dev:
+            raise ValueError("threefry_words needs its tensors on one device")
+    shape = torch.broadcast_shapes(*(t.shape for t in ops
+                                     if isinstance(t, torch.Tensor)))
+    ins = [(t.expand(shape).reshape(-1).to(torch.int64) & M32)
+           .to(torch.int32).contiguous()
+           if isinstance(t, torch.Tensor) else
+           torch.full((shape.numel(),), _wrap_i32(int(t)), dtype=torch.int32,
+                      device=dev)
+           for t in ops]
     o0 = torch.empty_like(ins[0])
     o1 = torch.empty_like(ins[0])
     lib = _build.library()
@@ -142,3 +168,9 @@ def threefry_words(k0, k1, c0, c1):
     launches.add()
     return ((o0.to(torch.int64) & M32).reshape(shape),
             (o1.to(torch.int64) & M32).reshape(shape))
+
+
+def _wrap_i32(x: int) -> int:
+    """The low 32 bits of ``x`` as a signed int32 value."""
+    x &= M32
+    return x - (1 << 32) if x >= 1 << 31 else x

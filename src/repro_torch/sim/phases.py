@@ -103,7 +103,7 @@ def activity_reference(state, ctx: PhaseContext):
 
 @registry.register_phase("activity", "fused")
 def activity_fused_phase(state, ctx: PhaseContext):
-    """The activity window kernel K1 (Delta launches per window)."""
+    """The activity window kernel K1 (one launch per window)."""
     return _activity(state, ctx, activity_fused.activity_window)
 
 

@@ -3,9 +3,10 @@ small sizes. Marked ``cuda``: they skip on a machine without an NVIDIA GPU
 (the CPU tests hold the plain versions against the JAX package) and run on
 the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 
-Tolerances: the integer kernels (K0, K3-K6) and the elementwise float
-kernels built with --fmad=false in the plain versions' order (K1, K2, K7's
-P, K8) are bit-equal. K1 sums a row in another order than ``torch.sum``:
+Tolerances: the integer kernels (K0, K3-K6, retraction) and the elementwise
+float kernels built with --fmad=false in the plain versions' order (K1, K2,
+K7's P, K8, the synapse priorities) are bit-equal. K1 sums a row in another
+order than ``torch.sum``:
 bit-equal with integer weights (the model's), and with non-integer weights
 within 1e-5 relative, step-synced, spike flags differing only at near-ties
 (|v - 30| < 1e-3), as ``chip_smoke.py`` holds it. K7's row sums are taken in another fixed order: 1e-6
@@ -15,13 +16,17 @@ each element is held within ``flash_attention.bf16_error_bound`` of the
 plain version (one bf16 ulp of the output plus the spread of the p
 roundings): a fixed 2e-2 would be as large as the output at long rows."""
 import dataclasses
+import sys
 
 import pytest
 import torch
 
-from repro_torch.configs.msp_brain import SMOKE_CONFIG
+from repro_torch import prng
+from repro_torch.configs.msp_brain import CONFIG, SMOKE_CONFIG
+from repro_torch.connectome import synapses as syn
 from repro_torch.connectome import traverse
 from repro_torch.connectome import tree as ctree
+from repro_torch.connectome import update
 from repro_torch.connectome.synapses import compact
 from repro_torch.core import engine
 from repro_torch.core.neuron import NeuronParams
@@ -31,7 +36,9 @@ from repro_torch.kernels import bh_traverse as bt
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import hash as chash
 from repro_torch.kernels import neuron_step as ns
+from repro_torch.kernels import _build
 from repro_torch.kernels import radix_sort as rs
+from repro_torch.kernels import retract as kr
 from repro_torch.kernels import synapse_apply as sa
 from repro_torch.scenarios import library, observables
 from repro_torch.scenarios.protocol import Lesion, Stimulate
@@ -678,3 +685,227 @@ def test_flash_attention_refuses_what_it_does_not_take(dev, d, dtype):
     q = torch.zeros(1, 2, 8, d, device=dev, dtype=dtype)
     with pytest.raises((ValueError, TypeError)):
         fa.flash_attention_fwd(q, q, q)
+
+
+# ---------------------------------------------- retraction and priorities
+def _retract_case(dev, case, n=CONFIG.neurons_per_rank,
+                  s=CONFIG.max_synapses):
+    """Rows at CONFIG's shape: full random rows, the scenario's sparse rows
+    (about 0.25 synapses a neuron), lesion rows (n_delete at or above the
+    count) and rows holding partners twice (tied priorities)."""
+    g = torch.Generator(device=dev).manual_seed(len(case))
+    i32 = torch.int32
+    part = torch.randint(0, n, (n, s), generator=g, device=dev, dtype=i32)
+    hole = torch.rand(n, s, generator=g, device=dev)
+    nd = torch.randint(0, s + 1, (n,), generator=g, device=dev, dtype=i32)
+    if case == "full":
+        edges = part
+    elif case == "sparse":
+        edges = torch.where(hole < 0.25 / s, part, -1)
+        nd = torch.randint(0, 2, (n,), generator=g, device=dev, dtype=i32)
+    elif case == "lesion":
+        edges = torch.where(hole < 0.5, part, -1)
+        nd = (edges >= 0).sum(1, dtype=i32) + nd % 3
+    else:
+        edges = torch.where(hole < 0.2, -1, part % 3 + torch.arange(
+            n, device=dev, dtype=i32)[:, None])
+    return edges, nd, torch.arange(n, dtype=i32, device=dev) + 7
+
+
+@pytest.mark.parametrize("case", ["full", "sparse", "lesion", "duplicates"])
+def test_retract_equals_plain(dev, case):
+    edges, nd, gids = _retract_case(dev, case)
+    words = prng.split_words(prng.fold_in_words(prng.key_words(5), 3), 3)[0]
+    before = kr.retract_launches.count
+    got = kr.retract(words, edges, nd, gids)
+    assert kr.retract_launches.count == before + 1
+    want = syn.retract_synapses(prng.key_tensor(words, dev), edges, nd, gids)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[1].dtype == torch.bool
+    if case != "sparse":
+        assert bool(got[1].any())
+
+
+@pytest.mark.parametrize("s", [1, 8, 17])
+def test_retract_narrow_rows_equal_plain(dev, s):
+    edges, nd, gids = _retract_case(dev, "duplicates", n=4099, s=s)
+    words = (0x12345678, 0x9ABCDEF0)
+    got = kr.retract(words, edges, nd, gids)
+    want = syn.retract_synapses(prng.key_tensor(words, dev), edges, nd, gids)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("with_valid", [False, True])
+def test_edge_priority_equals_plain(dev, with_valid):
+    q, n = CONFIG.neurons_per_rank, CONFIG.neurons_per_rank
+    g = torch.Generator(device=dev).manual_seed(4)
+    a = torch.randint(-3, n, (q,), generator=g, device=dev,
+                      dtype=torch.int32)
+    b = torch.randint(0, n, (q,), generator=g, device=dev, dtype=torch.int32)
+    valid = torch.rand(q, generator=g, device=dev) < 0.6
+    words = prng.split_words(prng.fold_in_words(prng.key_words(2), 7), 3)[2]
+    key = prng.key_tensor(words, dev)
+    before = kr.priority_launches.count
+    if with_valid:
+        got = kr.edge_priority(words, a, b, valid)
+        want = syn.request_priority(key, b, a, valid)
+    else:
+        got = kr.edge_priority(words, a, b)
+        want = syn.edge_priority(key, a, b)
+    assert kr.priority_launches.count == before + 1
+    assert torch.equal(got, want)
+
+
+def test_retraction_does_not_wait_for_the_card(dev):
+    """``update._retraction`` with all five lowerings fused, after two
+    chunks of the lesion scenario, under the sync debug mode: nothing in it
+    copies a Python scalar to the card or reads one back."""
+    scn = dataclasses.replace(library.lesion_rewiring(),
+                              events=(Lesion("core", t=150),))
+    cfg = dataclasses.replace(
+        library.SMOKE_SCENARIO_CONFIG, activity_impl="fused",
+        connectivity_impl="fused", tree_impl="fused", apply_impl="fused")
+    sim = Simulator.from_config(cfg, scenario=scn, device=dev)
+    sim.run(2)
+    state, n = sim.state, cfg.neurons_per_rank
+    gids = torch.arange(n, dtype=torch.int32, device=dev)
+    k_out, k_in, _ = prng.split_words(
+        prng.fold_in_words(prng.key_words(cfg.seed + 2), state.chunk), 3)
+    _build.library()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):
+            torch.tensor(1, device=dev)        # the mode flags a copy
+        out_e, in_e, _ = update._retraction(state, sim.ctx, gids, k_out,
+                                            k_in, state.stats)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert out_e.shape == in_e.shape == (n, cfg.max_synapses)
+
+
+def _cuda_calls(fn, names):
+    """Run ``fn`` and count the calls of the functions ``names`` (code
+    objects) that received a CUDA tensor."""
+    seen = {c: 0 for c in names}
+
+    def hook(frame, event, arg):
+        if event == "call" and frame.f_code in seen:
+            if any(isinstance(v, torch.Tensor) and v.is_cuda
+                   for v in frame.f_locals.values()):
+                seen[frame.f_code] += 1
+
+    sys.setprofile(hook)
+    try:
+        fn()
+    finally:
+        sys.setprofile(None)
+    return {names[c]: k for c, k in seen.items()}
+
+
+@pytest.mark.parametrize("impl", ["reference", "fused"])
+def test_plain_priorities_run_only_in_the_reference_lowering(dev, impl):
+    """With all five lowerings fused, retraction and the acceptance draw run
+    their kernels: ``retract_synapses``, ``edge_priority`` and the plain
+    int64 Threefry see no CUDA tensor; the reference lowering runs them."""
+    scn = dataclasses.replace(library.lesion_rewiring(),
+                              events=(Lesion("core", t=150),))
+    cfg = dataclasses.replace(
+        library.SMOKE_SCENARIO_CONFIG, activity_impl=impl,
+        connectivity_impl=impl, tree_impl=impl, apply_impl=impl)
+    names = {syn.retract_synapses.__code__: "retract_synapses",
+             syn.edge_priority.__code__: "edge_priority",
+             chash.threefry2x32.__code__: "threefry2x32"}
+    sim = Simulator.from_config(cfg, scenario=scn, device=dev)
+    calls = _cuda_calls(lambda: sim.run(3), names)
+    if impl == "fused":
+        assert calls == {"retract_synapses": 0, "edge_priority": 0,
+                         "threefry2x32": 0}
+    else:
+        assert all(k > 0 for k in calls.values()), calls
+
+
+def test_init_state_on_the_card_equals_the_cpu(dev):
+    """``init_state``'s draws run K0's kernel on the card (through
+    ``prng``) and give the CPU's bits."""
+    cfg = dataclasses.replace(SMOKE_CONFIG, neurons_per_rank=4099)
+    before = chash.launches.count
+    a = engine.init_state(cfg, 0, 1, device=dev)
+    assert chash.launches.count > before
+    b = engine.init_state(cfg, 0, 1, device="cpu")
+    assert torch.equal(a.positions.cpu(), b.positions)
+    for x, y in zip(a.neurons, b.neurons):
+        assert torch.equal(x.cpu(), y)
+
+
+# ------------------------------------------------------ K2 on synthetic trees
+def _synthetic_tree(dev, w0, levels, m, empty_share, seed):
+    """A consistent stacked tree: level k holds w0 8^k cells; leaf counts
+    random with whole 8-leaf and 64-leaf subtrees empty, centroid sums
+    count x a random point; inner levels the sums of their 8 children.
+    Returns (counts (L, C), cents (L, C, 3), widths, members (n_leaf, m),
+    npos, vac)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_leaf = w0 * 8 ** (levels - 1)
+    cnt = torch.rand(n_leaf, generator=g, device=dev) * 3
+    for block in (8, 64):
+        drop = torch.rand(n_leaf // block + 1, generator=g, device=dev) \
+            < empty_share
+        cnt = torch.where(drop.repeat_interleave(block)[:n_leaf], 0.0, cnt)
+    cent = cnt[:, None] * torch.rand(n_leaf, 3, generator=g, device=dev)
+    counts, cents = [cnt], [cent]
+    for _ in range(levels - 1):
+        counts.insert(0, counts[0].reshape(-1, 8).sum(1))
+        cents.insert(0, cents[0].reshape(-1, 8, 3).sum(1))
+    stacked = traverse.stack_levels(tuple(counts), tuple(cents), 0)
+    n = 5000
+    members = torch.randint(-1, n, (n_leaf, m), generator=g, device=dev,
+                            dtype=torch.int32)
+    npos = torch.rand(n, 3, generator=g, device=dev)
+    vac = torch.rand(n, generator=g, device=dev) * 4
+    return stacked, tuple(c.shape[0] for c in counts), members, npos, vac
+
+
+def _k2_compare(dev, w0, levels, f, m, empty_share, use_widths, q=3000,
+                seed=0):
+    stacked, widths, members, npos, vac = _synthetic_tree(
+        dev, w0, levels, m, empty_share, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    x = torch.rand(q, 3, generator=g, device=dev)
+    start = torch.randint(0, w0, (q,), generator=g, device=dev,
+                          dtype=torch.int32)
+    gids = torch.randint(0, 5000, (q,), generator=g, device=dev,
+                         dtype=torch.int32)
+    valid = torch.rand(q, generator=g, device=dev) < 0.8
+    sizes = tuple(0.5 ** (2 + k) for k in range(levels))
+    kw = dict(seed=11, sizes=sizes, theta=0.3, sigma=0.2, frontier=f,
+              n_levels=levels)
+    args = (stacked.counts, stacked.centroids, members, npos, vac, x, start,
+            gids, valid, 9, 0)
+    got = bt.bh_traverse(*args, **kw,
+                         widths=widths if use_widths else None)
+    want = traverse.phase_b_core(*args, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert bool(want[1].any()) and bool((want[2] > 1).any())
+
+
+@pytest.mark.parametrize("m", [1, 4, 32])
+@pytest.mark.parametrize("f", [8, 64, 128])
+def test_bh_traverse_frontier_and_members_equal_plain(dev, f, m):
+    _k2_compare(dev, w0=8, levels=4, f=f, m=m, empty_share=0.2,
+                use_widths=True)
+
+
+def test_bh_traverse_empty_subtrees_equal_plain(dev):
+    _k2_compare(dev, w0=8, levels=4, f=64, m=8, empty_share=0.7,
+                use_widths=True, seed=3)
+
+
+@pytest.mark.parametrize("use_widths", [False, True])
+def test_bh_traverse_tree_beyond_shared_memory_equals_plain(dev, use_widths):
+    """16 x 4,681 packed nodes (1.2 MB): most levels are read through
+    __ldg; without widths every level packs all C cells."""
+    _k2_compare(dev, w0=16, levels=5, f=64, m=8, empty_share=0.2,
+                use_widths=use_widths, seed=5)

@@ -11,7 +11,8 @@ For each tree, in the order given, in fresh processes: that tree's
 window from a ``torch.profiler`` trace (the sum of its kernels' durations,
 R=1 with the scenario's lesion and R=4 rank 1). Each tree builds its kernels
 under its own ``build/``. Prints one JSON line per run, then a table of the
-numbers compared, the card's name and power limit on each line.
+numbers compared, the card's name and power limit on each line. A key a tree's
+``chip_smoke.py`` does not print (a kernel it does not have) shows as None.
 """
 from __future__ import annotations
 
@@ -90,6 +91,11 @@ def run_tree(k: int, tree: pathlib.Path) -> dict:
            "chip_smoke_rc": smoke.returncode, "probe_rc": probe.returncode,
            "K1_ms": kt.get("K1_ms"), "K1_device_ms": kt.get("K1_device_ms"),
            **extra,
+           "K2_ms": kt.get("K2_ms"), "K2_device_ms": kt.get("K2_device_ms"),
+           "K2_bound_ms": kt.get("K2_bound_ms"),
+           "retract_device_ms": kt.get("retract_device_ms"),
+           "retract_sparse_device_ms": kt.get("retract_sparse_device_ms"),
+           "edge_priority_device_ms": kt.get("edge_priority_device_ms"),
            "K4_drain_device_ms": kt.get("K4_drain_device_ms"),
            "K4_accept_device_ms": kt.get("K4_accept_device_ms"),
            "K4_drain_ms": kt.get("K4_drain_ms"),
@@ -101,6 +107,14 @@ def run_tree(k: int, tree: pathlib.Path) -> dict:
                "device_ms"),
            "profiled_retraction_device_ms": prof.get(
                "repro.conn.retraction", {}).get("device_ms"),
+           "profiled_retraction_launches": prof.get(
+               "repro.conn.retraction", {}).get("launches"),
+           "profiled_retraction_span_ms": prof.get(
+               "repro.conn.retraction", {}).get("span_ms"),
+           "profiled_formation_device_ms": prof.get(
+               "repro.conn.formation", {}).get("device_ms"),
+           "profiled_formation_span_ms": prof.get(
+               "repro.conn.formation", {}).get("span_ms"),
            "profiled_device_busy_ms": lines.get("profile", {}).get(
                "device_busy_ms"),
            "profiled_chunk_wall_ms": lines.get("profile", {}).get(
