@@ -22,7 +22,9 @@ neurons, S=32):
 
 For the kernel API and each path it checks the kernels really ran there (the
 launch counts are set to 0 just before and read just after; for K9, which of
-its three kernels each shape took) and that a second run is bitwise equal,
+its three kernels each shape took; for K1, K3, K4 and K5 on the scenario
+path, the device launches counted in the .cu sources) and that a second run
+is bitwise equal,
 then profiles one chunk of the scenario path, and prints one JSON line per
 phase. Every kernel is timed twice: a call (CUDA events around back-to-back
 calls) and its device time with the host hidden (the calls queued behind a
@@ -606,7 +608,9 @@ def _check_exact(name: str, got, want, shape: dict) -> float:
 
 def check_k3(cfg):
     """K3 at the main path's shapes: the neurons of CONFIG, the rank's leaf
-    block (n_leaf = 8^local_levels)."""
+    block (n_leaf = 8^local_levels); one device launch a call, counted in
+    csrc/morton_sort.cu."""
+    import torch
     from repro_torch.connectome import tree as ctree
     from repro_torch.core import engine
     from repro_torch.kernels import radix_sort as rs
@@ -614,17 +618,24 @@ def check_k3(cfg):
     leaf_level, n_leaf, base_cell = ctree._tree_geometry(0, cfg, 1)
     base = base_cell * 8 ** cfg.local_levels
     kw = dict(leaf_level=leaf_level, n_leaf=n_leaf)
+    rs.morton_device_launches(reset=True)
     got = rs.morton_sort(pos, base, **kw)
+    torch.cuda.synchronize()
+    per_call = rs.morton_device_launches(reset=True)
     want = rs.morton_sort_plain(pos, base, **kw)
     n = pos.shape[0]
     diff = _check_exact("K3 morton_sort", got, want,
                         {"n": n, "leaf_level": leaf_level, "n_leaf": n_leaf,
-                         "max_slot": int(got[1].max())})
+                         "max_slot": int(got[1].max()),
+                         "device_launches_per_call": per_call})
+    if per_call != 1:
+        fail(f"K3: {per_call} device launches in one call")
     ms = cuda_ms(lambda: rs.morton_sort(pos, base, **kw), reps=5)
     dev_ms = device_ms(lambda: rs.morton_sort(pos, base, **kw), 5)
     plain_ms = cuda_ms(lambda: rs.morton_sort_plain(pos, base, **kw), reps=1)
     nbytes = n * 3 * 4 + 4 + 2 * n * 4        # the positions in, rel and slot
-    return ms, plain_ms, bound(nbytes, n * MORTON_OPS), diff, dev_ms
+    return ms, plain_ms, bound(nbytes, n * MORTON_OPS), diff, dev_ms, \
+        per_call
 
 
 def _apply_bytes(n, s, qm, qr):
@@ -693,7 +704,9 @@ def check_k4(cfg):
 def check_k5(cfg):
     """K5 at the scenario path's shapes: the flattened (n*S,) kill pairs of
     a lesion-sized retraction (half the edges) into the lesion cap, so the
-    drop path runs."""
+    drop path runs; one device launch a call, counted in
+    csrc/synapse_apply.cu. Also the device time of the caller's two (n*S,)
+    operands, the where() and the broadcast copy before the kernel."""
     import torch
     from repro_torch.connectome import routing
     from repro_torch.kernels import synapse_apply as sa
@@ -707,18 +720,32 @@ def check_k5(cfg):
     mine = torch.arange(m, device=DEV, dtype=torch.int32) // s
     cap = routing.cap_deletions(cfg, True)
     kw = dict(n=n, num_ranks=1, cap=cap)
+    sa.route_device_launches(reset=True)
     got = sa.route_build(other, mine, **kw)
+    torch.cuda.synchronize()
+    per_call = sa.route_device_launches(reset=True)
     want = sa.route_build_plain(other, mine, **kw)
     diff = _check_exact("K5 route_build", got, want,
                         {"entries": m, "R": 1, "cap": cap,
                          "valid": int((other >= 0).sum()),
-                         "dropped": float(got[1][0])})
+                         "dropped": float(got[1][0]),
+                         "device_launches_per_call": per_call})
+    if per_call != 1:
+        fail(f"K5: {per_call} device launches in one call")
     ms = cuda_ms(lambda: sa.route_build(other, mine, **kw), reps=5)
     dev_ms = device_ms(lambda: sa.route_build(other, mine, **kw), 5)
     plain_ms = cuda_ms(lambda: sa.route_build_plain(other, mine, **kw),
                        reps=1)
     nbytes = 2 * m * 4 + cap * 2 * 4 + 4      # pairs in, buffer and count out
-    return ms, plain_ms, bound(nbytes, m * ROUTE_OPS), diff, dev_ms
+    # the caller's two (n*S,) operands (connectome/synapses.py::_route_fused)
+    kill = torch.rand(n, s, generator=g, device=DEV) < 0.5
+    edges = other.reshape(n, s)
+    col = torch.arange(n, dtype=torch.int32, device=DEV)[:, None]
+    inputs_ms = device_ms(lambda: (
+        torch.where(kill, edges, -1).reshape(-1),
+        torch.broadcast_to(col, kill.shape).reshape(-1)), 5)
+    return ms, plain_ms, bound(nbytes, m * ROUTE_OPS), diff, dev_ms, \
+        per_call, inputs_ms
 
 
 # ------------------------------------------------ the public kernel API
@@ -1305,6 +1332,7 @@ def main() -> int:
           "K1_R4_device_launches_per_window": k1r4[4], "K2_ms": k2_ms,
           "K2_device_ms": k2_dev, "K2_plain_ms": k2_plain,
           "K3_ms": k3[0], "K3_device_ms": k3[4], "K3_plain_ms": k3[1],
+          "K3_bound_ms": k3[2][0], "K3_device_launches_per_call": k3[5],
           "K4_drain_ms": k4["drain"][0],
           "K4_drain_device_ms": k4["drain"][4],
           "K4_drain_plain_ms": k4["drain"][1],
@@ -1315,6 +1343,8 @@ def main() -> int:
           "K4_accept_plain_ms": k4["accept"][1],
           "K4_accept_bound_ms": k4["accept"][2][0],
           "K5_ms": k5[0], "K5_device_ms": k5[4], "K5_plain_ms": k5[1],
+          "K5_bound_ms": k5[2][0], "K5_device_launches_per_call": k5[5],
+          "K5_caller_inputs_device_ms": k5[6],
           "K2_bound_ms": k2_bound,
           "retract_ms": kr_res["full"][0],
           "retract_device_ms": kr_res["full"][1],
@@ -1378,14 +1408,19 @@ def main() -> int:
     chunks = 12
     from repro_torch.kernels import activity_fused as af
     from repro_torch.kernels import synapse_apply as sa
+    from repro_torch.kernels import radix_sort as rs
     _build.reset_launch_counts()
     af.device_launches(reset=True)
     sa.device_launches(reset=True)
+    rs.morton_device_launches(reset=True)
+    sa.route_device_launches(reset=True)
     sim, rec, warm, per_chunk, flags = run_main_path(all_fused, chunks - 1,
                                                      scn)
     counts = _build.launch_counts()
     device_counts = {"activity_window": af.device_launches(reset=True),
-                     "synapse_apply": sa.device_launches(reset=True)}
+                     "synapse_apply": sa.device_launches(reset=True),
+                     "morton_sort": rs.morton_device_launches(reset=True),
+                     "route_build": sa.route_device_launches(reset=True)}
     keys = check_path("scenario_path", sim, all_fused, warm, per_chunk,
                       flags, counts, scenario=scn, rec=rec,
                       device_counts=device_counts)
@@ -1401,9 +1436,12 @@ def main() -> int:
              "draws)")
     if device_counts["activity_window"] != {"staged": chunks,
                                             "streaming": 0} or \
-            device_counts["synapse_apply"] != 3 * chunks:
+            device_counts["synapse_apply"] != 3 * chunks or \
+            device_counts["morton_sort"] != chunks or \
+            device_counts["route_build"] != 2 * chunks:
         fail(f"the sources counted {device_counts} device launches on the "
-             f"scenario path, not {chunks} staged K1 and {3 * chunks} K4")
+             f"scenario path, not {chunks} staged K1, {3 * chunks} K4, "
+             f"{chunks} K3 and {2 * chunks} K5")
     if counts["bh_traverse"] < chunks:
         fail(f"K2 launched {counts['bh_traverse']} times")
     scenario_determinism(sim, rec, all_fused, scn, chunks, keys, card)
@@ -1458,7 +1496,8 @@ def main() -> int:
          "launches": counts["morton_sort"], "max_abs_err": k3[3],
          "ms": k3[0], "device_ms": k3[4], "plain_ms": k3[1],
          "bound_ms": k3[2][0],
-         "bound_by": k3[2][1], "library_ms": None},
+         "bound_by": k3[2][1], "library_ms": None,
+         "device_launches_per_call": k3[5]},
         {"name": "synapse_apply", "route": "cuda",
          "source": "src/repro_torch/csrc/synapse_apply.cu",
          "replaces": "src/repro/kernels/synapse_apply.py:63",
@@ -1477,7 +1516,8 @@ def main() -> int:
          "launches": counts["route_build"], "max_abs_err": k5[3],
          "ms": k5[0], "device_ms": k5[4], "plain_ms": k5[1],
          "bound_ms": k5[2][0],
-         "bound_by": k5[2][1], "library_ms": None},
+         "bound_by": k5[2][1], "library_ms": None,
+         "device_launches_per_call": k5[5]},
     ]
     for name, key, source, replaces in (
             ("radix_argsort", "K6", "radix_argsort.cu", "radix_sort.py:99"),

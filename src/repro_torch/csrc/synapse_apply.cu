@@ -47,20 +47,48 @@
 //      row's cost is O(S * (S + messages / 32) + cap * requests / 32): a row
 //      swamped with requests costs cap passes over them, not a sort.
 //
-// K5 design. A stable partition is three passes: per-tile bucket counts
-// (tiles of 2,048 entries, shared-memory counters), one block that scans the
-// counts down the tiles for each bucket (and computes the drop count), and a
-// pass that re-reads each tile and ranks its entries with one block-wide
-// exclusive scan per bucket, then writes slot < cap and fills the unused tail
-// of each buffer with -1.
+// K5 design. ONE cooperative launch a call (every block resident), four
+// blocks of 256 threads an SM, block b owning a contiguous range of the
+// entries (a multiple of 4) and warp w a contiguous chunk of it:
+//   1. count: each warp reads its chunk once into shared memory (int4 loads,
+//      4 in flight a lane) and counts it per destination with warp ballots
+//      (one per bit of the destination: a lane counts the destinations lane
+//      and lane + 32), so no atomics and no order; the block writes its row
+//      of R counts;
+//   2. grid.sync(); every block sums the rows of the blocks before it (its
+//      exclusive start per destination) and all rows (the totals), all its
+//      warps reading; block 0 writes the drop count, and the grid fills the
+//      unused tail of each destination's buffer with -1;
+//   3. place: a scan over the warps' counts gives each warp its starts, and
+//      the warp walks its chunk in index order, 8 rounds of 32 at a time: an
+//      entry's slot is its destination's running count (a shuffle from the
+//      lane that holds it) plus the lanes before it with the same
+//      destination (the ballots). A slot below the cap gets the partner gid
+//      from shared memory and the own gid from flat_mine, read only for the
+//      entries that land (the round's loads issued as soon as the slots are
+//      known). A block (or warp) whose every start is at or past the cap
+//      skips the step, so at a lesion's counts only the first blocks place
+//      anything; small blocks, four an SM, spread those over more SMs.
+// A range larger than the block's shared memory runs in stages (flat_other
+// read again in step 3). The destination is a 64-bit multiply-high by a
+// reciprocal of n computed on the host, exact for gids below 2^31.
 //
 // Bound on the H100: both move bytes with a few integer operations each. K4
 // reads the (n, S) table and writes it back (16.8 MB at n = 65,536, S = 32)
 // plus the messages and requests, and about 24 bytes a row and 16 an item of
-// its own scratch, with four grid barriers. K5 reads 2 * n * S int32 (16.8
-// MB) and writes R * cap * 8 bytes in three launches; its one-block scan
-// runs over tiles / 1024 items a thread (1,024 tiles at n = 65,536), cheap
-// beside its passes.
+// its own scratch, with four grid barriers. K5's function reads 2 * n * S
+// int32 (16.8 MB) and writes R * cap * 8 bytes; the kernel reads flat_other
+// once (8.4 MB) and flat_mine only where an entry lands. On an H100 80GB
+// HBM3 at 700 W at the lesion's shape (tools/k35_breakdown.py) the launch
+// and one barrier of an empty cooperative kernel of the same grid take 4.3
+// us, the read of flat_other 2.2 (3.1 in the slowest block; 2.5 at 3.35
+// TB/s), the starts and totals after the barrier 1.5, and the placing in the
+// 17 blocks that place 3.4-5.5: sixteen rounds a warp of ballots, shuffles
+// and the own gids' loads, on the critical path.
+//
+// Breakdown build. Built with -DREPRO_K35_BREAKDOWN (tools/k35_breakdown.py,
+// never the library), thread 0 of each block of K5 stamps the global timer
+// at the steps' ends (K5_MARK), read back through repro_k5_marks.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -294,103 +322,333 @@ __global__ void __launch_bounds__(kApplyThreads)
 }
 
 // ------------------------------------------------------------------ K5
+#ifdef REPRO_K35_BREAKDOWN
+constexpr int kMarks = 8;
+__device__ long long d_marks[1024][kMarks];
+#define K5_MARK(k)                                                   \
+  do {                                                               \
+    if (threadIdx.x == 0) {                                          \
+      long long t_;                                                  \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));         \
+      d_marks[blockIdx.x][k] = t_;                                   \
+    }                                                                \
+  } while (0)
+#else
+#define K5_MARK(k) \
+  do {             \
+  } while (0)
+#endif
+
 constexpr int kRouteThreads = 256;
-constexpr int kRouteItems = 8;
-constexpr int kRouteTile = kRouteThreads * kRouteItems;
+constexpr int kRouteWarps = kRouteThreads / 32;
+constexpr int kRouteBlocksPerSM = 4;     // the entries that land spread wide
+constexpr int kRouteUnroll = 4;          // int4 loads in flight a thread
+constexpr int kRouteBatch = 8;           // rounds a warp places at once
 constexpr int kMaxRanks = 64;
+// bytes of static shared memory the kernel may hold (the per-warp counts
+// and four rows of R), kept out of the stage
+constexpr int kRouteStatic = 4 * 1024;
 
-__device__ __forceinline__ int route_dest(int other, int n, int num_ranks) {
-  return other >= 0 ? other / n : num_ranks;   // num_ranks = invalid
+struct RouteArgs {
+  const int* other;
+  const int* mine;
+  int* buf;                    // (num_ranks, cap, 2)
+  float* dropped;
+  int* counts;                 // (grid, num_ranks): each block's counts
+  unsigned long long magic;    // n >= 2: floor((2^64 - 1) / n) + 1; n == 1: 0
+  unsigned unit;               // n == 1: ~0u (the gid is its rank); else 0
+  int m, num_ranks, cap;
+  int per_block;               // entries a block owns, a multiple of 4
+  int stage;                   // entries shared memory holds, a multiple of 4
+  int vec;                     // other is 16-byte aligned: int4 loads
+};
+
+// The destination rank of a partner gid, num_ranks for an empty entry
+// (and for a gid at or past num_ranks * n, which the callers never pass).
+// Branch-free, one code path for every n: the product is formed for an
+// empty entry too, and at n = 1 (magic 0, unit ~0u) the gid itself is kept.
+__device__ __forceinline__ int route_dest(int o, const RouteArgs& a) {
+  const unsigned u = (unsigned)o;
+  const unsigned q =
+      (unsigned)__umul64hi((unsigned long long)u, a.magic) | (u & a.unit);
+  return o < 0 || q >= (unsigned)a.num_ranks ? a.num_ranks : (int)q;
 }
 
-__global__ void route_count(const int* __restrict__ other,
-                            int* __restrict__ counts, int m, int n,
-                            int num_ranks, int tiles) {
-  __shared__ int c[kMaxRanks];
-  for (int b = threadIdx.x; b < num_ranks; b += blockDim.x) c[b] = 0;
-  __syncthreads();
-  const int t0 = blockIdx.x * kRouteTile;
-  for (int j = threadIdx.x; j < kRouteTile; j += blockDim.x) {
-    const int i = t0 + j;
-    if (i < m) {
-      const int d = route_dest(other[i], n, num_ranks);
-      if (d < num_ranks) atomicAdd(c + d, 1);
-    }
+// One ballot per bit of the destinations in [0, 2^kBits) of a warp's lanes.
+template <int kBits>
+struct DestBallots {
+  unsigned b[kBits];
+  __device__ __forceinline__ explicit DestBallots(int d) {
+#pragma unroll
+    for (int k = 0; k < kBits; ++k) b[k] = __ballot_sync(kFull, (d >> k) & 1);
   }
-  __syncthreads();
-  for (int b = threadIdx.x; b < num_ranks; b += blockDim.x) {
-    counts[(size_t)b * tiles + blockIdx.x] = c[b];
+  // the lanes whose destination is x (only x's low kBits bits are read)
+  __device__ __forceinline__ unsigned lanes(int x) const {
+    unsigned m = kFull;
+#pragma unroll
+    for (int k = 0; k < kBits; ++k) m &= ((x >> k) & 1) ? b[k] : ~b[k];
+    return m;
   }
+};
+
+// Adds a warp's destinations to the lane's counts of destinations lane and
+// lane + 32. Every lane of the warp must call it.
+template <int kBits>
+__device__ __forceinline__ void count_dests(int d, int lane, int& c0,
+                                            int& c1) {
+  const DestBallots<kBits> db(d);
+  c0 += __popc(db.lanes(lane));
+  if (kBits > 5) c1 += __popc(db.lanes(lane + 32));
 }
 
-// One block: counts[b][0..tiles) -> exclusive offsets in place; totals[b];
-// dropped = sum_b max(total_b - cap, 0).
-__global__ void route_scan(int* __restrict__ counts, int* __restrict__ totals,
-                           float* __restrict__ dropped, int num_ranks,
-                           int tiles, int cap) {
-  const int per = (tiles + blockDim.x - 1) / blockDim.x;
-  const int lo = min((int)threadIdx.x * per, tiles);
-  const int hi = min(lo + per, tiles);
-  int drop = 0;
-  for (int b = 0; b < num_ranks; ++b) {
-    int* row = counts + (size_t)b * tiles;
-    int local = 0;
-    for (int k = lo; k < hi; ++k) local += row[k];
-    int total;
-    int run = block_exclusive_sum(local, &total);
-    for (int k = lo; k < hi; ++k) {
-      const int c = row[k];
-      row[k] = run;
-      run += c;
-    }
-    if (threadIdx.x == 0) totals[b] = total;
-    drop += total > cap ? total - cap : 0;
-  }
-  if (threadIdx.x == 0) dropped[0] = (float)drop;
+// The warp's chunk [cs, ce) of a stage of len entries: contiguous, in warp
+// order, each a multiple of 4 long but the last.
+__device__ __forceinline__ void warp_chunk(int len, int warp, int* cs,
+                                           int* ce) {
+  const int chunk = ((len + kRouteWarps - 1) / kRouteWarps + 3) & ~3;
+  *cs = min(warp * chunk, len);
+  *ce = min(*cs + chunk, len);
 }
 
-__global__ void route_scatter(const int* __restrict__ other,
-                              const int* __restrict__ mine,
-                              const int* __restrict__ offsets,
-                              const int* __restrict__ totals,
-                              int* __restrict__ buf, int m, int n,
-                              int num_ranks, int tiles, int cap) {
-  const int t0 = blockIdx.x * kRouteTile + threadIdx.x * kRouteItems;
-  int dest[kRouteItems];
+// Reads the warp's chunk of flat_other[g0, g0 + len) (g0 a multiple of 4)
+// into s when s is given, and adds its destinations to the lane's counts.
+// Every lane of the warp must call it.
+template <int kBits>
+__device__ void route_load(const RouteArgs& a, long long g0, int len, int* s,
+                           int& c0, int& c1) {
+  const int lane = threadIdx.x & 31;
+  int cs, ce;
+  warp_chunk(len, threadIdx.x >> 5, &cs, &ce);
+  int done = cs;
+  if (a.vec) {
+    const int v0 = cs >> 2;
+    const int v1 = ce >> 2;
+    const int4* src = reinterpret_cast<const int4*>(a.other + g0);
+    for (int base = v0; base < v1; base += 32 * kRouteUnroll) {
+      int4 x[kRouteUnroll];
 #pragma unroll
-  for (int j = 0; j < kRouteItems; ++j) {
-    const int i = t0 + j;
-    dest[j] = i < m ? route_dest(other[i], n, num_ranks) : num_ranks;
-  }
-  for (int b = 0; b < num_ranks; ++b) {
-    int local = 0;
+      for (int u = 0; u < kRouteUnroll; ++u) {
+        const int v = base + 32 * u + lane;
+        x[u] = v < v1 ? __ldg(src + v) : make_int4(-1, -1, -1, -1);
+      }
 #pragma unroll
-    for (int j = 0; j < kRouteItems; ++j) local += dest[j] == b;
-    int run = block_exclusive_sum(local, nullptr) +
-              offsets[(size_t)b * tiles + blockIdx.x];
-#pragma unroll
-    for (int j = 0; j < kRouteItems; ++j) {
-      if (dest[j] == b) {
-        if (run < cap) {
-          int* slot = buf + ((size_t)b * cap + run) * 2;
-          slot[0] = other[t0 + j];
-          slot[1] = mine[t0 + j];
-        }
-        ++run;
+      for (int u = 0; u < kRouteUnroll; ++u) {
+        const int v = base + 32 * u + lane;
+        if (s && v < v1) reinterpret_cast<int4*>(s)[v] = x[u];
+        count_dests<kBits>(route_dest(x[u].x, a), lane, c0, c1);
+        count_dests<kBits>(route_dest(x[u].y, a), lane, c0, c1);
+        count_dests<kBits>(route_dest(x[u].z, a), lane, c0, c1);
+        count_dests<kBits>(route_dest(x[u].w, a), lane, c0, c1);
       }
     }
+    done = max(cs, v1 << 2);        // an empty chunk may start off a 4
   }
-  // the unused tail of every destination's buffer
-  const int stride = gridDim.x * blockDim.x;
-  for (int k = blockIdx.x * blockDim.x + threadIdx.x; k < num_ranks * cap;
-       k += stride) {
-    const int b = k / cap;
-    if (k - b * cap >= min(totals[b], cap)) {
-      buf[(size_t)k * 2] = -1;
-      buf[(size_t)k * 2 + 1] = -1;
-    }
+  for (int base = done; base < ce; base += 32) {
+    const int j = base + lane;
+    const int o = j < ce ? __ldg(a.other + g0 + j) : -1;
+    if (s && j < ce) s[j] = o;
+    count_dests<kBits>(route_dest(o, a), lane, c0, c1);
   }
 }
+
+template <int kBits>
+__global__ void __launch_bounds__(kRouteThreads, kRouteBlocksPerSM)
+    route_build_kernel(RouteArgs a) {
+  extern __shared__ int4 route_smem[];
+  int* s = reinterpret_cast<int*>(route_smem);     // a.stage entries
+  __shared__ int wc[kRouteWarps][kMaxRanks];       // a warp's counts, starts
+  __shared__ int s_pre[kMaxRanks], s_tot[kMaxRanks], s_own[kMaxRanks],
+      s_run[kMaxRanks];
+  __shared__ int s_live;
+  cg::grid_group grid = cg::this_grid();
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int R = a.num_ranks;
+  const int cap = a.cap;
+  const long long lo = (long long)blockIdx.x * a.per_block;
+  const int len = (int)max(0LL, min((long long)a.per_block, a.m - lo));
+  const bool one_stage = len <= a.stage;
+  const unsigned lt = (1u << lane) - 1u;
+  K5_MARK(0);
+
+  // ---- 1: the block's count per destination, by warp chunks --------------
+  int c0 = 0, c1 = 0;
+  for (int s0 = 0; s0 < len; s0 += a.stage) {
+    route_load<kBits>(a, lo + s0, min(a.stage, len - s0),
+                      one_stage ? s : nullptr, c0, c1);
+  }
+  if (lane < R) wc[warp][lane] = c0;
+  if (lane + 32 < R) wc[warp][lane + 32] = c1;
+  __syncthreads();
+  if (tid < R) {
+    int t = 0;
+    for (int w = 0; w < kRouteWarps; ++w) t += wc[w][tid];
+    a.counts[(size_t)blockIdx.x * R + tid] = t;
+    s_own[tid] = t;
+    s_pre[tid] = 0;
+    s_tot[tid] = 0;
+  }
+  K5_MARK(1);
+  grid.sync();
+  K5_MARK(2);
+
+  // ---- 2: this block's starts and the totals; drop count; tails ----------
+  // kRouteWarps / R warps a destination (one when R >= kRouteWarps), each
+  // summing every wpd-th run of 32 blocks' counts
+  const int wpd = R < kRouteWarps ? kRouteWarps / R : 1;
+  for (int d = warp / wpd; d < R; d += kRouteWarps / wpd) {
+    int pre = 0, tot = 0;
+#pragma unroll 4
+    for (int j = (warp % wpd) * 32 + lane; j < (int)gridDim.x;
+         j += 32 * wpd) {
+      const int v = __ldcg(a.counts + (size_t)j * R + d);
+      tot += v;
+      pre += j < (int)blockIdx.x ? v : 0;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      tot += __shfl_xor_sync(kFull, tot, o);
+      pre += __shfl_xor_sync(kFull, pre, o);
+    }
+    if (lane == 0) {
+      atomicAdd(s_pre + d, pre);
+      atomicAdd(s_tot + d, tot);
+    }
+  }
+  __syncthreads();
+  if (tid < R) s_run[tid] = s_pre[tid];
+  if (blockIdx.x == 0 && tid == 0) {
+    long long drop = 0;
+    for (int d = 0; d < R; ++d) drop += s_tot[d] > cap ? s_tot[d] - cap : 0;
+    a.dropped[0] = (float)drop;
+  }
+  const int gt = blockIdx.x * kRouteThreads + tid;
+  const int gs = gridDim.x * kRouteThreads;
+  for (int d = 0; d < R; ++d) {
+    int2* row = reinterpret_cast<int2*>(a.buf) + (size_t)d * cap;
+    for (int p = min(s_tot[d], cap) + gt; p < cap; p += gs) {
+      row[p] = make_int2(-1, -1);
+    }
+  }
+  __syncthreads();
+  K5_MARK(3);
+
+  // ---- 3: place the block's entries that land below the cap --------------
+  for (int s0 = 0; s0 < len; s0 += a.stage) {
+    if (tid == 0) {
+      int live = 0;   // a destination with room and entries left here
+      for (int d = 0; d < R; ++d) {
+        live |= s_run[d] < cap && s_pre[d] + s_own[d] > s_run[d];
+      }
+      s_live = live;
+    }
+    __syncthreads();
+    if (!s_live) break;                                  // block-uniform
+    const int sl = min(a.stage, len - s0);
+    int w0 = c0, w1 = c1;        // the warp's counts of its chunk
+    if (!one_stage) {
+      w0 = w1 = 0;
+      route_load<kBits>(a, lo + s0, sl, s, w0, w1);
+      if (lane < R) wc[warp][lane] = w0;
+      if (lane + 32 < R) wc[warp][lane + 32] = w1;
+      __syncthreads();
+    }
+    if (tid < R) {                         // the warps' starts, in order
+      int run = s_run[tid];
+      for (int w = 0; w < kRouteWarps; ++w) {
+        const int t = wc[w][tid];
+        wc[w][tid] = run;
+        run += t;
+      }
+      s_run[tid] = run;
+    }
+    __syncthreads();
+    K5_MARK(4);
+    int cs, ce;
+    warp_chunk(sl, warp, &cs, &ce);
+    // the lane's running slot of destinations lane and lane + 32
+    int r0 = lane < R ? wc[warp][lane] : cap;
+    int r1 = lane + 32 < R ? wc[warp][lane + 32] : cap;
+    if (__any_sync(kFull, (w0 > 0 && r0 < cap) || (w1 > 0 && r1 < cap))) {
+      const int* mine = a.mine + lo + s0;
+      for (int j0 = cs; j0 < ce; j0 += 32 * kRouteBatch) {  // warp-uniform
+        // kRouteBatch rounds at once: the destinations and ballots first
+        // (independent), then the slots along the running counts
+        int ov[kRouteBatch];
+        unsigned pk[kRouteBatch];      // dest | lower << 8 | counts << 16
+#pragma unroll
+        for (int u = 0; u < kRouteBatch; ++u) {
+          const int j = j0 + 32 * u + lane;
+          ov[u] = j < ce ? s[j] : -1;
+          const int d = route_dest(ov[u], a);
+          const DestBallots<kBits> db(d);
+          pk[u] = (unsigned)d | (unsigned)__popc(db.lanes(d) & lt) << 8 |
+                  (unsigned)__popc(db.lanes(lane)) << 16;
+          if (kBits > 5) pk[u] |= (unsigned)__popc(db.lanes(lane + 32)) << 24;
+        }
+        // each slot's partner gid is written as soon as it is known, and
+        // its own gid's load issued, so the loads overlap the later rounds
+        int at[kRouteBatch], mv[kRouteBatch];
+#pragma unroll
+        for (int u = 0; u < kRouteBatch; ++u) {
+          const int d = (int)(pk[u] & 0xffu);
+          const int x0 = __shfl_sync(kFull, r0, d & 31);
+          const int x1 = kBits > 5 ? __shfl_sync(kFull, r1, d & 31) : 0;
+          const int pos = (d < 32 ? x0 : x1) + (int)((pk[u] >> 8) & 0xffu);
+          at[u] = d < R && pos < cap ? d * cap + pos : -1;
+          mv[u] = at[u] >= 0 ? __ldg(mine + j0 + 32 * u + lane) : 0;
+          if (at[u] >= 0) a.buf[(size_t)at[u] * 2] = ov[u];
+          r0 += (int)((pk[u] >> 16) & 0xffu);
+          if (kBits > 5) r1 += (int)(pk[u] >> 24);
+        }
+#pragma unroll
+        for (int u = 0; u < kRouteBatch; ++u) {
+          if (at[u] >= 0) a.buf[(size_t)at[u] * 2 + 1] = mv[u];
+        }
+      }
+    }
+    __syncthreads();             // the next stage reloads s and reuses wc
+    K5_MARK(5);
+  }
+  K5_MARK(6);
+}
+
+const void* route_kernel(int bits) {
+  switch (bits) {
+    case 1: return (const void*)route_build_kernel<1>;
+    case 2: return (const void*)route_build_kernel<2>;
+    case 3: return (const void*)route_build_kernel<3>;
+    case 4: return (const void*)route_build_kernel<4>;
+    case 5: return (const void*)route_build_kernel<5>;
+    case 6: return (const void*)route_build_kernel<6>;
+    default: return (const void*)route_build_kernel<7>;
+  }
+}
+
+struct RoutePlan {
+  int grid, per_block, stage;
+};
+
+// The grid and ranges of a call of m entries on the device: kRouteBlocksPerSM
+// blocks an SM, each staging its range in its share of the SM's memory.
+RoutePlan route_plan(int m, const repro::DeviceFacts& dv) {
+  RoutePlan p;
+  const long long blocks = (long long)dv.sms * kRouteBlocksPerSM;
+  long long per = ((long long)m + blocks - 1) / blocks;
+  per = (per + 3) & ~3LL;
+  if (per < 4) per = 4;
+  p.per_block = (int)per;
+  p.grid = (int)(((long long)m + per - 1) / per);
+  if (p.grid < 1) p.grid = 1;
+  const long long room = ((long long)dv.smem_sm / kRouteBlocksPerSM -
+                          dv.smem_reserved - kRouteStatic) / 4 & ~3LL;
+  p.stage = (int)(per < room ? per : room);
+  return p;
+}
+
+// Kernel launches of K5, counted beside the launch.
+int g_route_launches = 0;
 
 // Kernel launches of K4, counted beside each launch.
 int g_apply_launches = 0;
@@ -475,24 +733,85 @@ extern "C" int repro_synapse_apply(
   return (int)cudaGetLastError();
 }
 
-// flat_other, flat_mine (m,) -> buf (num_ranks, cap, 2), dropped (1,) f32.
-// scratch: counts (num_ranks, tiles) int32, totals (num_ranks,) int32,
-// tiles = ceil(m / 2048).
+#ifdef REPRO_K35_BREAKDOWN
+// The breakdown build's stamps of K5's last call, copied to host (1024, 8)
+// int64 (ns; 0 where a block stamped nothing), then cleared.
+extern "C" int repro_k5_marks(long long* host) {
+  void* dev = nullptr;
+  cudaError_t err = cudaGetSymbolAddress(&dev, d_marks);
+  if (err == cudaSuccess) {
+    err = cudaMemcpy(host, dev, sizeof(d_marks), cudaMemcpyDeviceToHost);
+  }
+  if (err == cudaSuccess) err = cudaMemset(dev, 0, sizeof(d_marks));
+  return (int)err;
+}
+#endif
+
+// K5's device launches since the last reset; reset != 0 sets the count to
+// 0 after reading it.
+extern "C" int repro_route_build_device_launches(int reset) {
+  const int k = g_route_launches;
+  if (reset) g_route_launches = 0;
+  return k;
+}
+
+// int32 words of scratch a call of K5 over m entries and num_ranks
+// destinations takes on the current device (0 if there is none).
+extern "C" long long repro_route_build_workspace(int m, int num_ranks) {
+  int dev;
+  repro::DeviceFacts dv;
+  if (m < 0 || repro::current_device(&dev, &dv) != cudaSuccess) return 0;
+  return (long long)route_plan(m, dv).grid * num_ranks;
+}
+
+// flat_other, flat_mine (m,) -> buf (num_ranks, cap, 2), dropped (1,) f32,
+// both written in full. counts: int32 scratch of `words` words
+// (repro_route_build_workspace), any contents. Partner gids below
+// num_ranks * n; num_ranks * cap below 2^31. One cooperative launch.
 extern "C" int repro_route_build(const void* other, const void* mine,
                                  void* buf, void* dropped, void* counts,
-                                 void* totals, int m, int n, int num_ranks,
-                                 int cap, int tiles, void* stream) {
-  if (num_ranks < 1 || num_ranks > kMaxRanks) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
+                                 long long words, int m, int n,
+                                 int num_ranks, int cap, void* stream) {
+  if (num_ranks < 1 || num_ranks > kMaxRanks || n < 1 || m < 0 || cap < 0 ||
+      (long long)num_ranks * cap > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int dev;
+  repro::DeviceFacts dv;
   cudaError_t err;
-  route_count<<<tiles, kRouteThreads, 0, s>>>((const int*)other, (int*)counts,
-                                              m, n, num_ranks, tiles);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  route_scan<<<1, 1024, 0, s>>>((int*)counts, (int*)totals, (float*)dropped,
-                                num_ranks, tiles, cap);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  route_scatter<<<tiles, kRouteThreads, 0, s>>>(
-      (const int*)other, (const int*)mine, (const int*)counts,
-      (const int*)totals, (int*)buf, m, n, num_ranks, tiles, cap);
+  if ((err = repro::current_device(&dev, &dv)) != cudaSuccess) return (int)err;
+  const RoutePlan p = route_plan(m, dv);
+  if (words < (long long)p.grid * num_ranks) return (int)cudaErrorInvalidValue;
+  const int bits = 32 - __builtin_clz((unsigned)num_ranks);
+  const void* fn = route_kernel(bits);
+  const size_t smem = (size_t)p.stage * sizeof(int);
+  int occ = 0;
+  if ((err = repro::resident_blocks(fn, dev, kRouteThreads, smem,
+                                    dv.smem_optin, &occ)) != cudaSuccess) {
+    return (int)err;
+  }
+  if ((long long)occ * dv.sms < p.grid) {
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  }
+  RouteArgs a;
+  a.other = (const int*)other;
+  a.mine = (const int*)mine;
+  a.buf = (int*)buf;
+  a.dropped = (float*)dropped;
+  a.counts = (int*)counts;
+  a.magic = n >= 2 ? ~0ULL / (unsigned long long)n + 1ULL : 0ULL;
+  a.unit = n == 1 ? ~0u : 0u;
+  a.m = m;
+  a.num_ranks = num_ranks;
+  a.cap = cap;
+  a.per_block = p.per_block;
+  a.stage = p.stage;
+  a.vec = ((uintptr_t)other & 15u) == 0;
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(fn, dim3((unsigned)p.grid),
+                                    dim3(kRouteThreads), args, smem,
+                                    (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  ++g_route_launches;
   return (int)cudaGetLastError();
 }

@@ -58,12 +58,14 @@ SIGNATURES = {
         + [P]              # packed nodes scratch (float4 a node)
         + [P, P, P]        # out tgt, ok, depth
         + [I, I, I, I, I, I, I, I, U, F, F, I, I, P]),
-    "repro_morton_sort": [P, P, P, P, I, I, I, I, I, P],
+    "repro_morton_sort": [P] * 4 + [ctypes.c_longlong, I, I, I, I, P],
+    "repro_morton_sort_device_launches": [I],
     "repro_retract": [P] * 5 + [I, I, U, U, P],
     "repro_edge_priority": [P] * 4 + [I, U, U, P],
     "repro_synapse_apply": [P] * 11 + [P, ctypes.c_longlong, I, I, I, I, P],
     "repro_synapse_apply_device_launches": [I],
-    "repro_route_build": [P] * 6 + [I, I, I, I, I, P],
+    "repro_route_build": [P] * 5 + [ctypes.c_longlong, I, I, I, I, P],
+    "repro_route_build_device_launches": [I],
     "repro_neuron_step": (
         [P] * 6            # v, u, ca, ax, de, inp
         + [P] * 6          # per-neuron a, b, c, d, nu, eps (hetero only)
@@ -183,15 +185,40 @@ def library() -> ctypes.CDLL:
         lib.repro_radix_argsort_workspace.restype = ctypes.c_longlong
         lib.repro_synapse_apply_workspace.argtypes = [I, I, I]
         lib.repro_synapse_apply_workspace.restype = ctypes.c_longlong
+        for name in ("repro_morton_sort_workspace",
+                     "repro_route_build_workspace"):
+            getattr(lib, name).argtypes = [I, I]
+            getattr(lib, name).restype = ctypes.c_longlong
         lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
 
 
-def stream() -> int:
-    """PyTorch's current CUDA stream, as the int the C entries take."""
-    return torch.cuda.current_stream().cuda_stream
+def stream(device_index: int | None = None) -> int:
+    """PyTorch's current CUDA stream on the device (the current device when
+    None), as the int the C entries take. The raw handle, without the
+    Stream object ``torch.cuda.current_stream()`` builds (a few us a
+    call)."""
+    if device_index is None:
+        device_index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(device_index)
+
+
+_SCRATCH: dict = {}
+
+
+def scratch(device, stream_id: int, words: int):
+    """An int32 tensor of at least ``words`` words on ``device``, kept for
+    the next call on the same stream. The kernels that take it write every
+    word before they read it, so its contents never matter, and calls on
+    one stream run in order."""
+    key = (device, stream_id)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < words:
+        buf = torch.empty(max(words, 1), dtype=torch.int32, device=device)
+        _SCRATCH[key] = buf
+    return buf
 
 
 def check(rc: int, name: str) -> None:

@@ -14,10 +14,10 @@ keys and the order, one stable 8-bit digit pass per byte of ``key_bits``
 and a negative key sorts by its two's-complement bytes.
 
 ``morton_sort`` and ``radix_argsort`` are the wrappers of the hand-written
-CUDA kernels ``csrc/morton_sort.cu`` and ``csrc/radix_argsort.cu`` (a
-onesweep sort: one digit-count launch, then one launch a pass with
-decoupled look-back): on a CUDA tensor they launch the kernel or raise; on a
-CPU tensor they run the plain version.
+CUDA kernels ``csrc/morton_sort.cu`` (one cooperative launch a call) and
+``csrc/radix_argsort.cu`` (a onesweep sort: one digit-count launch, then one
+launch a pass with decoupled look-back): on a CUDA tensor they launch the
+kernel or raise; on a CPU tensor they run the plain version.
 """
 from __future__ import annotations
 
@@ -29,7 +29,8 @@ from repro_torch.core import morton
 from repro_torch.kernels import _build
 
 DIGIT_BITS = 8
-TILE = 256          # elements per block of the CUDA kernel (csrc/morton_sort.cu)
+MORTON_MAX_CELLS = 1 << 22  # n_leaf: the cell field of csrc/morton_sort.cu's keys
+MORTON_TOO_LARGE = -3       # its C entry: a block's neurons exceed shared memory
 ARGSORT_TILE = 4096  # keys per onesweep tile of csrc/radix_argsort.cu
 ARGSORT_HIST_BLOCKS = 128  # at most, for its digit-count launch
 ARGSORT_MAX_KEYS = 1 << 30  # prefixes are 30-bit counts
@@ -97,6 +98,22 @@ def morton_sort_plain(positions, leaf_base: int, *, leaf_level: int,
     return rel, (rank - first[rel.to(torch.int64)]).to(torch.int32)
 
 
+@functools.lru_cache(maxsize=64)
+def _morton_workspace(device_index: int, n: int, n_leaf: int) -> int:
+    """int32 words of scratch a call takes on the device (its grid x its
+    histogram window, twice when n_leaf spans several windows)."""
+    del device_index    # a key only: the C entry reads the current device
+    return int(_build.library().repro_morton_sort_workspace(n, n_leaf))
+
+
+def morton_device_launches(*, reset: bool = False) -> int:
+    """Kernel launches ``morton_sort`` has made on the card, counted in
+    ``csrc/morton_sort.cu`` beside the launch (one a call); ``reset`` sets
+    the count to 0 after reading it."""
+    return int(_build.library().repro_morton_sort_device_launches(
+        int(reset)))
+
+
 def morton_sort(positions, leaf_base: int, *, leaf_level: int, n_leaf: int):
     """Morton-encode (n, 3) positions at ``leaf_level``, rebase to the
     rank's block and rank each neuron within its leaf cell (K3). Returns
@@ -109,20 +126,28 @@ def morton_sort(positions, leaf_base: int, *, leaf_level: int, n_leaf: int):
     if not 0 <= leaf_level <= 10:
         raise ValueError(f"morton_sort: leaf level {leaf_level} outside "
                          f"[0, 10]")
+    if not 1 <= n_leaf <= MORTON_MAX_CELLS:
+        raise ValueError(f"morton_sort: {n_leaf} leaf cells outside [1, "
+                         f"{MORTON_MAX_CELLS}], what the kernel's keys hold")
     n = positions.shape[0]
     dev = positions.device
     pos = positions.to(torch.float32).contiguous()
-    tiles = max(-(-n // TILE), 1)
     rel = torch.empty(n, dtype=torch.int32, device=dev)
     slot = torch.empty(n, dtype=torch.int32, device=dev)
-    # (n_leaf, tiles) per-tile cell counts, scanned in place into offsets
-    hist = torch.zeros((n_leaf, tiles), dtype=torch.int32, device=dev)
-    _build.require_cuda("morton_sort", pos, rel, slot, hist)
-    lib = _build.library()
-    _build.check(lib.repro_morton_sort(
-        pos.data_ptr(), rel.data_ptr(), slot.data_ptr(), hist.data_ptr(), n,
-        tiles, int(leaf_base), leaf_level, n_leaf, _build.stream()),
-        "morton_sort")
+    if n == 0:
+        return rel, slot
+    words = _morton_workspace(dev.index, n, n_leaf)
+    stream = _build.stream(dev.index)
+    work = _build.scratch(dev, stream, words)
+    _build.require_cuda("morton_sort", pos, rel, slot)
+    rc = _build.library().repro_morton_sort(
+        pos.data_ptr(), rel.data_ptr(), slot.data_ptr(), work.data_ptr(),
+        words, n, int(leaf_base), leaf_level, n_leaf, stream)
+    if rc == MORTON_TOO_LARGE:
+        raise ValueError(f"morton_sort: {n} neurons are more than the "
+                         f"kernel's blocks hold in shared memory beside "
+                         f"their histograms")
+    _build.check(rc, "morton_sort")
     launches.add()
     return rel, slot
 

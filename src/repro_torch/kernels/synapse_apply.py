@@ -9,8 +9,8 @@ stage of ``synapse_apply`` is disabled by passing no valid messages or no
 valid requests: the other stage then leaves the (compacted) table as it is.
 
 ``synapse_apply`` and ``route_build`` are the wrappers of the hand-written
-CUDA kernels in ``csrc/synapse_apply.cu`` (K4: one cooperative launch a
-call; K5: three launches): on CUDA tensors they launch the kernel or raise;
+CUDA kernels in ``csrc/synapse_apply.cu`` (each one cooperative launch a
+call): on CUDA tensors they launch the kernel or raise;
 on CPU tensors they run the plain versions. Priorities are
 computed outside the kernels, by the caller, with the same expression the
 reference uses.
@@ -21,6 +21,8 @@ routing input are below ``num_ranks * n``; S <= 32.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.connectome import routing
@@ -28,8 +30,8 @@ from repro_torch.connectome import synapses as syn
 from repro_torch.kernels import _build
 from repro_torch.kernels.radix_sort import bucket_ranks
 
-ROUTE_TILE = 2048     # entries per block of the routing kernel
 MAX_RANKS = 64        # destination buckets the routing kernel holds
+MAX_SLOTS = 2 ** 31 - 1   # num_ranks * cap: a slot's index is an int32
 
 apply_launches = _build.LaunchCounter("synapse_apply")
 route_launches = _build.LaunchCounter("route_build")
@@ -41,6 +43,22 @@ def device_launches(*, reset: bool = False) -> int:
     0 after reading it."""
     return int(_build.library().repro_synapse_apply_device_launches(
         int(reset)))
+
+
+def route_device_launches(*, reset: bool = False) -> int:
+    """K5's device launches since the last reset, as counted in
+    ``csrc/synapse_apply.cu`` beside the launch (one a call); ``reset`` sets
+    the count to 0 after reading it."""
+    return int(_build.library().repro_route_build_device_launches(
+        int(reset)))
+
+
+@functools.lru_cache(maxsize=64)
+def _route_workspace(device_index: int, m: int, num_ranks: int) -> int:
+    """int32 words of scratch a call of K5 takes on the device (its grid x
+    num_ranks counts)."""
+    del device_index    # a key only: the C entry reads the current device
+    return int(_build.library().repro_route_build_workspace(m, num_ranks))
 
 
 def synapse_apply_plain(edges, msg_lid, msg_gid, msg_valid, req_lid, req_src,
@@ -116,25 +134,28 @@ def route_build(flat_other, flat_mine, *, n: int, num_ranks: int, cap: int):
     if not 1 <= num_ranks <= MAX_RANKS:
         raise ValueError(f"route_build: {num_ranks} ranks outside "
                          f"[1, {MAX_RANKS}]")
+    if cap < 0 or num_ranks * cap > MAX_SLOTS:
+        raise ValueError(f"route_build: {num_ranks} x {cap} slots outside "
+                         f"[0, {MAX_SLOTS}]")
     m = flat_other.shape[0]
+    if m > MAX_SLOTS:
+        raise ValueError(f"route_build: {m} entries above {MAX_SLOTS}")
     dev = flat_other.device
     i32 = torch.int32
     other = flat_other.to(i32).contiguous()
     mine = flat_mine.to(i32).contiguous()
-    tiles = max(-(-m // ROUTE_TILE), 1)
-    buf = torch.empty((num_ranks, cap, 2), dtype=i32, device=dev)
-    dropped = torch.empty(1, dtype=torch.float32, device=dev)
-    counts = torch.empty((num_ranks, tiles), dtype=i32, device=dev)
-    totals = torch.empty(num_ranks, dtype=i32, device=dev)
-    _build.require_cuda("route_build", other, mine, buf, dropped, counts,
-                        totals)
     if mine.shape != (m,):
         raise ValueError("route_build: flat_other and flat_mine differ in "
                          "length")
-    lib = _build.library()
-    _build.check(lib.repro_route_build(
+    buf = torch.empty((num_ranks, cap, 2), dtype=i32, device=dev)
+    dropped = torch.empty(1, dtype=torch.float32, device=dev)
+    words = _route_workspace(dev.index, m, num_ranks)
+    stream = _build.stream(dev.index)
+    counts = _build.scratch(dev, stream, words)
+    _build.require_cuda("route_build", other, mine, buf, dropped)
+    _build.check(_build.library().repro_route_build(
         other.data_ptr(), mine.data_ptr(), buf.data_ptr(), dropped.data_ptr(),
-        counts.data_ptr(), totals.data_ptr(), m, n, num_ranks, cap, tiles,
-        _build.stream()), "route_build")
+        counts.data_ptr(), words, m, n, num_ranks, cap, stream),
+        "route_build")
     route_launches.add()
     return buf, dropped

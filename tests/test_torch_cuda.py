@@ -330,19 +330,87 @@ def test_activity_window_one_device_launch_per_window(dev):
     assert af.device_launches(reset=True) == {"staged": 2, "streaming": 0}
 
 
-@pytest.mark.parametrize("clustered", [False, True])
-def test_morton_sort_equals_plain(dev, clustered):
+def _one_launch_twice(fn, device_launches, monkeypatch, module, plain):
+    """``fn()`` twice under the sync debug mode "error" (no host wait), with
+    ``module.plain`` replaced by a function that fails (a CUDA tensor never
+    runs the plain version). Returns both results and the device launches
+    counted in the source."""
+    def refuse(*args, **kw):
+        raise AssertionError(f"{plain} ran on a CUDA tensor")
+    _build.library()
+    torch.cuda.synchronize()
+    device_launches(reset=True)
+    with monkeypatch.context() as mp:
+        mp.setattr(module, plain, refuse)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            first, second = fn(), fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return first, second, device_launches(reset=True)
+
+
+def _morton_case(dev, case):
+    """(positions, leaf_base, leaf_level, n_leaf) of a K3 case."""
     g = torch.Generator(device=dev).manual_seed(2)
     n = 5000
+    if case == "config":                    # the main path's shape
+        pos = engine.init_state(CONFIG, 0, 1, device=dev).positions
+        leaf_level, n_leaf, base_cell = ctree._tree_geometry(0, CONFIG, 1)
+        return pos, base_cell * 8 ** CONFIG.local_levels, leaf_level, n_leaf
+    if case == "one_cell":                  # every neuron in one cell
+        return (torch.full((65_536, 3), 0.3, device=dev), 0, 4, 4096)
     pos = torch.rand(n, 3, generator=g, device=dev)
-    if clustered:
+    if case == "clustered":
         pos = torch.clamp(pos * 1e-3 + 0.3, 0.0, 1.0 - 1e-6)
+    if case == "clamped":    # R = 4, rank 2: most cells below or above
+        return pos, 2 * 2 * 8 ** 4, 5, 2 * 8 ** 4
+    if case.startswith("leaf_"):   # (leaf level, n_leaf, base) at R = 1, 4
+        level, n_leaf, base = {"leaf_8^3": (3, 8 ** 3, 0),
+                               "leaf_8^4": (4, 8 ** 4, 0),
+                               "leaf_2x8^4": (5, 2 * 8 ** 4, 2 * 8 ** 4),
+                               "leaf_8^5": (5, 8 ** 5, 0)}[case]
+        return torch.rand(65_536, 3, generator=g, device=dev), base, level, \
+            n_leaf
+    if case == "windows":    # R = 9, local_levels 5: 7 x 8^5 cells
+        pos = torch.rand(65_536, 3, generator=g, device=dev)
+        return pos, 3 * 7 * 8 ** 5, 7, 7 * 8 ** 5
+    if case == "n_below_grid":
+        return pos[:50].contiguous(), 0, 4, 4096
+    if case == "odd_cells":                 # rows padded to 4 cells
+        return pos, 100, 4, 1001
+    return pos, 512, 4, 2048
+
+
+@pytest.mark.parametrize("case", [
+    "uniform", "clustered", "config", "one_cell", "clamped", "leaf_8^3",
+    "leaf_8^4", "leaf_2x8^4", "leaf_8^5", "windows", "n_below_grid",
+    "odd_cells"])
+def test_morton_sort_equals_plain(dev, monkeypatch, case):
+    """Bit-equal to the plain version, one device launch a call (counted in
+    csrc/morton_sort.cu), a second call bitwise equal, no host wait: random
+    and clustered positions, CONFIG's, all 65,536 neurons in one cell,
+    positions clamped below 0 and above n_leaf - 1 (R = 4, rank 2), n_leaf
+    8^3 to 8^5 and 7 x 8^5 (several histogram windows), n below the grid,
+    an n_leaf that is not a multiple of 4."""
+    pos, base, leaf_level, n_leaf = _morton_case(dev, case)
+    kw = dict(leaf_level=leaf_level, n_leaf=n_leaf)
     before = rs.launches.count
-    got = rs.morton_sort(pos, 512, leaf_level=4, n_leaf=2048)
-    want = rs.morton_sort_plain(pos, 512, leaf_level=4, n_leaf=2048)
-    assert rs.launches.count == before + 1
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+    got, again, launched = _one_launch_twice(
+        lambda: rs.morton_sort(pos, base, **kw), rs.morton_device_launches,
+        monkeypatch, rs, "morton_sort_plain")
+    assert rs.launches.count == before + 2
+    assert launched == 2
+    want = rs.morton_sort_plain(pos, base, **kw)
+    for a, b, c in zip(got, want, again):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_morton_sort_refuses_more_cells_than_its_keys_hold(dev):
+    pos = torch.rand(100, 3, device=dev)
+    with pytest.raises(ValueError, match=str(rs.MORTON_MAX_CELLS)):
+        rs.morton_sort(pos, 0, leaf_level=8, n_leaf=rs.MORTON_MAX_CELLS + 1)
 
 
 @pytest.mark.parametrize("crowd", [False, True])
@@ -421,21 +489,62 @@ def test_synapse_apply_one_device_launch_per_call(dev):
         assert torch.equal(o[0], outs[0][0]) and torch.equal(o[1], outs[0][1])
 
 
-@pytest.mark.parametrize("num_ranks,cap", [(1, 4096), (1, 1 << 20), (3, 900)])
-def test_route_build_equals_plain(dev, num_ranks, cap):
+# K5 cases: (entries m, n, num_ranks, cap, what the partner gids are)
+_ROUTE_CASES = {
+    "r1": (3000 * 32, 3000, 1, 4096, "half"),
+    "r1_cap_above_totals": (3000 * 32, 3000, 1, 1 << 20, "half"),
+    "r3": (3000 * 32, 3000, 3, 900, "half"),
+    "r64": (1000 * 32, 1000, 64, 200, "half"),
+    "r64_cap_above_totals": (1000 * 32, 1000, 64, 10_000, "half"),
+    "check_k5": (65_536 * 32, 65_536, 1, 32_768, "half"),
+    "all_invalid": (3000 * 32, 3000, 3, 900, "invalid"),
+    "one_destination": (3000 * 32, 3000, 3, 900, "one"),   # cap below it
+    "m_ragged": (99_991, 3000, 3, 20_000, "half"),
+    "m_below_grid": (50, 10, 1, 8, "half"),
+    "m_beyond_shared_memory": (9_000_001, 300_000, 1, 1 << 23, "half"),
+    "unaligned": (3000 * 32 + 1, 3000, 3, 900, "unaligned"),
+    "n_one": (5000, 1, 3, 900, "half"),       # a rank of one neuron
+}
+
+
+def _route_case(dev, m, n, num_ranks, kind):
     g = torch.Generator(device=dev).manual_seed(4)
-    n, s = 3000, 32
-    other = torch.randint(-1, num_ranks * n, (n * s,), generator=g,
-                          device=dev, dtype=torch.int32)
-    other = torch.where(torch.rand(n * s, generator=g, device=dev) < 0.5,
-                        -1, other)
-    mine = torch.arange(n * s, device=dev, dtype=torch.int32) // s
+    other = torch.randint(0, num_ranks * n, (m,), generator=g, device=dev,
+                          dtype=torch.int32)
+    if kind == "one":
+        other = other % n + (num_ranks - 1) * n
+    elif kind == "invalid":
+        other = torch.full_like(other, -1)
+    else:
+        other = torch.where(torch.rand(m, generator=g, device=dev) < 0.5,
+                            -1, other)
+    mine = torch.arange(m, device=dev, dtype=torch.int32) // 32
+    if kind == "unaligned":                 # views 4 bytes into their storage
+        return other[1:], mine[1:]
+    return other, mine
+
+
+@pytest.mark.parametrize("case", sorted(_ROUTE_CASES))
+def test_route_build_equals_plain(dev, monkeypatch, case):
+    """Bit-equal to the plain version, one device launch a call (counted in
+    csrc/synapse_apply.cu), a second call bitwise equal, no host wait: R 1,
+    3 and 64; caps above every total and below a destination's count; every
+    entry invalid; every entry to one destination; m not a multiple of a
+    block's range, below the grid's block count and beyond what the grid's
+    shared memory holds; operands 4 bytes off their storage's alignment; a
+    rank of one neuron (the gid is the rank)."""
+    m, n, ranks, c, kind = _ROUTE_CASES[case]
+    other, mine = _route_case(dev, m, n, ranks, kind)
+    kw = dict(n=n, num_ranks=ranks, cap=c)
     before = sa.route_launches.count
-    got = sa.route_build(other, mine, n=n, num_ranks=num_ranks, cap=cap)
-    want = sa.route_build_plain(other, mine, n=n, num_ranks=num_ranks,
-                                cap=cap)
-    assert sa.route_launches.count == before + 1
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    got, again, launched = _one_launch_twice(
+        lambda: sa.route_build(other, mine, **kw), sa.route_device_launches,
+        monkeypatch, sa, "route_build_plain")
+    assert sa.route_launches.count == before + 2
+    assert launched == 2
+    want = sa.route_build_plain(other, mine, **kw)
+    for a, b, d in zip(got, want, again):
+        assert torch.equal(a, b) and torch.equal(a, d)
 
 
 @pytest.mark.parametrize("name", sorted(library.SCENARIOS))

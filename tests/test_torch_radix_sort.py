@@ -29,8 +29,11 @@ def _t(x):
 
 
 def _positions(kind, n, rng, level=3):
-    """Random, clustered (many neurons in few leaf cells) and on-border
-    positions (exact multiples of the leaf cell width, and 1 - 1e-6)."""
+    """Random, clustered (many neurons in few leaf cells), on-border
+    positions (exact multiples of the leaf cell width, and 1 - 1e-6) and a
+    crowd of every neuron in one cell."""
+    if kind == "one_cell":
+        return np.full((n, 3), 0.3, np.float32)
     if kind == "random":
         pos = rng.random((n, 3))
     elif kind == "clustered":
@@ -66,14 +69,15 @@ def test_radix_ranks_is_the_stable_argsort_rank():
     np.testing.assert_array_equal(got[order], np.arange(keys.size))
 
 
-@pytest.mark.parametrize("kind", ["random", "clustered", "border"])
+@pytest.mark.parametrize("kind", ["random", "clustered", "border",
+                                  "one_cell"])
 @pytest.mark.parametrize("num_ranks,rank", [(1, 0), (4, 2)])
 def test_morton_sort_equals_pallas_interpret(kind, num_ranks, rank):
     """(rel, slot) of the port's plain version == the JAX kernel's, with
     out-of-block positions clamped (R=4: most neurons lie in other ranks'
-    blocks)."""
-    rng = np.random.default_rng(["random", "clustered", "border"].index(kind)
-                                + 10 * rank)
+    blocks), and with every neuron in one cell (slot = 0, 1, ..., n - 1)."""
+    rng = np.random.default_rng(["random", "clustered", "border",
+                                 "one_cell"].index(kind) + 10 * rank)
     pos = _positions(kind, 257, rng)
     b = jmorton.branch_level(num_ranks)
     c_per = jmorton.cells_per_rank(num_ranks)
@@ -92,6 +96,8 @@ def test_morton_sort_equals_pallas_interpret(kind, num_ranks, rank):
     # and the reference build's pair: stable within-cell rank
     np.testing.assert_array_equal(
         slot.numpy(), ttree.positions_within(rel, n_leaf).numpy())
+    if kind == "one_cell":
+        np.testing.assert_array_equal(slot.numpy(), np.arange(pos.shape[0]))
 
 
 @pytest.mark.parametrize("kind", ["random", "clustered"])

@@ -129,8 +129,10 @@ def test_fused_apply_stages_equal_jax_fused_stages():
     assert torch.equal(ga, ra) and torch.equal(gn, rn)
 
 
-def _route_inputs(rng, n, num_ranks, kill_share):
+def _route_inputs(rng, n, num_ranks, kill_share, one_dest=False):
     edges = rng.integers(-1, n * num_ranks, (n, S)).astype(np.int32)
+    if one_dest:                  # every partner on the last rank
+        edges = np.where(edges >= 0, edges % n + (num_ranks - 1) * n, -1)
     kill = (edges >= 0) & (rng.random((n, S)) < kill_share)
     flat_other = np.where(kill, edges, -1).reshape(-1).astype(np.int32)
     flat_mine = np.broadcast_to(np.arange(n, dtype=np.int32)[:, None],
@@ -138,14 +140,19 @@ def _route_inputs(rng, n, num_ranks, kill_share):
     return flat_other, flat_mine
 
 
-@pytest.mark.parametrize("num_ranks,lesions,kill_share",
-                         [(1, False, 0.5), (1, True, 1.0), (4, False, 0.5)])
-def test_route_build_equals_pallas_interpret(num_ranks, lesions, kill_share):
+@pytest.mark.parametrize("num_ranks,lesions,kill_share,one_dest",
+                         [(1, False, 0.5, False), (1, True, 1.0, False),
+                          (4, False, 0.5, False), (64, False, 1.0, True),
+                          (1, False, 0.0, False)])
+def test_route_build_equals_pallas_interpret(num_ranks, lesions, kill_share,
+                                             one_dest):
     """Buffers and drop count equal; the non-lesion cap n//4 is exceeded, so
-    the drop path runs."""
+    the drop path runs: at R = 1 and 4, and at R = 64 with every entry to
+    one destination. With no entry killed nothing is dropped."""
     n = 40
     rng = np.random.default_rng(num_ranks + int(lesions))
-    flat_other, flat_mine = _route_inputs(rng, n, num_ranks, kill_share)
+    flat_other, flat_mine = _route_inputs(rng, n, num_ranks, kill_share,
+                                          one_dest)
     cap = jrouting.cap_deletions(JConfig(neurons_per_rank=n, max_synapses=S),
                                  lesions)
     assert cap == trouting.cap_deletions(
@@ -160,7 +167,9 @@ def test_route_build_equals_pallas_interpret(num_ranks, lesions, kill_share):
     np.testing.assert_array_equal(np.asarray(wb), gb.numpy())
     np.testing.assert_array_equal(np.asarray(wd), gd.numpy())
     assert gd.shape == (1,) and gd.dtype == torch.float32
-    if not lesions:
+    if kill_share == 0:
+        assert float(gd[0]) == 0 and (gb == -1).all()
+    elif not lesions:
         assert float(gd[0]) > 0
 
 

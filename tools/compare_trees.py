@@ -9,8 +9,10 @@ For each tree, in the order given, in fresh processes: that tree's
 ``chiprun_out/compare_trees/<k>-<tree>.jsonl``), then, importing that tree's
 ``chip_smoke``, K1 at R=4 rank 1 (``k1_timing``) and K1's kernel time of one
 window from a ``torch.profiler`` trace (the sum of its kernels' durations,
-R=1 with the scenario's lesion and R=4 rank 1). Each tree builds its kernels
-under its own ``build/``. Prints one JSON line per run, then a table of the
+R=1 with the scenario's lesion and R=4 rank 1). Among the numbers compared:
+each kernel's call and device ms (K1-K5, retraction), both paths' chunk
+time and peak memory, and the profiled chunk's ranges. Each tree builds its
+kernels under its own ``build/``. Prints one JSON line per run, then a table of the
 numbers compared, the card's name and power limit on each line. A key a tree's
 ``chip_smoke.py`` does not print (a kernel it does not have) shows as None.
 """
@@ -100,9 +102,16 @@ def run_tree(k: int, tree: pathlib.Path) -> dict:
            "K4_accept_device_ms": kt.get("K4_accept_device_ms"),
            "K4_drain_ms": kt.get("K4_drain_ms"),
            "K4_accept_ms": kt.get("K4_accept_ms"),
+           "K3_ms": kt.get("K3_ms"), "K3_device_ms": kt.get("K3_device_ms"),
+           "K5_ms": kt.get("K5_ms"), "K5_device_ms": kt.get("K5_device_ms"),
+           "K5_caller_inputs_device_ms": kt.get(
+               "K5_caller_inputs_device_ms"),
            "main_chunk_ms": lines.get("main_path", {}).get("median_chunk_ms"),
            "scenario_chunk_ms": lines.get("scenario_path", {}).get(
                "median_chunk_ms"),
+           "main_peak_mem_gb": lines.get("main_path", {}).get("peak_mem_gb"),
+           "scenario_peak_mem_gb": lines.get("scenario_path", {}).get(
+               "peak_mem_gb"),
            "profiled_activity_device_ms": prof.get("repro.activity", {}).get(
                "device_ms"),
            "profiled_retraction_device_ms": prof.get(
@@ -111,6 +120,10 @@ def run_tree(k: int, tree: pathlib.Path) -> dict:
                "repro.conn.retraction", {}).get("launches"),
            "profiled_retraction_span_ms": prof.get(
                "repro.conn.retraction", {}).get("span_ms"),
+           "profiled_tree_build_device_ms": prof.get(
+               "repro.conn.tree_build", {}).get("device_ms"),
+           "profiled_tree_build_launches": prof.get(
+               "repro.conn.tree_build", {}).get("launches"),
            "profiled_formation_device_ms": prof.get(
                "repro.conn.formation", {}).get("device_ms"),
            "profiled_formation_span_ms": prof.get(
