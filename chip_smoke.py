@@ -53,10 +53,17 @@ H100_BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core rate (data sheet)
 H100_INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
 # operation counts used for the bounds (32-bit integer or float operations)
-# one Threefry-2x32 (csrc/hash.cuh): 2 initial adds, 20 rounds of add,
-# rotate (one funnel shift) and xor, 5 key injections of 2 adds (the key
-# schedule is loop-invariant)
-HASH_OPS = 2 + 20 * 3 + 5 * 2
+# one Threefry-2x32 (csrc/hash.cuh) as nvcc compiles it for sm_90a with the
+# library's flags, the key schedule shared (tools/k0_sass.py): 20 rotates
+# (SHF.L.W), 20 xors (LOP3) and 27 adds (IADD3 adds three operands, so a key
+# injection or the initial add joins a round's add); the source's count
+# was 2 + 20 x 3 + 5 x 2 = 72
+HASH_OPS = 67
+# a draw's epilogue beyond its hash(es), integer and float operations:
+# uniform xor, shift, or / subtract, multiply-add, max; randint two xors,
+# three modulos, a multiply, two adds
+UNIFORM_EPILOGUE = (3, 3)
+RANDINT_EPILOGUE = (8, 0)
 NEURON_OPS = 60       # Box-Muller tail + Izhikevich + calcium + elements
 # a slot of K1's row a step (rank split and rate are decoded once a window):
 # code load, local test, word index, word load, bit shift, bit test
@@ -167,12 +174,70 @@ def phase_build():
           "library": so.name})
 
 
-def check_k0(cfg):
-    """K0's kernel (threefry_words) against the plain int64 Threefry on 1M
-    random counters, and timed at the main path's largest draw: the (n, 3)
-    position offsets of ``init_state`` (``prng.uniform``)."""
+def k0_cases(cfg):
+    """K0's draws at the main paths' shapes: ``init_state``'s three (randint
+    (n,) of the cells, uniform (n, 3) offsets, uniform (n, 2) vacancies;
+    keys as host words) and the reference lowering's priorities of one
+    table (``edge_priority``: fold_in of the row gids, fold_in of the
+    partners, uniform of the batch; n x S keys). Each: (kernel call, plain
+    call, bytes, integer and float operations)."""
     import torch
     from repro_torch import prng
+    from repro_torch.core import morton
+    n, s = cfg.neurons_per_rank, cfg.max_synapses
+    m = n * s
+    cells = morton.cells_per_rank(1)
+    kp, kn = prng.split_words(prng.fold_in_words(prng.key_words(cfg.seed), 0))
+    kc, ko = prng.split_words(kp)
+    kv, _ = prng.split_words(kn)
+    t = {w: prng.key_tensor(w, DEV) for w in (kc, ko, kv)}
+    g = torch.Generator(device=DEV).manual_seed(14)
+    a = torch.arange(n, dtype=torch.int32, device=DEV).repeat_interleave(s)
+    b = torch.randint(0, n, (m,), generator=g, device=DEV, dtype=torch.int32)
+    k_out = prng.split_words(prng.fold_in_words(prng.key_words(cfg.seed + 2),
+                                                3), 3)[0]
+    t_out = prng.key_tensor(k_out, DEV)
+    rows = prng.fold_in(k_out, a)
+    pairs = prng.fold_in(rows, b)
+    lo, hi = cfg.initial_vacant_low, cfg.initial_vacant_high
+    ui, uf = UNIFORM_EPILOGUE
+    return {
+        "randint (n,)": (
+            lambda: prng.randint(kc, (n,), 0, cells, device=DEV),
+            lambda: prng.randint_plain(t[kc], (n,), 0, cells),
+            4 * n, n * (2 * HASH_OPS + RANDINT_EPILOGUE[0]) + 2 * HASH_OPS,
+            0),
+        "uniform (n, 3)": (
+            lambda: prng.uniform(ko, (n, 3), device=DEV),
+            lambda: prng.uniform_plain(t[ko], (n, 3)),
+            12 * n, 3 * n * (HASH_OPS + ui), 3 * n * uf),
+        "uniform (n, 2)": (
+            lambda: prng.uniform(kv, (n, 2), lo, hi, device=DEV),
+            lambda: prng.uniform_plain(t[kv], (n, 2), lo, hi),
+            8 * n, 2 * n * (HASH_OPS + ui), 2 * n * uf),
+        "fold_in rows (n S,)": (
+            lambda: prng.fold_in(k_out, a),
+            lambda: prng.fold_in_plain(t_out, a),
+            4 * m + 16 * m, m * HASH_OPS, 0),
+        "fold_in pairs (n S,)": (
+            lambda: prng.fold_in(rows, b),
+            lambda: prng.fold_in_plain(rows, b),
+            16 * m + 4 * m + 16 * m, m * HASH_OPS, 0),
+        "uniform pairs (n S,)": (
+            lambda: prng.uniform(pairs),
+            lambda: prng.uniform_plain(pairs),
+            16 * m + 4 * m, m * (HASH_OPS + ui), m * uf),
+    }
+
+
+def check_k0(cfg):
+    """K0's draw kernel against the plain int64 Threefry: threefry_words on
+    1M random words (int64, and int32 and strided views), then every draw
+    kind at the main paths' shapes (``k0_cases``), each bit-equal, one
+    device launch a call (counted in csrc/hash_words.cu), timed (call,
+    device, plain) beside its bound. Returns the kernel-table entry (the
+    (n, 3) uniform, init_state's largest draw) and the lines by case."""
+    import torch
     from repro_torch.kernels import hash as chash
     g = torch.Generator(device=DEV).manual_seed(0)
     words = [torch.randint(0, 2 ** 32, (1 << 20,), generator=g,
@@ -181,20 +246,36 @@ def check_k0(cfg):
     got = chash.threefry_words(*words)
     want = chash.threefry2x32(*words)
     bad = int((got[0] != want[0]).sum() + (got[1] != want[1]).sum())
-    n = 3 * cfg.neurons_per_rank
-    k = prng.key(cfg.seed, device=DEV)
-    i = torch.arange(n, dtype=torch.int64, device=DEV)
-    ops = (k[0], k[1], i >> 32, i & chash.M32)
-    same = _same(chash.threefry_words(*ops), chash.threefry2x32(*ops))
+    mixed = (words[0][::2].to(torch.int32), 7, words[2][::2],
+             words[3][1::2])
+    bad += int(sum((x != y).sum() for x, y in zip(
+        chash.threefry_words(*mixed), chash.threefry2x32(*mixed))))
+    lines, entry = [], None
+    for name, (kernel, plain, nbytes, iops, fops) in k0_cases(cfg).items():
+        chash.device_launches(reset=True)
+        out = kernel()
+        torch.cuda.synchronize()
+        launched = chash.device_launches(reset=True)
+        exact = torch.equal(out, plain())
+        ms = cuda_ms(kernel, reps=20)
+        dev_ms = device_ms(kernel, 20)
+        plain_ms = cuda_ms(plain, reps=3)
+        b = bound(nbytes, iops, fops)
+        lines.append({"draw": name, "elements": out.numel(), "equal": exact,
+                      "device_launches_per_call": launched, "ms": ms,
+                      "device_ms": dev_ms, "plain_ms": plain_ms,
+                      "bound_ms": b[0], "bound_by": b[1]})
+        if not exact or launched != 1:
+            fail(f"K0 {name}: equal {exact}, {launched} device launches in "
+                 f"one call (not 1)")
+        if name == "uniform (n, 3)":
+            entry = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound=b,
+                         max_abs_err=0.0)
     emit({"phase": "check", "kernel": "K0 threefry2x32", "words": 1 << 21,
-          "mismatches": bad, "init_draw_equal": same})
-    if bad or not same:
+          "mismatches": bad, "draws": lines})
+    if bad:
         fail(f"K0: {bad} threefry words differ from the plain version")
-    ms = cuda_ms(lambda: chash.threefry_words(*ops), reps=10)
-    dev_ms = device_ms(lambda: chash.threefry_words(*ops), 10)
-    plain_ms = cuda_ms(lambda: chash.threefry2x32(*ops), reps=3)
-    # counters in (two words a draw), both words out, as int32
-    return ms, dev_ms, plain_ms, bound(n * 16, n * HASH_OPS), 0.0
+    return entry, lines
 
 
 def retract_cases(cfg):
@@ -855,6 +936,38 @@ def attention_pairs(s: int, skv: int, window: int) -> int:
     return total
 
 
+def k8_call_split(x0, cfg, params, reps: int = 2000) -> dict:
+    """Host time of a K8 call by part (ms, mean of ``reps`` calls, the
+    host clock around each): the input checks, the parameters packed, the
+    one output allocation, the struct and the launch. Each call launches
+    the kernel; the card keeps up with the host, so the parts are host
+    time."""
+    import torch
+    from repro_torch.kernels import neuron_step as ns
+    pc = time.perf_counter
+    index = x0[0].get_device()
+    parts = [0.0] * 4
+    torch.cuda.synchronize()
+    for _ in range(reps):
+        t0 = pc()
+        ins, n = ns._inputs(x0, index)
+        t1 = pc()
+        keep = []
+        tail, _ = ns._tail(cfg, params, index, keep)
+        t2 = pc()
+        outs, base, step = ns._outputs(n, ins[0].device)
+        t3 = pc()
+        ns._launch(tail, ins, n, base, step, index)
+        t4 = pc()
+        for k, dt in enumerate((t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            parts[k] += dt
+    torch.cuda.synchronize()
+    names = ("checks", "constants", "allocation", "struct_and_launch")
+    split = {k: v / reps * 1e3 for k, v in zip(names, parts)}
+    split["sum"] = sum(split.values())
+    return split
+
+
 def check_kernel_api(cfg, inp, out, counts, k9_kernels, card):
     """Each call of the driven API against its plain version on the same
     inputs, a second call bitwise equal (its kernels' launches counted in
@@ -884,7 +997,8 @@ def check_kernel_api(cfg, inp, out, counts, k9_kernels, card):
         fail(f"K9's source counted {k9_kernels} launches, not {chosen}")
     entries, lines = {}, []
 
-    # ---- K8: one rate window per variant, bit-equal ----------------------
+    # ---- K8: one rate window per variant, bit-equal; the empty kernel of
+    # its grid and where a call's host time goes -------------------------
     n = cfg.neurons_per_rank
     for name, params in inp["k8_params"].items():
         got = out["K8", name]
@@ -893,25 +1007,33 @@ def check_kernel_api(cfg, inp, out, counts, k9_kernels, card):
         exact = _same(got, plain)
         x0 = (*inp["k8_state"], inp["k8_input"][0])
         ms = cuda_ms(lambda: ops.fused_neuron_step(*x0, cfg, params=params),
-                     reps=100)
+                     reps=200)
         plain_ms = cuda_ms(lambda: ns.neuron_step_plain(*x0, cfg,
                                                         params=params), reps=10)
         dev_ms = device_ms(lambda: ops.fused_neuron_step(*x0, cfg,
-                                                         params=params), 100)
+                                                         params=params), 200)
+        floor_ms = device_ms(lambda: ns.floor_launch(*x0, cfg, params=params),
+                             200)
         nbytes = (45 if params is None else 69) * n
         b = bound(nbytes, fp_ops=n * NEURON_STEP_OPS)
         lines.append({"kernel": "K8 neuron_step", "variant": name, "n": n,
                       "calls": cfg.rate_period, "equal": exact,
                       "deterministic": _same(got, again),
                       "spikes": int(got[6]), "ms": ms,
-                      "device_ms": dev_ms, "plain_ms": plain_ms,
-                      "bound_ms": b[0], "bound_by": b[1]})
+                      "device_ms": dev_ms, "empty_kernel_device_ms": floor_ms,
+                      "plain_ms": plain_ms,
+                      "bound_ms": b[0], "bound_by": b[1],
+                      "call_split_ms": k8_call_split(x0, cfg, params)})
         if not exact or not _same(got, again):
             fail(f"K8 ({name}): differs from its plain version or between "
                  f"two runs")
         if name == "homogeneous":
             entries["K8"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                                 bound=b, max_abs_err=0.0, library_ms=None)
+                                 bound=b, max_abs_err=0.0, library_ms=None,
+                                 extra={"empty_kernel_device_ms": floor_ms,
+                                        "heterogeneous_ms": None})
+        else:
+            entries["K8"]["extra"]["heterogeneous_ms"] = ms
 
     # ---- K6: bit-equal to the plain version and to torch.sort ------------
     k6_most = 1 + 4          # a digit count, then one launch a pass
@@ -1225,9 +1347,9 @@ def scenario_determinism(sim, rec, cfg, scenario, chunks, keys, card):
     phase_profile(sim2, card)
 
 
-def phase_profile(sim, card):
+def phase_profile(sim, card, phase="profile"):
     """One more chunk under torch.profiler. From the exported Chrome trace
-    (build/chip_smoke_trace.json): the device busy time (kernels,
+    (build/chip_smoke_<phase>_trace.json): the device busy time (kernels,
     copies, memsets) against the chunk's wall time, the device time inside
     each phase range, and the kernels that take the most device time. The
     profiler slows the host, so the wall time here is longer than the
@@ -1245,7 +1367,7 @@ def phase_profile(sim, card):
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build")
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "chip_smoke_trace.json")
+    path = os.path.join(out_dir, f"chip_smoke_{phase}_trace.json")
     prof.export_chrome_trace(path)
     with open(path) as f:
         events = json.load(f)["traceEvents"]
@@ -1265,7 +1387,7 @@ def phase_profile(sim, card):
         by_name[e["name"][:80]][0] += e["dur"] / 1e3
         by_name[e["name"][:80]][1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    emit({"phase": "profile", "card": card,
+    emit({"phase": phase, "card": card,
           "scenario": getattr(sim.scenario, "name", None),
           "chunk": sim.state.chunk - 1, "chunk_wall_ms": wall_ms,
           "device_busy_ms": busy_ms,
@@ -1303,7 +1425,7 @@ def main() -> int:
     scn = library.lesion_rewiring()
 
     # ---- kernels against their plain versions --------------------------
-    k0 = check_k0(all_fused)
+    k0, k0_lines = check_k0(all_fused)
     kr_res, kr_err = check_retract(all_fused)
     k1 = k1_compare(slice_cfg)
     k1s = k1_compare(all_fused, num_ranks=1, rank=0,
@@ -1358,8 +1480,8 @@ def main() -> int:
           "edge_priority_device_ms": kr_res["priority"][1],
           "edge_priority_plain_ms": kr_res["priority"][2],
           "edge_priority_bound_ms": kr_res["priority"][3][0],
-          "K0_ms": k0[0], "K0_device_ms": k0[1], "K0_plain_ms": k0[2],
-          "K0_bound_ms": k0[3][0]})
+          "K0_ms": k0["ms"], "K0_device_ms": k0["device_ms"],
+          "K0_plain_ms": k0["plain_ms"], "K0_bound_ms": k0["bound"][0]})
 
     # ---- the public kernel API: K6-K9 at the repo's widths ---------------
     from repro_torch.kernels import flash_attention as fa
@@ -1384,25 +1506,36 @@ def main() -> int:
                            exact_kernels)
 
     # ---- path 1: activity + traversal kernels, no scenario --------------
+    from repro_torch.kernels import hash as chash
     _build.reset_launch_counts()
-    sim, _, warm, per_chunk, flags = run_main_path(slice_cfg, 2)
-    counts = _build.launch_counts()
+    chash.device_launches(reset=True)
+    sim_main, _, warm, per_chunk, flags = run_main_path(slice_cfg, 2)
+    main_counts = _build.launch_counts()
+    k0_device = chash.device_launches(reset=True)
     chunks = len(per_chunk) + 1
-    keys = check_path("main_path", sim, slice_cfg, warm, per_chunk, flags,
-                      counts)
-    if counts["activity_window"] != chunks:
-        fail(f"K1 launched {counts['activity_window']} times, not once a "
-             f"window")
-    if counts["bh_traverse"] < chunks:
-        fail(f"K2 launched {counts['bh_traverse']} times")
+    keys = check_path("main_path", sim_main, slice_cfg, warm, per_chunk,
+                      flags, main_counts,
+                      device_counts={"threefry_words": k0_device})
+    if main_counts["activity_window"] != chunks:
+        fail(f"K1 launched {main_counts['activity_window']} times, not once "
+             f"a window")
+    if main_counts["bh_traverse"] < chunks:
+        fail(f"K2 launched {main_counts['bh_traverse']} times")
+    # K0: init_state's three draws, then the reference lowering's
+    # priorities, three launches for each of the two retracted tables and
+    # the request buffer a chunk
+    k0_want = 3 + 9 * chunks
+    if main_counts["threefry_words"] != k0_want or k0_device != k0_want:
+        fail(f"K0 launched {main_counts['threefry_words']} times (the "
+             f"source counted {k0_device}) on the main path, not {k0_want}")
     sim2, _, _, _, _ = run_main_path(slice_cfg, 2)
-    same = (torch.equal(sim.state.in_edges, sim2.state.in_edges)
-            and torch.equal(sim.state.out_edges, sim2.state.out_edges)
-            and all(sim2.stats()[k] == sim.stats()[k] for k in keys))
+    same = (torch.equal(sim_main.state.in_edges, sim2.state.in_edges)
+            and torch.equal(sim_main.state.out_edges, sim2.state.out_edges)
+            and all(sim2.stats()[k] == sim_main.stats()[k] for k in keys))
     emit({"phase": "determinism", "path": "main_path", "equal": same})
     if not same:
         fail("a second run of the main path from the same seed differs")
-    del sim, sim2
+    del sim_main, sim2
 
     # ---- path 2: the scenario through the lesion, all five kernels ------
     chunks = 12
@@ -1431,9 +1564,9 @@ def main() -> int:
         if counts[name] != k:
             fail(f"{name} launched {counts[name]} times on the scenario "
                  f"path, not {k}")
-    if counts["threefry_words"] < 1:
-        fail("threefry_words did not run on the scenario path (init_state's "
-             "draws)")
+    if counts["threefry_words"] != 3:
+        fail(f"K0 launched {counts['threefry_words']} times on the scenario "
+             f"path, not 3 (init_state's draws)")
     if device_counts["activity_window"] != {"staged": chunks,
                                             "streaming": 0} or \
             device_counts["synapse_apply"] != 3 * chunks or \
@@ -1445,14 +1578,28 @@ def main() -> int:
     if counts["bh_traverse"] < chunks:
         fail(f"K2 launched {counts['bh_traverse']} times")
     scenario_determinism(sim, rec, all_fused, scn, chunks, keys, card)
+    del sim
+    # one chunk of the main path profiled (after a warm-up chunk), last:
+    # a profiler session slows the host for the rest of the process
+    from repro_torch.sim.api import Simulator
+    sim = Simulator.from_config(slice_cfg, device=DEV)
+    sim.run(1)
+    phase_profile(sim, card, "profile_main_path")
+    del sim
 
     kernels = [
         {"name": "threefry_words", "route": "cuda",
          "source": "src/repro_torch/csrc/hash_words.cu",
          "replaces": "src/repro/kernels/hash.py:57",
-         "launches": counts["threefry_words"], "max_abs_err": k0[4],
-         "ms": k0[0], "device_ms": k0[1], "plain_ms": k0[2],
-         "bound_ms": k0[3][0], "bound_by": k0[3][1], "library_ms": None},
+         "launches": counts["threefry_words"],
+         "main_path_launches": main_counts["threefry_words"],
+         "max_abs_err": k0["max_abs_err"], "ms": k0["ms"],
+         "device_ms": k0["device_ms"], "plain_ms": k0["plain_ms"],
+         "bound_ms": k0["bound"][0], "bound_by": k0["bound"][1],
+         "library_ms": None,
+         "draws": {x["draw"]: {k: x[k] for k in (
+             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")}
+             for x in k0_lines}},
         {"name": "retract", "route": "cuda",
          "source": "src/repro_torch/csrc/retract.cu",
          "replaces": "src/repro/connectome/synapses.py:117 (jnp)",

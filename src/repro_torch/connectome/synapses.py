@@ -46,8 +46,8 @@ def lexsort(keys):
 def edge_priority(key, a_gid, b_gid):
     """Deterministic per-(a,b) uniform — ``uniform(fold_in(fold_in(key, a),
     b))`` for every pair, independent of buffer ordering. ``key``: a key
-    tensor or two u32 words (``prng.as_key``)."""
-    key = prng.as_key(key, a_gid.device)
+    tensor or two u32 words. On the card three launches of K0's draw kernel,
+    nothing cast or copied between them."""
     return prng.uniform(prng.fold_in(prng.fold_in(key, a_gid), b_gid))
 
 

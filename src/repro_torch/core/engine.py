@@ -50,14 +50,17 @@ def init_state(cfg, rank: int, num_ranks: int, scenario=None,
             "item 9)")
     device = resolve_device(device)
     n = cfg.neurons_per_rank
-    key = prng.fold_in(prng.key(cfg.seed, device=device), rank)
-    kp, kn = prng.split(key)
+    # the keys as host words: the draws below are three launches of K0's
+    # draw kernel on the card (randint (n,), uniform (n, 3) and (n, 2))
+    key = prng.fold_in_words(prng.key_words(cfg.seed), rank)
+    kp, kn = prng.split_words(key)
     b = morton.branch_level(num_ranks)
     c_per = morton.cells_per_rank(num_ranks)
-    pos = morton.sample_positions_in_cells(kp, rank * c_per, c_per, n, b)
+    pos = morton.sample_positions_in_cells(kp, rank * c_per, c_per, n, b,
+                                           device=device)
     table = pops.table_for(cfg, scenario, n, device=device)
     neurons = init_neurons(kn, cfg, n, params=_neuron_params(table),
-                           is_excitatory=table.is_excitatory)
+                           is_excitatory=table.is_excitatory, device=device)
     edges = torch.full((n, cfg.max_synapses), -1, dtype=torch.int32,
                        device=device)
     stats = telemetry_metrics.init_metrics(cfg.metrics_history, device=device)

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import prng
+from repro_torch.device import resolve_device
 
 
 def branch_level(num_ranks: int) -> int:
@@ -66,12 +67,17 @@ def cell_size(level: int) -> float:
 
 
 def sample_positions_in_cells(key, base_cell: int, n_cells: int, n: int,
-                              level: int):
+                              level: int, device=None):
     """Uniformly sample n positions within Morton cells
     [base_cell, base_cell + n_cells) at ``level`` (a rank's subdomains);
-    the reference's jax.random draws, repeated by ``repro_torch.prng``."""
-    kc, kp = prng.split(key)
-    cells = base_cell + prng.randint(kc, (n,), 0, n_cells)
+    the reference's jax.random draws, repeated by ``repro_torch.prng``.
+    ``key``: a key tensor (its device decides) or two u32 words (on
+    ``device``, the card by default); its split is taken on the host, and
+    on the card the draws are two launches of K0's draw kernel."""
+    dev = key.device if isinstance(key, torch.Tensor) else \
+        resolve_device(device)
+    kc, kp = prng.split_words(prng.as_words(key))
+    cells = base_cell + prng.randint(kc, (n,), 0, n_cells, device=dev)
     centers = morton_cell_center(cells, level)
-    off = (prng.uniform(kp, (n, 3)) - 0.5) * cell_size(level)
+    off = (prng.uniform(kp, (n, 3), device=dev) - 0.5) * cell_size(level)
     return torch.clamp(centers + off, 0.0, 1.0 - 1e-6)

@@ -15,6 +15,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch import prng
+from repro_torch.device import resolve_device
 
 
 class NeuronParams(NamedTuple):
@@ -45,12 +46,17 @@ class NeuronState(NamedTuple):
 
 
 def init_neurons(key, cfg, n: int, params: Optional[NeuronParams] = None,
-                 is_excitatory=None) -> NeuronState:
+                 is_excitatory=None, device=None) -> NeuronState:
+    """The reference's initial neuron state. ``key``: a key tensor (its
+    device decides) or two u32 words (on ``device``, the card by default);
+    its split is taken on the host, and on the card the vacant elements are
+    one launch of K0's draw kernel."""
     p = params or params_from_config(cfg)
-    dev = key.device
-    k1, _ = prng.split(key)
+    dev = key.device if isinstance(key, torch.Tensor) else \
+        resolve_device(device)
+    k1, _ = prng.split_words(prng.as_words(key))
     vac = prng.uniform(k1, (n, 2), minval=cfg.initial_vacant_low,
-                       maxval=cfg.initial_vacant_high)
+                       maxval=cfg.initial_vacant_high, device=dev)
     exc = torch.arange(n, device=dev) < int(n * cfg.fraction_excitatory) \
         if is_excitatory is None else is_excitatory
 

@@ -77,14 +77,15 @@
 // at near-ties).
 //
 // Bound on the H100: at R = 1 the window moves ~14 MB once (the rows, the
-// state in and out). Its integer work a step is the noise draw's Threefry (72
-// operations a neuron: hash.cuh) and 6 operations a local slot (code load,
-// local test, word index, word load, bit shift, bit test): 1.73e9 a window at
-// n = 65,536, S = 32, full rows, 0.104 ms at the INT32 rate (64 a SM a clock,
-// 16.7e12/s); its floor in practice is the 100 grid barriers. At R = 4, rank
-// 1, each of the 1.57M remote slots draws a Threefry a step instead of the
-// bit test: 1.31e10 a window, 0.78 ms, integer bound. chip_smoke.py computes
-// the same counts from the run's rows (HASH_OPS, SLOT_OPS).
+// state in and out). Its integer work a step is the noise draw's Threefry (67
+// instructions a neuron as nvcc compiles hash.cuh, tools/k0_sass.py) and 6
+// operations a local slot (code load, local test, word index, word load, bit
+// shift, bit test): 1.70e9 a window at n = 65,536, S = 32, full rows, 0.102
+// ms at the INT32 rate (64 a SM a clock, 16.7e12/s); its floor in practice
+// is the 100 grid barriers. At R = 4, rank 1, each of the 1.57M remote slots
+// draws a Threefry a step instead of the bit test, and the bound is integer
+// operations too. chip_smoke.py computes the counts from the run's rows
+// (HASH_OPS, SLOT_OPS).
 //
 // Breakdown build. Built with -DREPRO_K1_BREAKDOWN (tools/k1_breakdown.py,
 // never the library), the entry repro_k1_parts_off(mask) switches parts of

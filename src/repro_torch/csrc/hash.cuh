@@ -4,15 +4,18 @@
 // gumbel, bh_ctr), which the TPU kernels inline into their bodies. Here it is
 // a set of __device__ functions included by the activity window (K1), the
 // Barnes-Hut traversal (K2), the retraction and priority kernels
-// (retract.cu) and the elementwise threefry_words kernel (hash_words.cu);
+// (retract.cu) and the draw kernel of repro_torch.prng (hash_words.cu);
 // repro_torch/kernels/hash.py is the plain torch version and the two are
 // held bit-equal on the card.
 //
-// Bound on the H100: pure 32-bit integer work, 72 operations per call (2
-// initial adds, 20 rounds of add / rotate / xor, 5 key injections of 2 adds;
-// the key schedule is loop-invariant), no memory traffic. The callers
-// skip it where its result is masked anyway (local or empty edges, invalid
-// frontier entries).
+// Bound on the H100: pure 32-bit integer work, no memory traffic. The
+// source has 72 operations a call (2 initial adds, 20 rounds of add /
+// rotate / xor, 5 key injections of 2 adds; the key schedule is
+// loop-invariant); nvcc makes 67 instructions of them for sm_90a
+// (tools/k0_sass.py: each rotate one funnel shift, and three-operand adds
+// take in the initial and injected key words). The callers skip it where
+// its result is masked anyway (local or empty edges, invalid frontier
+// entries).
 //
 // The float helpers use logf / log1pf / cosf / sqrtf in the order of the plain
 // version; the library is built with --fmad=false so no multiply-add is
@@ -28,6 +31,9 @@ constexpr uint32_t BH_DOMAIN = 0x62687472u;
 constexpr int BH_ROUNDS = 64;
 constexpr int BH_DRAWS = 128;
 
+// A rotate by 0 < r < 32. nvcc makes one funnel shift (SHF.L.W) of it; the
+// intrinsic __funnelshift_l(x, x, r) makes as many and no fewer instructions
+// in any kernel that inlines the hash (tools/k0_sass.py compares the two).
 __host__ __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
 }

@@ -32,7 +32,8 @@
 //
 // Bound on the H100: bytes (the two tables of a chunk's retraction, 8 MB
 // each at CONFIG, read and written, the kill mask written) or, on rows that
-// draw, 2 Threefry a slot and 1 a row at 72 integer operations each.
+// draw, 2 Threefry a slot and 1 a row at 67 integer instructions each (as
+// nvcc compiles hash.cuh, tools/k0_sass.py).
 #include <cuda_runtime.h>
 #include <stdint.h>
 

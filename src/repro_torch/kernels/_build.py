@@ -38,7 +38,8 @@ F = ctypes.c_float
 
 # C entry -> argument types (every pointer and the stream as c_void_p)
 SIGNATURES = {
-    "repro_threefry_words": [P, P, P, P, P, P, I, P],
+    "repro_threefry_draw": [P, P],      # DrawArgs struct, stream
+    "repro_threefry_device_launches": [I],
     "repro_activity_window": (
         [P] * 7            # v, u, ca, ax, de, spike_count, spiked (inputs)
         + [P] * 7          # the same seven outputs
@@ -66,13 +67,8 @@ SIGNATURES = {
     "repro_synapse_apply_device_launches": [I],
     "repro_route_build": [P] * 5 + [ctypes.c_longlong, I, I, I, I, P],
     "repro_route_build_device_launches": [I],
-    "repro_neuron_step": (
-        [P] * 6            # v, u, ca, ax, de, inp
-        + [P] * 6          # per-neuron a, b, c, d, nu, eps (hetero only)
-        + [P] * 6          # out v, u, ca, ax, de, spiked
-        + [I, I]           # n, hetero
-        + [F] * 8          # scalar a, b, c, d, nu, eps; ca decay, beta
-        + [P]),
+    "repro_neuron_step": [P, P],        # NeuronStepArgs struct, stream
+    "repro_neuron_step_floor": [P, P],
     "repro_radix_argsort": [P] * 4 + [ctypes.c_longlong, I, I, P],
     "repro_radix_argsort_device_launches": [I],
     "repro_bh_gauss": [P] * 6 + [I, I, I, F, P],

@@ -9,14 +9,18 @@ Barnes-Hut counter packing, so every stream is bit-equal to the reference's.
 Plain version: int64 tensors holding u32 values, masked with ``& 0xFFFFFFFF``
 after every add and shift (``torch.uint32`` has no add or shift on the CPU).
 Device version: the ``__device__`` functions of ``csrc/hash.cuh``, inlined
-into K1, K2 and ``csrc/retract.cu``. ``threefry_words`` runs them
-elementwise over tensors on the card through their own small kernel:
-``prng``'s draws on a CUDA tensor go through it, and the card holds it
-against the plain version. ``threefry2x32_int`` is the same hash on Python
+into K1, K2 and ``csrc/retract.cu``, and run over tensors by the draw
+kernel of ``csrc/hash_words.cu`` (``draw``): one launch a ``prng`` call on a
+CUDA tensor (its keys, bits, uniforms or integers written directly) or a
+``threefry_words`` call, held bit-equal to the plain versions on the card.
+``threefry2x32_int`` is the same hash on Python
 ints, for keys derived on the host (a few int operations, where the tensor
 version would take some sixty small CPU tensor operations).
 """
 from __future__ import annotations
+
+import ctypes
+import math
 
 import torch
 
@@ -136,41 +140,115 @@ def normal(seed: int, domain: int, ctr, entity):
 # ------------------------------------------------------------ device check
 launches = _build.LaunchCounter("threefry_words")
 
+WORDS, KEYS, BITS, UNIFORM, RANDINT = range(5)   # csrc/hash_words.cu's modes
+_OUT_DTYPE = (torch.int64, torch.int64, torch.int64, torch.float32,
+              torch.int32)
+
+
+class _Word(ctypes.Structure):
+    """One u32 operand of the draw kernel (``csrc/hash_words.cu`` Word)."""
+    _fields_ = [("ptr", ctypes.c_void_p), ("stride", ctypes.c_longlong),
+                ("is64", ctypes.c_int), ("value", ctypes.c_uint)]
+
+
+class _DrawArgs(ctypes.Structure):
+    """The draw kernel's parameters (``csrc/hash_words.cu`` DrawArgs)."""
+    _fields_ = [("k0", _Word), ("k1", _Word), ("c0", _Word), ("c1", _Word),
+                ("flat_counter", ctypes.c_int), ("mode", ctypes.c_int),
+                ("n", ctypes.c_longlong), ("out", ctypes.c_void_p),
+                ("lo", ctypes.c_float), ("span", ctypes.c_float),
+                ("span_u", ctypes.c_uint), ("multiplier", ctypes.c_uint),
+                ("minval", ctypes.c_uint)]
+
+
+def _flat_stride(x: torch.Tensor, shape) -> int | None:
+    """The one stride (in elements) at which ``x`` broadcast to ``shape``
+    holds element i of the row-major flat index, or None where no single
+    stride does (a row or a column broadcast over a grid)."""
+    if tuple(x.shape) == tuple(shape) and x.is_contiguous():
+        return 1
+    xs = x.expand(shape)
+    stride, span = None, 1
+    for size, st in zip(reversed(xs.shape), reversed(xs.stride())):
+        if size == 1:
+            continue
+        if stride is None:
+            stride = st
+        elif st != stride * span:
+            return None
+        span *= size
+    return 0 if stride is None else stride
+
+
+def _word(x, shape, dev) -> _Word:
+    """The draw kernel's operand for a Python int or an integer tensor over
+    ``shape``: its value, or its data read where it lies through one stride
+    (int32 or int64, u32 and u64 too). Other element sizes and layouts no
+    single stride reads (a row or a column broadcast over a grid) raise:
+    nothing is copied."""
+    if not isinstance(x, torch.Tensor):
+        return _Word(None, 0, 0, int(x) & M32)
+    if x.device != dev:
+        raise ValueError("threefry: every tensor operand must lie on the "
+                         f"output's device {dev}, got {x.device}")
+    if x.dtype.is_floating_point or x.dtype.is_complex or \
+            x.element_size() not in (4, 8):
+        raise TypeError(f"threefry: 32- or 64-bit integer operands only, "
+                        f"got {x.dtype}")
+    stride = _flat_stride(x, shape)
+    if stride is None:
+        raise ValueError(f"threefry: an operand of shape {tuple(x.shape)} "
+                         f"and strides {x.stride()} is not one stride over "
+                         f"{shape}")
+    return _Word(x.data_ptr(), stride, int(x.element_size() == 8), 0)
+
+
+def draw(mode: int, k0, k1, c0, c1, shape, dev, *, lo: float = 0.0,
+         span: float = 0.0, span_u: int = 1, multiplier: int = 0,
+         minval: int = 0):
+    """One launch of K0's draw kernel over ``shape`` on the CUDA device
+    ``dev``: operands are Python ints or integer tensors broadcast to
+    ``shape`` (keys: the shape of the key batch); ``c0 = None`` makes the
+    counter the flat index. Returns the mode's output: (2, *shape) int64
+    words, (*shape, 2) int64 keys, int64 bits, f32 uniforms or int32
+    integers."""
+    if dev.type != "cuda":
+        raise ValueError(f"threefry draw: a CUDA device, not {dev}")
+    shape = tuple(shape)
+    n = math.prod(shape)
+    out_shape = {WORDS: (2, *shape), KEYS: (*shape, 2)}.get(mode, shape)
+    out = torch.empty(out_shape, dtype=_OUT_DTYPE[mode], device=dev)
+    if n == 0:
+        return out
+    flat = c0 is None
+    args = _DrawArgs(
+        _word(k0, shape, dev), _word(k1, shape, dev),
+        _Word() if flat else _word(c0, shape, dev),
+        _Word() if flat else _word(c1, shape, dev),
+        int(flat), mode, n, out.data_ptr(), lo, span, span_u & M32,
+        multiplier & M32, minval & M32)
+    _build.check(_build.library().repro_threefry_draw(
+        ctypes.addressof(args), _build.stream(dev.index)), "threefry")
+    launches.add()
+    return out
+
+
+def device_launches(reset: bool = False) -> int:
+    """Launches of the draw kernel counted in ``csrc/hash_words.cu`` since
+    the last reset."""
+    return _build.library().repro_threefry_device_launches(int(reset))
+
 
 def threefry_words(k0, k1, c0, c1):
     """Elementwise Threefry-2x32 over four operands (integer tensors that
     broadcast together, or Python ints; their low 32 bits). When one of them
-    is a CUDA tensor this runs the ``csrc/hash.cuh`` device function through
-    the ``threefry_words`` kernel (Python ints are filled on the card, not
-    copied there); otherwise the plain version. Returns two int64 tensors
-    holding u32 words."""
+    is a CUDA tensor this is one launch of K0's draw kernel, which reads each
+    tensor where it lies (int32 or int64, through one stride; other
+    operands raise); otherwise the plain version. Returns two int64 tensors holding u32 words."""
     dev = _device_of(k0, k1, c0, c1)
     if dev.type != "cuda":
         return threefry2x32(k0, k1, c0, c1)
-    ops = (k0, k1, c0, c1)
-    for t in ops:
-        if isinstance(t, torch.Tensor) and t.device != dev:
-            raise ValueError("threefry_words needs its tensors on one device")
-    shape = torch.broadcast_shapes(*(t.shape for t in ops
+    shape = torch.broadcast_shapes(*(t.shape for t in (k0, k1, c0, c1)
                                      if isinstance(t, torch.Tensor)))
-    ins = [(t.expand(shape).reshape(-1).to(torch.int64) & M32)
-           .to(torch.int32).contiguous()
-           if isinstance(t, torch.Tensor) else
-           torch.full((shape.numel(),), _wrap_i32(int(t)), dtype=torch.int32,
-                      device=dev)
-           for t in ops]
-    o0 = torch.empty_like(ins[0])
-    o1 = torch.empty_like(ins[0])
-    lib = _build.library()
-    _build.check(lib.repro_threefry_words(
-        *(t.data_ptr() for t in ins), o0.data_ptr(), o1.data_ptr(),
-        ins[0].numel(), _build.stream()), "threefry_words")
-    launches.add()
-    return ((o0.to(torch.int64) & M32).reshape(shape),
-            (o1.to(torch.int64) & M32).reshape(shape))
-
-
-def _wrap_i32(x: int) -> int:
-    """The low 32 bits of ``x`` as a signed int32 value."""
-    x &= M32
-    return x - (1 << 32) if x >= 1 << 31 else x
+    out = draw(WORDS, k0, k1, c0, c1, shape, dev)
+    return out[0], out[1]

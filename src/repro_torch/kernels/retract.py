@@ -4,9 +4,10 @@
 Not a TPU kernel: the JAX package computes retraction and the priorities in
 jnp (``repro/connectome/synapses.py``). Plain versions:
 ``connectome/synapses.py::retract_synapses`` and ``edge_priority``, which
-draw jax.random's priorities through the int64 Threefry of
-``kernels/hash.py``; the kernels draw the same bits from K0's device
-function (``csrc/hash.cuh``) and are bit-equal.
+draw jax.random's priorities through ``prng`` (three launches of K0's draw
+kernel on the card, the int64 Threefry of ``kernels/hash.py`` on the CPU);
+the kernels draw the same bits from K0's device function
+(``csrc/hash.cuh``) in registers and are bit-equal.
 
 ``retract`` and ``edge_priority`` take the key as two u32 words by value
 (``prng.key_words`` / ``fold_in_words`` / ``split_words``), so a call copies
@@ -34,8 +35,7 @@ def retract(key, edges, n_delete, row_gids):
     partner). Returns (new_edges (n, S) int32, kill (n, S) bool), as
     ``retract_synapses``."""
     if edges.device.type != "cuda":
-        return syn.retract_synapses(prng.as_key(key, edges.device), edges,
-                                    n_delete, row_gids)
+        return syn.retract_synapses(key, edges, n_delete, row_gids)
     n, s_max = edges.shape
     if not 1 <= s_max <= MAX_SLOTS:
         raise ValueError(f"retract: 1 to {MAX_SLOTS} slots a row, got "
@@ -63,10 +63,9 @@ def edge_priority(key, a_gid, b_gid, valid=None):
     where ``valid`` is given and false, the pair (0, 0) is drawn instead, as
     ``synapses.request_priority`` draws it."""
     if a_gid.device.type != "cuda":
-        k = prng.as_key(key, a_gid.device)
         if valid is None:
-            return syn.edge_priority(k, a_gid, b_gid)
-        return syn.request_priority(k, b_gid, a_gid, valid)
+            return syn.edge_priority(key, a_gid, b_gid)
+        return syn.request_priority(key, b_gid, a_gid, valid)
     i32 = torch.int32
     a = a_gid.to(i32).contiguous()
     b = b_gid.to(i32).contiguous()

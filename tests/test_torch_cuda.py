@@ -62,6 +62,118 @@ def test_threefry_words_bit_equal(dev):
         assert torch.equal(a, b)
 
 
+# --------------------------------------------------- K0's draw kernel
+def _k0_case(case, n, dev):
+    """(kernel call, plain call) of one prng / threefry_words epilogue at n
+    draws, keys batched through a strided view where the call takes a
+    batch."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    words = prng.fold_in_words(prng.key_words(3), n)
+    key = prng.key_tensor(words, dev)
+    table = torch.randint(0, 2 ** 32, (n, 3), generator=g, device=dev,
+                          dtype=torch.int64)
+    keys = table[:, 1:]                       # (n, 2), rows 3 apart
+    i32 = torch.randint(-2 ** 31, 2 ** 31 - 1, (2 * n,), generator=g,
+                        device=dev, dtype=torch.int32)[::2]
+    i64 = torch.randint(0, 2 ** 32, (n,), generator=g, device=dev,
+                        dtype=torch.int64)
+    return {
+        "fold_in": (lambda: prng.fold_in(words, i32),
+                    lambda: prng.fold_in_plain(key, i32)),
+        "fold_in_batch": (lambda: prng.fold_in(keys, i64),
+                          lambda: prng.fold_in_plain(keys, i64)),
+        "split": (lambda: prng.split(key, n),
+                  lambda: prng.split_plain(key, n)),
+        "random_bits": (lambda: prng.random_bits(words, (n,), device=dev),
+                        lambda: prng.random_bits_plain(key, (n,))),
+        "uniform": (lambda: prng.uniform(key, (n, 3)),
+                    lambda: prng.uniform_plain(key, (n, 3))),
+        "uniform_bounds": (
+            lambda: prng.uniform(words, (n, 2), 1.1, 1.5, device=dev),
+            lambda: prng.uniform_plain(key, (n, 2), 1.1, 1.5)),
+        "uniform_batch": (lambda: prng.uniform(keys),
+                          lambda: prng.uniform_plain(keys)),
+        "randint": (lambda: prng.randint(words, (n,), -7, 1000, device=dev),
+                    lambda: prng.randint_plain(key, (n,), -7, 1000)),
+        "threefry_words": (
+            lambda: torch.stack(chash.threefry_words(i32, 0x9E3779B9, i64,
+                                                     keys[:, 0])),
+            lambda: torch.stack(chash.threefry2x32(i32, 0x9E3779B9, i64,
+                                                   keys[:, 0]))),
+    }[case]
+
+
+@pytest.mark.parametrize("n", [1, 3, 65537])
+@pytest.mark.parametrize("case", [
+    "fold_in", "fold_in_batch", "split", "random_bits", "uniform",
+    "uniform_bounds", "uniform_batch", "randint", "threefry_words"])
+def test_draw_kernel_equals_plain_in_one_launch(dev, case, n):
+    """Each epilogue of K0's draw kernel is bit-equal to its plain version
+    and is one device launch a call (the wrapper's count and the count in
+    csrc/hash_words.cu)."""
+    kernel, plain = _k0_case(case, n, dev)
+    torch.cuda.synchronize()
+    before = chash.launches.count
+    chash.device_launches(reset=True)
+    got = kernel()
+    torch.cuda.synchronize()
+    assert chash.launches.count == before + 1
+    assert chash.device_launches(reset=True) == 1
+    want = plain()
+    assert chash.device_launches(reset=True) == 0
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+def test_reference_priorities_are_three_draw_launches(dev):
+    """The reference lowering's ``edge_priority`` (fold_in, fold_in,
+    uniform) is three launches of the draw kernel, bit-equal to the
+    plain composition and to the fused priority kernel."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    a = torch.randint(0, 1 << 20, (70000,), generator=g, device=dev,
+                      dtype=torch.int32)
+    b = torch.randint(0, 1 << 20, (70000,), generator=g, device=dev,
+                      dtype=torch.int32)
+    words = prng.split_words(prng.fold_in_words(prng.key_words(2), 7), 3)[0]
+    before = chash.launches.count
+    got = syn.edge_priority(words, a, b)
+    assert chash.launches.count == before + 3
+    key = prng.key_tensor(words, dev)
+    want = prng.uniform_plain(prng.fold_in_plain(prng.fold_in_plain(key, a),
+                                                 b))
+    assert torch.equal(got, want)
+    assert torch.equal(got, kr.edge_priority(words, a, b))
+
+
+def test_words_key_without_device_lands_on_the_card(dev):
+    """A key of words with no tensor operand and no ``device`` draws on the
+    card (``device.resolve_device``), one launch, equal to the plain
+    version."""
+    words = prng.fold_in_words(prng.key_words(8), 1)
+    before = chash.launches.count
+    got = prng.uniform(words, (5, 3))
+    assert got.is_cuda and chash.launches.count == before + 1
+    assert torch.equal(got, prng.uniform_plain(prng.key_tensor(words, dev),
+                                               (5, 3)))
+
+
+def test_draw_kernel_rejects_what_no_stride_reads(dev):
+    """An operand of 1- or 2-byte integers, or one that no single stride
+    reads over the output (a row or a column broadcast over a grid),
+    raises instead of being copied; nothing is launched."""
+    before = chash.launches.count
+    with pytest.raises(TypeError):
+        chash.threefry_words(torch.zeros(4, dtype=torch.int16, device=dev),
+                             1, 2, 3)
+    col = torch.zeros(4, 1, dtype=torch.int32, device=dev)
+    row = torch.zeros(1, 5, dtype=torch.int32, device=dev)
+    grid = torch.zeros(4, 5, dtype=torch.int32, device=dev)
+    for part in (row, col):
+        with pytest.raises(ValueError):
+            chash.threefry_words(part, 1, grid, 3)
+    assert chash.launches.count == before
+
+
 @pytest.mark.parametrize("num_ranks,rank", [(1, 0), (4, 1)])
 def test_activity_window_equals_plain(dev, num_ranks, rank):
     n, s, steps = 1000, 8, 13
@@ -675,6 +787,94 @@ def test_neuron_step_equals_plain(dev, hetero):
         assert torch.equal(a, b)
 
 
+def _k8_params(variant, n, dev):
+    fs = torch.arange(n, device=dev) >= n // 2
+    if variant == "homogeneous":
+        return None
+    if variant == "heterogeneous":
+        return NeuronParams(torch.where(fs, 0.1, 0.02),
+                            torch.full((n,), 0.2, device=dev),
+                            torch.where(fs, -65.0, -50.0),
+                            torch.full((n,), 2.0, device=dev),
+                            torch.full((n,), 1e-3, device=dev),
+                            torch.where(fs, 0.7, 0.4))
+    return NeuronParams(torch.where(fs, 0.1, 0.02), 0.2,
+                        torch.tensor(-55.0, device=dev), 2.0,
+                        torch.full((n,), 1e-3, device=dev),
+                        torch.where(fs, 0.7, 0.4))
+
+
+@pytest.mark.parametrize("n", [1, 3, 65537])
+@pytest.mark.parametrize("variant", ["homogeneous", "heterogeneous", "mixed"])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_neuron_step_odd_sizes_equal_plain(dev, n, variant, offset):
+    """K8 at odd n (the float4 loop and its scalar tail), with all-scalar,
+    all-array and mixed parameters (a 0-dim tensor among them), on aligned
+    inputs and on views one element off alignment (the one-a-thread loop):
+    bit-equal to the plain version, one launch a call."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    state = [torch.randn(n + 1, generator=g, device=dev)[offset:offset + n]
+             for _ in range(6)]
+    v, u, ca, ax, de, inp = state
+    args = (v * 5 - 60, u * 2 - 13, ca.abs() * 0.01, ax.abs() * 2,
+            de.abs() * 2, inp * 20)
+    if offset:   # keep the views off alignment
+        args = [torch.empty(n + 1, device=dev)[1:].copy_(x) for x in args]
+    params = _k8_params(variant, n, dev)
+    before = ns.launches.count
+    got = ns.neuron_step(*args, SMOKE_CONFIG, params=params)
+    assert ns.launches.count == before + 1
+    want = ns.neuron_step_plain(*args, SMOKE_CONFIG, params=params)
+    assert got[5].dtype == torch.bool
+    for a, b in zip(got, want):
+        assert a.shape == (n,) and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["f32_on_card", "f64_on_card", "cpu"])
+def test_neuron_step_sees_parameters_changed_in_place(dev, kind):
+    """The wrapper reads the parameters on every call: a change made in
+    place to an (n,) parameter between two calls with the same ``params``
+    object shows in the second, for a parameter the kernel reads where it
+    lies and for one the wrapper copies."""
+    n = 1027
+    g = torch.Generator(device=dev).manual_seed(5)
+    args = (torch.randn(n, generator=g, device=dev) * 5 - 60,
+            torch.randn(n, generator=g, device=dev) * 2 - 13,
+            torch.rand(n, generator=g, device=dev) * 0.01,
+            torch.rand(n, generator=g, device=dev) * 2,
+            torch.rand(n, generator=g, device=dev) * 2,
+            torch.randn(n, generator=g, device=dev) * 20)
+    a = {"f32_on_card": torch.full((n,), 0.02, device=dev),
+         "f64_on_card": torch.full((n,), 0.02, device=dev,
+                                   dtype=torch.float64),
+         "cpu": torch.full((n,), 0.02)}[kind]
+    params = NeuronParams(a, 0.2, -65.0, 2.0, 1e-3, 0.7)
+    first = ns.neuron_step(*args, SMOKE_CONFIG, params=params)
+    a[n // 2:] = 0.1
+    second = ns.neuron_step(*args, SMOKE_CONFIG, params=params)
+    fresh = NeuronParams(a.to(dev, torch.float32), 0.2, -65.0, 2.0, 1e-3,
+                         0.7)
+    want = ns.neuron_step_plain(*args, SMOKE_CONFIG, params=fresh)
+    for x, y in zip(second, want):
+        assert torch.equal(x, y)
+    assert not torch.equal(first[1], second[1])
+
+
+def test_neuron_step_rejects_what_it_does_not_take(dev):
+    """A non-f32 input, a CPU input beside CUDA ones and (n,) parameters of
+    another n raise; nothing is launched."""
+    x = torch.zeros(64, device=dev)
+    before = ns.launches.count
+    with pytest.raises(TypeError):
+        ns.neuron_step(x, x, x, x, x.double(), x, SMOKE_CONFIG)
+    with pytest.raises(ValueError):
+        ns.neuron_step(x, x, x, x, x, x.cpu(), SMOKE_CONFIG)
+    with pytest.raises(ValueError):
+        ns.neuron_step(x, x, x, x, x, x, SMOKE_CONFIG,
+                       params=_k8_params("heterogeneous", 65, dev))
+    assert ns.launches.count == before
+
+
 @pytest.mark.parametrize("d", [64, 128, 192, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s,skv,causal,window", [
@@ -940,8 +1140,10 @@ def test_init_state_on_the_card_equals_the_cpu(dev):
     ``prng``) and give the CPU's bits."""
     cfg = dataclasses.replace(SMOKE_CONFIG, neurons_per_rank=4099)
     before = chash.launches.count
+    chash.device_launches(reset=True)
     a = engine.init_state(cfg, 0, 1, device=dev)
-    assert chash.launches.count > before
+    assert chash.launches.count == before + 3     # randint, two uniforms
+    assert chash.device_launches(reset=True) == 3
     b = engine.init_state(cfg, 0, 1, device="cpu")
     assert torch.equal(a.positions.cpu(), b.positions)
     for x, y in zip(a.neurons, b.neurons):

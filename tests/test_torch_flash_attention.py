@@ -89,6 +89,38 @@ def test_flash_attention_more_keys_than_queries():
     _compare(_case(1, 4, 2, 128, 256, 64, seed=7), "f32")
 
 
+def test_rows_without_a_valid_key_follow_the_oracle():
+    """S=256, Skv=64, window 32, f32: query rows q >= Skv + window - 1 = 95
+    see no key. The port follows ``ref.attention_ref`` on every row (the
+    mean of V over all keys where none is valid). The JAX kernel equals the
+    port on every row that sees a key, and differs only on rows that see
+    none: there its value depends on its tile skipping (a q tile whose kv
+    tiles were all skipped keeps its zero accumulator; a q tile with a
+    live kv tile takes the mean of V over that tile), which is why the
+    port takes the oracle's value instead."""
+    s, skv, window = 256, 64, 32
+    arrays = _case(1, 2, 1, s, skv, 64, seed=95)
+    jq, jk, jv = (jnp.asarray(a) for a in arrays)
+    tq, tk, tv = (torch.from_numpy(a) for a in arrays)
+    jo = np.asarray(jops.flash_attention(jq, jk, jv, causal=True,
+                                         window=window, interpret=True))
+    to = ops.flash_attention(tq, tk, tv, causal=True, window=window).numpy()
+    oracle = ref.attention_ref(tq, tk, tv, causal=True,
+                               window=window).numpy()
+    np.testing.assert_allclose(to, oracle, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(
+        to, np.asarray(jref.attention_ref(jq, jk, jv, causal=True,
+                                          window=window)),
+        rtol=2e-5, atol=2e-5)
+    q = np.arange(s)
+    seen = q < skv + window - 1        # rows with at least one valid key
+    np.testing.assert_allclose(to[:, :, seen], jo[:, :, seen], rtol=2e-5,
+                               atol=2e-5)
+    differ = (np.abs(to - jo) > 2e-5).any(axis=(0, 1, 3))
+    assert differ.any() and not (differ & seen).any()
+    assert (jo[:, :, differ] == 0).all()   # the skipped tiles' zero rows
+
+
 FAULT_KEY = 1280    # a fault late in rows of 1,536 keys
 LOG2E = 1.4426950408889634
 

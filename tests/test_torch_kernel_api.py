@@ -271,6 +271,30 @@ def test_fused_neuron_step(n, hetero):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("n", [1, 3, 1023, 1025])
+def test_fused_neuron_step_mixed_params(n):
+    """A mix of scalar and (n,) parameters at odd n: the port's wrapper
+    (which on the card reads each parameter through its own stride) against
+    the JAX kernel in interpret mode, which broadcasts the scalars."""
+    jcfg, tcfg = JConfig(), TConfig()
+    x = _neuron_inputs(n, n + 7)
+    fs = np.arange(n) >= n // 2
+    vals = (np.where(fs, 0.1, 0.02).astype(np.float32), 0.2,
+            np.where(fs, -65.0, -50.0).astype(np.float32), 2.0,
+            1e-3, np.where(fs, 0.7, 0.4).astype(np.float32))
+    jparams = JParams(*(jnp.asarray(v) if np.ndim(v) else v for v in vals))
+    tparams = convert.neuron_params_from_numpy(JParams(*vals), device="cpu")
+    assert isinstance(tparams.izh_b, float) and tparams.izh_a.shape == (n,)
+    jx = [jnp.asarray(a) for a in x]
+    tx = [_t(a) for a in x]
+    jout = jops.fused_neuron_step(*jx, jcfg, params=jparams, interpret=True)
+    tout = ops.fused_neuron_step(*tx, tcfg, params=tparams)
+    assert all(o.shape == (n,) for o in tout) and tout[5].dtype == torch.bool
+    _assert_neuron_close([o.numpy() for o in tout], jout)
+    for a, b in zip(tout, ref.neuron_step_ref(*tx, tcfg, params=tparams)):
+        assert torch.equal(a, b)
+
+
 def test_neuron_params_from_numpy_carries_a_population_table():
     t = _rs_ch_fs(JConfig(), 64)
     p = convert.neuron_params_from_numpy(t, device="cpu")

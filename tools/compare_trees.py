@@ -9,7 +9,11 @@ For each tree, in the order given, in fresh processes: that tree's
 ``chiprun_out/compare_trees/<k>-<tree>.jsonl``), then, importing that tree's
 ``chip_smoke``, K1 at R=4 rank 1 (``k1_timing``) and K1's kernel time of one
 window from a ``torch.profiler`` trace (the sum of its kernels' durations,
-R=1 with the scenario's lesion and R=4 rank 1). Among the numbers compared:
+R=1 with the scenario's lesion and R=4 rank 1), K0's device launches and
+kernel time for one (n, 3) ``prng.uniform`` and ``init_state``'s Threefry
+launches, and one profiled chunk of the main path (the reference apply
+lowering: its retraction and formation ranges); then, in the tree,
+``tools/k8_call_split.py`` (K8's call time by part). Among the numbers compared:
 each kernel's call and device ms (K1-K5, retraction), both paths' chunk
 time and peak memory, and the profiled chunk's ranges. Each tree builds its
 kernels under its own ``build/``. Prints one JSON line per run, then a table of the
@@ -59,6 +63,54 @@ for label, ranks, rank, les in (("R1", 1, 0, lesions), ("R4", 4, 1, None)):
     us = sum(getattr(e, "device_time_total", 0.0)
              for e in prof.key_averages() if "activity_" in e.key)
     out[f"K1_{label}_kernel_ms"] = us / 3 / 1e3
+
+
+def device_events(fn, reps=1):
+    # the device events (kernels, copies, memsets) and the gpu ranges of
+    # reps calls of fn under the profiler, from its Chrome trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace("build/compare_probe_trace.json")
+    with open("build/compare_probe_trace.json") as f:
+        ev = json.load(f)["traceEvents"]
+    dev = [e for e in ev
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    return dev, [e for e in ev if e.get("cat") == "gpu_user_annotation"]
+
+
+# K0: one (n, 3) uniform from a key tensor, and init_state's draws
+from repro_torch import prng
+from repro_torch.core import engine
+n = cfg.neurons_per_rank
+key = prng.key(cfg.seed, device="cuda")
+prng.uniform(key, (n, 3))
+dev, _ = device_events(lambda: prng.uniform(key, (n, 3)), 10)
+out["K0_uniform_n3_device_launches"] = len(dev) / 10
+out["K0_uniform_n3_kernel_ms"] = sum(e["dur"] for e in dev) / 10 / 1e3
+dev, _ = device_events(lambda: engine.init_state(cfg, 0, 1, device="cuda"))
+out["init_state_threefry_launches"] = sum(
+    1 for e in dev if "threefry" in e["name"] or "draw_kernel" in e["name"])
+out["init_state_device_launches"] = len(dev)
+# the main path (reference apply lowering): one chunk after a warm-up
+from repro_torch.sim.api import Simulator
+main_cfg = dataclasses.replace(CONFIG, activity_impl="fused",
+                               connectivity_impl="fused")
+sim = Simulator.from_config(main_cfg, device="cuda")
+sim.run(1)
+dev, ranges = device_events(sim.step)
+for r in ranges:
+    if r["name"] in ("repro.conn.retraction", "repro.conn.formation"):
+        a, b = r["ts"], r["ts"] + r["dur"]
+        inside = [e for e in dev if a <= e["ts"] < b]
+        tag = r["name"].split(".")[-1]
+        out[f"main_{tag}_device_ms"] = sum(e["dur"] for e in inside) / 1e3
+        out[f"main_{tag}_launches"] = len(inside)
+        out[f"main_{tag}_span_ms"] = r["dur"] / 1e3
+out["main_chunk_device_ms"] = sum(e["dur"] for e in dev) / 1e3
 print("PROBE " + json.dumps(out), flush=True)
 """
 
@@ -87,10 +139,29 @@ def run_tree(k: int, tree: pathlib.Path) -> dict:
     for line in probe.stdout.splitlines():
         if line.startswith("PROBE "):
             extra = json.loads(line[6:])
+    split = subprocess.run([sys.executable,
+                            str(ROOT / "tools" / "k8_call_split.py")],
+                           cwd=tree, capture_output=True, text=True,
+                           timeout=600)
+    for line in split.stdout.splitlines():
+        if line.startswith("K8SPLIT "):
+            k8 = json.loads(line[8:])
+            for variant in ("homogeneous", "heterogeneous"):
+                extra[f"K8_{variant}_call_ms"] = k8[variant]["call_ms"]
+                extra[f"K8_{variant}_split_ms"] = k8[variant]["split_ms"]
+    api = {(c.get("kernel"), c.get("variant")): c for c in
+           lines.get("kernel_api", {}).get("checks", [])}
+    for variant in ("homogeneous", "heterogeneous"):
+        c = api.get(("K8 neuron_step", variant), {})
+        extra[f"K8_{variant}_ms"] = c.get("ms")
+        extra[f"K8_{variant}_device_ms"] = c.get("device_ms")
+        extra[f"K8_{variant}_empty_kernel_device_ms"] = c.get(
+            "empty_kernel_device_ms")
     kt = lines.get("kernel_times", {})
     prof = lines.get("profile", {}).get("ranges", {})
     res = {"run": k, "tree": name, "card": card(),
            "chip_smoke_rc": smoke.returncode, "probe_rc": probe.returncode,
+           "K0_ms": kt.get("K0_ms"), "K0_device_ms": kt.get("K0_device_ms"),
            "K1_ms": kt.get("K1_ms"), "K1_device_ms": kt.get("K1_device_ms"),
            **extra,
            "K2_ms": kt.get("K2_ms"), "K2_device_ms": kt.get("K2_device_ms"),
@@ -134,6 +205,8 @@ def run_tree(k: int, tree: pathlib.Path) -> dict:
                "chunk_wall_ms")}
     if probe.returncode:
         res["probe_err"] = probe.stderr[-2000:]
+    if split.returncode:
+        res["k8_split_err"] = split.stderr[-2000:]
     print(json.dumps(res), flush=True)
     return res
 
@@ -146,7 +219,7 @@ def main() -> int:
     OUT.mkdir(parents=True, exist_ok=True)
     runs = [run_tree(k, t) for k, t in enumerate(trees)]
     keys = [k for k in runs[0] if k not in ("run", "tree", "card",
-                                            "probe_err")]
+                                            "probe_err", "k8_split_err")]
     print("| quantity | " + " | ".join(f"{r['run']}: {r['tree']}"
                                        for r in runs) + " |")
     for key in keys:
