@@ -18,15 +18,25 @@ neurons, S=32):
   device="cuda").run(12, recorder=rec)`` with all five lowerings fused (K1-K5,
   retraction and the acceptance priorities; K0's kernel draws
   ``init_state``'s positions and vacancies), through the lesion at step
-  1,000.
+  1,000;
+- the multi-rank path, the scenario path at ``num_ranks=4``: four ranks of
+  65,536 neurons in this process on the one card (``dist.LocalComm``, one
+  rank at a time, the collectives as tensor ops), phase A over the
+  replicated top tree, formation requests, responses and deletion
+  notifications across ranks, K1 reading live remote rates; with its
+  kernel checks at rank 3 of 4's shapes (K2 over 131,072 query slots with
+  gid_base 3n, K3 at two branch cells, K4 with 131,072 messages or
+  requests, K5 into four buckets) and fused == reference at R=4.
 
 For the kernel API and each path it checks the kernels really ran there (the
 launch counts are set to 0 just before and read just after; for K9, which of
 its three kernels each shape took; for K1, K3, K4 and K5 on the scenario
-path, the device launches counted in the .cu sources) and that a second run
-is bitwise equal,
-then profiles one chunk of the scenario path, and prints one JSON line per
-phase. Every kernel is timed twice: a call (CUDA events around back-to-back
+and multi-rank paths, the device launches counted in the .cu sources) and
+that a second run is bitwise equal (on the multi-rank path also symmetric
+edge tables over all ranks, edges across ranks and K5's messages to other
+ranks after the lesion), then profiles one chunk of each path (every
+thread; on the multi-rank path the ranges' device work assigned by
+launching thread), and prints one JSON line per phase. Every kernel is timed twice: a call (CUDA events around back-to-back
 calls) and its device time with the host hidden (the calls queued behind a
 device-side sleep). The last two lines are the kernel table and
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the result
@@ -530,6 +540,50 @@ def k2_inputs(cfg):
     return args, kw, widths
 
 
+def k2_inputs_ranks(cfg, num_ranks: int = 4, rank: int = 3):
+    """K2 as rank ``rank`` of ``num_ranks`` runs it on the multi-rank path:
+    its subtree (two branch cells at R=4), gid_base = rank*n, and the
+    R*cap_requests received query slots in rank-major blocks, each block's
+    valid requests first: the rank's own block full (its searchers mostly
+    pick their own cells in phase A), the other blocks sharing the rest of
+    n valid queries (about half the slots valid, as a rank receives at most
+    about n); invalid slots as ``routing.formation_new`` passes them
+    (source -2, start 0, position 0)."""
+    import torch
+    from repro_torch.connectome import routing
+    from repro_torch.connectome import traverse
+    from repro_torch.connectome import tree as ctree
+    from repro_torch.core import engine, morton
+    n = cfg.neurons_per_rank
+    b = morton.branch_level(num_ranks)
+    c_per = morton.cells_per_rank(num_ranks)
+    st = engine.init_state(cfg, rank, num_ranks, device=DEV)
+    vac = st.neurons.de_elements
+    tree = ctree.build_local_tree(st.positions, vac, rank, cfg, num_ranks)
+    stacked = traverse.stack_levels(tree.counts, tree.centroids, b)
+    cap = routing.cap_requests(cfg, num_ranks)
+    q = num_ranks * cap
+    others = (n - cap) // (num_ranks - 1)
+    x = torch.zeros(q, 3, device=DEV)
+    src = torch.full((q,), -2, dtype=torch.int32, device=DEV)
+    start = torch.zeros(q, dtype=torch.int32, device=DEV)
+    for s in range(num_ranks):
+        k = cap if s == rank else others
+        pos = engine.init_state(cfg, s, num_ranks, device=DEV).positions[:k]
+        rows = slice(s * cap, s * cap + k)
+        x[rows] = pos
+        src[rows] = s * n + torch.arange(k, dtype=torch.int32, device=DEV)
+        start[rows] = (morton.morton_encode(pos, b) % c_per).to(torch.int32)
+    valid = src >= 0
+    kw = dict(seed=cfg.seed, sizes=stacked.sizes, theta=cfg.theta,
+              sigma=cfg.sigma, frontier=cfg.frontier_cap,
+              n_levels=cfg.local_levels + 1)
+    args = (stacked.counts, stacked.centroids, tree.leaf_members,
+            st.positions, vac, x, start, src, valid, 2, rank * n)
+    widths = tuple(c.shape[0] for c in tree.counts)
+    return args, kw, widths
+
+
 def k2_work(args, kw):
     """The work K2's search needs on these inputs, replayed with the plain
     version's arithmetic (``traverse.expand_and_sample``, ``bh_search``,
@@ -622,10 +676,12 @@ def k2_work(args, kw):
             "subround_entries": entries}
 
 
-def k2_compare_and_time(cfg):
+def k2_compare_and_time(cfg, inputs=None, label="K2 bh_traverse"):
+    """K2 against its plain version on every row, its times and bound, at
+    the R=1 main path's shapes or at ``inputs`` (``k2_inputs_ranks``)."""
     from repro_torch.connectome.traverse import phase_b_core
     from repro_torch.kernels import bh_traverse as bt
-    args, kw, widths = k2_inputs(cfg)
+    args, kw, widths = inputs or k2_inputs(cfg)
     kt, kok, kd = bt.bh_traverse(*args, **kw, widths=widths)
     pt, pok, pd = phase_b_core(*args, **kw)
     q = kt.shape[0]
@@ -655,10 +711,12 @@ def k2_compare_and_time(cfg):
               + 16 * sum(widths) + q * 9)
     b = bound(nbytes, draws * HASH_OPS,
               work["node_evaluations"] * NODE_OPS + draws * GUMBEL_LOG_OPS)
-    emit({"phase": "check", "kernel": "K2 bh_traverse",
+    invalid = int((~args[8]).sum())
+    emit({"phase": "check", "kernel": label,
           "shape": {"Q": q, "L": int(args[0].shape[0]),
                     "C": int(args[0].shape[1]), "widths": list(widths),
-                    "M": m, "F": cfg.frontier_cap},
+                    "M": m, "F": cfg.frontier_cap, "gid_base": args[10]},
+          "invalid_queries": invalid, "invalid_share": invalid / q,
           "tolerance": "bit-equal (target_gid, ok, depth on every row)",
           "target_mismatches": diff_t, "depth_mismatches": diff_d,
           "ok_mismatches": diff_ok, "found": int(kok.sum()),
@@ -687,16 +745,18 @@ def _check_exact(name: str, got, want, shape: dict) -> float:
     return diff
 
 
-def check_k3(cfg):
-    """K3 at the main path's shapes: the neurons of CONFIG, the rank's leaf
-    block (n_leaf = 8^local_levels); one device launch a call, counted in
+def check_k3(cfg, num_ranks: int = 1, rank: int = 0):
+    """K3 at a path's shapes: the neurons of CONFIG, the rank's leaf block
+    (n_leaf = cells_per_rank x 8^local_levels: 8^4 at R=1, rank 3's two
+    branch cells at R=4); one device launch a call, counted in
     csrc/morton_sort.cu."""
     import torch
     from repro_torch.connectome import tree as ctree
     from repro_torch.core import engine
     from repro_torch.kernels import radix_sort as rs
-    pos = engine.init_state(cfg, 0, 1, device=DEV).positions
-    leaf_level, n_leaf, base_cell = ctree._tree_geometry(0, cfg, 1)
+    pos = engine.init_state(cfg, rank, num_ranks, device=DEV).positions
+    leaf_level, n_leaf, base_cell = ctree._tree_geometry(rank, cfg,
+                                                         num_ranks)
     base = base_cell * 8 ** cfg.local_levels
     kw = dict(leaf_level=leaf_level, n_leaf=n_leaf)
     rs.morton_device_launches(reset=True)
@@ -706,8 +766,9 @@ def check_k3(cfg):
     want = rs.morton_sort_plain(pos, base, **kw)
     n = pos.shape[0]
     diff = _check_exact("K3 morton_sort", got, want,
-                        {"n": n, "leaf_level": leaf_level, "n_leaf": n_leaf,
-                         "max_slot": int(got[1].max()),
+                        {"n": n, "R": num_ranks, "rank": rank,
+                         "base_cell": base_cell, "leaf_level": leaf_level,
+                         "n_leaf": n_leaf, "max_slot": int(got[1].max()),
                          "device_launches_per_call": per_call})
     if per_call != 1:
         fail(f"K3: {per_call} device launches in one call")
@@ -725,10 +786,12 @@ def _apply_bytes(n, s, qm, qr):
     return 2 * n * s * 4 + qm * 9 + qr * 13 + qr + n * 4
 
 
-def check_k4(cfg):
+def check_k4(cfg, num_ranks: int = 1):
     """K4's two launch shapes on the scenario path, on random full-width
     inputs: a drain at the lesion's message count (no valid requests) and
-    the accept of a full request buffer (no valid messages)."""
+    the accept of a full request buffer (no valid messages); at R ranks the
+    messages and requests of all R ranks' buffers (R x cap each) and
+    partner gids of every rank."""
     import torch
     from repro_torch.connectome import routing
     from repro_torch.connectome.synapses import compact
@@ -736,11 +799,12 @@ def check_k4(cfg):
     n, s = cfg.neurons_per_rank, cfg.max_synapses
     g = torch.Generator(device=DEV).manual_seed(6)
     i32 = torch.int32
-    edges = torch.randint(0, n, (n, s), generator=g, device=DEV, dtype=i32)
+    edges = torch.randint(0, num_ranks * n, (n, s), generator=g, device=DEV,
+                          dtype=i32)
     edges = compact(torch.where(torch.rand(n, s, generator=g, device=DEV)
                                 < 0.4, -1, edges))
-    qm = routing.cap_deletions(cfg, True)
-    qr = routing.cap_requests(cfg, 1)
+    qm = num_ranks * routing.cap_deletions(cfg, True)
+    qr = num_ranks * routing.cap_requests(cfg, num_ranks)
     live = torch.nonzero(edges >= 0)
     pick = live[torch.randint(0, live.shape[0], (qm,), generator=g,
                               device=DEV)]
@@ -753,7 +817,8 @@ def check_k4(cfg):
              torch.zeros(8, device=DEV), torch.zeros(n, device=DEV))
     accept = (edges, z8, z8, f8,
               torch.randint(0, n, (qr,), generator=g, device=DEV, dtype=i32),
-              torch.randint(0, n, (qr,), generator=g, device=DEV, dtype=i32),
+              torch.randint(0, num_ranks * n, (qr,), generator=g, device=DEV,
+                            dtype=i32),
               torch.rand(qr, generator=g, device=DEV) < 0.9,
               torch.rand(qr, generator=g, device=DEV),
               torch.rand(n, generator=g, device=DEV) * 6)
@@ -766,7 +831,8 @@ def check_k4(cfg):
         per_call = sa.device_launches(reset=True)
         want = sa.synapse_apply_plain(*args)
         diff = _check_exact(f"K4 synapse_apply ({name})", got, want,
-                            {"n": n, "S": s, "qm": q[0], "qr": q[1],
+                            {"n": n, "S": s, "R": num_ranks, "qm": q[0],
+                             "qr": q[1],
                              "changed_rows": int((got[0] != edges).any(1)
                                                  .sum()),
                              "accepted": int(got[1].sum()),
@@ -782,10 +848,11 @@ def check_k4(cfg):
     return res
 
 
-def check_k5(cfg):
+def check_k5(cfg, num_ranks: int = 1, rank: int = 0):
     """K5 at the scenario path's shapes: the flattened (n*S,) kill pairs of
     a lesion-sized retraction (half the edges) into the lesion cap, so the
-    drop path runs; one device launch a call, counted in
+    drop path runs; at R ranks rank ``rank``'s pairs, partner gids on every
+    rank, into R buckets; one device launch a call, counted in
     csrc/synapse_apply.cu. Also the device time of the caller's two (n*S,)
     operands, the where() and the broadcast copy before the kernel."""
     import torch
@@ -794,21 +861,25 @@ def check_k5(cfg):
     n, s = cfg.neurons_per_rank, cfg.max_synapses
     g = torch.Generator(device=DEV).manual_seed(7)
     m = n * s
-    other = torch.randint(0, n, (m,), generator=g, device=DEV,
+    other = torch.randint(0, num_ranks * n, (m,), generator=g, device=DEV,
                           dtype=torch.int32)
     other = torch.where(torch.rand(m, generator=g, device=DEV) < 0.5, -1,
                         other)
-    mine = torch.arange(m, device=DEV, dtype=torch.int32) // s
+    mine = rank * n + torch.arange(m, device=DEV, dtype=torch.int32) // s
     cap = routing.cap_deletions(cfg, True)
-    kw = dict(n=n, num_ranks=1, cap=cap)
+    kw = dict(n=n, num_ranks=num_ranks, cap=cap)
     sa.route_device_launches(reset=True)
     got = sa.route_build(other, mine, **kw)
     torch.cuda.synchronize()
     per_call = sa.route_device_launches(reset=True)
     want = sa.route_build_plain(other, mine, **kw)
     diff = _check_exact("K5 route_build", got, want,
-                        {"entries": m, "R": 1, "cap": cap,
-                         "valid": int((other >= 0).sum()),
+                        {"entries": m, "R": num_ranks, "rank": rank,
+                         "cap": cap, "valid": int((other >= 0).sum()),
+                         "to_other_ranks": int(((other >= 0) & (
+                             other // n != rank)).sum()),
+                         "placed_per_bucket": (got[0][..., 0] >= 0).sum(1)
+                         .tolist(),
                          "dropped": float(got[1][0]),
                          "device_launches_per_call": per_call})
     if per_call != 1:
@@ -1186,14 +1257,17 @@ def check_kernel_api(cfg, inp, out, counts, k9_kernels, card):
     return entries
 
 
-def run_main_path(cfg, chunks: int, scenario=None):
-    """A fresh simulator: one warm-up chunk, then ``chunks`` timed chunks,
-    each ``run(1)`` (with the recorder when there is a scenario). Returns
-    (sim, recorder, warm-up ms, per-chunk ms, per-chunk health flags)."""
+def run_main_path(cfg, chunks: int, scenario=None, num_ranks: int = 1):
+    """A fresh simulator of ``num_ranks`` ranks (more than one: all in this
+    process, through ``dist.LocalComm``): one warm-up chunk, then ``chunks``
+    timed chunks, each ``run(1)`` (with the recorder when there is a
+    scenario). Returns (sim, recorder, warm-up ms, per-chunk ms, per-chunk
+    health flags)."""
     import torch
     from repro_torch.scenarios import observables
     from repro_torch.sim.api import Simulator
-    sim = Simulator.from_config(cfg, scenario=scenario, device=DEV)
+    sim = Simulator.from_config(cfg, scenario=scenario, device=DEV,
+                                num_ranks=num_ranks)
     rec = None if scenario is None else observables.init_recorder(
         chunks + 1, len(scenario.regions) + 1, device=DEV)
     sim.init()
@@ -1228,10 +1302,11 @@ def scaled(scenario, div: int):
         for e in scenario.events))
 
 
-def fused_vs_reference(base_cfg, scenario, chunks: int, exact_kernels: bool):
-    """Reference and fused lowerings from one seed on a small config: the
-    counters, edge tables and (with a scenario, all five lowerings fused)
-    the recorder's rows must be equal."""
+def fused_vs_reference(base_cfg, scenario, chunks: int, exact_kernels: bool,
+                       num_ranks: int = 1):
+    """Reference and fused lowerings from one seed on a small config, at
+    ``num_ranks`` ranks: the counters, edge tables and (with a scenario,
+    all five lowerings fused) the recorder's rows must be equal."""
     import torch
     from repro_torch.scenarios import observables
     from repro_torch.sim.api import Simulator
@@ -1241,7 +1316,8 @@ def fused_vs_reference(base_cfg, scenario, chunks: int, exact_kernels: bool):
     out = {}
     for impl in ("reference", "fused"):
         cfg = dataclasses.replace(base_cfg, **{f: impl for f in fields})
-        sim = Simulator.from_config(cfg, scenario=scenario, device=DEV)
+        sim = Simulator.from_config(cfg, scenario=scenario, device=DEV,
+                                    num_ranks=num_ranks)
         rows = {}
         if scenario is None:
             sim.run(chunks)
@@ -1263,11 +1339,13 @@ def fused_vs_reference(base_cfg, scenario, chunks: int, exact_kernels: bool):
           else "SMOKE_SCENARIO_CONFIG",
           "scenario": None if scenario is None else scenario.name,
           "events": None if scenario is None else repr(scenario.events),
-          "lowerings_fused": list(fields), "chunks": chunks, "equal": same,
+          "lowerings_fused": list(fields), "chunks": chunks,
+          "ranks": num_ranks, "equal": same,
           "synapses_formed": b[0]["synapses_formed"],
           "synapses_deleted": b[0]["synapses_deleted"]})
     if not same and exact_kernels:
-        fail(f"fused and reference lowerings disagree ({scenario})")
+        fail(f"fused and reference lowerings disagree ({scenario}, "
+             f"{num_ranks} ranks)")
 
 
 def check_path(label, sim, cfg, warm, per_chunk, flags, counts,
@@ -1280,11 +1358,12 @@ def check_path(label, sim, cfg, warm, per_chunk, flags, counts,
     stats = sim.stats()
     st = sim.state
     n = cfg.neurons_per_rank
+    rows = sim.num_ranks * n
     finite = all(bool(torch.isfinite(x).all()) for x in (
         st.neurons.v, st.neurons.u, st.neurons.calcium, st.neurons.rate,
         st.positions))
-    shapes_ok = (tuple(st.in_edges.shape) == (n, cfg.max_synapses)
-                 and tuple(st.neurons.v.shape) == (n,))
+    shapes_ok = (tuple(st.in_edges.shape) == (rows, cfg.max_synapses)
+                 and tuple(st.neurons.v.shape) == (rows,))
     keys = sorted(k for k in stats if not k.startswith("launches/"))
     shown = ("synapses_formed", "synapses_deleted", "activity_spikes",
              "bh_restarts", "bh_requests", "activity_steps",
@@ -1294,7 +1373,8 @@ def check_path(label, sim, cfg, warm, per_chunk, flags, counts,
             "activity_impl", "connectivity_impl", "tree_impl",
             "apply_impl")),
         "scenario": None if scenario is None else scenario.name,
-        "neurons": n, "S": cfg.max_synapses, "chunks": len(per_chunk) + 1,
+        "ranks": sim.num_ranks, "neurons_per_rank": n, "S": cfg.max_synapses,
+        "chunks": len(per_chunk) + 1,
         "warmup_chunk_ms": warm, "chunk_ms": per_chunk,
         "median_chunk_ms": sorted(per_chunk)[len(per_chunk) // 2],
         "launches": counts, "device_launches": device_counts,
@@ -1347,19 +1427,223 @@ def scenario_determinism(sim, rec, cfg, scenario, chunks, keys, card):
     phase_profile(sim2, card)
 
 
+def edge_symmetry(st, n: int):
+    """On the card: the multiset of (src, tgt) pairs of all out-tables
+    against the one of all in-tables (gid == global row), and the number of
+    edges whose ends lie on different ranks."""
+    import torch
+    rows_n = st.out_edges.shape[0]
+    rows = torch.arange(rows_n, device=st.out_edges.device)[:, None] \
+        .expand_as(st.out_edges)
+    mo, mi = st.out_edges >= 0, st.in_edges >= 0
+    ko = torch.sort(rows[mo] * rows_n + st.out_edges[mo].long()).values
+    ki = torch.sort(st.in_edges[mi].long() * rows_n + rows[mi]).values
+    same = ko.shape == ki.shape and torch.equal(ko, ki)
+    cross = int((mo & (st.out_edges // n != rows // n)).sum())
+    return same, int(mo.sum()), cross
+
+
+def _observe(module, name: str, probe):
+    """Wrap ``module.name`` so that ``probe(args, result)`` sees every call
+    (device tensors only, no wait); returns the undo."""
+    orig = getattr(module, name)
+
+    def wrapped(*args, **kw):
+        out = orig(*args, **kw)
+        probe(args, out)
+        return out
+    setattr(module, name, wrapped)
+    return lambda: setattr(module, name, orig)
+
+
+def _rank_of_thread() -> int:
+    """The rank whose code runs in this thread (``dist.LocalComm`` names
+    its threads ``repro-rank-<r>``)."""
+    import threading
+    name = threading.current_thread().name
+    return int(name.rsplit("-", 1)[1]) if name.startswith("repro-rank-") \
+        else 0
+
+
+def multi_rank_path(cfg, scenario, card, chunks: int = 12, num_ranks: int = 4):
+    """R ranks of CONFIG in this process through ``dist.LocalComm`` on the
+    one card, all five lowerings fused, through the scenario's lesion, with
+    the recorder: health and finite state after every chunk, edge symmetry
+    over the whole network, edges across ranks, K1-K5, retraction and the
+    priorities launched (counts set to 0 before the run and read after,
+    the sources' device launches one a call as at R=1), and a second run
+    bitwise equal, in which K5's buffers are read for messages to other
+    ranks after the lesion and K2's calls for their invalid query share.
+    Returns (sim of the second run, launch counts)."""
+    import torch
+    from repro_torch.connectome import routing
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import activity_fused as af
+    from repro_torch.kernels import bh_traverse as bt
+    from repro_torch.kernels import hash as chash
+    from repro_torch.kernels import radix_sort as rs
+    from repro_torch.kernels import synapse_apply as sa
+    from repro_torch.scenarios import observables
+    from repro_torch.sim.api import Simulator
+    _build.reset_launch_counts()
+    af.device_launches(reset=True)
+    sa.device_launches(reset=True)
+    rs.morton_device_launches(reset=True)
+    sa.route_device_launches(reset=True)
+    chash.device_launches(reset=True)
+    sim, rec, warm, per_chunk, flags = run_main_path(cfg, chunks - 1,
+                                                     scenario, num_ranks)
+    counts = _build.launch_counts()
+    device_counts = {"activity_window": af.device_launches(reset=True),
+                     "synapse_apply": sa.device_launches(reset=True),
+                     "morton_sort": rs.morton_device_launches(reset=True),
+                     "route_build": sa.route_device_launches(reset=True),
+                     "threefry_words": chash.device_launches(reset=True)}
+    keys = check_path("multi_rank_path", sim, cfg, warm, per_chunk, flags,
+                      counts, scenario=scenario, rec=rec,
+                      device_counts=device_counts)
+    calls = num_ranks * chunks
+    want = {"activity_window": calls, "morton_sort": calls,
+            "synapse_apply": 3 * calls, "route_build": 2 * calls,
+            "retract": 2 * calls, "edge_priority": calls,
+            "threefry_words": 3 * num_ranks}
+    for name, k in want.items():
+        if counts[name] != k:
+            fail(f"{name} launched {counts[name]} times on the multi-rank "
+                 f"path, not {k}")
+    if counts["bh_traverse"] < calls:
+        fail(f"K2 launched {counts['bh_traverse']} times on the multi-rank "
+             f"path")
+    if device_counts != {"activity_window": {"staged": calls,
+                                             "streaming": 0},
+                         "synapse_apply": 3 * calls, "morton_sort": calls,
+                         "route_build": 2 * calls,
+                         "threefry_words": 3 * num_ranks}:
+        fail(f"the sources counted {device_counts} device launches on the "
+             f"multi-rank path, not one a call")
+    sym, live, cross = edge_symmetry(sim.state, cfg.neurons_per_rank)
+    hist = observables.flush(rec)
+
+    # the second run, one run(chunks, recorder) call, K5 and K2 observed
+    routed = [[] for _ in range(num_ranks)]
+    k2_valid = [[] for _ in range(num_ranks)]
+
+    def k5_probe(args, out):
+        routed[_rank_of_thread()].append((out[0][..., 0] >= 0).sum(1))
+
+    def k2_probe(args, out):
+        k2_valid[_rank_of_thread()].append(args[8].sum())
+
+    undo = [_observe(sa, "route_build", k5_probe),
+            _observe(bt, "bh_traverse", k2_probe)]
+    try:
+        sim2 = Simulator.from_config(cfg, scenario=scenario, device=DEV,
+                                     num_ranks=num_ranks)
+        rec2 = observables.init_recorder(chunks, len(scenario.regions) + 1,
+                                         device=DEV)
+        _, rec2 = sim2.run(chunks, recorder=rec2)
+    finally:
+        for u in undo:
+            u()
+    h2 = observables.flush(rec2)
+    s1, s2 = sim.stats(), sim2.stats()
+    same = (torch.equal(sim.state.in_edges, sim2.state.in_edges)
+            and torch.equal(sim.state.out_edges, sim2.state.out_edges)
+            and torch.equal(sim.state.neurons.v, sim2.state.neurons.v)
+            and all(s1[k] == s2[k] for k in keys)
+            and all((hist[k] == h2[k]).all() for k in observables.FIELDS))
+    # K5's live entries per destination, per rank and chunk (two calls a
+    # chunk: out-table and in-table notifications)
+    per_dest = torch.stack([torch.stack(r) for r in routed]).reshape(
+        num_ranks, chunks, 2, num_ranks).sum(2).cpu()
+    eye = torch.eye(num_ranks, dtype=torch.bool)[:, None, :]
+    to_others = per_dest.masked_fill(eye, 0).sum((0, 2))       # per chunk
+    first_dead = scenario.events[0].t // cfg.rate_period - 1
+    q = num_ranks * routing.cap_requests(cfg, num_ranks)
+    valid = torch.stack([torch.stack(v) for v in k2_valid]).cpu().double()
+    invalid_share = 1.0 - valid / q                         # (R, chunks)
+    emit({"phase": "multi_rank_checks", "card": card, "ranks": num_ranks,
+          "edge_symmetry": sym, "live_edges": live,
+          "edges_across_ranks": cross, "determinism_equal": same,
+          "K5_to_other_ranks_per_chunk": to_others.tolist(),
+          "K5_lesion_chunk": first_dead,
+          "K2_queries_per_call": q,
+          "K2_invalid_share_per_chunk": invalid_share.mean(0).tolist(),
+          "K2_invalid_share_min_max": [float(invalid_share.min()),
+                                       float(invalid_share.max())]})
+    if not sym:
+        fail("multi-rank path: the out- and in-tables disagree")
+    if cross <= 0:
+        fail("multi-rank path: no edge crosses ranks")
+    if not same:
+        fail("a second run of the multi-rank path from the same seed "
+             "differs")
+    if int(to_others[first_dead:].sum()) <= 0:
+        fail("multi-rank path: K5 routed no message to another rank after "
+             "the lesion")
+    return sim2, counts
+
+
+def ranges_by_launch(events, dev):
+    """Each host range (``record_function``) of the trace with the device
+    work it launched: a kernel, copy or set belongs to every range open on
+    the thread that launched it (matched through the launch's correlation
+    id), so ranges of ranks that run in turns, or that wait for each other
+    inside a collective, do not take one another's kernels. ``span_ms`` sums
+    the ranges' host spans, ``wait_ms`` the ``repro.comm.wait`` ranges (a
+    rank's wait for the baton) inside them."""
+    import collections
+    launch = {}
+    for e in events:
+        corr = e.get("args", {}).get("correlation")
+        if corr is not None and e.get("cat") in ("cuda_runtime",
+                                                  "cuda_driver"):
+            launch[corr] = (e["pid"], e["tid"], e["ts"])
+    per_thread = collections.defaultdict(list)
+    for e in dev:
+        at = launch.get(e.get("args", {}).get("correlation"))
+        if at is not None:
+            per_thread[at[:2]].append((at[2], e["dur"]))
+    ann = [e for e in events if e.get("cat") == "user_annotation"]
+    waits = collections.defaultdict(list)
+    for e in ann:
+        if e["name"] == "repro.comm.wait":
+            waits[(e["pid"], e["tid"])].append((e["ts"], e["dur"]))
+    out = {}
+    for r in ann:
+        a, b = r["ts"], r["ts"] + r["dur"]
+        key = (r["pid"], r["tid"])
+        inside = [d for t, d in per_thread[key] if a <= t < b]
+        waited = sum(d for t, d in waits[key] if a <= t < b) \
+            if r["name"] != "repro.comm.wait" else r["dur"]
+        acc = out.setdefault(r["name"], {"count": 0, "span_ms": 0.0,
+                                         "wait_ms": 0.0, "device_ms": 0.0,
+                                         "launches": 0})
+        acc["count"] += 1
+        acc["span_ms"] += r["dur"] / 1e3
+        acc["wait_ms"] += waited / 1e3
+        acc["device_ms"] += sum(inside) / 1e3
+        acc["launches"] += len(inside)
+    return out
+
+
 def phase_profile(sim, card, phase="profile"):
-    """One more chunk under torch.profiler. From the exported Chrome trace
-    (build/chip_smoke_<phase>_trace.json): the device busy time (kernels,
-    copies, memsets) against the chunk's wall time, the device time inside
-    each phase range, and the kernels that take the most device time. The
-    profiler slows the host, so the wall time here is longer than the
-    unprofiled chunk's."""
+    """One more chunk under torch.profiler, every thread profiled (the
+    ranks of a multi-rank simulator run in threads of their own). From the
+    exported Chrome trace (build/chip_smoke_<phase>_trace.json): the device
+    busy time (kernels, copies, memsets) against the chunk's wall time, the
+    device time inside each phase range (summed over the ranks' ranges of
+    one name, ``count`` of them), and the kernels that take the most device
+    time. The profiler slows the host, so the wall time here is longer than
+    the unprofiled chunk's."""
     import collections
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    every_thread = torch._C._profiler._ExperimentalConfig(
+        profile_all_threads=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 experimental_config=every_thread) as prof:
         t0 = time.perf_counter()
         sim.step()
         torch.cuda.synchronize()
@@ -1379,9 +1663,13 @@ def phase_profile(sim, card, phase="profile"):
         if r.get("cat") == "gpu_user_annotation":
             a, b = r["ts"], r["ts"] + r["dur"]
             inside = [e["dur"] for e in dev if a <= e["ts"] < b]
-            ranges[r["name"]] = {"span_ms": r["dur"] / 1e3,
-                                 "device_ms": sum(inside) / 1e3,
-                                 "launches": len(inside)}
+            acc = ranges.setdefault(r["name"], {
+                "span_ms": 0.0, "device_ms": 0.0, "launches": 0, "count": 0})
+            acc["span_ms"] += r["dur"] / 1e3
+            acc["device_ms"] += sum(inside) / 1e3
+            acc["launches"] += len(inside)
+            acc["count"] += 1
+    by_launch = ranges_by_launch(events, dev)
     by_name = collections.defaultdict(lambda: [0.0, 0])
     for e in dev:
         by_name[e["name"][:80]][0] += e["dur"] / 1e3
@@ -1392,7 +1680,8 @@ def phase_profile(sim, card, phase="profile"):
           "chunk": sim.state.chunk - 1, "chunk_wall_ms": wall_ms,
           "device_busy_ms": busy_ms,
           "device_idle_share": (1.0 - busy_ms / wall_ms) if dev else None,
-          "ranges": ranges,
+          "ranks": sim.num_ranks, "ranges": ranges,
+          "ranges_by_launch": by_launch,
           "top_device": [{"name": k, "ms": v[0], "launches": v[1]}
                          for k, v in top]})
 
@@ -1442,6 +1731,13 @@ def main() -> int:
     k3 = check_k3(all_fused)
     k4 = check_k4(all_fused)
     k5 = check_k5(all_fused)
+    # the multi-rank path's shapes: rank 3 of 4 (gid_base 3n, two branch
+    # cells, R x cap query and message slots, four routing buckets)
+    r4 = {"K2": k2_compare_and_time(
+              slice_cfg, k2_inputs_ranks(slice_cfg, 4, 3),
+              "K2 bh_traverse (R=4, rank 3)"),
+          "K3": check_k3(all_fused, 4, 3), "K4": check_k4(all_fused, 4),
+          "K5": check_k5(all_fused, 4, 3)}
     # device_ms: the calls queued behind a device-side sleep, the host's
     # work hidden (K1: one 100-step window, one launch)
     emit({"phase": "kernel_times", "card": card, "K1_ms": k1_ms,
@@ -1481,7 +1777,21 @@ def main() -> int:
           "edge_priority_plain_ms": kr_res["priority"][2],
           "edge_priority_bound_ms": kr_res["priority"][3][0],
           "K0_ms": k0["ms"], "K0_device_ms": k0["device_ms"],
-          "K0_plain_ms": k0["plain_ms"], "K0_bound_ms": k0["bound"][0]})
+          "K0_plain_ms": k0["plain_ms"], "K0_bound_ms": k0["bound"][0],
+          "R4": {"K2_ms": r4["K2"][0], "K2_device_ms": r4["K2"][1],
+                 "K2_plain_ms": r4["K2"][2], "K2_bound_ms": r4["K2"][3][0],
+                 "K3_ms": r4["K3"][0], "K3_device_ms": r4["K3"][4],
+                 "K3_plain_ms": r4["K3"][1], "K3_bound_ms": r4["K3"][2][0],
+                 "K4_drain_ms": r4["K4"]["drain"][0],
+                 "K4_drain_device_ms": r4["K4"]["drain"][4],
+                 "K4_drain_plain_ms": r4["K4"]["drain"][1],
+                 "K4_drain_bound_ms": r4["K4"]["drain"][2][0],
+                 "K4_accept_ms": r4["K4"]["accept"][0],
+                 "K4_accept_device_ms": r4["K4"]["accept"][4],
+                 "K4_accept_plain_ms": r4["K4"]["accept"][1],
+                 "K4_accept_bound_ms": r4["K4"]["accept"][2][0],
+                 "K5_ms": r4["K5"][0], "K5_device_ms": r4["K5"][4],
+                 "K5_plain_ms": r4["K5"][1], "K5_bound_ms": r4["K5"][2][0]}})
 
     # ---- the public kernel API: K6-K9 at the repo's widths ---------------
     from repro_torch.kernels import flash_attention as fa
@@ -1504,6 +1814,10 @@ def main() -> int:
         fused_vs_reference(library.SMOKE_SCENARIO_CONFIG,
                            scaled(library.get_scenario(name), 5), 4,
                            exact_kernels)
+    # and at four ranks in one process (dist.LocalComm), through the lesion
+    fused_vs_reference(library.SMOKE_SCENARIO_CONFIG,
+                       scaled(library.lesion_rewiring(), 5), 4,
+                       exact_kernels, num_ranks=4)
 
     # ---- path 1: activity + traversal kernels, no scenario --------------
     from repro_torch.kernels import hash as chash
@@ -1577,8 +1891,16 @@ def main() -> int:
              f"{chunks} K3 and {2 * chunks} K5")
     if counts["bh_traverse"] < chunks:
         fail(f"K2 launched {counts['bh_traverse']} times")
+
+    # ---- path 3: four ranks on the one card, the scenario, all fused ----
+    sim_r4, r4_counts = multi_rank_path(all_fused, scn, card, chunks)
+    torch.cuda.empty_cache()
+    # the profiles last: a profiler session slows the host for the rest of
+    # the process
     scenario_determinism(sim, rec, all_fused, scn, chunks, keys, card)
     del sim
+    phase_profile(sim_r4, card, "profile_multi_rank_path")
+    del sim_r4
     # one chunk of the main path profiled (after a warm-up chunk), last:
     # a profiler session slows the host for the rest of the process
     from repro_torch.sim.api import Simulator
@@ -1592,6 +1914,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/hash_words.cu",
          "replaces": "src/repro/kernels/hash.py:57",
          "launches": counts["threefry_words"],
+         "multi_rank_launches": r4_counts["threefry_words"],
          "main_path_launches": main_counts["threefry_words"],
          "max_abs_err": k0["max_abs_err"], "ms": k0["ms"],
          "device_ms": k0["device_ms"], "plain_ms": k0["plain_ms"],
@@ -1603,7 +1926,8 @@ def main() -> int:
         {"name": "retract", "route": "cuda",
          "source": "src/repro_torch/csrc/retract.cu",
          "replaces": "src/repro/connectome/synapses.py:117 (jnp)",
-         "launches": counts["retract"], "max_abs_err": kr_err,
+         "launches": counts["retract"],
+         "multi_rank_launches": r4_counts["retract"], "max_abs_err": kr_err,
          "ms": kr_res["full"][0], "device_ms": kr_res["full"][1],
          "plain_ms": kr_res["full"][2], "bound_ms": kr_res["full"][3][0],
          "bound_by": kr_res["full"][3][1], "library_ms": None,
@@ -1616,7 +1940,8 @@ def main() -> int:
         {"name": "edge_priority", "route": "cuda",
          "source": "src/repro_torch/csrc/retract.cu",
          "replaces": "src/repro/connectome/synapses.py:56 (jnp)",
-         "launches": counts["edge_priority"], "max_abs_err": kr_err,
+         "launches": counts["edge_priority"],
+         "multi_rank_launches": r4_counts["edge_priority"], "max_abs_err": kr_err,
          "ms": kr_res["priority"][0], "device_ms": kr_res["priority"][1],
          "plain_ms": kr_res["priority"][2],
          "bound_ms": kr_res["priority"][3][0],
@@ -1625,6 +1950,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/activity_window.cu",
          "replaces": "src/repro/kernels/activity_fused.py:279",
          "launches": counts["activity_window"],
+         "multi_rank_launches": r4_counts["activity_window"],
          "max_abs_err": max(k1["max_abs_err"], k1s["max_abs_err"]),
          "ms": k1_ms, "device_ms": k1_dev, "plain_ms": k1_plain,
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
@@ -1634,13 +1960,23 @@ def main() -> int:
         {"name": "bh_traverse", "route": "cuda",
          "source": "src/repro_torch/csrc/bh_traverse.cu",
          "replaces": "src/repro/kernels/bh_traverse.py:77",
-         "launches": counts["bh_traverse"], "max_abs_err": k2_abs,
+         "launches": counts["bh_traverse"],
+         "multi_rank_launches": r4_counts["bh_traverse"],
+         "max_abs_err": max(k2_abs, r4["K2"][5]),
          "ms": k2_ms, "device_ms": k2_dev, "plain_ms": k2_plain,
-         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
+         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
+         "R4": {"ms": r4["K2"][0], "device_ms": r4["K2"][1],
+                "plain_ms": r4["K2"][2], "bound_ms": r4["K2"][3][0],
+                "bound_by": r4["K2"][3][1]}},
         {"name": "morton_sort", "route": "cuda",
          "source": "src/repro_torch/csrc/morton_sort.cu",
          "replaces": "src/repro/kernels/radix_sort.py:135",
-         "launches": counts["morton_sort"], "max_abs_err": k3[3],
+         "launches": counts["morton_sort"],
+         "multi_rank_launches": r4_counts["morton_sort"],
+         "max_abs_err": max(k3[3], r4["K3"][3]),
+         "R4": {"ms": r4["K3"][0], "device_ms": r4["K3"][4],
+                "plain_ms": r4["K3"][1], "bound_ms": r4["K3"][2][0],
+                "bound_by": r4["K3"][2][1]},
          "ms": k3[0], "device_ms": k3[4], "plain_ms": k3[1],
          "bound_ms": k3[2][0],
          "bound_by": k3[2][1], "library_ms": None,
@@ -1649,7 +1985,15 @@ def main() -> int:
          "source": "src/repro_torch/csrc/synapse_apply.cu",
          "replaces": "src/repro/kernels/synapse_apply.py:63",
          "launches": counts["synapse_apply"],
-         "max_abs_err": max(k4["drain"][3], k4["accept"][3]),
+         "multi_rank_launches": r4_counts["synapse_apply"],
+         "max_abs_err": max(k4["drain"][3], k4["accept"][3],
+                            r4["K4"]["drain"][3], r4["K4"]["accept"][3]),
+         "R4": {part: {"ms": r4["K4"][part][0],
+                       "device_ms": r4["K4"][part][4],
+                       "plain_ms": r4["K4"][part][1],
+                       "bound_ms": r4["K4"][part][2][0],
+                       "bound_by": r4["K4"][part][2][1]}
+                for part in ("drain", "accept")},
          "ms": k4["drain"][0], "device_ms": k4["drain"][4],
          "plain_ms": k4["drain"][1],
          "bound_ms": k4["drain"][2][0], "bound_by": k4["drain"][2][1],
@@ -1660,7 +2004,12 @@ def main() -> int:
         {"name": "route_build", "route": "cuda",
          "source": "src/repro_torch/csrc/synapse_apply.cu",
          "replaces": "src/repro/kernels/synapse_apply.py:95",
-         "launches": counts["route_build"], "max_abs_err": k5[3],
+         "launches": counts["route_build"],
+         "multi_rank_launches": r4_counts["route_build"],
+         "max_abs_err": max(k5[3], r4["K5"][3]),
+         "R4": {"ms": r4["K5"][0], "device_ms": r4["K5"][4],
+                "plain_ms": r4["K5"][1], "bound_ms": r4["K5"][2][0],
+                "bound_by": r4["K5"][2][1]},
          "ms": k5[0], "device_ms": k5[4], "plain_ms": k5[1],
          "bound_ms": k5[2][0],
          "bound_by": k5[2][1], "library_ms": None,

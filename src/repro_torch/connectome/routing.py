@@ -3,24 +3,18 @@ exchanges (§IV-A), NEW algorithm ("move compute"): the searching rank ships
 a formation-and-calculation request to the rank owning the branch cell,
 which finishes the search against its own subtree and answers.
 
-The slice runs one rank: the buffers are built exactly as the reference
-builds them, and the all-to-alls between ranks are identities. The
-collectives come with ROADMAP.md Queue 1 item 8, ``formation_old`` with
-item 9.
+The buffers are built exactly as the reference builds them and cross the
+ranks through the rank's ``dist.Comm`` (tiled all-to-alls, the identity at
+R=1). ``formation_old`` comes with ROADMAP.md Queue 1 item 9.
 """
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.connectome import traverse
 from repro_torch.connectome import tree as ctree
 from repro_torch.sim import registry
-
-
-def _single_rank(num_ranks: int, what: str):
-    if num_ranks != 1:
-        raise NotImplementedError(
-            f"multi-rank {what}: ROADMAP.md Queue 1 item 8")
 
 
 def cap_requests(cfg, num_ranks: int):
@@ -45,8 +39,10 @@ def route_build_core(flat_other, flat_mine, n: int, num_ranks: int, cap: int,
     """Build the per-destination (num_ranks, cap, 2) notification buffers
     from the flattened (partner gid, my gid) pairs, with stable
     within-destination slot ranks from ``ranker(ids, buckets)``
-    (``positions_within`` or ``bucket_ranks``: integer-identical). Returns
-    (buf, dropped count)."""
+    (``positions_within`` or ``bucket_ranks``: integer-identical). Row
+    ``num_ranks`` of the scratch buffer collects the dropped writes (jax's
+    ``mode="drop"``) and is sliced off: only the first ``num_ranks`` rows
+    cross the all-to-all. Returns (buf, dropped count)."""
     valid = flat_other >= 0
     dest = torch.where(valid, torch.div(flat_other, n, rounding_mode="floor"),
                        num_ranks)
@@ -62,27 +58,34 @@ def route_build_core(flat_other, flat_mine, n: int, num_ranks: int, cap: int,
         torch.sum(valid & ~ok).to(torch.float32)
 
 
-def route_deletions(kill, edges, my_gid_col, cfg, num_ranks: int,
-                    lesions: bool):
-    """The (partner gid, my gid) retraction notifications, as received.
-    Returns (num_ranks * cap, 2) messages and the dropped count."""
-    _single_rank(num_ranks, "deletion routing")
+def exchange_deletions(buf, comm):
+    """All-to-all the (num_ranks, cap, 2) notification buffers: the received
+    (num_ranks * cap, 2) messages, rank-major."""
+    with record_function("repro.comm.deletions"):
+        buf = comm.all_to_all(buf)
+    return buf.reshape(-1, 2)
+
+
+def route_deletions(kill, edges, my_gid_col, cfg, comm, lesions: bool):
+    """All-to-all the (partner gid, my gid) retraction notifications.
+    Returns the received (num_ranks * cap, 2) messages and the dropped
+    count."""
     n = cfg.neurons_per_rank
     flat_other = torch.where(kill, edges, -1).reshape(-1)
     flat_mine = torch.broadcast_to(my_gid_col, kill.shape).reshape(-1)
     cap = cap_deletions(cfg, lesions)
-    buf, dropped = route_build_core(flat_other, flat_mine, n, num_ranks, cap,
-                                    ctree.positions_within)
-    return buf.reshape(num_ranks * cap, 2), dropped
+    buf, dropped = route_build_core(flat_other, flat_mine, n, comm.num_ranks,
+                                    cap, ctree.positions_within)
+    return exchange_deletions(buf, comm), dropped
 
 
 def formation_new(cfg, positions, local_tree, vacant_d, in_edges, gids,
-                  branch_cell, owner, start_rel, valid_a, rank: int,
-                  num_ranks: int, key, chunk: int):
-    """Location-aware algorithm: requests out, local phase B + accept,
-    responses back. Returns (tgt_gid, accept dict, overflow count,
-    (depth, processed))."""
-    _single_rank(num_ranks, "formation routing")
+                  branch_cell, owner, start_rel, valid_a, comm, key,
+                  chunk: int):
+    """Location-aware algorithm: requests out (two all-to-alls), local
+    phase B + accept, responses back (one). Returns (tgt_gid, accept dict,
+    overflow count, (depth, processed))."""
+    rank, num_ranks = comm.rank, comm.num_ranks
     n = cfg.neurons_per_rank
     dev = positions.device
     cap = cap_requests(cfg, num_ranks)
@@ -102,7 +105,11 @@ def formation_new(cfg, positions, local_tree, vacant_d, in_edges, gids,
                                   start_rel.to(gids.dtype)], -1).to(
         torch.int32)
     fbuf[d_c, s_c] = positions
-    ibuf, fbuf = ibuf[:num_ranks], fbuf[:num_ranks]
+    # only the first num_ranks rows cross: row d goes to rank d, and the
+    # received row s holds rank s's requests (rank-major slot order)
+    with record_function("repro.comm.formation_requests"):
+        ibuf = comm.all_to_all(ibuf[:num_ranks].contiguous())
+        fbuf = comm.all_to_all(fbuf[:num_ranks].contiguous())
 
     r_src = ibuf[..., 0].reshape(-1)
     r_cell = ibuf[..., 1].reshape(-1)
@@ -120,6 +127,10 @@ def formation_new(cfg, positions, local_tree, vacant_d, in_edges, gids,
     # responses retrace the request route
     rbuf = torch.stack([torch.where(acc, tgt, -1), acc.to(torch.int32)],
                        -1).reshape(num_ranks, cap, 2)
+    with record_function("repro.comm.formation_responses"):
+        rbuf = comm.all_to_all(rbuf)
+    # row d now holds rank d's answers to my requests there; the dropped
+    # requests (row num_ranks) read row num_ranks - 1 and are masked by ok
     d_g = torch.clamp(d_c, max=num_ranks - 1)
     resp_tgt = rbuf[d_g, s_c, 0]
     resp_ok = (rbuf[d_g, s_c, 1] > 0) & ok

@@ -172,7 +172,7 @@ class ApplyImpl(NamedTuple):
     value)."""
     deletion: Callable   # (edges, msg_lid, msg_gid, msg_valid)
     accept: Callable     # (tgt_lid, src_gid, valid, vacant_d, in_edges, key)
-    route: Callable      # (kill, edges, my_gid_col, cfg, num_ranks, lesions)
+    route: Callable      # (kill, edges, my_gid_col, cfg, comm, lesions)
     retract: Callable    # (key, edges, n_delete, row_gids)
 
 
@@ -181,9 +181,9 @@ def _deletion_reference(edges, msg_lid, msg_gid, msg_valid):
                                             msg_valid))
 
 
-def _route_reference(kill, edges, my_gid_col, cfg, num_ranks, lesions):
+def _route_reference(kill, edges, my_gid_col, cfg, comm, lesions):
     from repro_torch.connectome import routing  # lazy: routing imports us
-    return routing.route_deletions(kill, edges, my_gid_col, cfg, num_ranks,
+    return routing.route_deletions(kill, edges, my_gid_col, cfg, comm,
                                    lesions)
 
 
@@ -218,20 +218,18 @@ def _accept_fused(tgt_lid, src_gid, valid, vacant_d, in_edges, key):
     return acc, new_in
 
 
-def _route_fused(kill, edges, my_gid_col, cfg, num_ranks, lesions):
-    """K5 builds the notification buffers; the port has no all-to-all yet."""
+def _route_fused(kill, edges, my_gid_col, cfg, comm, lesions):
+    """K5 builds the per-destination notification buffers, which then cross
+    the ranks in one all-to-all."""
     from repro_torch.connectome import routing  # lazy: routing imports us
     from repro_torch.kernels import synapse_apply as ksa  # lazy: imports us
-    if num_ranks != 1:
-        raise NotImplementedError(
-            "multi-rank deletion routing: ROADMAP.md Queue 1 item 8")
     cap = routing.cap_deletions(cfg, lesions)
     flat_other = torch.where(kill, edges, -1).reshape(-1)
     flat_mine = torch.broadcast_to(my_gid_col, kill.shape).reshape(-1)
     buf, dropped = ksa.route_build(flat_other, flat_mine,
                                    n=cfg.neurons_per_rank,
-                                   num_ranks=num_ranks, cap=cap)
-    return buf.reshape(num_ranks * cap, 2), dropped[0]
+                                   num_ranks=comm.num_ranks, cap=cap)
+    return routing.exchange_deletions(buf, comm), dropped[0]
 
 
 def _retract_fused(key, edges, n_delete, row_gids):

@@ -18,6 +18,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.core import morton
 from repro_torch.kernels import radix_sort
@@ -156,9 +157,11 @@ def build_top_tree(branch_counts, branch_centroids, num_ranks: int) -> TopTree:
     return TopTree(tuple(counts), tuple(cents))
 
 
-def exchange_branch_nodes(local: LocalTree, num_ranks: int) -> TopTree:
-    """Alg. 1 line 3: all_exchange_branch_nodes (the identity at R=1)."""
-    if num_ranks != 1:
-        raise NotImplementedError(
-            "multi-rank branch exchange: ROADMAP.md Queue 1 item 8")
-    return build_top_tree(local.counts[0], local.centroids[0], num_ranks)
+def exchange_branch_nodes(local: LocalTree, comm) -> TopTree:
+    """Alg. 1 line 3: all_exchange_branch_nodes. Every rank's level-0
+    (branch) counts and centroids are all-gathered in rank order, which is
+    Morton order (the identity at R=1)."""
+    with record_function("repro.comm.branch_nodes"):
+        bc = comm.all_gather(local.counts[0])
+        bz = comm.all_gather(local.centroids[0])
+    return build_top_tree(bc, bz, comm.num_ranks)

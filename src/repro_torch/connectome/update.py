@@ -43,8 +43,8 @@ def formation_phase_new(ctx, state, local_tree, vac_d_pos, out_edges,
     rank that owns the target subtree (move compute to the data)."""
     tgt_gid, accept, ovf, (depth, processed) = routing.formation_new(
         ctx.cfg, state.positions, local_tree, vac_d_pos, in_edges, gids,
-        branch_cell, owner, start_rel, valid_a, ctx.rank, ctx.num_ranks,
-        k_accept, state.chunk)
+        branch_cell, owner, start_rel, valid_a, ctx.comm, k_accept,
+        state.chunk)
     in_edges = accept.pop("in_edges")
     stats = stats.count("request_overflow", ovf)
     stats = stats.count("bh_responses", torch.sum(accept["accepted"]))
@@ -60,7 +60,7 @@ def exchange_dense(ctx, state, neurons, in_edges, stats):
     """All-gather every rank's full (n,) rate vector into the replicated
     (R, n) table — O(R*n) bytes per rank per Delta."""
     n = ctx.cfg.neurons_per_rank
-    rates_table = spikes.exchange_rates(neurons.rate, ctx.num_ranks)
+    rates_table = spikes.exchange_rates(neurons.rate, ctx.comm)
     stats = stats.count("rates_sent", float(n * max(ctx.num_ranks - 1, 0)))
     return rates_table, state.subs, state.rate_slots, state.remote_rates, \
         stats
@@ -71,7 +71,7 @@ def _retraction(state, ctx, gids, k_out, k_in, stats):
     """Phase 3a: break the synapses a neuron's lost elements no longer
     carry, route the notifications, and drain them out of the partners'
     tables. Returns (out_edges, in_edges, stats)."""
-    cfg, num_ranks = ctx.cfg, ctx.num_ranks
+    cfg, comm = ctx.cfg, ctx.comm
     n = cfg.neurons_per_rank
     gid0 = ctx.rank * n
     out_edges, in_edges = state.out_edges, state.in_edges
@@ -89,9 +89,9 @@ def _retraction(state, ctx, gids, k_out, k_in, stats):
     # notify partners; kill masks index the PRE-retraction tables
     lesions = proto.has_lesions(ctx.scenario)
     msgs_out, ovf_out = apply_impl.route(
-        kill_out, state.out_edges, gids[:, None], cfg, num_ranks, lesions)
+        kill_out, state.out_edges, gids[:, None], cfg, comm, lesions)
     msgs_in, ovf_in = apply_impl.route(
-        kill_in, state.in_edges, gids[:, None], cfg, num_ranks, lesions)
+        kill_in, state.in_edges, gids[:, None], cfg, comm, lesions)
     stats = stats.count("request_overflow", ovf_out + ovf_in)
     # apply: partner of my out-edge removes its in-edge, and vice versa
     in_edges = apply_impl.deletion(
@@ -144,7 +144,7 @@ def connectivity_update(state, ctx):
     with record_function("repro.conn.tree_build"):
         local_tree = ctree.build_tree(cfg, state.positions, vac_d_pos, rank,
                                       num_ranks)
-        top = ctree.exchange_branch_nodes(local_tree, num_ranks)
+        top = ctree.exchange_branch_nodes(local_tree, ctx.comm)
         stats = ctx.metrics.tree_built(stats, local_tree)
 
     searching = vac_a >= 1

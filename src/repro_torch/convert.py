@@ -3,7 +3,9 @@
 ``state_from_numpy`` takes a reference ``BrainState`` pulled to the host
 (``jax.device_get``: the same NamedTuple/dataclass tree with numpy leaves)
 and builds the port's ``BrainState``; ``state_to_numpy`` goes the other way,
-to plain nested dicts of numpy arrays. Attribute access only, so this module
+to plain nested dicts of numpy arrays. ``states_from_numpy`` splits a
+reference global state of R ranks into one port state a rank, and
+``states_to_numpy`` joins them back. Attribute access only, so this module
 imports neither jax nor the reference package. The tests use it to inject a
 reference state into the port phase by phase, ``scenario_from_reference``
 to hand one protocol to both sides, and ``neuron_params_from_numpy`` to hand
@@ -16,6 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core import engine
 from repro_torch.core.engine import BrainState
 from repro_torch.device import resolve_device
 from repro_torch.core.neuron import NeuronParams, NeuronState
@@ -75,6 +78,20 @@ def state_to_numpy(state: BrainState) -> dict:
                                   ("hists", s.hists),
                                   ("gauges", s.gauges))},
     }
+
+
+def states_from_numpy(tree, num_ranks: int, device=None) -> list:
+    """A reference global state of ``num_ranks`` ranks (numpy leaves: the
+    per-neuron rows of all ranks concatenated in rank order, the replicated
+    rates table, the stats' leading per-rank axis) -> one port BrainState a
+    rank (rank r holds rows r*n:(r+1)*n)."""
+    return engine.split_state(state_from_numpy(tree, device), num_ranks)
+
+
+def states_to_numpy(states) -> dict:
+    """The ranks' port states -> the global state as nested dicts of numpy
+    arrays (``state_to_numpy`` of ``engine.join_states``)."""
+    return state_to_numpy(engine.join_states(states))
 
 
 _EVENTS = {cls.__name__: cls for cls in (protocol.Stimulate, protocol.Lesion,

@@ -5,6 +5,11 @@ update. ``BrainState`` mirrors the JAX package's state field for field; the
 slice holds the dense rate-exchange layout (the sparse fields stay None) and
 keeps ``chunk`` as a host integer, since every kernel takes the chunk as a
 runtime argument.
+
+A state is one rank's. ``join_states`` makes the global view of R ranks'
+states (the JAX package's global arrays: per-neuron rows concatenated in
+rank order, so gid == global row; the replicated rates table once; the
+metrics' leading axis the ranks), and ``split_state`` goes back.
 """
 from __future__ import annotations
 
@@ -68,3 +73,45 @@ def init_state(cfg, rank: int, num_ranks: int, scenario=None,
                               device=device)
     return BrainState(neurons, edges, edges.clone(), pos, rates_table, None,
                       None, None, 0, stats)
+
+
+_ROW_FIELDS = ("out_edges", "in_edges", "positions", "subs", "rate_slots",
+               "remote_rates")
+
+
+def join_states(states) -> BrainState:
+    """The global view of the ranks' states, in rank order (one state is
+    its own view)."""
+    if len(states) == 1:
+        return states[0]
+    chunks = {s.chunk for s in states}
+    if len(chunks) != 1:
+        raise ValueError(f"join_states: the ranks are at chunks {chunks}")
+    neurons = NeuronState(*(torch.cat([getattr(s.neurons, f) for s in states])
+                            for f in NeuronState._fields))
+    rows = {f: None if getattr(states[0], f) is None
+            else torch.cat([getattr(s, f) for s in states])
+            for f in _ROW_FIELDS}
+    return BrainState(neurons=neurons, rates_table=states[0].rates_table,
+                      chunk=states[0].chunk,
+                      stats=telemetry_metrics.join([s.stats for s in states]),
+                      **rows)
+
+
+def split_state(state: BrainState, num_ranks: int) -> list:
+    """A global state -> one state a rank (rank r holds rows r*n:(r+1)*n;
+    each rank a copy of the replicated rates table)."""
+    def part(x, r):
+        if x is None:
+            return None
+        m = x.shape[0] // num_ranks
+        return x[r * m:(r + 1) * m].clone()
+    stats = telemetry_metrics.split(state.stats, num_ranks)
+    return [BrainState(
+        neurons=NeuronState(*(part(getattr(state.neurons, f), r)
+                              for f in NeuronState._fields)),
+        rates_table=None if state.rates_table is None
+        else state.rates_table.clone(),
+        chunk=state.chunk, stats=stats[r],
+        **{f: part(getattr(state, f), r) for f in _ROW_FIELDS})
+        for r in range(num_ranks)]

@@ -3,23 +3,24 @@ exchange per-neuron rates; between exchanges each receiver draws
 Bernoulli(rate) per remote edge from the counter hash keyed by
 ``(seed, step, edge)``. Local edges always see true spikes.
 
-The slice runs one rank with the dense exchange, where ``exchange_rates`` is
-the identity reshaped to the (1, n) table. The old per-step ID exchange and
-the sparse subscription registry come with ROADMAP.md Queue 1 item 9, the
-collectives with item 8.
+The dense exchange all-gathers every rank's rates into the replicated
+(R, n) table through the rank's ``dist.Comm`` (the identity at R=1). The old
+per-step ID exchange and the sparse subscription registry come with
+ROADMAP.md Queue 1 item 9.
 """
 from __future__ import annotations
+
+from torch.profiler import record_function
 
 from repro_torch.kernels.activity_fused import (local_spike_hits,
                                                 reconstruct_remote_spikes)
 
 
-def exchange_rates(rate, num_ranks: int):
-    """NEW algorithm, send side (every Delta steps): all-exchange rates."""
-    if num_ranks != 1:
-        raise NotImplementedError(
-            "multi-rank rate exchange: ROADMAP.md Queue 1 item 8")
-    return rate[None]
+def exchange_rates(rate, comm):
+    """NEW algorithm, send side (every Delta steps): all-gather every rank's
+    (n,) rates into the (R, n) table, rows in rank order."""
+    with record_function("repro.comm.rates"):
+        return comm.all_gather(rate[None])
 
 
 def reconstruct_spikes(seed: int, gstep, all_rates, in_edges, rank, n: int):

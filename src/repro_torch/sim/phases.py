@@ -1,8 +1,8 @@
 """PhaseContext + the engine-level phase implementations.
 
 ``PhaseContext`` bundles what every phase needs besides the state (config,
-rank, rank count, the scenario with its region and event tuples, the
-population table, the metrics recorder). The activity lowerings register
+rank, rank count, the rank's ``dist.Comm``, the scenario with its region and
+event tuples, the population table, the metrics recorder). The activity lowerings register
 here; the connectivity, traversal, tree, apply and rate-exchange lowerings
 register next to their implementations in ``repro_torch.connectome``.
 """
@@ -14,6 +14,7 @@ from typing import Any, Tuple
 import torch
 from torch.profiler import record_function
 
+from repro_torch import dist
 from repro_torch.connectome.update import connectivity_update
 from repro_torch.kernels import activity_fused
 from repro_torch.scenarios import populations as pops
@@ -25,7 +26,9 @@ from repro_torch.telemetry import metrics as telemetry_metrics
 
 @dataclass
 class PhaseContext:
-    """Everything a phase implementation needs besides the BrainState."""
+    """Everything a phase implementation needs besides the BrainState.
+    ``comm`` is the rank's ``dist.Comm`` (its rank and rank count are
+    ``rank`` and ``num_ranks``)."""
     cfg: Any
     rank: int
     num_ranks: int
@@ -34,10 +37,21 @@ class PhaseContext:
     regions: Tuple = ()
     events: Tuple = ()
     metrics: Any = None
+    comm: Any = dist.SINGLE
 
 
 def make_context(cfg, rank: int, num_ranks: int, scenario=None,
-                 device=None) -> PhaseContext:
+                 device=None, comm=None) -> PhaseContext:
+    """The context of rank ``rank`` of ``num_ranks``; ``comm`` may be left
+    out at one rank (every collective is then the identity)."""
+    if comm is None:
+        if num_ranks != 1:
+            raise ValueError(f"make_context: {num_ranks} ranks need the "
+                             f"rank's dist.Comm")
+        comm = dist.SINGLE
+    if (comm.rank, comm.num_ranks) != (rank, num_ranks):
+        raise ValueError(f"make_context: rank {rank} of {num_ranks} with the "
+                         f"comm of rank {comm.rank} of {comm.num_ranks}")
     table = pops.table_for(cfg, scenario, cfg.neurons_per_rank, device=device)
     regions = scenario.regions if scenario is not None else ()
     events = scenario.events if scenario is not None else ()
@@ -45,7 +59,7 @@ def make_context(cfg, rank: int, num_ranks: int, scenario=None,
                         scenario=scenario, table=table, regions=regions,
                         events=events,
                         metrics=telemetry_metrics.Recorder(
-                            n=cfg.neurons_per_rank))
+                            n=cfg.neurons_per_rank), comm=comm)
 
 
 # ================================================================ activity
@@ -119,7 +133,10 @@ def connectivity_phase(state, ctx: PhaseContext):
 def health_verdict(state, ctx: PhaseContext):
     """The health gauges (DESIGN.md §10 of the JAX package): a NaN/Inf
     census, live edge-table entries, and the ``health_flags`` bitmask
-    (nonfinite, out/in asymmetry, conservation against formed/deleted)."""
+    (nonfinite, out/in asymmetry, conservation against formed/deleted),
+    judged on the six-element vector summed over ranks (one psum), so
+    ``health_flags`` is the same on every rank; the census gauges stay
+    the rank's own."""
     neu = state.neurons
     f32 = torch.float32
     nonfinite = sum(
@@ -128,15 +145,20 @@ def health_verdict(state, ctx: PhaseContext):
     out_live = torch.sum((state.out_edges >= 0).to(f32))
     in_live = torch.sum((state.in_edges >= 0).to(f32))
     c = state.stats.counters
-    formed, deleted = c["synapses_formed"][0], c["synapses_deleted"][0]
-    clean = c["request_overflow"][0] == 0
+    local = torch.stack([nonfinite, out_live, in_live,
+                         c["synapses_formed"][0], c["synapses_deleted"][0],
+                         c["request_overflow"][0]])
+    with record_function("repro.comm.health"):
+        g = ctx.comm.psum(local)
+    g_nf, g_out, g_in, formed, deleted, overflow = (g[i] for i in range(6))
+    clean = overflow == 0
     zero = torch.zeros((), dtype=f32, device=out_live.device)
-    flags = torch.where(nonfinite > 0,
+    flags = torch.where(g_nf > 0,
                         float(telemetry_metrics.HEALTH_NONFINITE), zero)
     flags = flags + torch.where(
-        clean & (out_live != in_live),
+        clean & (g_out != g_in),
         float(telemetry_metrics.HEALTH_ASYMMETRY), zero)
-    live = out_live + in_live
+    live = g_out + g_in
     lo = 2.0 * formed - 2.0 * deleted
     hi = 2.0 * formed - deleted
     flags = flags + torch.where(

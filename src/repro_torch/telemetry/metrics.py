@@ -6,6 +6,11 @@ device with the leading per-rank axis of size 1. The JAX ``Metrics`` is an
 immutable pytree; here the recording methods update the tensors in place and
 return ``self``, so call sites read the same (``stats = stats.count(...)``).
 
+Every rank records its own tree; the reductions over ranks happen at read
+time (``reduce_counters``, ``reduce_gauges``), and ``join`` / ``split`` go
+between the per-rank trees and the global one, whose leading axis holds the
+ranks in order (the JAX package's global arrays).
+
 Histogram updates are scatter-adds of 0/1 weights into small integer counts:
 exact in float32 in any order, so the atomics of ``index_add_`` on CUDA leave
 them deterministic.
@@ -97,6 +102,40 @@ class Metrics:
             g = self.gauges[k]
             g.copy_(torch.reshape(_f32(v, g.device), (1,)))
         return self
+
+
+_PARTS = ("counters", "per_chunk", "hists", "gauges")
+
+
+def join(per_rank) -> Metrics:
+    """The ranks' trees as one, each leaf's leading axis the ranks in
+    order."""
+    return Metrics(*({k: torch.cat([getattr(m, part)[k] for m in per_rank])
+                      for k in getattr(per_rank[0], part)}
+                     for part in _PARTS))
+
+
+def split(m: Metrics, num_ranks: int) -> list:
+    """A global tree -> one tree a rank (leading axes of size 1)."""
+    return [Metrics(*({k: v[r:r + 1].clone()
+                       for k, v in getattr(m, part).items()}
+                      for part in _PARTS)) for r in range(num_ranks)]
+
+
+def reduce_counters(per_rank) -> Dict[str, float]:
+    """Every counter summed over ranks."""
+    return {k: float(torch.cat([m.counters[k] for m in per_rank]).sum())
+            for k in per_rank[0].counters}
+
+
+def reduce_gauges(per_rank) -> Dict[str, float]:
+    """The gauges over ranks: ``health_flags`` (the same on every rank) by
+    max, the census gauges summed."""
+    out = {}
+    for k in per_rank[0].gauges:
+        v = torch.cat([m.gauges[k] for m in per_rank])
+        out[k] = float(v.max() if k == "health_flags" else v.sum())
+    return out
 
 
 def init_metrics(history: int = DEFAULT_HISTORY, device=None) -> Metrics:

@@ -19,6 +19,7 @@ import torch
 from repro.configs.msp_brain import BrainConfig as JConfig
 from repro.kernels.activity_fused import activity_window as jax_window
 from repro.scenarios.populations import build_table, population
+from repro_torch import dist
 from repro_torch.kernels import activity_fused as taf
 
 N, S, R, RANK, CHUNK, T = 96, 8, 4, 1, 2, 40
@@ -300,4 +301,4 @@ def test_spike_helpers_match_reference():
         np.testing.assert_array_equal(want, got)
         assert got.any()
     np.testing.assert_array_equal(
-        tspikes.exchange_rates(_torch(rates[0]), 1).numpy(), rates[:1])
+        tspikes.exchange_rates(_torch(rates[0]), dist.SINGLE).numpy(), rates[:1])

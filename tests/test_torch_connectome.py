@@ -16,7 +16,7 @@ from repro.configs.msp_brain import BrainConfig as JConfig
 from repro.connectome import routing as jrouting
 from repro.connectome import synapses as jsyn
 from repro.connectome import tree as jtree
-from repro_torch import prng
+from repro_torch import dist, prng
 from repro_torch.configs.msp_brain import BrainConfig as TConfig
 from repro_torch.connectome import routing as trouting
 from repro_torch.connectome import synapses as tsyn
@@ -74,7 +74,7 @@ def test_route_deletions_single_rank(seed):
             jnp.asarray(kill), jnp.asarray(edges), jnp.asarray(gids), jcfg,
             None, 1, False)
         gm, gd = trouting.route_deletions(_t(kill), _t(edges), _t(gids),
-                                          tcfg, 1, False)
+                                          tcfg, dist.SINGLE, False)
         np.testing.assert_array_equal(np.asarray(wm), gm.numpy())
         assert float(wd) == float(gd)
 
@@ -168,5 +168,5 @@ def test_tree_is_bitwise_reproducible_and_matches_top_tree():
     b = ttree.build_local_tree(_t(pos), _t(vac), 0, tcfg, 1)
     for x, y in zip(a.counts + a.centroids, b.counts + b.centroids):
         assert torch.equal(x, y)
-    top = ttree.exchange_branch_nodes(a, 1)
+    top = ttree.exchange_branch_nodes(a, dist.SINGLE)
     assert torch.equal(top.counts[0], a.counts[0])

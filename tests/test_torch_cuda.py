@@ -1220,3 +1220,171 @@ def test_bh_traverse_tree_beyond_shared_memory_equals_plain(dev, use_widths):
     __ldg; without widths every level packs all C cells."""
     _k2_compare(dev, w0=16, levels=5, f=64, m=8, empty_share=0.2,
                 use_widths=use_widths, seed=5)
+
+
+# ------------------------------------------------------------ R ranks
+def test_local_comm_collectives_stay_on_the_card(dev):
+    """``dist.LocalComm``'s exchanges are tensor ops on the card: no copy
+    to the host and no wait for the stream (the sync debug mode raises on
+    either), every rank's result on the card."""
+    from repro_torch import dist
+    group = dist.LocalComm(4)
+
+    def body(r):
+        c = group.comm(r)
+        buf = torch.full((4, 5, 2), r, dtype=torch.int32, device=dev)
+        return (c.all_to_all(buf), c.all_gather(buf[0]),
+                c.psum(buf[0, 0].float()))
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        # the mode sees a wait inside a rank's thread
+        with pytest.raises(RuntimeError):
+            group.run([lambda: torch.ones(1, device=dev).item()] * 4,
+                      device=dev)
+        out = group.run([lambda r=r: body(r) for r in range(4)], device=dev)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for d, (a2a, ag, ps) in enumerate(out):
+        assert a2a.is_cuda and ag.is_cuda and ps.is_cuda
+        assert a2a[:, :, 0].tolist() == [[s] * 5 for s in range(4)]
+        assert ag.shape == (20, 2) and ps.tolist() == [6.0, 6.0]
+
+
+@pytest.mark.parametrize("num_ranks", [2, 4])
+def test_multi_rank_fused_equals_reference_on_the_card(dev, num_ranks):
+    """R ranks in one process (``dist.LocalComm``) through a lesion: all
+    five fused lowerings equal the reference bitwise, health 0, the out- and
+    in-tables symmetric over all ranks, a second fused run bitwise equal."""
+    scn = library.lesion_rewiring()
+    scn = dataclasses.replace(scn, events=tuple(
+        dataclasses.replace(e, t=e.t // 5) for e in scn.events))
+    out = []
+    for impl in ("reference", "fused", "fused"):
+        cfg = dataclasses.replace(
+            library.SMOKE_SCENARIO_CONFIG, activity_impl=impl,
+            connectivity_impl=impl, tree_impl=impl, apply_impl=impl)
+        sim = Simulator.from_config(cfg, scenario=scn, device=dev,
+                                    num_ranks=num_ranks)
+        sim.run(4)
+        assert sim.health()["health_flags"] == 0.0
+        out.append((sim.state, sim.stats()))
+    for st, stats in out[1:]:
+        assert torch.equal(st.in_edges, out[0][0].in_edges)
+        assert torch.equal(st.out_edges, out[0][0].out_edges)
+        for f in st.neurons._fields:
+            assert torch.equal(getattr(st.neurons, f),
+                               getattr(out[0][0].neurons, f)), f
+        assert {k: v for k, v in stats.items() if "launches/" not in k} == \
+            {k: v for k, v in out[0][1].items() if "launches/" not in k}
+    st = out[1][0]
+    rows = torch.arange(st.out_edges.shape[0], device=dev)[:, None] \
+        .expand_as(st.out_edges)
+    mo, mi = st.out_edges >= 0, st.in_edges >= 0
+    n_all = st.out_edges.shape[0]
+    assert torch.equal(
+        torch.sort(rows[mo] * n_all + st.out_edges[mo].long()).values,
+        torch.sort(st.in_edges[mi].long() * n_all + rows[mi]).values)
+    assert out[1][1]["synapses_deleted"] > 0
+
+
+@pytest.mark.parametrize("rank", [0, 3])
+def test_kernels_at_a_rank_of_four_equal_plain(dev, rank):
+    """K3 at the rank's geometry (two branch cells, base cell 2 x rank), K5
+    into four buckets with partner gids on every rank, and K2 with gid_base
+    rank x n over R x cap query slots, about half invalid: bit-equal to the
+    plain versions."""
+    from repro_torch.connectome import routing
+    from repro_torch.core import morton
+    r_all = 4
+    cfg = dataclasses.replace(CONFIG, neurons_per_rank=8192)
+    n, s = cfg.neurons_per_rank, cfg.max_synapses
+    st = engine.init_state(cfg, rank, r_all, device=dev)
+    # K3
+    leaf_level, n_leaf, base_cell = ctree._tree_geometry(rank, cfg, r_all)
+    kw3 = dict(leaf_level=leaf_level, n_leaf=n_leaf)
+    base = base_cell * 8 ** cfg.local_levels
+    for a, b in zip(rs.morton_sort(st.positions, base, **kw3),
+                    rs.morton_sort_plain(st.positions, base, **kw3)):
+        assert torch.equal(a, b)
+    # K5
+    g = torch.Generator(device=dev).manual_seed(rank)
+    other = torch.randint(0, r_all * n, (n * s,), generator=g, device=dev,
+                          dtype=torch.int32)
+    other = torch.where(torch.rand(n * s, generator=g, device=dev) < 0.5,
+                        -1, other)
+    mine = rank * n + torch.arange(n * s, device=dev,
+                                   dtype=torch.int32) // s
+    kw5 = dict(n=n, num_ranks=r_all, cap=routing.cap_deletions(cfg, True))
+    got = sa.route_build(other, mine, **kw5)
+    want = sa.route_build_plain(other, mine, **kw5)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool((got[0][:, :, 0] >= 0).any(1).all())
+    # K2
+    b = morton.branch_level(r_all)
+    tree = ctree.build_local_tree(st.positions, st.neurons.de_elements, rank,
+                                  cfg, r_all)
+    stacked = traverse.stack_levels(tree.counts, tree.centroids, b)
+    cap = routing.cap_requests(cfg, r_all)
+    q = r_all * cap
+    x = torch.zeros(q, 3, device=dev)
+    src = torch.full((q,), -2, dtype=torch.int32, device=dev)
+    valid_rows = torch.rand(q, generator=g, device=dev) < 0.5
+    x[valid_rows] = torch.rand(int(valid_rows.sum()), 3, generator=g,
+                               device=dev)
+    src[valid_rows] = torch.randint(0, r_all * n, (int(valid_rows.sum()),),
+                                    generator=g, device=dev,
+                                    dtype=torch.int32)
+    start = torch.randint(0, 2, (q,), generator=g, device=dev,
+                          dtype=torch.int32) * valid_rows
+    kw2 = dict(seed=cfg.seed, sizes=stacked.sizes, theta=cfg.theta,
+               sigma=cfg.sigma, frontier=cfg.frontier_cap,
+               n_levels=cfg.local_levels + 1)
+    args = (stacked.counts, stacked.centroids, tree.leaf_members,
+            st.positions, st.neurons.de_elements, x, start, src, valid_rows,
+            2, rank * n)
+    got = bt.bh_traverse(*args, **kw2,
+                         widths=tuple(c.shape[0] for c in tree.counts))
+    want = traverse.phase_b_core(*args, **kw2)
+    for a, b2 in zip(got, want):
+        assert torch.equal(a, b2)
+    assert bool(want[1].any())
+
+
+def test_process_group_comm_over_nccl_with_one_rank(dev):
+    """``dist.ProcessGroupComm`` on NCCL in a group of one rank (the card
+    here is one): its three collectives on card tensors, and two chunks of
+    the simulator through it bitwise equal to the one-rank simulator (NCCL
+    across cards stays unverified)."""
+    import socket
+    import torch.distributed as tdist
+    from repro_torch import dist
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                             world_size=1, rank=0)
+    try:
+        comm = dist.ProcessGroupComm()
+        assert (comm.rank, comm.num_ranks) == (0, 1)
+        buf = torch.arange(12, dtype=torch.int32, device=dev).reshape(1, 6, 2)
+        x = torch.rand(5, 3, device=dev)
+        assert torch.equal(comm.all_to_all(buf), buf)
+        assert torch.equal(comm.all_gather(x), x)
+        assert torch.equal(comm.psum(x), x)
+        cfg = dataclasses.replace(SMOKE_CONFIG, activity_impl="fused",
+                                  connectivity_impl="fused",
+                                  tree_impl="fused", apply_impl="fused")
+        a = Simulator.from_config(cfg, comm=comm, device=dev)
+        a.run(2)
+        stats = a.stats()
+        b = Simulator.from_config(cfg, device=dev)
+        b.run(2)
+        assert torch.equal(a.state.out_edges, b.state.out_edges)
+        assert torch.equal(a.state.in_edges, b.state.in_edges)
+        assert torch.equal(a.state.neurons.v, b.state.neurons.v)
+        assert {k: v for k, v in stats.items() if "launches/" not in k} == \
+            {k: v for k, v in b.stats().items() if "launches/" not in k}
+    finally:
+        tdist.destroy_process_group()

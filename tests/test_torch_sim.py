@@ -134,8 +134,26 @@ def test_tree_and_apply_lowerings_are_ported(field, impl):
 
 
 def test_multi_rank_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TSim.from_config(T_SMOKE, num_ranks=4, device="cpu")
+    """The call that was refused before multi-rank was ported,
+    ``from_config(SMOKE_CONFIG, num_ranks=4)``, now runs four ranks in this
+    process: two chunks healthy, synapses formed, fused == reference
+    bitwise (tests/test_torch_multirank.py holds R=4 against JAX)."""
+    res = {}
+    for impl in ("reference", "fused"):
+        cfg = dataclasses.replace(T_SMOKE, activity_impl=impl,
+                                  connectivity_impl=impl)
+        sim = TSim.from_config(cfg, num_ranks=4, device="cpu")
+        sim.run(2)
+        assert sim.health()["health_flags"] == 0.0
+        assert len(sim.rank_states) == 4
+        res[impl] = sim
+    a, b = res["reference"].state, res["fused"].state
+    assert a.in_edges.shape == (4 * T_SMOKE.neurons_per_rank,
+                                T_SMOKE.max_synapses)
+    assert torch.equal(a.in_edges, b.in_edges)
+    assert torch.equal(a.out_edges, b.out_edges)
+    assert torch.equal(a.neurons.v, b.neurons.v)
+    assert res["fused"].stats()["synapses_formed"] > 0
 
 
 def test_simulator_runs_a_scenario_with_a_recorder():

@@ -19,7 +19,7 @@ from repro.configs.msp_brain import BrainConfig as JConfig
 from repro.connectome import routing as jrouting
 from repro.kernels import ops as kops
 from repro.sim import registry as jregistry
-from repro_torch import prng
+from repro_torch import dist, prng
 from repro_torch.configs.msp_brain import BrainConfig as TConfig
 from repro_torch.connectome import routing as trouting
 from repro_torch.connectome import synapses as tsyn
@@ -174,17 +174,34 @@ def test_route_build_equals_pallas_interpret(num_ranks, lesions, kill_share,
 
 
 def test_fused_route_equals_reference_route_and_refuses_ranks():
+    """Both apply lowerings' deletion routing, at one rank and at four
+    (``dist.LocalComm``; it was refused before multi-rank was ported): the
+    received messages and drop counts agree, and at four ranks every
+    received message names one of the receiver's rows."""
     n = 40
     rng = np.random.default_rng(3)
-    edges = rng.integers(-1, n, (n, S)).astype(np.int32)
-    kill = _t((edges >= 0) & (rng.random((n, S)) < 0.5))
-    gids = torch.arange(n, dtype=torch.int32)[:, None]
     cfg = TConfig(neurons_per_rank=n, max_synapses=S)
     tf = tregistry.resolve("apply", "fused")
     tr = tregistry.resolve("apply", "reference")
-    for lesions in (False, True):
-        a = tf.route(kill, _t(edges), gids, cfg, 1, lesions)
-        b = tr.route(kill, _t(edges), gids, cfg, 1, lesions)
-        assert torch.equal(a[0], b[0]) and float(a[1]) == float(b[1])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tf.route(kill, _t(edges), gids, cfg, 4, False)
+    for ranks in (1, 4):
+        edges = [rng.integers(-1, ranks * n, (n, S)).astype(np.int32)
+                 for _ in range(ranks)]
+        kill = [_t((e >= 0) & (rng.random((n, S)) < 0.5)) for e in edges]
+        for lesions in (False, True):
+            got = {}
+            for name, impl in (("fused", tf), ("reference", tr)):
+                group = dist.LocalComm(ranks)
+                got[name] = group.run([
+                    lambda r=r, impl=impl: impl.route(
+                        kill[r], _t(edges[r]),
+                        r * n + torch.arange(n, dtype=torch.int32)[:, None],
+                        cfg, group.comm(r), lesions)
+                    for r in range(ranks)])
+            for r, (a, b) in enumerate(zip(got["fused"], got["reference"])):
+                assert torch.equal(a[0], b[0]) and float(a[1]) == float(b[1])
+                live = a[0][:, 0] >= 0
+                assert bool(((a[0][live, 0] // n) == r).all())
+            sent = sum(int(k.sum()) for k in kill)
+            kept = sum(int((a[0][:, 0] >= 0).sum()) for a in got["fused"])
+            dropped = sum(float(a[1]) for a in got["fused"])
+            assert kept + dropped == sent and kept > 0
