@@ -26,7 +26,17 @@ neurons, S=32):
   notifications across ranks, K1 reading live remote rates; with its
   kernel checks at rank 3 of 4's shapes (K2 over 131,072 query slots with
   gid_base 3n, K3 at two branch cells, K4 with 131,072 messages or
-  requests, K5 into four buckets) and fused == reference at R=4.
+  requests, K5 into four buckets) and fused == reference at R=4;
+- the paper's comparisons (``comparison_paths``): the multi-rank cell with
+  ``requests_cap_factor`` 4 and the lesion at step 250, run four ways in
+  turns, (a) new / dense, (b) ``connectivity_alg="old"`` (the global tree
+  downloaded, K2 searching it), (c) ``rate_exchange="sparse"`` (K1 reading
+  the subscribed rates through the slot remap), (d) ``spike_alg="old"``
+  (the per-step spiked-ID exchange on the reference activity lowering),
+  then (b)-(d) again: (b) and (c) bitwise equal to (a), the second runs to
+  the first, and the ratios of the paper's abstract as this one card shows
+  them; with its kernel checks (K0's GUMBEL and NORMAL draws, K1's sparse
+  operand, K2 on the global tree, K4's accept of R x n requests).
 
 For the kernel API and each path it checks the kernels really ran there (the
 launch counts are set to 0 just before and read just after; for K9, which of
@@ -86,6 +96,13 @@ NODE_OPS = 24
 NODE_OPS_EARLIER = 40
 RANK_OPS = 3          # a slot pair of retract's rank: shuffle, two compares
 GUMBEL_LOG_OPS = 20   # the two logs of a Gumbel draw (float)
+# a counter-hash draw's epilogue beyond its hash, integer and float
+# operations: the 24-bit unit (shift; convert, multiply), the Gumbel's clamp
+# and two logs with their negations, Box-Muller's two units, log1p, sqrt and
+# cos with their products
+UNIT_EPILOGUE = (1, 2)
+GUMBEL_EPILOGUE = (1, 5 + GUMBEL_LOG_OPS)
+NORMAL_EPILOGUE = (2, 34)
 MORTON_OPS = 40       # 3 scale+truncate+clamp, 3 bit spreads, rebase, rank
 APPLY_OPS = 8         # per table slot or message/request: load, compare, move
 ROUTE_OPS = 6         # per flattened entry: load, divide, rank, store
@@ -1257,11 +1274,13 @@ def check_kernel_api(cfg, inp, out, counts, k9_kernels, card):
     return entries
 
 
-def run_main_path(cfg, chunks: int, scenario=None, num_ranks: int = 1):
+def run_main_path(cfg, chunks: int, scenario=None, num_ranks: int = 1,
+                  each=None):
     """A fresh simulator of ``num_ranks`` ranks (more than one: all in this
     process, through ``dist.LocalComm``): one warm-up chunk, then ``chunks``
     timed chunks, each ``run(1)`` (with the recorder when there is a
-    scenario). Returns (sim, recorder, warm-up ms, per-chunk ms, per-chunk
+    scenario); ``each(sim)``, if given, after every chunk, outside the
+    timing. Returns (sim, recorder, warm-up ms, per-chunk ms, per-chunk
     health flags)."""
     import torch
     from repro_torch.scenarios import observables
@@ -1282,6 +1301,8 @@ def run_main_path(cfg, chunks: int, scenario=None, num_ranks: int = 1):
         flags.append(sim.health()["health_flags"])
         if rec is not None:
             rec = out[1]
+        if each is not None:
+            each(sim)
     return sim, rec, per_chunk[0], per_chunk[1:], flags
 
 
@@ -1424,7 +1445,7 @@ def scenario_determinism(sim, rec, cfg, scenario, chunks, keys, card):
     emit({"phase": "determinism", "path": "scenario_path", "equal": same})
     if not same:
         fail("a second run of the scenario path from the same seed differs")
-    phase_profile(sim2, card)
+    phase_profile({"profile": sim2}, card)
 
 
 def edge_symmetry(st, n: int):
@@ -1477,6 +1498,7 @@ def multi_rank_path(cfg, scenario, card, chunks: int = 12, num_ranks: int = 4):
     Returns (sim of the second run, launch counts)."""
     import torch
     from repro_torch.connectome import routing
+    from repro_torch.core import morton
     from repro_torch.kernels import _build
     from repro_torch.kernels import activity_fused as af
     from repro_torch.kernels import bh_traverse as bt
@@ -1491,9 +1513,11 @@ def multi_rank_path(cfg, scenario, card, chunks: int = 12, num_ranks: int = 4):
     rs.morton_device_launches(reset=True)
     sa.route_device_launches(reset=True)
     chash.device_launches(reset=True)
+    chash.plain_cuda_calls(reset=True)
     sim, rec, warm, per_chunk, flags = run_main_path(cfg, chunks - 1,
                                                      scenario, num_ranks)
     counts = _build.launch_counts()
+    plain_threefry = chash.plain_cuda_calls(reset=True)
     device_counts = {"activity_window": af.device_launches(reset=True),
                      "synapse_apply": sa.device_launches(reset=True),
                      "morton_sort": rs.morton_device_launches(reset=True),
@@ -1503,10 +1527,16 @@ def multi_rank_path(cfg, scenario, card, chunks: int = 12, num_ranks: int = 4):
                       counts, scenario=scenario, rec=rec,
                       device_counts=device_counts)
     calls = num_ranks * chunks
+    # K0: init_state's three draws a rank, and phase A's Gumbel draws, one
+    # a round (branch level + 1 rounds) a rank and chunk
+    k0_calls = 3 * num_ranks + (morton.branch_level(num_ranks) + 1) * calls
     want = {"activity_window": calls, "morton_sort": calls,
             "synapse_apply": 3 * calls, "route_build": 2 * calls,
             "retract": 2 * calls, "edge_priority": calls,
-            "threefry_words": 3 * num_ranks}
+            "threefry_words": k0_calls}
+    if plain_threefry:
+        fail(f"the plain int64 Threefry ran {plain_threefry} times on CUDA "
+             f"tensors on the multi-rank path")
     for name, k in want.items():
         if counts[name] != k:
             fail(f"{name} launched {counts[name]} times on the multi-rank "
@@ -1518,7 +1548,7 @@ def multi_rank_path(cfg, scenario, card, chunks: int = 12, num_ranks: int = 4):
                                              "streaming": 0},
                          "synapse_apply": 3 * calls, "morton_sort": calls,
                          "route_build": 2 * calls,
-                         "threefry_words": 3 * num_ranks}:
+                         "threefry_words": k0_calls}:
         fail(f"the sources counted {device_counts} device launches on the "
              f"multi-rank path, not one a call")
     sym, live, cross = edge_symmetry(sim.state, cfg.neurons_per_rank)
@@ -1563,6 +1593,7 @@ def multi_rank_path(cfg, scenario, card, chunks: int = 12, num_ranks: int = 4):
     valid = torch.stack([torch.stack(v) for v in k2_valid]).cpu().double()
     invalid_share = 1.0 - valid / q                         # (R, chunks)
     emit({"phase": "multi_rank_checks", "card": card, "ranks": num_ranks,
+          "plain_threefry_on_cuda": plain_threefry,
           "edge_symmetry": sym, "live_edges": live,
           "edges_across_ranks": cross, "determinism_equal": same,
           "K5_to_other_ranks_per_chunk": to_others.tolist(),
@@ -1584,106 +1615,564 @@ def multi_rank_path(cfg, scenario, card, chunks: int = 12, num_ranks: int = 4):
     return sim2, counts
 
 
-def ranges_by_launch(events, dev):
+def ranges_by_launch(events, dev, group=None):
     """Each host range (``record_function``) of the trace with the device
-    work it launched: a kernel, copy or set belongs to every range open on
-    the thread that launched it (matched through the launch's correlation
-    id), so ranges of ranks that run in turns, or that wait for each other
-    inside a collective, do not take one another's kernels. ``span_ms`` sums
-    the ranges' host spans, ``wait_ms`` the ``repro.comm.wait`` ranges (a
-    rank's wait for the baton) inside them."""
+    work launched inside it: a kernel, copy or set belongs to a range when
+    its launch (the runtime call, matched to it through the correlation id)
+    falls inside the range and outside the ``repro.comm.wait`` ranges (a
+    rank's wait for the baton) of the range's thread. Ranks run one at a
+    time (``dist.LocalComm``), so while a range's rank is not waiting only
+    its own thread launches, and ranks that wait for each other inside a
+    collective do not take one another's kernels; launch times are the
+    host's, so this holds however the trace names the launching thread.
+    ``span_ms`` sums the ranges' host spans, ``wait_ms`` the waits inside
+    them. Summed by range name, or by ``group(range event)``."""
+    import bisect
     import collections
-    launch = {}
-    for e in events:
-        corr = e.get("args", {}).get("correlation")
-        if corr is not None and e.get("cat") in ("cuda_runtime",
-                                                  "cuda_driver"):
-            launch[corr] = (e["pid"], e["tid"], e["ts"])
-    per_thread = collections.defaultdict(list)
-    for e in dev:
-        at = launch.get(e.get("args", {}).get("correlation"))
-        if at is not None:
-            per_thread[at[:2]].append((at[2], e["dur"]))
+    dur = {e.get("args", {}).get("correlation"): e["dur"] for e in dev}
+    launches = sorted((e["ts"], dur[c]) for e in events
+                      if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                      for c in (e.get("args", {}).get("correlation"),)
+                      if c is not None and c in dur)
+    starts = [t for t, _ in launches]
+    total = [0.0]                  # prefix sums of the device durations
+    for _, d in launches:
+        total.append(total[-1] + d)
+
+    def work(x, y):
+        """(device us, launches) launched in [x, y)."""
+        i, j = bisect.bisect_left(starts, x), bisect.bisect_left(starts, y)
+        return total[j] - total[i], j - i
+
     ann = [e for e in events if e.get("cat") == "user_annotation"]
     waits = collections.defaultdict(list)
     for e in ann:
         if e["name"] == "repro.comm.wait":
-            waits[(e["pid"], e["tid"])].append((e["ts"], e["dur"]))
+            waits[(e["pid"], e["tid"])].append((e["ts"], e["ts"] + e["dur"]))
     out = {}
     for r in ann:
         a, b = r["ts"], r["ts"] + r["dur"]
-        key = (r["pid"], r["tid"])
-        inside = [d for t, d in per_thread[key] if a <= t < b]
-        waited = sum(d for t, d in waits[key] if a <= t < b) \
-            if r["name"] != "repro.comm.wait" else r["dur"]
-        acc = out.setdefault(r["name"], {"count": 0, "span_ms": 0.0,
-                                         "wait_ms": 0.0, "device_ms": 0.0,
-                                         "launches": 0})
+        if r["name"] == "repro.comm.wait":
+            device, count, waited = 0.0, 0, r["dur"]
+        else:
+            device, count = work(a, b)
+            waited = 0.0
+            for x, y in waits[(r["pid"], r["tid"])]:
+                if a <= x < b:
+                    d, k = work(x, min(y, b))
+                    device, count = device - d, count - k
+                    waited += min(y, b) - x
+        acc = out.setdefault(r["name"] if group is None else group(r),
+                             {"count": 0, "span_ms": 0.0, "wait_ms": 0.0,
+                              "device_ms": 0.0, "launches": 0})
         acc["count"] += 1
         acc["span_ms"] += r["dur"] / 1e3
         acc["wait_ms"] += waited / 1e3
-        acc["device_ms"] += sum(inside) / 1e3
-        acc["launches"] += len(inside)
+        acc["device_ms"] += device / 1e3
+        acc["launches"] += count
     return out
 
 
-def phase_profile(sim, card, phase="profile"):
-    """One more chunk under torch.profiler, every thread profiled (the
-    ranks of a multi-rank simulator run in threads of their own). From the
-    exported Chrome trace (build/chip_smoke_<phase>_trace.json): the device
-    busy time (kernels, copies, memsets) against the chunk's wall time, the
-    device time inside each phase range (summed over the ranks' ranges of
-    one name, ``count`` of them), and the kernels that take the most device
-    time. The profiler slows the host, so the wall time here is longer than
-    the unprofiled chunk's."""
+def phase_profile(sims, card, trace=None):
+    """One more chunk of each simulator of ``sims`` ({phase name:
+    simulator}) under torch.profiler, all in one session, every thread
+    profiled (the ranks of a multi-rank simulator run in threads of their
+    own; a later session sees no launches from new rank threads, so every
+    multi-rank chunk is profiled in the first session that has threads).
+    Each chunk runs inside a ``chip_smoke.<phase>`` range of its own, which
+    cuts the exported Chrome trace (build/chip_smoke_<trace>_trace.json)
+    into windows. For each: the device busy time (kernels, copies, memsets)
+    against the chunk's wall time, the device time inside each phase range
+    (summed over the ranks' ranges of one name, ``count`` of them), the
+    ranges with the device work their threads launched
+    (``ranges_by_launch``), and the kernels that take the most device time.
+    The profiler slows the host, so the wall time here is longer than the
+    unprofiled chunk's. Returns {phase: (the window's events, its device
+    events, the chunk's wall ms)}."""
     import collections
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     torch.cuda.synchronize()
     every_thread = torch._C._profiler._ExperimentalConfig(
         profile_all_threads=True)
+    walls = {}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  experimental_config=every_thread) as prof:
-        t0 = time.perf_counter()
-        sim.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        for phase, sim in sims.items():
+            with record_function(f"chip_smoke.{phase}"):
+                t0 = time.perf_counter()
+                sim.step()
+                torch.cuda.synchronize()
+                walls[phase] = (time.perf_counter() - t0) * 1e3
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build")
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, f"chip_smoke_{phase}_trace.json")
+    path = os.path.join(out_dir,
+                        f"chip_smoke_{trace or next(iter(sims))}_trace.json")
     prof.export_chrome_trace(path)
     with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    dev = [e for e in events
-           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    busy_ms = sum(e["dur"] for e in dev) / 1e3
-    ranges = {}
-    for r in events:
-        if r.get("cat") == "gpu_user_annotation":
-            a, b = r["ts"], r["ts"] + r["dur"]
-            inside = [e["dur"] for e in dev if a <= e["ts"] < b]
-            acc = ranges.setdefault(r["name"], {
-                "span_ms": 0.0, "device_ms": 0.0, "launches": 0, "count": 0})
-            acc["span_ms"] += r["dur"] / 1e3
-            acc["device_ms"] += sum(inside) / 1e3
-            acc["launches"] += len(inside)
-            acc["count"] += 1
-    by_launch = ranges_by_launch(events, dev)
-    by_name = collections.defaultdict(lambda: [0.0, 0])
-    for e in dev:
-        by_name[e["name"][:80]][0] += e["dur"] / 1e3
-        by_name[e["name"][:80]][1] += 1
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    emit({"phase": phase, "card": card,
-          "scenario": getattr(sim.scenario, "name", None),
-          "chunk": sim.state.chunk - 1, "chunk_wall_ms": wall_ms,
-          "device_busy_ms": busy_ms,
-          "device_idle_share": (1.0 - busy_ms / wall_ms) if dev else None,
-          "ranks": sim.num_ranks, "ranges": ranges,
-          "ranges_by_launch": by_launch,
-          "top_device": [{"name": k, "ms": v[0], "launches": v[1]}
-                         for k, v in top]})
+        all_events = json.load(f)["traceEvents"]
+    out = {}
+    for phase, sim in sims.items():
+        w = next(e for e in all_events if e.get("cat") == "user_annotation"
+                 and e["name"] == f"chip_smoke.{phase}")
+        lo, hi = w["ts"], w["ts"] + w["dur"]
+        events = [e for e in all_events if "ts" in e and lo <= e["ts"] <= hi
+                  and e is not w]
+        dev = [e for e in events
+               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        busy_ms = sum(e["dur"] for e in dev) / 1e3
+        ranges = {}
+        for r in events:
+            if r.get("cat") == "gpu_user_annotation":
+                a, b = r["ts"], r["ts"] + r["dur"]
+                inside = [e["dur"] for e in dev if a <= e["ts"] < b]
+                acc = ranges.setdefault(r["name"], {
+                    "span_ms": 0.0, "device_ms": 0.0, "launches": 0,
+                    "count": 0})
+                acc["span_ms"] += r["dur"] / 1e3
+                acc["device_ms"] += sum(inside) / 1e3
+                acc["launches"] += len(inside)
+                acc["count"] += 1
+        by_name = collections.defaultdict(lambda: [0.0, 0])
+        for e in dev:
+            by_name[e["name"][:80]][0] += e["dur"] / 1e3
+            by_name[e["name"][:80]][1] += 1
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+        launched = collections.Counter(
+            (e["pid"], e["tid"]) for e in events
+            if e.get("cat") in ("cuda_runtime", "cuda_driver"))
+        emit({"phase": phase, "card": card,
+              "scenario": getattr(sim.scenario, "name", None),
+              "chunk": sim.state.chunk - 1, "chunk_wall_ms": walls[phase],
+              "device_busy_ms": busy_ms,
+              "device_idle_share": (1.0 - busy_ms / walls[phase])
+              if dev else None,
+              "ranks": sim.num_ranks, "ranges": ranges,
+              "ranges_by_launch": ranges_by_launch(events, dev),
+              "launch_calls_by_thread": sorted(launched.values()),
+              "top_device": [{"name": k, "ms": v[0], "launches": v[1]}
+                             for k, v in top]})
+        out[phase] = (events, dev, walls[phase])
+    return out
+
+
+# ------------------------------------------------ the paper's comparisons
+def hash_draw_cases(cfg, num_ranks: int = 4, rank: int = 3):
+    """K0's counter-hash draws at the comparison paths' shapes: phase A's
+    Gumbel over (n, F) = (65,536, 64) in the outer layout (rank ``rank``'s
+    (n, 1) gid column against a (1, F) counter row, one round), the old
+    spike path's background noise (NORMAL over (n,) gids, one step) and K1's
+    plain remote-spike uniforms (UNIT over (n, S) edge ids). Each: (kernel
+    call, plain call, bytes, integer and float operations)."""
+    import torch
+    from repro_torch.kernels import hash as chash
+    n, f, s = cfg.neurons_per_rank, cfg.frontier_cap, cfg.max_synapses
+    gids = rank * n + torch.arange(n, dtype=torch.int32, device=DEV)
+    ctr = chash.bh_ctr(2, 0, torch.arange(f, device=DEV))[None, :]
+    g64 = gids.to(torch.int64)
+    edge_id = g64[:, None] * s + torch.arange(s, device=DEV)
+    seed, gstep = cfg.seed, 2 * cfg.rate_period + 7
+    col = gids[:, None]
+    return {
+        "gumbel (n, F)": (
+            lambda: chash.gumbel(seed, chash.BH_DOMAIN, ctr, col),
+            lambda: chash.gumbel_plain(seed, chash.BH_DOMAIN, ctr, col),
+            4 * n + 8 * f + 4 * n * f, n * f * (HASH_OPS + GUMBEL_EPILOGUE[0]),
+            n * f * GUMBEL_EPILOGUE[1]),
+        "normal (n,)": (
+            lambda: chash.normal(seed, chash.NOISE_DOMAIN, gstep, g64),
+            lambda: chash.normal_plain(seed, chash.NOISE_DOMAIN, gstep, g64),
+            8 * n + 4 * n, n * (HASH_OPS + NORMAL_EPILOGUE[0]),
+            n * NORMAL_EPILOGUE[1]),
+        "uniform (n, S)": (
+            lambda: chash.uniform(seed, chash.SPIKE_DOMAIN, gstep, edge_id),
+            lambda: chash.uniform_plain(seed, chash.SPIKE_DOMAIN, gstep,
+                                        edge_id),
+            8 * n * s + 4 * n * s, n * s * (HASH_OPS + UNIT_EPILOGUE[0]),
+            n * s * UNIT_EPILOGUE[1]),
+    }
+
+
+def check_hash_draws(cfg):
+    """K0's GUMBEL, NORMAL and UNIT modes against the plain int64 Threefry
+    composition on the card: bit-equal, one device launch a call (counted in
+    csrc/hash_words.cu), timed beside the bound. Returns the lines by
+    case."""
+    import torch
+    from repro_torch.kernels import hash as chash
+    lines = {}
+    for name, (kernel, plain, nbytes, iops, fops) in hash_draw_cases(
+            cfg).items():
+        chash.device_launches(reset=True)
+        out = kernel()
+        torch.cuda.synchronize()
+        launched = chash.device_launches(reset=True)
+        want = plain()
+        exact = torch.equal(out, want)
+        ms = cuda_ms(kernel, reps=20)
+        dev_ms = device_ms(kernel, 20)
+        plain_ms = cuda_ms(plain, reps=3)
+        b = bound(nbytes, iops, fops)
+        lines[name] = {"elements": out.numel(), "equal": exact,
+                       "max_abs_err": float((out - want).abs().max()),
+                       "device_launches_per_call": launched, "ms": ms,
+                       "device_ms": dev_ms, "plain_ms": plain_ms,
+                       "bound_ms": b[0], "bound_by": b[1]}
+        if not exact or launched != 1:
+            fail(f"K0 {name}: equal {exact}, {launched} device launches in "
+                 f"one call (not 1)")
+    emit({"phase": "check", "kernel": "K0 counter-hash draws",
+          "tolerance": "bit-equal", "draws": lines})
+    return lines
+
+
+def k1_sparse_inputs(cfg, num_ranks: int = 4, rank: int = 1):
+    """K1's sparse operand at rank ``rank`` of ``num_ranks``'s shapes: the
+    rows of ``k1_inputs`` with their remote sources drawn from fewer unique
+    gids than the registry holds (``cap_subs``, 32,768 at CONFIG and R=4),
+    the registry and slot remap from ``core.spikes.build_subscriptions``
+    and the compact buffer holding the dense table's rates. Returns
+    (state, edges, weights, dense rates, buffer, slots, izh, subscribed
+    sources, overflow)."""
+    import torch
+    from repro_torch.connectome import routing
+    from repro_torch.core import spikes
+    state, edges, w, rates, izh = k1_inputs(cfg, num_ranks, rank)
+    n = cfg.neurons_per_rank
+    cap = routing.cap_subs(cfg, num_ranks)
+    g = torch.Generator(device=DEV).manual_seed(2)
+    idx = torch.randint(0, (num_ranks - 1) * n, (cap * 7 // 8,),
+                        generator=g, device=DEV, dtype=torch.int32)
+    pool = idx + n * (idx >= rank * n).to(torch.int32)   # other ranks' gids
+    pick = pool[torch.randint(0, pool.shape[0], edges.shape, generator=g,
+                              device=DEV)]
+    remote = (edges >= 0) & (edges // n != rank)
+    edges = torch.where(remote, pick, edges)
+    subs, slots, ovf = spikes.build_subscriptions(edges, rank, n, cap)
+    valid = subs != spikes.NO_SUB
+    gi = torch.where(valid, subs, 0).to(torch.int64)
+    buf = torch.where(valid, rates[gi // n, gi % n], 0.0)
+    return state, edges, w, rates, buf, slots, izh, int(valid.sum()), \
+        float(ovf)
+
+
+def k1_sparse_check(cfg, num_ranks: int = 4, rank: int = 1):
+    """K1 with the sparse exchange's operand against its plain version and
+    against K1 on the dense table holding the same rates, one window each,
+    bit-equal (integer weights); then its times and bound. Returns (ms,
+    device ms, plain ms, bound, max abs err)."""
+    import torch
+    from repro_torch.kernels import activity_fused as af
+    state, edges, w, rates, buf, slots, izh, subscribed, ovf = \
+        k1_sparse_inputs(cfg, num_ranks, rank)
+    kw = dict(seed=cfg.seed, num_steps=cfg.rate_period, izh=izh,
+              ca_consts=(cfg.calcium_decay, cfg.calcium_beta))
+    bg = (cfg.background_mean, cfg.background_std)
+    args = (state, edges, w, buf, *bg, 2, rank)
+    af.device_launches(reset=True)
+    kst, kspk = af.activity_window(*args, rate_slots=slots, **kw)
+    torch.cuda.synchronize()
+    per_window = af.device_launches(reset=True)
+    pst, pspk = af.window_plain(*args, rate_slots=slots, **kw)
+    dst, dspk = af.activity_window(state, edges, w, rates, *bg, 2, rank,
+                                   **kw)
+    torch.cuda.synchronize()
+    exact = all(torch.equal(a, b) for a, b in zip(kst, pst)) and \
+        torch.equal(kspk, pspk)
+    dense = all(torch.equal(a, b) for a, b in zip(kst, dst)) and \
+        torch.equal(kspk, dspk)
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(kst, pst))
+    n, s, steps = cfg.neurons_per_rank, cfg.max_synapses, cfg.rate_period
+    valid = int((edges >= 0).sum())
+    remote = int(((edges >= 0) & (edges // n != rank)).sum())
+    call = lambda: af.activity_window(*args, rate_slots=slots, **kw)  # noqa
+    ms = cuda_ms(call, reps=5)
+    dev_ms = device_ms(call, 5)
+    plain_ms = cuda_ms(lambda: af.window_plain(*args, rate_slots=slots, **kw),
+                       reps=1)
+    # the bytes of k1_timing with the (subs_cap,) buffer and the (n, S)
+    # slots in place of the (R, n) table
+    nbytes = (25 * n + 4 * n * s + 4 * n + 4 * buf.numel() + 4 * n * s
+              + 8 * n + 24 * n + 25 * n + 4 * steps)
+    b = bound(nbytes, steps * (n * HASH_OPS + valid * SLOT_OPS
+                               + remote * HASH_OPS), steps * n * NEURON_OPS)
+    emit({"phase": "check", "kernel": "K1 activity_window (sparse rates)",
+          "shape": {"n": n, "S": s, "R": num_ranks, "rank": rank,
+                    "subs_cap": int(buf.numel()), "steps": steps},
+          "remote_edges": remote,
+          "slots_with_a_subscription": int((slots >= 0).sum()),
+          "subscribed_sources": subscribed,
+          "subscription_overflow": ovf,
+          "tolerance": "bit-equal (integer weights), also to K1 on the dense "
+                       "table of the same rates",
+          "equal": exact, "equals_dense": dense, "max_abs_err": err,
+          "device_launches_per_window": per_window, "ms": ms,
+          "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b[0],
+          "bound_by": b[1]})
+    if not exact or not dense or sum(per_window.values()) != 1:
+        fail(f"K1 sparse: equal {exact}, equal to dense {dense}, "
+             f"{per_window} device launches in one window")
+    return ms, dev_ms, plain_ms, b, err
+
+
+def k2_inputs_global(cfg, num_ranks: int = 4, rank: int = 3, chunk: int = 2):
+    """K2 as rank ``rank`` of ``num_ranks`` runs it under the old
+    algorithm: the global tree of every rank's subtree and leaf data as
+    ``routing.formation_old`` downloads it (member gids global, gid_base 0,
+    the R*n neurons' positions), queried by the rank's searchers from their
+    phase-A branch cells."""
+    import torch
+    from repro_torch.connectome import traverse
+    from repro_torch.connectome import tree as ctree
+    from repro_torch.core import engine, morton
+    n = cfg.neurons_per_rank
+    sts = [engine.init_state(cfg, r, num_ranks, device=DEV)
+           for r in range(num_ranks)]
+    trees = [ctree.build_local_tree(st.positions, st.neurons.de_elements, r,
+                                    cfg, num_ranks)
+             for r, st in enumerate(sts)]
+    counts = tuple(torch.cat([t.counts[k] for t in trees])
+                   for k in range(len(trees[0].counts)))
+    cents = tuple(torch.cat([t.centroids[k] for t in trees])
+                  for k in range(len(trees[0].counts)))
+    members = torch.cat([torch.where(t.leaf_members >= 0,
+                                     t.leaf_members + r * n, -1)
+                         for r, t in enumerate(trees)])
+    top = ctree.build_top_tree(counts[0], cents[0], num_ranks)
+    pos = sts[rank].positions
+    gids = rank * n + torch.arange(n, dtype=torch.int32, device=DEV)
+    start, valid = traverse.phase_a(top, pos, gids, cfg, num_ranks,
+                                    chunk=chunk)
+    stacked = traverse.stack_levels(counts, cents,
+                                    morton.branch_level(num_ranks))
+    kw = dict(seed=cfg.seed, sizes=stacked.sizes, theta=cfg.theta,
+              sigma=cfg.sigma, frontier=cfg.frontier_cap,
+              n_levels=cfg.local_levels + 1)
+    args = (stacked.counts, stacked.centroids, members,
+            torch.cat([st.positions for st in sts]),
+            torch.cat([st.neurons.de_elements for st in sts]), pos, start,
+            gids, valid, chunk, 0)
+    return args, kw, tuple(c.shape[0] for c in counts)
+
+
+# the cell: CONFIG at R=4, all five lowerings fused, lesion_rewiring with its
+# lesion at step 250 (inside every run), requests_cap_factor = R (cap = n:
+# no formation request is dropped, which old == new needs); each run changes
+# one field
+COMPARISON_RUNS = (
+    ("a", {}),
+    ("b", {"connectivity_alg": "old"}),
+    ("c", {"rate_exchange": "sparse"}),
+    ("d", {"spike_alg": "old", "activity_impl": "reference"}),
+)
+EXCHANGE_RANGE = {"a": "repro.comm.rates", "b": "repro.comm.rates",
+                  "c": "repro.comm.subscriptions", "d": "repro.comm.spikes"}
+BYTE_COUNTERS = ("formation_requests", "tree_nodes_downloaded", "rates_sent",
+                 "subscription_requests", "subscription_overflow",
+                 "spikes_sent")
+PATH_KERNELS = ("threefry_words", "activity_window", "bh_traverse",
+                "morton_sort", "synapse_apply", "route_build", "retract",
+                "edge_priority")
+
+
+def comparison_run(cfg, scenario, chunks: int, num_ranks: int):
+    """One run of the comparison cell: a fresh R-rank simulator, one
+    warm-up and ``chunks`` timed chunks (``run_main_path``), after every
+    chunk the global edge tables and neuron fields copied to the host and
+    health and finiteness read; the launch counts set to 0 before and read
+    after. Returns a dict."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import hash as chash
+    _build.reset_launch_counts()
+    chash.mode_launches(reset=True)
+    chash.plain_cuda_calls(reset=True)
+    held = torch.cuda.memory_allocated()    # the earlier runs' simulators
+    snaps, finite = [], []
+
+    def keep(sim):
+        st = sim.state
+        finite.append(all(bool(torch.isfinite(x).all()) for x in (
+            st.neurons.v, st.neurons.u, st.neurons.calcium, st.neurons.rate,
+            st.positions)))
+        snaps.append({"out_edges": st.out_edges.cpu(),
+                      "in_edges": st.in_edges.cpu(),
+                      **{f: getattr(st.neurons, f).cpu()
+                         for f in st.neurons._fields}})
+
+    sim, _, warm, per_chunk, flags = run_main_path(cfg, chunks, scenario,
+                                                   num_ranks, each=keep)
+    counts = _build.launch_counts()
+    ring = sim.state.stats.per_chunk
+    per_chunk_counters = {k: ring[k][:, :chunks + 1].cpu()
+                          for k in ring}
+    return {"sim": sim, "warm": warm, "per_chunk": per_chunk,
+            "flags": flags, "finite": finite, "snaps": snaps,
+            "counts": counts, "modes": chash.mode_launches(reset=True),
+            "plain_threefry": chash.plain_cuda_calls(reset=True),
+            "ring": per_chunk_counters,
+            "peak_mem_gb": (torch.cuda.max_memory_allocated() - held) / 1e9}
+
+
+def _same_snaps(a, b, keys=None, upto=None):
+    """Whether two runs' per-chunk host snapshots are bitwise equal (over
+    ``keys``, for the first ``upto`` chunks)."""
+    import torch
+    pairs = list(zip(a, b))[:upto]
+    return len(a) == len(b) and all(
+        torch.equal(x[k], y[k]) for x, y in pairs for k in (keys or x))
+
+
+def comparison_paths(base_cfg, scenario, card, chunks: int = 4,
+                     chunks_old_spikes: int = 2, num_ranks: int = 4,
+                     also_profile=None):
+    """The paper's comparisons at CONFIG, R=4, one process: (a) the new
+    algorithm with the dense exchange, (b) the old connectivity algorithm,
+    (c) the sparse rate exchange, (d) the old spike exchange (on the
+    reference activity lowering), in turns; then (b), (c) and (d) again.
+    Fails unless (b) == (a) bitwise (edge tables, synapses formed and
+    deleted, every chunk), (c) == (a) bitwise (edge tables and every neuron
+    field, every chunk before a subscription overflow), every chunk of every
+    run healthy and finite, the second runs bitwise equal to the first, (d)
+    launches no K1, no run calls the plain int64 Threefry on a CUDA tensor,
+    and every kernel of a run's path launched. Then one profiled chunk of
+    each run (in one profiler session with ``also_profile``, {phase name:
+    simulator}): per rank the ``repro.connectivity`` range, the exchange's
+    ranges, and the two ratios of the paper's abstract."""
+    import torch
+    runs, second = {}, {}
+    for label, change in COMPARISON_RUNS + COMPARISON_RUNS[1:]:
+        cfg = dataclasses.replace(base_cfg, **change)
+        k = chunks_old_spikes if label == "d" else chunks
+        out = comparison_run(cfg, scenario, k, num_ranks)
+        if label in runs:
+            second[label] = out
+            del out["sim"]
+        else:
+            runs[label] = out
+        torch.cuda.empty_cache()
+    a = runs["a"]
+    checks = {}
+    edges = ("out_edges", "in_edges")
+    ring = {k: {key: v.sum(0).tolist() for key, v in r["ring"].items()}
+            for k, r in runs.items()}
+    checks["b_equals_a"] = _same_snaps(a["snaps"], runs["b"]["snaps"],
+                                       edges) and all(
+        torch.equal(a["ring"][c], runs["b"]["ring"][c])
+        for c in ("synapses_formed", "synapses_deleted"))
+    overflow = ring["c"]["subscription_overflow"]
+    clean = next((i for i, v in enumerate(overflow) if v > 0),
+                 len(overflow))
+    checks["c_equals_a_chunks"] = clean
+    checks["c_equals_a"] = _same_snaps(a["snaps"], runs["c"]["snaps"],
+                                       upto=clean)
+    checks["healthy"] = all(all(f == 0 for f in r["flags"]) and
+                            all(r["finite"]) for r in runs.values())
+    checks["second_run_equal"] = all(
+        _same_snaps(runs[k]["snaps"], second[k]["snaps"])
+        and all(torch.equal(runs[k]["ring"][c], second[k]["ring"][c])
+                for c in runs[k]["ring"]) for k in second)
+    checks["d_no_k1"] = runs["d"]["counts"]["activity_window"] == 0
+    checks["no_plain_threefry"] = all(
+        r["plain_threefry"] == 0 for r in (*runs.values(), *second.values()))
+    missing = {k: [n for n in PATH_KERNELS if r["counts"][n] == 0
+                   and not (k == "d" and n == "activity_window")]
+               for k, r in runs.items()}
+    checks["every_kernel_launched"] = not any(missing.values())
+    checks["phase_a_gumbel_launched"] = all(
+        r["modes"]["gumbel"] > 0 for r in runs.values())
+
+    # one profiled chunk of each run, last: a profiler session slows the
+    # host for the rest of the process
+    traces = phase_profile(
+        {**(also_profile or {}),
+         **{f"profile_comparison_{k}": r["sim"] for k, r in runs.items()}},
+        card, "profile_multi_rank")
+    prof = {}
+    for k, r in runs.items():
+        events, dev, wall = traces[f"profile_comparison_{k}"]
+        first = {}
+        for e in events:
+            if e.get("cat") == "user_annotation" and \
+                    e["name"] == "repro.activity":
+                t = (e["pid"], e["tid"])
+                first[t] = min(first.get(t, e["ts"]), e["ts"])
+        # the baton starts the ranks in rank order
+        rank_of = {t: i for i, t in enumerate(sorted(first, key=first.get))}
+        by_rank = ranges_by_launch(
+            events, dev, group=lambda e: (e["name"],
+                                          rank_of.get((e["pid"], e["tid"]))))
+        conn = [by_rank.get(("repro.connectivity", i), {})
+                for i in range(num_ranks)]
+        ex = EXCHANGE_RANGE[k]
+        exch = [by_rank.get((ex, i), {}) for i in range(num_ranks)]
+        prof[k] = {
+            "chunk_wall_ms": wall,
+            "connectivity_per_rank": conn,
+            "connectivity_device_ms": sum(c.get("device_ms", 0.0)
+                                          for c in conn),
+            "connectivity_own_host_ms": sum(
+                c.get("span_ms", 0.0) - c.get("wait_ms", 0.0) for c in conn),
+            "exchange_range": ex,
+            "exchange_per_rank": exch,
+            "exchange_span_ms": sum(c.get("span_ms", 0.0) for c in exch),
+            "exchange_wait_ms": sum(c.get("wait_ms", 0.0) for c in exch),
+            "exchange_own_host_ms": sum(
+                c.get("span_ms", 0.0) - c.get("wait_ms", 0.0) for c in exch),
+            "exchange_device_ms": sum(c.get("device_ms", 0.0) for c in exch),
+            "exchange_calls": sum(c.get("count", 0) for c in exch)}
+        r.pop("sim")
+    for k, r in runs.items():
+        emit({"phase": "comparison_run", "run": k, "card": card,
+              "change": dict(COMPARISON_RUNS)[k], "ranks": num_ranks,
+              "warmup_chunk_ms": r["warm"], "chunk_ms": r["per_chunk"],
+              "median_chunk_ms": sorted(r["per_chunk"])[
+                  len(r["per_chunk"]) // 2],
+              "spread_chunk_ms": [min(r["per_chunk"]), max(r["per_chunk"])],
+              "second_run_chunk_ms": second[k]["per_chunk"]
+              if k in second else None,
+              "peak_mem_gb": r["peak_mem_gb"],
+              "health_flags_per_chunk": r["flags"],
+              "byte_counters_per_chunk": {c: ring[k][c]
+                                          for c in BYTE_COUNTERS},
+              "request_overflow_per_chunk": ring[k]["request_overflow"],
+              "synapses_formed_per_chunk": ring[k]["synapses_formed"],
+              "synapses_deleted_per_chunk": ring[k]["synapses_deleted"],
+              "launches": {n: r["counts"][n] for n in PATH_KERNELS},
+              "draw_launches_by_mode": r["modes"],
+              "plain_threefry_on_cuda": r["plain_threefry"],
+              "kernels_not_launched": missing[k], **prof[k]})
+    def ratio(run, key):
+        den = prof["a"][key]
+        return prof[run][key] / den if den > 0 else None
+
+    ratio_conn = ratio("b", "connectivity_device_ms")
+    ratio_conn_host = ratio("b", "connectivity_own_host_ms")
+    ratio_spikes = ratio("d", "exchange_own_host_ms")
+    ratio_spikes_dev = ratio("d", "exchange_device_ms")
+    checks["ratios_measured"] = None not in (ratio_conn, ratio_conn_host,
+                                             ratio_spikes)
+    emit({"phase": "comparison_paths", "card": card,
+          "device": torch.cuda.get_device_name(0),
+          "cell": "CONFIG, R=4 in one process (dist.LocalComm), all five "
+                  "lowerings fused, requests_cap_factor=4, lesion_rewiring "
+                  "with the lesion at step 250",
+          "chunks": {k: len(r["per_chunk"]) + 1 for k, r in runs.items()},
+          "connectivity_ratio_b_over_a_device": ratio_conn,
+          "connectivity_ratio_b_over_a_own_host": ratio_conn_host,
+          "spike_exchange_ratio_d_over_a_own_host": ratio_spikes,
+          "spike_exchange_ratio_d_over_a_device": ratio_spikes_dev,
+          "note": "one card, one process: every exchange is tensor ops in "
+                  "device memory, not a network; these ratios are what "
+                  "this card shows, not the paper's",
+          **checks})
+    bad = [k for k, v in checks.items() if v is False]
+    if bad:
+        fail(f"comparison_paths: {bad} ({checks}; kernels not launched: "
+             f"{missing})")
+    return runs, second
 
 
 def main() -> int:
@@ -1738,6 +2227,16 @@ def main() -> int:
               "K2 bh_traverse (R=4, rank 3)"),
           "K3": check_k3(all_fused, 4, 3), "K4": check_k4(all_fused, 4),
           "K5": check_k5(all_fused, 4, 3)}
+    # the comparison paths' shapes: K0's counter-hash draws, K1's sparse
+    # operand at rank 1 of 4, K2 on the old algorithm's global tree at rank
+    # 3, K4's accept of the old algorithm's R x cap requests at the
+    # comparison cell's cap (n)
+    cmp_cfg = dataclasses.replace(all_fused, requests_cap_factor=4)
+    hash_lines = check_hash_draws(all_fused)
+    k1sp = k1_sparse_check(all_fused)
+    k2g = k2_compare_and_time(slice_cfg, k2_inputs_global(slice_cfg),
+                              "K2 bh_traverse (global tree, R=4, rank 3)")
+    k4old = check_k4(cmp_cfg, 4)
     # device_ms: the calls queued behind a device-side sleep, the host's
     # work hidden (K1: one 100-step window, one launch)
     emit({"phase": "kernel_times", "card": card, "K1_ms": k1_ms,
@@ -1823,9 +2322,12 @@ def main() -> int:
     from repro_torch.kernels import hash as chash
     _build.reset_launch_counts()
     chash.device_launches(reset=True)
+    chash.plain_cuda_calls(reset=True)
     sim_main, _, warm, per_chunk, flags = run_main_path(slice_cfg, 2)
     main_counts = _build.launch_counts()
     k0_device = chash.device_launches(reset=True)
+    if chash.plain_cuda_calls(reset=True):
+        fail("the plain int64 Threefry ran on CUDA tensors on the main path")
     chunks = len(per_chunk) + 1
     keys = check_path("main_path", sim_main, slice_cfg, warm, per_chunk,
                       flags, main_counts,
@@ -1861,9 +2363,13 @@ def main() -> int:
     sa.device_launches(reset=True)
     rs.morton_device_launches(reset=True)
     sa.route_device_launches(reset=True)
+    chash.plain_cuda_calls(reset=True)
     sim, rec, warm, per_chunk, flags = run_main_path(all_fused, chunks - 1,
                                                      scn)
     counts = _build.launch_counts()
+    if chash.plain_cuda_calls(reset=True):
+        fail("the plain int64 Threefry ran on CUDA tensors on the scenario "
+             "path")
     device_counts = {"activity_window": af.device_launches(reset=True),
                      "synapse_apply": sa.device_launches(reset=True),
                      "morton_sort": rs.morton_device_launches(reset=True),
@@ -1895,18 +2401,27 @@ def main() -> int:
     # ---- path 3: four ranks on the one card, the scenario, all fused ----
     sim_r4, r4_counts = multi_rank_path(all_fused, scn, card, chunks)
     torch.cuda.empty_cache()
+
+    # ---- path 4: the paper's comparisons at R=4 (old connectivity, sparse
+    # exchange, old spikes against new / dense); then a chunk of each run
+    # and of the multi-rank path profiled in one session, the first to
+    # profile rank threads (a profiler session slows the host for the rest
+    # of the process)
+    cmp_runs, _ = comparison_paths(
+        cmp_cfg, scaled(scn, 4), card,
+        also_profile={"profile_multi_rank_path": sim_r4})
+    del sim_r4
+    torch.cuda.empty_cache()
     # the profiles last: a profiler session slows the host for the rest of
     # the process
     scenario_determinism(sim, rec, all_fused, scn, chunks, keys, card)
     del sim
-    phase_profile(sim_r4, card, "profile_multi_rank_path")
-    del sim_r4
     # one chunk of the main path profiled (after a warm-up chunk), last:
     # a profiler session slows the host for the rest of the process
     from repro_torch.sim.api import Simulator
     sim = Simulator.from_config(slice_cfg, device=DEV)
     sim.run(1)
-    phase_profile(sim, card, "profile_main_path")
+    phase_profile({"profile_main_path": sim}, card)
     del sim
 
     kernels = [
@@ -2014,6 +2529,47 @@ def main() -> int:
          "bound_ms": k5[2][0],
          "bound_by": k5[2][1], "library_ms": None,
          "device_launches_per_call": k5[5]},
+    ]
+    # the comparison paths' kernels (launches: their runs of
+    # comparison_paths, the profiled chunks not counted)
+    first = cmp_runs
+    for mode, key, line in (("gumbel", "gumbel (n, F)", 98),
+                            ("normal", "normal (n,)", 105)):
+        e = hash_lines[key]
+        kernels.append({
+            "name": f"threefry_words ({mode})", "route": "cuda",
+            "source": "src/repro_torch/csrc/hash_words.cu",
+            "replaces": f"src/repro/kernels/hash.py:{line}",
+            "launches": sum(r["modes"][mode] for r in first.values()),
+            "launches_by_run": {k: r["modes"][mode]
+                                for k, r in first.items()},
+            "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+            "device_ms": e["device_ms"], "plain_ms": e["plain_ms"],
+            "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
+            "library_ms": None, "shape": key})
+    kernels += [
+        {"name": "activity_window (sparse rates)", "route": "cuda",
+         "source": "src/repro_torch/csrc/activity_window.cu",
+         "replaces": "src/repro/kernels/activity_fused.py:279",
+         "launches": first["c"]["counts"]["activity_window"],
+         "max_abs_err": k1sp[4], "ms": k1sp[0], "device_ms": k1sp[1],
+         "plain_ms": k1sp[2], "bound_ms": k1sp[3][0],
+         "bound_by": k1sp[3][1], "library_ms": None},
+        {"name": "bh_traverse (global tree)", "route": "cuda",
+         "source": "src/repro_torch/csrc/bh_traverse.cu",
+         "replaces": "src/repro/kernels/bh_traverse.py:77",
+         "launches": first["b"]["counts"]["bh_traverse"],
+         "max_abs_err": k2g[5], "ms": k2g[0], "device_ms": k2g[1],
+         "plain_ms": k2g[2], "bound_ms": k2g[3][0], "bound_by": k2g[3][1],
+         "library_ms": None},
+        {"name": "synapse_apply (old accept)", "route": "cuda",
+         "source": "src/repro_torch/csrc/synapse_apply.cu",
+         "replaces": "src/repro/kernels/synapse_apply.py:63",
+         "launches": first["b"]["counts"]["synapse_apply"],
+         "max_abs_err": k4old["accept"][3], "ms": k4old["accept"][0],
+         "device_ms": k4old["accept"][4], "plain_ms": k4old["accept"][1],
+         "bound_ms": k4old["accept"][2][0],
+         "bound_by": k4old["accept"][2][1], "library_ms": None},
     ]
     for name, key, source, replaces in (
             ("radix_argsort", "K6", "radix_argsort.cu", "radix_sort.py:99"),

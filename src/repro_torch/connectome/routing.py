@@ -1,11 +1,23 @@
-"""Formation/deletion request routing — the paper's byte-counted record
-exchanges (§IV-A), NEW algorithm ("move compute"): the searching rank ships
-a formation-and-calculation request to the rank owning the branch cell,
-which finishes the search against its own subtree and answers.
+"""Formation/deletion request routing and the sparse rate push — the
+paper's byte-counted record exchanges (§IV-A, §IV-B):
+
+OLD ("move data", ``formation_old``): the searching rank downloads every
+rank's subtree and leaf neuron data (the all-gathers of the RMA+cache
+endpoint), finishes the search locally, and sends a plain formation request
+to the target's rank for accept or decline.
+
+NEW ("move compute", ``formation_new``): the searching rank ships a
+formation-and-calculation request to the rank owning the branch cell, which
+finishes the search against its own subtree and answers.
+
+Both run the same phase-B search against the same tree content, keyed to
+the searcher's gid, so they form the same synapses. The sparse exchange's
+``push_subscribed_rates`` ships each rank's subscriptions to the owners and
+brings back exactly the subscribed rates.
 
 The buffers are built exactly as the reference builds them and cross the
-ranks through the rank's ``dist.Comm`` (tiled all-to-alls, the identity at
-R=1). ``formation_old`` comes with ROADMAP.md Queue 1 item 9.
+ranks through the rank's ``dist.Comm`` (tiled all-gathers and all-to-alls,
+the identity at R=1).
 """
 from __future__ import annotations
 
@@ -14,6 +26,7 @@ from torch.profiler import record_function
 
 from repro_torch.connectome import traverse
 from repro_torch.connectome import tree as ctree
+from repro_torch.core.spikes import NO_SUB
 from repro_torch.sim import registry
 
 
@@ -22,6 +35,63 @@ def cap_requests(cfg, num_ranks: int):
     n = cfg.neurons_per_rank
     per_dest = max(n // max(num_ranks, 1), 1) * cfg.requests_cap_factor
     return min(n, max(32, -(-per_dest // 8) * 8))
+
+
+def subs_base(cfg, num_ranks: int) -> int:
+    """The per-rank unique-remote-source estimate the subscription registry
+    is sized from: ``cfg.subs_cap_base`` when set, else ``n //
+    num_ranks``."""
+    if getattr(cfg, "subs_cap_base", None) is not None:
+        return max(int(cfg.subs_cap_base), 32)
+    return max(cfg.neurons_per_rank // max(num_ranks, 1), 32)
+
+
+def cap_subs(cfg, num_ranks: int):
+    """Subscription-registry capacity of the sparse rate exchange:
+    ``subs_base`` x ``subs_cap_factor``, rounded up to 8, below the ceiling
+    min(n * S, (R - 1) * n) (a rank cannot subscribe to more unique remote
+    sources than it has in-edge slots or than exist remotely)."""
+    n = cfg.neurons_per_rank
+    full = min(n * cfg.max_synapses, max(num_ranks - 1, 1) * n)
+    per = subs_base(cfg, num_ranks) * cfg.subs_cap_factor
+    return int(min(full, max(32, -(-per // 8) * 8)))
+
+
+def push_subscribed_rates(subs, rate, comm, n: int):
+    """Sparse exchange, per-Delta push: ship each rank's subscriptions to the
+    owner ranks and have the owners answer with exactly the subscribed
+    rates (two tiled all-to-alls).
+
+    ``subs``: (subs_cap,) sorted unique remote gids (``NO_SUB`` pad);
+    ``rate``: (n,) this rank's rates. Returns ``(remote_rates, pushed)``:
+    the (subs_cap,) rate buffer aligned with ``subs`` (0 on pads) and the
+    number of rate records pushed to this rank."""
+    num_ranks = comm.num_ranks
+    subs_cap = subs.shape[0]
+    dev = subs.device
+    valid = subs != NO_SUB
+    pushed = torch.sum(valid).to(torch.float32)
+    if num_ranks == 1:
+        return torch.zeros(subs_cap, dtype=torch.float32, device=dev), pushed
+    owner = torch.where(valid, torch.div(subs, n, rounding_mode="floor"),
+                        num_ranks)
+    # subs is sorted, so the owners are contiguous and a slot below subs_cap
+    slot = ctree.positions_within(owner, num_ranks + 1).to(torch.int64)
+    # row num_ranks collects the pads' writes and is sliced off
+    req = torch.full((num_ranks + 1, subs_cap), -1, dtype=torch.int32,
+                     device=dev)
+    req[owner.to(torch.int64), slot] = torch.where(
+        valid, torch.remainder(subs, n), -1)
+    with record_function("repro.comm.subscriptions"):
+        req = comm.all_to_all(req[:num_ranks].contiguous())
+    # req[p, j] is the local id rank p subscribed to: answer with its rate
+    payload = torch.where(
+        req >= 0, rate[torch.clamp(req, 0, n - 1).to(torch.int64)], 0.0)
+    with record_function("repro.comm.subscriptions"):
+        payload = comm.all_to_all(payload)
+    # payload[o, j]: the rate of this rank's j-th subscription at owner o
+    o = torch.where(valid, owner, 0).to(torch.int64)
+    return torch.where(valid, payload[o, slot], 0.0), pushed
 
 
 def cap_deletions(cfg, lesions: bool = False):
@@ -136,3 +206,64 @@ def formation_new(cfg, positions, local_tree, vacant_d, in_edges, gids,
     resp_ok = (rbuf[d_g, s_c, 1] > 0) & ok
     return resp_tgt, {"accepted": resp_ok, "in_edges": new_in}, ovf, \
         (depth, r_valid)
+
+
+def formation_old(cfg, positions, local_tree, vacant_d, in_edges, gids,
+                  branch_cell, valid_a, comm, key, chunk: int):
+    """Baseline: download every rank's subtree and leaf data, search
+    locally, then exchange plain formation requests. Returns (tgt_gid,
+    accepted, new_in_edges, downloaded node count, (depth, searched))."""
+    rank, num_ranks = comm.rank, comm.num_ranks
+    n = cfg.neurons_per_rank
+    dev = positions.device
+    # ---- the download: all levels, members, positions, vacancies ----
+    if num_ranks > 1:
+        with record_function("repro.comm.tree_download"):
+            g_counts = tuple(comm.all_gather(c) for c in local_tree.counts)
+            g_cents = tuple(comm.all_gather(z)
+                            for z in local_tree.centroids)
+            members = local_tree.leaf_members
+            g_members = comm.all_gather(
+                torch.where(members >= 0, members + rank * n, -1))
+            g_pos = comm.all_gather(positions)
+            g_vac = comm.all_gather(vacant_d)
+    else:
+        g_counts, g_cents = local_tree.counts, local_tree.centroids
+        g_members = local_tree.leaf_members
+        g_pos, g_vac = positions, vacant_d
+    downloaded = (sum(c.shape[0] for c in g_counts) + g_pos.shape[0]) \
+        * (num_ranks - 1) / max(num_ranks, 1)
+    g_tree = ctree.LocalTree(g_counts, g_cents, g_members, 0)
+    # ---- phase B locally for my searchers (the same streams as 'new') ----
+    tgt, bvalid, depth = traverse.phase_b(g_tree, g_pos, g_vac, positions,
+                                          gids, branch_cell, valid_a, cfg,
+                                          num_ranks, 0, chunk=chunk)
+    # ---- a plain formation request to the target's rank ----
+    cap = cap_requests(cfg, num_ranks)
+    dest = torch.where(bvalid & (tgt >= 0),
+                       torch.div(tgt, n, rounding_mode="floor"), num_ranks)
+    slot = ctree.positions_within(dest, num_ranks + 1)
+    ok = (dest < num_ranks) & (slot < cap)
+    # row num_ranks collects the dropped writes and is sliced off
+    ibuf = torch.full((num_ranks + 1, cap, 2), -1, dtype=torch.int32,
+                      device=dev)
+    d_c = torch.where(ok, dest, num_ranks).to(torch.int64)
+    s_c = torch.where(ok, slot, 0).to(torch.int64)
+    ibuf[d_c, s_c] = torch.stack([torch.where(ok, gids, -1),
+                                  torch.where(ok, tgt, -1)], -1).to(
+        torch.int32)
+    with record_function("repro.comm.formation_requests"):
+        ibuf = comm.all_to_all(ibuf[:num_ranks].contiguous())
+    r_src = ibuf[..., 0].reshape(-1)
+    r_tgt = ibuf[..., 1].reshape(-1)
+    r_valid = (r_src >= 0) & (r_tgt >= 0)
+    apply_impl = registry.resolve("apply", cfg.apply_impl)
+    acc, new_in = apply_impl.accept(
+        torch.clamp(r_tgt - rank * n, 0, n - 1), r_src, r_valid, vacant_d,
+        in_edges, key)
+    rbuf = acc.to(torch.int32).reshape(num_ranks, cap)
+    with record_function("repro.comm.formation_responses"):
+        rbuf = comm.all_to_all(rbuf)
+    # the dropped requests (row num_ranks) read row num_ranks - 1, masked
+    accepted = (rbuf[torch.clamp(d_c, max=num_ranks - 1), s_c] > 0) & ok
+    return tgt, accepted, new_in, downloaded, (depth, valid_a)

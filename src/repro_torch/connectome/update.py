@@ -3,9 +3,15 @@
   3a  deletion by retraction — element loss breaks bound synapses, partners
       are notified via routed messages and regain vacant elements;
   3b  formation — octree build, branch-node exchange, phase-A search over
-      the replicated top tree, then the NEW algorithm's phase-B search on the
-      owning rank and acceptance;
-  3c  rate refresh + the dense Delta-periodic rate exchange.
+      the replicated top tree, then the algorithm pair (registry domain
+      "connectivity"): 'old' downloads every subtree and searches locally,
+      'new' ships requests to the owning rank (routing.py);
+  3c  rate refresh + the Delta-periodic rate exchange (registry domain
+      "rate_exchange"): 'dense' all-gathers the replicated (R, n) table,
+      'sparse' rebuilds the subscription registry from the just-updated
+      in-edge table and the owners push only the subscribed rates. Under
+      the old spike algorithm the rates are never read, and the exchange
+      and its accounting are skipped, as in the reference.
 
 A scenario's lesion mask applies before the algorithm branch: dead neurons
 lose every synaptic element (a full retraction whose partners are
@@ -54,6 +60,24 @@ def formation_phase_new(ctx, state, local_tree, vac_d_pos, out_edges,
     return out_edges, in_edges, stats
 
 
+@registry.register_phase("connectivity", "old")
+def formation_phase_old(ctx, state, local_tree, vac_d_pos, out_edges,
+                        in_edges, gids, branch_cell, owner, start_rel,
+                        valid_a, k_accept, stats):
+    """Paper's OLD baseline: download every remote subtree and its leaf
+    neuron data, and finish the search locally."""
+    tgt_gid, accepted, new_in, downloaded, (depth, searched) = \
+        routing.formation_old(
+            ctx.cfg, state.positions, local_tree, vac_d_pos, in_edges, gids,
+            branch_cell, valid_a, ctx.comm, k_accept, state.chunk)
+    out_edges = syn.add_out_edges(out_edges, tgt_gid, accepted)
+    stats = stats.count("tree_nodes_downloaded", downloaded)
+    # restart depths of this rank's searchers against the global tree
+    stats = ctx.metrics.traversal(stats, depth, searched)
+    stats = stats.count("synapses_formed", torch.sum(accepted))
+    return out_edges, new_in, stats
+
+
 # ---------------------------------------------------------------- exchange
 @registry.register_phase("rate_exchange", "dense")
 def exchange_dense(ctx, state, neurons, in_edges, stats):
@@ -64,6 +88,25 @@ def exchange_dense(ctx, state, neurons, in_edges, stats):
     stats = stats.count("rates_sent", float(n * max(ctx.num_ranks - 1, 0)))
     return rates_table, state.subs, state.rate_slots, state.remote_rates, \
         stats
+
+
+@registry.register_phase("rate_exchange", "sparse")
+def exchange_sparse(ctx, state, neurons, in_edges, stats):
+    """Demand-driven push: rebuild the subscription registry from the
+    just-updated in-edge table, then the owners push exactly the subscribed
+    rates — O(unique remote sources) instead of O(R*n)."""
+    cfg, n = ctx.cfg, ctx.cfg.neurons_per_rank
+    subs, rate_slots, ovf = spikes.build_subscriptions(
+        in_edges, ctx.rank, n, routing.cap_subs(cfg, ctx.num_ranks))
+    stats = stats.count("request_overflow", ovf)
+    stats = stats.count("subscription_overflow", ovf)
+    stats = ctx.metrics.subs_occupancy(stats, subs, spikes.NO_SUB)
+    remote_rates, pushed = routing.push_subscribed_rates(
+        subs, neurons.rate, ctx.comm, n)
+    # one 4-byte request id out and one 4-byte rate back per subscription
+    stats = stats.count("subscription_requests", pushed)
+    stats = stats.count("rates_sent", pushed)
+    return state.rates_table, subs, rate_slots, remote_rates, stats
 
 
 # ---------------------------------------------------------------- update
@@ -172,10 +215,13 @@ def connectivity_update(state, ctx):
 
     # ---- rate refresh + Delta-periodic exchange (phase 3c) ---------------
     neurons = refresh_rate(state.neurons, cfg, alive)
-    exchange = registry.resolve("rate_exchange", cfg.rate_exchange)
-    with record_function("repro.conn.exchange"):
-        rates_table, subs, rate_slots, remote_rates, stats = exchange(
-            ctx, state, neurons, in_edges, stats)
+    rates_table, subs = state.rates_table, state.subs
+    rate_slots, remote_rates = state.rate_slots, state.remote_rates
+    if cfg.spike_alg != "old":
+        exchange = registry.resolve("rate_exchange", cfg.rate_exchange)
+        with record_function("repro.conn.exchange"):
+            rates_table, subs, rate_slots, remote_rates, stats = exchange(
+                ctx, state, neurons, in_edges, stats)
     return state._replace(neurons=neurons, out_edges=out_edges,
                           in_edges=in_edges, rates_table=rates_table,
                           subs=subs, rate_slots=rate_slots,

@@ -1,9 +1,10 @@
 """MSP simulation engine state and its initial draw.
 
 One *chunk* = rate_period (Delta=100) activity steps + one connectivity
-update. ``BrainState`` mirrors the JAX package's state field for field; the
-slice holds the dense rate-exchange layout (the sparse fields stay None) and
-keeps ``chunk`` as a host integer, since every kernel takes the chunk as a
+update. ``BrainState`` mirrors the JAX package's state field for field: the
+dense rate exchange holds ``rates_table`` (the sparse fields None), the
+sparse one ``subs``, ``rate_slots`` and ``remote_rates`` (``rates_table``
+None). ``chunk`` is a host integer, since every kernel takes the chunk as a
 runtime argument.
 
 A state is one rank's. ``join_states`` makes the global view of R ranks'
@@ -18,7 +19,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch import prng
-from repro_torch.core import morton
+from repro_torch.connectome import routing
+from repro_torch.core import morton, spikes
 from repro_torch.core.neuron import NeuronParams, NeuronState, init_neurons
 from repro_torch.device import resolve_device
 from repro_torch.scenarios import populations as pops
@@ -31,9 +33,9 @@ class BrainState(NamedTuple):
     in_edges: torch.Tensor           # (n, S) int32 source gids, -1 empty
     positions: torch.Tensor          # (n, 3) float32
     rates_table: Optional[torch.Tensor]    # (R, n) gathered rates (dense)
-    subs: Optional[torch.Tensor]           # sparse layout: not ported
-    rate_slots: Optional[torch.Tensor]
-    remote_rates: Optional[torch.Tensor]
+    subs: Optional[torch.Tensor]           # (subs_cap,) registry (sparse)
+    rate_slots: Optional[torch.Tensor]     # (n, S) edge -> slot (sparse)
+    remote_rates: Optional[torch.Tensor]   # (subs_cap,) pushed (sparse)
     chunk: int                       # chunks completed
     stats: telemetry_metrics.Metrics
 
@@ -49,10 +51,6 @@ def init_state(cfg, rank: int, num_ranks: int, scenario=None,
     the same jax.random draws (``repro_torch.prng``), the scenario's
     population table, empty edge tables. On the card unless ``device``
     names another (``device.resolve_device``)."""
-    if cfg.rate_exchange != "dense":
-        raise NotImplementedError(
-            "the sparse rate exchange is not ported yet (ROADMAP.md Queue 1 "
-            "item 9)")
     device = resolve_device(device)
     n = cfg.neurons_per_rank
     # the keys as host words: the draws below are three launches of K0's
@@ -69,10 +67,19 @@ def init_state(cfg, rank: int, num_ranks: int, scenario=None,
     edges = torch.full((n, cfg.max_synapses), -1, dtype=torch.int32,
                        device=device)
     stats = telemetry_metrics.init_metrics(cfg.metrics_history, device=device)
-    rates_table = torch.zeros((num_ranks, n), dtype=torch.float32,
-                              device=device)
-    return BrainState(neurons, edges, edges.clone(), pos, rates_table, None,
-                      None, None, 0, stats)
+    rates_table = subs = rate_slots = remote_rates = None
+    if cfg.rate_exchange == "dense":
+        rates_table = torch.zeros((num_ranks, n), dtype=torch.float32,
+                                  device=device)
+    else:
+        cap = routing.cap_subs(cfg, num_ranks)
+        subs = torch.full((cap,), spikes.NO_SUB, dtype=torch.int32,
+                          device=device)
+        rate_slots = torch.full((n, cfg.max_synapses), -1, dtype=torch.int32,
+                                device=device)
+        remote_rates = torch.zeros(cap, dtype=torch.float32, device=device)
+    return BrainState(neurons, edges, edges.clone(), pos, rates_table, subs,
+                      rate_slots, remote_rates, 0, stats)
 
 
 _ROW_FIELDS = ("out_edges", "in_edges", "positions", "subs", "rate_slots",

@@ -53,7 +53,13 @@
 // memory once: per slot a 32-bit code (empty; a local source id; or, for a
 // remote edge, the threshold ceil(rate * 2^24) clamped to [0, 2^24]: a
 // uniform u = (word >> 8) * 2^-24 is exact, so u < rate iff (word >> 8) <
-// threshold) and the source's weight; and v, u, ca, ax, de, spike_count, the
+// threshold) and the source's weight. The remote rate comes from the dense
+// (R, n) table at the source's (rank, local id), or, under the sparse
+// exchange (rate_slots given), from the compact (subs_cap,) buffer at the
+// slot's entry of the (n, S) slot remap, where slot -1 (a local, empty or
+// overflowed subscription) reads rate 0, as the reference's
+// jnp.where(rate_slots >= 0, ...) does: one operand and one test in the
+// decode, which runs once a window; and v, u, ca, ax, de, spike_count, the
 // background and Izhikevich operands and a bit mask of the first 32 lesion
 // windows of its neurons, and the length of its row up to the last used slot
 // (the slot loop stops there). They stay there for the window and the state
@@ -141,7 +147,9 @@ struct WindowArgs {
   int* fired_counts;       // (num_steps,), zeroed here
   const int* in_edges;
   const float* w_table;
-  const float* rates;
+  const float* rates;      // (R, n), or (subs_cap,) with rate_slots
+  const int* rate_slots;   // (n, S) slot remap of the sparse exchange, or null
+  int subs_cap;
   const float* bg_mean;
   const float* bg_std;
   const float* izh_a;
@@ -169,9 +177,11 @@ struct WindowArgs {
   float ca_beta;
 };
 
-// One slot of an in-edge row as (code, weight): see the file's note.
+// Slot `k` (flat index into the (n, S) table) of an in-edge row, holding
+// source gid `e`, as (code, weight): see the file's note.
 __device__ __forceinline__ void decode_edge(const WindowArgs& a, int e,
-                                            uint32_t* code, float* wt) {
+                                            size_t k, uint32_t* code,
+                                            float* wt) {
   if (e < 0) {
     *code = kEmpty;
     *wt = 0.0f;
@@ -184,8 +194,16 @@ __device__ __forceinline__ void decode_edge(const WindowArgs& a, int e,
     *code = (uint32_t)lid;
     return;
   }
-  const int r = src_rank < a.num_ranks ? src_rank : a.num_ranks - 1;
-  const float x = ceilf(a.rates[(size_t)r * a.n + lid] * kTwo24);
+  float rate;
+  if (a.rate_slots != nullptr) {
+    const int slot = a.rate_slots[k];
+    rate = slot < 0 ? 0.0f
+                    : a.rates[slot < a.subs_cap ? slot : a.subs_cap - 1];
+  } else {
+    const int r = src_rank < a.num_ranks ? src_rank : a.num_ranks - 1;
+    rate = a.rates[(size_t)r * a.n + lid];
+  }
+  const float x = ceilf(rate * kTwo24);
   const uint32_t thr = !(x > 0.0f) ? 0u
                        : (x >= kTwo24 ? (uint32_t)kTwo24 : (uint32_t)x);
   *code = kRemote | thr;
@@ -303,7 +321,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int k = tid; k < slots; k += kThreads) {
       uint32_t code;
       float wt;
-      decode_edge(a, rows[k], &code, &wt);
+      decode_edge(a, rows[k], (size_t)lo * s_max + k, &code, &wt);
       const int j = k / s_max;
       code_s[(size_t)(k - j * s_max) * a.rows + j] = code;
       wt_s[(size_t)(k - j * s_max) * a.rows + j] = wt;
@@ -367,7 +385,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           if (kStaged) {
             code = code_s[(size_t)s * a.rows + j];
           } else {
-            decode_edge(a, a.in_edges[(size_t)i * s_max + s], &code, &wt);
+            const size_t k = (size_t)i * s_max + s;
+            decode_edge(a, a.in_edges[k], k, &code, &wt);
           }
           if (slot_hit<kStaged>(a, code, flags, gstep,
                                 dst_gid * (uint32_t)s_max + (uint32_t)s)) {
@@ -489,7 +508,9 @@ extern "C" int repro_activity_window_device_launches(int mode, int reset) {
   return k;
 }
 
-// One cooperative launch for the whole window. Inputs are left unchanged;
+// One cooperative launch for the whole window. rates: the dense (num_ranks,
+// n) table with rate_slots null, or the sparse exchange's (subs_cap,)
+// buffer with its (n, s_max) int32 rate_slots. Inputs are left unchanged;
 // the outputs (out_*, (n,) each) are written in full. bits: 2 * ceil(n / 32)
 // uint32 of scratch, any contents; fired_counts (num_steps,) int32, any
 // contents (zeroed by the kernel). The staged mode takes the window when a
@@ -501,8 +522,9 @@ extern "C" int repro_activity_window(
     void* out_u, void* out_ca, void* out_ax, void* out_de,
     void* out_spike_count, void* out_spiked, void* bits,
     const void* in_edges, const void* w_table, const void* rates,
-    const void* bg_mean, const void* bg_std, const void* izh_a,
-    const void* izh_b, const void* izh_c, const void* izh_d,
+    const void* rate_slots, int subs_cap, const void* bg_mean,
+    const void* bg_std, const void* izh_a, const void* izh_b,
+    const void* izh_c, const void* izh_d,
     const void* izh_nu, const void* izh_eps, const void* stim_mask,
     const void* stim_amp, const void* stim_t, int num_stim,
     const void* lesion_mask, const void* lesion_t, int num_lesions,
@@ -555,6 +577,8 @@ extern "C" int repro_activity_window(
   a.in_edges = (const int*)in_edges;
   a.w_table = (const float*)w_table;
   a.rates = (const float*)rates;
+  a.rate_slots = (const int*)rate_slots;
+  a.subs_cap = subs_cap;
   a.bg_mean = (const float*)bg_mean;
   a.bg_std = (const float*)bg_std;
   a.izh_a = (const float*)izh_a;

@@ -73,22 +73,33 @@ __device__ __forceinline__ float hash_uniform(uint32_t seed, uint32_t domain,
   return to_unit(x0);
 }
 
-__device__ __forceinline__ float hash_gumbel(uint32_t seed, uint32_t domain,
-                                             uint32_t ctr, uint32_t entity) {
-  float u = hash_uniform(seed, domain, ctr, entity);
+// Standard Gumbel of the first hash word: u clamped away from 0.
+__device__ __forceinline__ float gumbel_of(uint32_t x0) {
+  float u = to_unit(x0);
   u = u < 1e-20f ? 1e-20f : u;
   return -logf(-logf(u));
 }
 
-// Box-Muller: r = sqrt(-2 log1p(-u1)), z = r cos(2 pi u2).
-__device__ __forceinline__ float hash_normal(uint32_t seed, uint32_t domain,
-                                             uint32_t ctr, uint32_t entity) {
-  uint32_t x0, x1;
-  threefry2x32(seed, domain, ctr, entity, &x0, &x1);
+// Box-Muller on both hash words: r = sqrt(-2 log1p(-u1)), z = r cos(2 pi u2).
+__device__ __forceinline__ float normal_of(uint32_t x0, uint32_t x1) {
   const float u1 = to_unit(x0);
   const float u2 = to_unit(x1);
   const float r = sqrtf(-2.0f * log1pf(-u1));
   return r * cosf((float)(2.0 * 3.14159265358979) * u2);
+}
+
+__device__ __forceinline__ float hash_gumbel(uint32_t seed, uint32_t domain,
+                                             uint32_t ctr, uint32_t entity) {
+  uint32_t x0, x1;
+  threefry2x32(seed, domain, ctr, entity, &x0, &x1);
+  return gumbel_of(x0);
+}
+
+__device__ __forceinline__ float hash_normal(uint32_t seed, uint32_t domain,
+                                             uint32_t ctr, uint32_t entity) {
+  uint32_t x0, x1;
+  threefry2x32(seed, domain, ctr, entity, &x0, &x1);
+  return normal_of(x0, x1);
 }
 
 // (chunk, round, draw) -> u32 counter, int32 wrap-around as in the reference.

@@ -1,6 +1,7 @@
 // K0's draws over tensors: one launch computes one whole repro_torch.prng
-// call (fold_in, split, random_bits, uniform, randint) or one
-// kernels/hash.py::threefry_words call, and writes its final tensor.
+// call (fold_in, split, random_bits, uniform, randint), one
+// kernels/hash.py::threefry_words call or one of its counter-hash draws
+// (uniform, gumbel, normal on a CUDA tensor), and writes its final tensor.
 //
 // Replaces the JAX package's kernels/hash.py (threefry2x32 at :57, with the
 // uniform / normal / gumbel / bh_ctr helpers of :75-112), which the TPU
@@ -11,11 +12,14 @@
 // them.
 //
 // Design. A draw's four u32 operands (key k0, k1; counter c0, c1) are each a
-// value or a strided int32 / int64 array read over the flat index i of the
-// output (stride 0 broadcasts one element; an int64 element gives its low
-// word), or the counter is the flat index itself, (i >> 32, i & M32), as
-// jax.random.bits numbers a shape's draws. So no operand is copied, cast,
-// stacked or built (no arange) around the launch. The epilogue is chosen at
+// value or an int32 / int64 array read over the flat index i of the output
+// through one stride (stride 0 broadcasts one element; an int64 element
+// gives its low word) or two: element (i % inner) * stride + (i / inner) *
+// outer, so that a (Q, 1) column and a (1, F) row broadcast over a (Q, F)
+// grid are read where they lie (phase A's and phase B's Gumbel draws:
+// source gids against counters). Or the counter is the flat index itself,
+// (i >> 32, i & M32), as jax.random.bits numbers a shape's draws. So no
+// operand is copied, cast, stacked or built (no arange) around the launch. The epilogue is chosen at
 // compile time (the template's mode):
 //   kWords    two int64 arrays of u32 words (threefry_words)
 //   kKeys     (..., 2) int64 keys (fold_in, split)
@@ -27,6 +31,12 @@
 //   kRandint  int32: the key's two split keys hashed in registers (once a
 //             thread), the higher and lower bits drawn with them, folded
 //             modulo the span in u32 as jax.random.randint does.
+//   kUnit     f32 counter-hash uniform: the first word's top 24 bits x 2^-24
+//             (kernels/hash.py::uniform)
+//   kGumbel   f32 -log(-log(max(u, 1e-20))) of that uniform (hash.gumbel)
+//   kNormal   f32 Box-Muller on both words, sqrt(-2 log1p(-u1)) cos(2 pi u2)
+//             (hash.normal); both in the plain versions' order of ops, the
+//             device functions of hash.cuh that K1 and K2 inline.
 // One thread per output element, grid-stride over a grid sized to the SMs.
 //
 // Bound on the H100: integer operations. A draw reads no counter when the
@@ -41,13 +51,20 @@
 
 namespace {
 
-enum Mode { kWords = 0, kKeys = 1, kBits = 2, kUniform = 3, kRandint = 4 };
+enum Mode {
+  kWords = 0, kKeys = 1, kBits = 2, kUniform = 3, kRandint = 4, kUnit = 5,
+  kGumbel = 6, kNormal = 7
+};
 
-// One u32 operand: `value` where ptr is null, else element i * stride of an
-// int32 (is64 = 0) or int64 (is64 = 1) array, its low 32 bits.
+// One u32 operand: `value` where ptr is null, else an element of an int32
+// (is64 = 0) or int64 (is64 = 1) array, its low 32 bits: element i * stride
+// where inner is 0, else (i % inner) * stride + (i / inner) * outer (the
+// caller keeps n below 2^32 then).
 struct Word {
   const void* ptr;
   long long stride;
+  long long inner;
+  long long outer;
   int is64;
   uint32_t value;
 };
@@ -71,7 +88,12 @@ int g_launches = 0;
 
 __device__ __forceinline__ uint32_t load(const Word& w, long long i) {
   if (w.ptr == nullptr) return w.value;
-  const long long j = i * w.stride;
+  long long j = i * w.stride;
+  if (w.inner != 0) {
+    const uint32_t q = (uint32_t)i / (uint32_t)w.inner;
+    j = (long long)((uint32_t)i - q * (uint32_t)w.inner) * w.stride +
+        (long long)q * w.outer;
+  }
   return w.is64 ? (uint32_t)__ldg((const unsigned long long*)w.ptr + j)
                 : __ldg((const uint32_t*)w.ptr + j);
 }
@@ -116,6 +138,12 @@ __global__ void __launch_bounds__(kThreads) draw_kernel(const DrawArgs a) {
       ((longlong2*)a.out)[i] = make_longlong2((long long)x0, (long long)x1);
     } else if (MODE == kBits) {
       ((long long*)a.out)[i] = (long long)(x0 ^ x1);
+    } else if (MODE == kUnit) {
+      ((float*)a.out)[i] = repro::to_unit(x0);
+    } else if (MODE == kGumbel) {
+      ((float*)a.out)[i] = repro::gumbel_of(x0);
+    } else if (MODE == kNormal) {
+      ((float*)a.out)[i] = repro::normal_of(x0, x1);
     } else {  // kUniform
       const float f =
           __uint_as_float(((x0 ^ x1) >> 9) | 0x3F800000u) - 1.0f;
@@ -134,7 +162,8 @@ cudaError_t launch(const DrawArgs& a, int blocks, cudaStream_t s) {
 
 }  // namespace
 
-// One prng / threefry_words call: `args` a DrawArgs (mode and operands);
+// One prng / threefry_words / counter-hash draw call: `args` a DrawArgs
+// (mode and operands);
 // nothing is launched for n = 0.
 extern "C" int repro_threefry_draw(const void* args, void* stream) {
   const DrawArgs& a = *(const DrawArgs*)args;
@@ -153,6 +182,9 @@ extern "C" int repro_threefry_draw(const void* args, void* stream) {
     case kBits: err = launch<kBits>(a, blocks, s); break;
     case kUniform: err = launch<kUniform>(a, blocks, s); break;
     case kRandint: err = launch<kRandint>(a, blocks, s); break;
+    case kUnit: err = launch<kUnit>(a, blocks, s); break;
+    case kGumbel: err = launch<kGumbel>(a, blocks, s); break;
+    case kNormal: err = launch<kNormal>(a, blocks, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)err;

@@ -45,6 +45,7 @@ SIGNATURES = {
         + [P] * 7          # the same seven outputs
         + [P]              # spike bitmap scratch (2 x ceil(n / 32) words)
         + [P, P, P]        # in_edges, w_table, rates
+        + [P, I]           # rate_slots (null: dense rates), subs_cap
         + [P, P]           # bg_mean, bg_std
         + [P] * 6          # izh a, b, c, d, nu, eps
         + [P, P, P, I]     # stimulus masks, amplitudes, windows, count

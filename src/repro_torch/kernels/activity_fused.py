@@ -54,16 +54,26 @@ def local_spike_hits(spiked_last, in_edges, rank, n: int):
 
 
 def reconstruct_remote_spikes(seed: int, gstep, all_rates, in_edges, rank,
-                              n: int):
-    """NEW spike algorithm, receive side, dense exchange: Bernoulli(rate) per
-    REMOTE edge from the counter hash keyed by ``(seed, SPIKE_DOMAIN, gstep,
-    dst_gid*S + slot)``, the rate read from the replicated (R, n) table.
-    Returns (n, S) bool (False on local/empty edges)."""
+                              n: int, rate_slots=None):
+    """NEW spike algorithm, receive side: Bernoulli(rate) per REMOTE edge from
+    the counter hash keyed by ``(seed, SPIKE_DOMAIN, gstep, dst_gid*S +
+    slot)``. Dense exchange (``rate_slots`` None): the rate is read from the
+    replicated (R, n) table at the source's (rank, local id). Sparse
+    exchange: ``all_rates`` is the compact (subs_cap,) subscribed-rate
+    buffer and ``rate_slots`` the (n, S) edge -> slot remap; slot -1 (local,
+    empty, or overflowed subscription) reads rate 0. Returns (n, S) bool
+    (False on local/empty edges)."""
     s_max = in_edges.shape[1]
     valid, src_rank, src_lid = _split_src(in_edges, n)
     remote = valid & (src_rank != rank)
-    r = torch.clamp(src_rank, 0, all_rates.shape[0] - 1)
-    rates = all_rates[r, src_lid]
+    if rate_slots is None:
+        r = torch.clamp(src_rank, 0, all_rates.shape[0] - 1)
+        rates = all_rates[r, src_lid]
+    else:
+        cap = all_rates.shape[0]
+        rates = torch.where(rate_slots >= 0,
+                            all_rates[torch.clamp(rate_slots, 0, cap - 1)
+                                      .to(torch.int64)], 0.0)
     dev = in_edges.device
     dst_gid = rank * n + torch.arange(n, dtype=torch.int64, device=dev)
     edge_id = dst_gid[:, None] * s_max + torch.arange(s_max, dtype=torch.int64,
@@ -74,10 +84,14 @@ def reconstruct_remote_spikes(seed: int, gstep, all_rates, in_edges, rank,
 
 def step_core(state, in_edges, w_table, rates, bg_mean, bg_std, izh,
               ca_consts, seed: int, gstep: int, rank: int, n: int,
-              stim=None, lesions=None):
+              stim=None, lesions=None, remote_override=None,
+              rate_slots=None):
     """One electrical step. state: (v, u, ca, ax, de, spiked, spike_count);
     izh: (a, b, c, d, nu, eps) scalars or (n,); ca_consts: (calcium_decay,
-    calcium_beta); rates: the dense (R, n) table; stim: ((E, n) f32 masks,
+    calcium_beta); rates: the dense (R, n) table, or with ``rate_slots``
+    ((n, S) int32) the sparse exchange's (subs_cap,) buffer;
+    remote_override: the (n, S) bool remote-spike hits of the old spike
+    exchange, or None to draw them from the rates; stim: ((E, n) f32 masks,
     ((amplitude, t0, t1), ...)) or None; lesions: ((W, n) bool masks,
     ((t0, t1), ...)) or None (``scenarios/protocol.py``). The event windows
     are compared with the int32-wrapped global step, as the reference's
@@ -93,8 +107,9 @@ def step_core(state, in_edges, w_table, rates, bg_mean, bg_std, izh,
 
     # ---- (a) synaptic input from the in-edge table -----------------------
     local_in = local_spike_hits(spiked, in_edges, rank, n)
-    remote_in = reconstruct_remote_spikes(seed, gstep, rates, in_edges, rank,
-                                          n)
+    remote_in = remote_override if remote_override is not None else \
+        reconstruct_remote_spikes(seed, gstep, rates, in_edges, rank, n,
+                                  rate_slots=rate_slots)
     valid = in_edges >= 0
     src_lid = torch.remainder(torch.where(valid, in_edges, 0), n)
     weights = torch.where(valid, w_table[src_lid], 0.0)
@@ -148,16 +163,22 @@ def step_core(state, in_edges, w_table, rates, bg_mean, bg_std, izh,
 
 def window_plain(state, in_edges, w_table, rates, bg_mean, bg_std, chunk: int,
                  rank: int, *, seed: int, num_steps: int, izh, ca_consts,
-                 stim=None, lesions=None):
-    """``num_steps`` iterations of ``step_core``. Returns ``(state7,
-    spikes_per_step)`` with the (num_steps,) f32 per-step fired counts."""
+                 stim=None, lesions=None, rate_slots=None, remote=None):
+    """``num_steps`` iterations of ``step_core``. ``remote``: None, or a
+    function of a step's 7-tuple state that returns that step's (n, S)
+    remote-spike hits (the old spike exchange, a collective a step) or None
+    (the new algorithm: the hits are drawn from the rates).
+    Returns ``(state7, spikes_per_step)`` with the (num_steps,) f32 per-step
+    fired counts."""
     n = state[0].shape[0]
     st = tuple(state)
     counts = []
     for t in range(num_steps):
         st = step_core(st, in_edges, w_table, rates, bg_mean, bg_std, izh,
                        ca_consts, seed, chunk * num_steps + t, rank, n,
-                       stim=stim, lesions=lesions)
+                       stim=stim, lesions=lesions,
+                       remote_override=None if remote is None else remote(st),
+                       rate_slots=rate_slots)
         counts.append(torch.sum(st[5].to(torch.float32)))
     return st, torch.stack(counts)
 
@@ -169,19 +190,16 @@ def activity_window(state, in_edges, w_table, rates, bg_mean, bg_std,
 
     state: 7-tuple (v, u, ca, ax, de, spiked (bool), spike_count), all (n,);
     in_edges: (n, S) int32; w_table: (n,) signed per-source weights; rates:
-    the dense (R, n) table; bg_mean/bg_std: scalar or (n,); izh: 6-tuple,
-    scalar or (n,); stim/lesions: the protocol tables of
-    ``scenarios/protocol.py`` or None. Returns ``(state7,
-    spikes_per_step)``; the inputs are left unchanged."""
-    if rate_slots is not None:
-        raise NotImplementedError(
-            "the sparse rate exchange is not ported yet (ROADMAP.md Queue 1 "
-            "item 9)")
+    the dense (R, n) table, or with ``rate_slots`` ((n, S) int32, the sparse
+    exchange's edge -> slot remap) the compact (subs_cap,) buffer;
+    bg_mean/bg_std: scalar or (n,); izh: 6-tuple, scalar or (n,);
+    stim/lesions: the protocol tables of ``scenarios/protocol.py`` or None.
+    Returns ``(state7, spikes_per_step)``; the inputs are left unchanged."""
     if in_edges.device.type != "cuda":
         return window_plain(state, in_edges, w_table, rates, bg_mean, bg_std,
                             chunk, rank, seed=seed, num_steps=num_steps,
                             izh=izh, ca_consts=ca_consts, stim=stim,
-                            lesions=lesions)
+                            lesions=lesions, rate_slots=rate_slots)
     n = state[0].shape[0]
     s_max = in_edges.shape[1]
     dev = in_edges.device
@@ -206,6 +224,8 @@ def activity_window(state, in_edges, w_table, rates, bg_mean, bg_std,
     edges = in_edges.to(torch.int32).contiguous()
     w = w_table.to(f32).contiguous()
     rates = rates.to(f32).contiguous()
+    slots = None if rate_slots is None else \
+        rate_slots.to(torch.int32).contiguous()
     bgm, bgs = vec(bg_mean), vec(bg_std)
     izh = [vec(x) for x in izh]
     fired = torch.empty(num_steps, dtype=torch.int32, device=dev)
@@ -213,23 +233,34 @@ def activity_window(state, in_edges, w_table, rates, bg_mean, bg_std,
     les_mask, _, les_t = _event_operands(lesions, n, torch.uint8, dev)
     _build.require_cuda("activity_window", v, u, ca, ax, de, spike_count,
                         spk, *out, bits, edges, w, rates, bgm, bgs, *izh,
-                        fired, stim_mask, stim_amp, stim_t, les_mask, les_t)
-    if edges.shape != (n, s_max) or rates.shape[1] != n or w.shape != (n,):
-        raise ValueError("activity_window: in_edges (n, S), rates (R, n) and "
-                         "w_table (n,) must agree on n")
+                        fired, stim_mask, stim_amp, stim_t, les_mask, les_t,
+                        *(() if slots is None else (slots,)))
+    if slots is None:
+        if edges.shape != (n, s_max) or rates.dim() != 2 or \
+                rates.shape[1] != n or w.shape != (n,):
+            raise ValueError("activity_window: in_edges (n, S), rates (R, n) "
+                             "and w_table (n,) must agree on n")
+    elif edges.shape != (n, s_max) or slots.shape != (n, s_max) or \
+            rates.dim() != 1 or rates.numel() < 1 or w.shape != (n,):
+        raise ValueError("activity_window: in_edges and rate_slots (n, S), "
+                         "rates (subs_cap,) and w_table (n,) must agree")
     lib = _build.library()
     rc = lib.repro_activity_window(
         v.data_ptr(), u.data_ptr(), ca.data_ptr(), ax.data_ptr(),
         de.data_ptr(), spike_count.data_ptr(), spk.data_ptr(),
         *(t.data_ptr() for t in out), bits.data_ptr(), edges.data_ptr(),
-        w.data_ptr(), rates.data_ptr(), bgm.data_ptr(), bgs.data_ptr(),
+        w.data_ptr(), rates.data_ptr(),
+        None if slots is None else slots.data_ptr(), rates.shape[0],
+        bgm.data_ptr(), bgs.data_ptr(),
         *(t.data_ptr() for t in izh), stim_mask.data_ptr(),
         stim_amp.data_ptr(), stim_t.data_ptr(), stim_amp.shape[0],
         les_mask.data_ptr(), les_t.data_ptr(), les_t.shape[0],
-        fired.data_ptr(), n, s_max, rates.shape[0], int(rank),
+        fired.data_ptr(), n, s_max,
+        rates.shape[0] if slots is None else 1, int(rank),
         int(seed) & chash.M32, _wrap_i32(chunk * num_steps), num_steps,
         float(ca_consts[0]), float(ca_consts[1]), _build.stream())
-    shape = f"n={n}, S={s_max}, R={rates.shape[0]}, steps={num_steps}"
+    shape = f"n={n}, S={s_max}, rates {tuple(rates.shape)}, " \
+        f"steps={num_steps}"
     if rc == _NO_COOPERATIVE_LAUNCH:
         raise RuntimeError(f"activity_window: the device does not take a "
                            f"cooperative launch ({shape})")

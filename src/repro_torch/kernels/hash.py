@@ -11,8 +11,12 @@ after every add and shift (``torch.uint32`` has no add or shift on the CPU).
 Device version: the ``__device__`` functions of ``csrc/hash.cuh``, inlined
 into K1, K2 and ``csrc/retract.cu``, and run over tensors by the draw
 kernel of ``csrc/hash_words.cu`` (``draw``): one launch a ``prng`` call on a
-CUDA tensor (its keys, bits, uniforms or integers written directly) or a
-``threefry_words`` call, held bit-equal to the plain versions on the card.
+CUDA tensor (its keys, bits, uniforms or integers written directly), a
+``threefry_words`` call, or a ``uniform``, ``gumbel`` or ``normal`` draw
+whose operands include a CUDA tensor, held bit-equal to the plain versions
+on the card. No path of the simulator runs the plain ``threefry2x32`` on
+a CUDA tensor; ``plain_cuda_calls`` counts such calls, so a check can hold
+that count at 0.
 ``threefry2x32_int`` is the same hash on Python
 ints, for keys derived on the host (a few int operations, where the tensor
 version would take some sixty small CPU tensor operations).
@@ -61,11 +65,25 @@ def _rotl(x, r: int):
     return ((x << r) & M32) | (x >> (32 - r))
 
 
+_PLAIN_CUDA = [0]
+
+
+def plain_cuda_calls(reset: bool = False) -> int:
+    """Calls of the plain ``threefry2x32`` on CUDA tensors since the last
+    reset; ``reset`` sets the count to 0 after reading it."""
+    k = _PLAIN_CUDA[0]
+    if reset:
+        _PLAIN_CUDA[0] = 0
+    return k
+
+
 def threefry2x32(k0, k1, c0, c1):
     """Full 20-round Threefry-2x32: key (k0, k1), counter (c0, c1). Args are
     Python ints or integer tensors (broadcast together); returns two int64
     tensors holding u32 words."""
     dev = _device_of(k0, k1, c0, c1)
+    if dev.type == "cuda":
+        _PLAIN_CUDA[0] += 1
     k0, k1, x0, x1 = (_u32(v, dev) for v in (k0, k1, c0, c1))
     k2 = k0 ^ k1 ^ _PARITY
     ks = (k0, k1, k2)
@@ -108,6 +126,10 @@ def _to_unit(word):
 
 def uniform(seed: int, domain: int, ctr, entity):
     """f32 uniform in [0, 1), elementwise over broadcast(ctr, entity)."""
+    return _draw_or_plain(UNIT, uniform_plain, seed, domain, ctr, entity)
+
+
+def uniform_plain(seed: int, domain: int, ctr, entity):
     x0, _ = bits(seed, domain, ctr, entity)
     return _to_unit(x0)
 
@@ -124,12 +146,20 @@ def bh_ctr(chunk, rnd, draw):
 def gumbel(seed: int, domain: int, ctr, entity):
     """f32 standard Gumbel; u is clamped away from 0 so both logs stay
     finite."""
-    u = uniform(seed, domain, ctr, entity)
+    return _draw_or_plain(GUMBEL, gumbel_plain, seed, domain, ctr, entity)
+
+
+def gumbel_plain(seed: int, domain: int, ctr, entity):
+    u = uniform_plain(seed, domain, ctr, entity)
     return -torch.log(-torch.log(torch.clamp_min(u, 1e-20)))
 
 
 def normal(seed: int, domain: int, ctr, entity):
     """f32 standard normal via Box-Muller on the two hash words."""
+    return _draw_or_plain(NORMAL, normal_plain, seed, domain, ctr, entity)
+
+
+def normal_plain(seed: int, domain: int, ctr, entity):
     x0, x1 = bits(seed, domain, ctr, entity)
     u1 = _to_unit(x0)
     u2 = _to_unit(x1)
@@ -139,15 +169,19 @@ def normal(seed: int, domain: int, ctr, entity):
 
 # ------------------------------------------------------------ device check
 launches = _build.LaunchCounter("threefry_words")
+_MODE_LAUNCHES = [0] * 8      # launches of the draw kernel by mode
 
-WORDS, KEYS, BITS, UNIFORM, RANDINT = range(5)   # csrc/hash_words.cu's modes
+# csrc/hash_words.cu's modes: prng's (WORDS .. RANDINT) and the counter
+# hash's uniform, gumbel and normal draws
+WORDS, KEYS, BITS, UNIFORM, RANDINT, UNIT, GUMBEL, NORMAL = range(8)
 _OUT_DTYPE = (torch.int64, torch.int64, torch.int64, torch.float32,
-              torch.int32)
+              torch.int32, torch.float32, torch.float32, torch.float32)
 
 
 class _Word(ctypes.Structure):
     """One u32 operand of the draw kernel (``csrc/hash_words.cu`` Word)."""
     _fields_ = [("ptr", ctypes.c_void_p), ("stride", ctypes.c_longlong),
+                ("inner", ctypes.c_longlong), ("outer", ctypes.c_longlong),
                 ("is64", ctypes.c_int), ("value", ctypes.c_uint)]
 
 
@@ -161,33 +195,35 @@ class _DrawArgs(ctypes.Structure):
                 ("minval", ctypes.c_uint)]
 
 
-def _flat_stride(x: torch.Tensor, shape) -> int | None:
-    """The one stride (in elements) at which ``x`` broadcast to ``shape``
-    holds element i of the row-major flat index, or None where no single
-    stride does (a row or a column broadcast over a grid)."""
-    if tuple(x.shape) == tuple(shape) and x.is_contiguous():
-        return 1
+def _layout(x: torch.Tensor, shape):
+    """Where ``x`` broadcast to ``shape`` holds element i of the row-major
+    flat index, in elements: ``(stride, 0, 0)`` for i * stride, or
+    ``(stride, inner, outer)`` for (i % inner) * stride + (i // inner) *
+    outer (a (Q, 1) column or a (1, F) row broadcast over a (Q, F) grid);
+    None where no two strides do."""
     xs = x.expand(shape)
-    stride, span = None, 1
+    runs = []          # [stride, elements] of merged axes, innermost first
     for size, st in zip(reversed(xs.shape), reversed(xs.stride())):
         if size == 1:
             continue
-        if stride is None:
-            stride = st
-        elif st != stride * span:
-            return None
-        span *= size
-    return 0 if stride is None else stride
+        if runs and st == runs[-1][0] * runs[-1][1]:
+            runs[-1][1] *= size
+        else:
+            runs.append([st, size])
+    if len(runs) > 2:
+        return None
+    if len(runs) == 2:
+        return runs[0][0], runs[0][1], runs[1][0]
+    return (runs[0][0] if runs else 0), 0, 0
 
 
 def _word(x, shape, dev) -> _Word:
     """The draw kernel's operand for a Python int or an integer tensor over
-    ``shape``: its value, or its data read where it lies through one stride
-    (int32 or int64, u32 and u64 too). Other element sizes and layouts no
-    single stride reads (a row or a column broadcast over a grid) raise:
-    nothing is copied."""
+    ``shape``: its value, or its data read where it lies through one or two
+    strides (int32 or int64, u32 and u64 too). Other element sizes and
+    layouts no two strides read raise: nothing is copied."""
     if not isinstance(x, torch.Tensor):
-        return _Word(None, 0, 0, int(x) & M32)
+        return _Word(None, 0, 0, 0, 0, int(x) & M32)
     if x.device != dev:
         raise ValueError("threefry: every tensor operand must lie on the "
                          f"output's device {dev}, got {x.device}")
@@ -195,12 +231,15 @@ def _word(x, shape, dev) -> _Word:
             x.element_size() not in (4, 8):
         raise TypeError(f"threefry: 32- or 64-bit integer operands only, "
                         f"got {x.dtype}")
-    stride = _flat_stride(x, shape)
-    if stride is None:
+    layout = _layout(x, shape)
+    if layout is None:
         raise ValueError(f"threefry: an operand of shape {tuple(x.shape)} "
-                         f"and strides {x.stride()} is not one stride over "
+                         f"and strides {x.stride()} is not two strides over "
                          f"{shape}")
-    return _Word(x.data_ptr(), stride, int(x.element_size() == 8), 0)
+    if layout[1] and math.prod(shape) >= 2 ** 32:
+        raise ValueError(f"threefry: a two-stride operand over {shape} (the "
+                         f"kernel indexes it in 32 bits)")
+    return _Word(x.data_ptr(), *layout, int(x.element_size() == 8), 0)
 
 
 def draw(mode: int, k0, k1, c0, c1, shape, dev, *, lo: float = 0.0,
@@ -210,8 +249,8 @@ def draw(mode: int, k0, k1, c0, c1, shape, dev, *, lo: float = 0.0,
     ``dev``: operands are Python ints or integer tensors broadcast to
     ``shape`` (keys: the shape of the key batch); ``c0 = None`` makes the
     counter the flat index. Returns the mode's output: (2, *shape) int64
-    words, (*shape, 2) int64 keys, int64 bits, f32 uniforms or int32
-    integers."""
+    words, (*shape, 2) int64 keys, int64 bits, f32 uniforms, int32
+    integers, or f32 counter-hash uniforms, Gumbels or normals."""
     if dev.type != "cuda":
         raise ValueError(f"threefry draw: a CUDA device, not {dev}")
     shape = tuple(shape)
@@ -230,6 +269,18 @@ def draw(mode: int, k0, k1, c0, c1, shape, dev, *, lo: float = 0.0,
     _build.check(_build.library().repro_threefry_draw(
         ctypes.addressof(args), _build.stream(dev.index)), "threefry")
     launches.add()
+    _MODE_LAUNCHES[mode] += 1
+    return out
+
+
+def mode_launches(reset: bool = False) -> dict:
+    """The wrapper's launches of the draw kernel by mode name since the last
+    reset (``launches`` counts them all); ``reset`` sets them to 0."""
+    names = ("words", "keys", "bits", "uniform", "randint", "unit", "gumbel",
+             "normal")
+    out = dict(zip(names, _MODE_LAUNCHES))
+    if reset:
+        _MODE_LAUNCHES[:] = [0] * len(names)
     return out
 
 
@@ -243,7 +294,7 @@ def threefry_words(k0, k1, c0, c1):
     """Elementwise Threefry-2x32 over four operands (integer tensors that
     broadcast together, or Python ints; their low 32 bits). When one of them
     is a CUDA tensor this is one launch of K0's draw kernel, which reads each
-    tensor where it lies (int32 or int64, through one stride; other
+    tensor where it lies (int32 or int64, through one or two strides; other
     operands raise); otherwise the plain version. Returns two int64 tensors holding u32 words."""
     dev = _device_of(k0, k1, c0, c1)
     if dev.type != "cuda":
@@ -252,3 +303,14 @@ def threefry_words(k0, k1, c0, c1):
                                      if isinstance(t, torch.Tensor)))
     out = draw(WORDS, k0, k1, c0, c1, shape, dev)
     return out[0], out[1]
+
+
+def _draw_or_plain(mode: int, plain, *operands):
+    """A counter-hash draw (``UNIT``, ``GUMBEL`` or ``NORMAL``): one launch
+    of the draw kernel when an operand is a CUDA tensor, else ``plain``."""
+    dev = _device_of(*operands)
+    if dev.type != "cuda":
+        return plain(*operands)
+    shape = torch.broadcast_shapes(*(t.shape for t in operands
+                                     if isinstance(t, torch.Tensor)))
+    return draw(mode, *operands, shape, dev)

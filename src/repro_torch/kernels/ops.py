@@ -15,8 +15,8 @@ launches its kernel or raises, on CPU tensors it runs the plain version.
 | ``route_build(flat_other, flat_mine, *, n, num_ranks, cap)`` | K5 | ``synapse_apply`` |
 | ``fused_activity_window(...)`` | K1 | ``activity_fused`` |
 
-``fused_activity_window(..., rate_slots=...)`` (the sparse exchange) raises
-``NotImplementedError`` (ROADMAP.md Queue 1 item 9).
+``fused_activity_window(..., rate_slots=...)`` takes the sparse exchange's
+operand: the (subs_cap,) rate buffer read through the (n, S) slot remap.
 """
 from __future__ import annotations
 

@@ -34,7 +34,6 @@ from repro_torch.kernels import _build
 from repro_torch.scenarios import observables
 from repro_torch.scenarios import protocol as proto
 from repro_torch.sim import phases as sim_phases
-from repro_torch.sim import registry
 from repro_torch.telemetry import metrics as telemetry_metrics
 
 
@@ -43,10 +42,6 @@ class Simulator:
 
     def __init__(self, cfg, scenario=None, num_ranks: int = 1,
                  device=None, comm: Optional[dist.Comm] = None):
-        # every selected lowering must exist in the port (raises
-        # NotImplementedError naming the ROADMAP item otherwise)
-        for domain, field in registry.CONFIG_FIELDS.items():
-            registry.resolve(domain, getattr(cfg, field))
         if comm is not None:
             if num_ranks not in (1, comm.num_ranks):
                 raise ValueError(f"Simulator: num_ranks={num_ranks} with a "

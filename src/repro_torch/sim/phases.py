@@ -2,9 +2,10 @@
 
 ``PhaseContext`` bundles what every phase needs besides the state (config,
 rank, rank count, the rank's ``dist.Comm``, the scenario with its region and
-event tuples, the population table, the metrics recorder). The activity lowerings register
-here; the connectivity, traversal, tree, apply and rate-exchange lowerings
-register next to their implementations in ``repro_torch.connectome``.
+event tuples, the population table, the metrics recorder). The activity
+lowerings and the per-step spike exchanges register here; the connectivity,
+traversal, tree, apply and rate-exchange lowerings register next to their
+implementations in ``repro_torch.connectome``.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from torch.profiler import record_function
 
 from repro_torch import dist
 from repro_torch.connectome.update import connectivity_update
+from repro_torch.core import spikes
 from repro_torch.kernels import activity_fused
 from repro_torch.scenarios import populations as pops
 from repro_torch.scenarios import protocol as proto
@@ -65,7 +67,10 @@ def make_context(cfg, rank: int, num_ranks: int, scenario=None,
 # ================================================================ activity
 def _window_inputs(state, ctx: PhaseContext):
     """The per-window tables: Izhikevich parameters, background drive
-    (region overrides), and the protocol's stimulus and lesion tables."""
+    (region overrides), the protocol's stimulus and lesion tables, and the
+    rate view of the exchange layout (dense: the replicated (R, n) table;
+    sparse: the compact subscribed-rate buffer through the (n, S) edge ->
+    slot remap)."""
     cfg, table = ctx.cfg, ctx.table
     izh = (table.izh_a, table.izh_b, table.izh_c, table.izh_d,
            table.growth_rate, table.target_calcium)
@@ -75,10 +80,14 @@ def _window_inputs(state, ctx: PhaseContext):
         if ctx.events else None
     lesions = proto.lesion_tables(ctx.events, ctx.regions, state.positions) \
         if ctx.events else None
-    return bg_mean, bg_std, dict(
+    if cfg.rate_exchange == "sparse":
+        rates, rate_slots = state.remote_rates, state.rate_slots
+    else:
+        rates, rate_slots = state.rates_table, None
+    return rates, bg_mean, bg_std, dict(
         seed=cfg.seed, num_steps=cfg.rate_period, izh=izh,
         ca_consts=(cfg.calcium_decay, cfg.calcium_beta), stim=stim,
-        lesions=lesions)
+        lesions=lesions, rate_slots=rate_slots)
 
 
 def _st7(neurons):
@@ -92,6 +101,20 @@ def _unpack_st7(neurons, out):
                             spiked=out[5], spike_count=out[6])
 
 
+@registry.register_phase("spikes", "old")
+def spikes_old(st7, state, ctx: PhaseContext, stats):
+    """OLD spike transmission, one step: all-gather the sorted spiked-ID
+    lists, binary-search each remote in-edge. Returns the (n, S) remote
+    hits; counts the step's spiked IDs into ``spikes_sent``."""
+    n = ctx.cfg.neurons_per_rank
+    all_ids, _ = spikes.exchange_spiked_ids(st7[5], ctx.rank, n, ctx.comm)
+    hits = spikes.lookup_spikes(all_ids, state.in_edges, n)
+    remote_in = hits & (torch.div(state.in_edges, n, rounding_mode="floor")
+                        != ctx.rank) & (state.in_edges >= 0)
+    stats = stats.count("spikes_sent", torch.sum(st7[5]))
+    return remote_in, stats
+
+
 @registry.register_phase("spikes", "new")
 def spikes_new(st7, state, ctx: PhaseContext, stats):
     """NEW spike transmission: no per-step exchange — step_core rebuilds
@@ -99,11 +122,11 @@ def spikes_new(st7, state, ctx: PhaseContext, stats):
     return None, stats
 
 
-def _activity(state, ctx: PhaseContext, window):
-    bg_mean, bg_std, kw = _window_inputs(state, ctx)
+def _activity(state, ctx: PhaseContext, window, **extra):
+    rates, bg_mean, bg_std, kw = _window_inputs(state, ctx)
     out, spikes_per_step = window(
         _st7(state.neurons), state.in_edges, ctx.table.synapse_weight,
-        state.rates_table, bg_mean, bg_std, state.chunk, ctx.rank, **kw)
+        rates, bg_mean, bg_std, state.chunk, ctx.rank, **kw, **extra)
     stats = ctx.metrics.activity_window(state.stats, spikes_per_step)
     return state._replace(neurons=_unpack_st7(state.neurons, out),
                           stats=stats)
@@ -111,13 +134,20 @@ def _activity(state, ctx: PhaseContext, window):
 
 @registry.register_phase("activity", "reference")
 def activity_reference(state, ctx: PhaseContext):
-    """Delta iterations of the plain torch ``step_core``."""
-    return _activity(state, ctx, activity_fused.window_plain)
+    """Delta iterations of the plain torch ``step_core``; under the old
+    spike algorithm each step first runs its spike exchange (a collective)
+    and takes its remote hits, counting ``spikes_sent`` a step."""
+    exchange = registry.resolve("spikes", ctx.cfg.spike_alg)
+    return _activity(state, ctx, activity_fused.window_plain,
+                     remote=lambda st: exchange(st, state, ctx,
+                                                state.stats)[0])
 
 
 @registry.register_phase("activity", "fused")
 def activity_fused_phase(state, ctx: PhaseContext):
-    """The activity window kernel K1 (one launch per window)."""
+    """The activity window kernel K1 (one launch per window). Needs
+    spike_alg='new' (``registry.check_config``): the old algorithm's
+    per-step spiked-ID exchange cannot run inside the window kernel."""
     return _activity(state, ctx, activity_fused.activity_window)
 
 

@@ -1,11 +1,11 @@
 """Phase-implementation registry: each variant field of ``BrainConfig``
-resolves to a callable here, once, when a simulator is built.
+resolves to a callable here (``BrainConfig`` checks every field's value when
+it is built).
 
 ``_DOMAINS`` lists the allowed names of every domain (the same table as the
 JAX package's registry, copied so the port imports nothing of it);
-``register_phase`` records an implementation under one of those names. A name
-may be allowed but not yet ported: ``resolve`` then raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+``register_phase`` records an implementation under one of those names, and
+the port implements every one.
 
 This module is stdlib-only, so the config imports it without cycles.
 """
@@ -31,15 +31,6 @@ CONFIG_FIELDS: Dict[str, str] = {
     "rate_exchange": "rate_exchange",
     "tree": "tree_impl",
     "apply": "apply_impl",
-}
-
-# allowed names the port does not run yet -> the ROADMAP item that brings them
-_NOT_PORTED: Dict[Tuple[str, str], str] = {
-    ("spikes", "old"): "ROADMAP.md Queue 1 item 9 (the paper's comparisons)",
-    ("connectivity", "old"): "ROADMAP.md Queue 1 item 9 (the paper's "
-                             "comparisons)",
-    ("rate_exchange", "sparse"): "ROADMAP.md Queue 1 item 9 (the paper's "
-                                 "comparisons)",
 }
 
 _IMPLS: Dict[Tuple[str, str], Callable] = {}
@@ -88,12 +79,8 @@ def ensure_loaded() -> None:
 
 def resolve(domain: str, name: str) -> Callable:
     """Name -> callable. Raises ``ValueError`` for a name the domain does
-    not allow and ``NotImplementedError`` for one the port has not run yet."""
+    not allow."""
     ensure_loaded()
-    if (domain, name) in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{CONFIG_FIELDS[domain]}={name!r} is not ported yet; see "
-            f"{_NOT_PORTED[(domain, name)]}")
     try:
         return _IMPLS[(domain, name)]
     except KeyError:

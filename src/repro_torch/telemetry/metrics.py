@@ -178,3 +178,13 @@ class Recorder:
         nb = HIST_BUCKETS["frontier_depth"]
         bucket = torch.clamp(depth, 0, nb - 1)
         return m.observe("frontier_depth", bucket, w)
+
+    def subs_occupancy(self, m: Metrics, subs, no_sub) -> Metrics:
+        """One histogram entry per chunk: the filled fraction of the sparse
+        exchange's subscription registry."""
+        cap = torch.full((), float(subs.shape[0]), dtype=torch.float32,
+                         device=subs.device)
+        frac = torch.sum((subs != no_sub).to(torch.float32)) / cap
+        nb = HIST_BUCKETS["subs_occupancy"]
+        bucket = torch.clamp((frac * nb).to(torch.int32), 0, nb - 1)
+        return m.observe("subs_occupancy", bucket[None])

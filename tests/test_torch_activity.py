@@ -172,13 +172,28 @@ def test_fused_wrapper_on_cpu_is_the_plain_window(steps):
 
 
 def test_window_refuses_what_the_slice_does_not_carry():
-    """The sparse rate view is refused; the scenario tables are carried."""
+    """The window carries the sparse rate view: with the compact buffer
+    holding the dense table's rates at the rank's subscriptions
+    (``core.spikes.build_subscriptions``), the window equals the dense one
+    bitwise (the draws are keyed by the edge, not by where the rate came
+    from). And it carries the scenario tables."""
+    from repro_torch.core import spikes as tspikes
     state, edges, w, rates, izh = _inputs()
     args = (tuple(_torch(x) for x in state), _torch(edges), _torch(w),
             _torch(rates), 5.0, 1.0, 0, RANK)
+    kw = _kw(tuple(_torch(x) for x in izh), 7)
+    subs, slots, ovf = tspikes.build_subscriptions(_torch(edges), RANK, N,
+                                                   R * N)
+    valid = subs != tspikes.NO_SUB
+    g = torch.where(valid, subs, 0).long()
+    buf = torch.where(valid, _torch(rates)[g // N, g % N], 0.0)
+    sparse = taf.activity_window(*args[:3], buf, *args[4:],
+                                 rate_slots=slots, **kw)
+    dense = taf.activity_window(*args, **kw)
+    assert float(ovf) == 0 and bool((slots >= 0).any())
+    for x, y in zip(sparse[0] + (sparse[1],), dense[0] + (dense[1],)):
+        assert torch.equal(x, y)
     kw = _kw(tuple(_torch(x) for x in izh), 2)
-    with pytest.raises(NotImplementedError, match="sparse"):
-        taf.activity_window(*args, rate_slots=_torch(edges), **kw)
     stim, lesions = _scenario_tables(np.random.default_rng(9), 0)
     a, _ = taf.activity_window(*args, stim=_torch_tables(stim),
                                lesions=_torch_tables(lesions), **kw)

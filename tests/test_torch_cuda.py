@@ -158,20 +158,77 @@ def test_words_key_without_device_lands_on_the_card(dev):
 
 
 def test_draw_kernel_rejects_what_no_stride_reads(dev):
-    """An operand of 1- or 2-byte integers, or one that no single stride
-    reads over the output (a row or a column broadcast over a grid),
-    raises instead of being copied; nothing is launched."""
+    """An operand of 1- or 2-byte integers, or one that no two strides read
+    over the output (a (4, 1, 5) block broadcast over (4, 3, 5)), raises
+    instead of being copied; nothing is launched. A row or a column
+    broadcast over a grid is two strides: read where it lies, bit-equal."""
     before = chash.launches.count
     with pytest.raises(TypeError):
         chash.threefry_words(torch.zeros(4, dtype=torch.int16, device=dev),
                              1, 2, 3)
-    col = torch.zeros(4, 1, dtype=torch.int32, device=dev)
-    row = torch.zeros(1, 5, dtype=torch.int32, device=dev)
-    grid = torch.zeros(4, 5, dtype=torch.int32, device=dev)
-    for part in (row, col):
-        with pytest.raises(ValueError):
-            chash.threefry_words(part, 1, grid, 3)
+    block = torch.zeros(4, 1, 5, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        chash.threefry_words(block, 1,
+                             torch.zeros(4, 3, 5, dtype=torch.int32,
+                                         device=dev), 3)
+    with pytest.raises(ValueError):
+        chash.gumbel(1, 2, block, torch.zeros(1, 3, 1, device=dev,
+                                              dtype=torch.int64))
     assert chash.launches.count == before
+    col = torch.arange(4, dtype=torch.int32, device=dev)[:, None] * 7
+    row = torch.arange(5, dtype=torch.int64, device=dev)[None, :] + 2 ** 33
+    grid = torch.arange(20, dtype=torch.int32, device=dev).reshape(4, 5)
+    for a, b in ((row, col), (col, row), (grid.t().contiguous().t(), row)):
+        for x, y in zip(chash.threefry_words(a, 1, b, grid),
+                        chash.threefry2x32(a, 1, b, grid)):
+            assert torch.equal(x, y)
+    assert chash.launches.count == before + 3
+
+
+def _hash_draw_cases(n, dev):
+    """(kernel call, plain call) of the counter-hash draws: phase A's and
+    phase B's Gumbel (a (Q, 1) gid column against a (1, F) counter row),
+    the activity window's noise (NORMAL over (n,) gids) and its remote
+    spike uniforms (UNIT over (n, S) edge ids)."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    gids = torch.randint(0, 2 ** 31 - 1, (n,), generator=g, device=dev,
+                         dtype=torch.int32)
+    ctr = chash.bh_ctr(5, 3, torch.arange(64, device=dev))[None, :]
+    edge_id = (gids.to(torch.int64)[:, None] * 8
+               + torch.arange(8, device=dev))
+    seed, dom = 0x12345, chash.BH_DOMAIN
+    return {
+        "gumbel": (lambda: chash.gumbel(seed, dom, ctr, gids[:, None]),
+                   lambda: chash.gumbel_plain(seed, dom, ctr, gids[:, None])),
+        "normal": (lambda: chash.normal(seed, chash.NOISE_DOMAIN, 2 ** 31 + 9,
+                                        gids.to(torch.int64)),
+                   lambda: chash.normal_plain(seed, chash.NOISE_DOMAIN,
+                                              2 ** 31 + 9,
+                                              gids.to(torch.int64))),
+        "uniform": (lambda: chash.uniform(seed, chash.SPIKE_DOMAIN, 77,
+                                          edge_id),
+                    lambda: chash.uniform_plain(seed, chash.SPIKE_DOMAIN, 77,
+                                                edge_id)),
+    }
+
+
+@pytest.mark.parametrize("n", [1, 3, 4099, 65537])
+@pytest.mark.parametrize("case", ["gumbel", "normal", "uniform"])
+def test_counter_hash_draws_equal_plain_in_one_launch(dev, case, n):
+    """K0's GUMBEL, NORMAL and UNIT epilogues at odd sizes (the Gumbel in
+    the outer layout of a column against a row): bit-equal to the plain
+    int64 composition, one device launch a call."""
+    kernel, plain = _hash_draw_cases(n, dev)[case]
+    torch.cuda.synchronize()
+    chash.device_launches(reset=True)
+    got = kernel()
+    torch.cuda.synchronize()
+    assert chash.device_launches(reset=True) == 1
+    chash.plain_cuda_calls(reset=True)
+    want = plain()
+    assert chash.plain_cuda_calls(reset=True) == 1
+    assert got.dtype == want.dtype == torch.float32
+    assert got.shape == want.shape and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("num_ranks,rank", [(1, 0), (4, 1)])
@@ -1128,11 +1185,15 @@ def test_plain_priorities_run_only_in_the_reference_lowering(dev, impl):
              chash.threefry2x32.__code__: "threefry2x32"}
     sim = Simulator.from_config(cfg, scenario=scn, device=dev)
     calls = _cuda_calls(lambda: sim.run(3), names)
+    # the plain int64 Threefry sees no CUDA tensor on either lowering: the
+    # reference's draws (prng, and hash's uniform, gumbel and normal) are
+    # launches of K0's draw kernel on the card
     if impl == "fused":
         assert calls == {"retract_synapses": 0, "edge_priority": 0,
                          "threefry2x32": 0}
     else:
-        assert all(k > 0 for k in calls.values()), calls
+        assert calls["threefry2x32"] == 0, calls
+        assert calls["retract_synapses"] > 0 and calls["edge_priority"] > 0
 
 
 def test_init_state_on_the_card_equals_the_cpu(dev):
@@ -1388,3 +1449,125 @@ def test_process_group_comm_over_nccl_with_one_rank(dev):
             {k: v for k, v in b.stats().items() if "launches/" not in k}
     finally:
         tdist.destroy_process_group()
+
+
+# ------------------------------------------------------------ comparisons
+@pytest.mark.parametrize("n", [1000, 4099])
+def test_activity_window_sparse_rates_equal_plain(dev, n):
+    """K1 with the sparse exchange's operand at odd n: the (subs_cap,) rate
+    buffer read through the (n, S) slot remap (slots -1 among them) of a
+    rank of four, bit-equal to the plain window (integer weights)."""
+    from repro_torch.core import spikes
+    s, steps, rank = 8, 13, 1
+    g = torch.Generator(device=dev).manual_seed(n)
+    state = (torch.randn(n, generator=g, device=dev) * 5 - 60,
+             torch.randn(n, generator=g, device=dev) * 2 - 13,
+             torch.rand(n, generator=g, device=dev),
+             torch.rand(n, generator=g, device=dev) * 2,
+             torch.rand(n, generator=g, device=dev) * 2,
+             torch.rand(n, generator=g, device=dev) < 0.2,
+             torch.zeros(n, device=dev))
+    edges = torch.randint(-1, 4 * n, (n, s), generator=g, device=dev,
+                          dtype=torch.int32)
+    # a registry smaller than the unique remote sources: overflowed slots
+    subs, slots, ovf = spikes.build_subscriptions(edges, rank, n, n)
+    buf = torch.rand(n, generator=g, device=dev) * 0.3
+    w = torch.where(torch.arange(n, device=dev) < 4 * n // 5, 15.0, -15.0)
+    kw = dict(seed=3, num_steps=steps, izh=(0.02, 0.2, -65.0, 8.0, 1e-3, 0.7),
+              ca_consts=(1e-4, 2.4e-3), rate_slots=slots)
+    before = af.launches.count
+    a, a_spk = af.activity_window(state, edges, w, buf, 5.0, 1.0, 2, rank,
+                                  **kw)
+    b, b_spk = af.window_plain(state, edges, w, buf, 5.0, 1.0, 2, rank, **kw)
+    assert af.launches.count == before + 1
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert torch.equal(a_spk, b_spk)
+    assert float(ovf) > 0 and bool((slots >= 0).any())
+
+
+def _global_tree(dev, cfg, num_ranks, rank, chunk=2):
+    """The old algorithm's search inputs of rank ``rank``: the global tree
+    of every rank's subtree and leaf data (as routing.formation_old
+    downloads it, member gids global), and the rank's searchers with their
+    phase-A branch cells."""
+    from repro_torch.core import morton
+    n = cfg.neurons_per_rank
+    b = morton.branch_level(num_ranks)
+    sts = [engine.init_state(cfg, r, num_ranks, device=dev)
+           for r in range(num_ranks)]
+    trees = [ctree.build_local_tree(st.positions, st.neurons.de_elements, r,
+                                    cfg, num_ranks)
+             for r, st in enumerate(sts)]
+    counts = tuple(torch.cat([t.counts[k] for t in trees])
+                   for k in range(len(trees[0].counts)))
+    cents = tuple(torch.cat([t.centroids[k] for t in trees])
+                  for k in range(len(trees[0].centroids)))
+    members = torch.cat([torch.where(t.leaf_members >= 0,
+                                     t.leaf_members + r * n, -1)
+                         for r, t in enumerate(trees)])
+    npos = torch.cat([st.positions for st in sts])
+    vac = torch.cat([st.neurons.de_elements for st in sts])
+    top = ctree.build_top_tree(counts[0], cents[0], num_ranks)
+    pos = sts[rank].positions
+    gids = rank * n + torch.arange(n, dtype=torch.int32, device=pos.device)
+    start, valid = traverse.phase_a(top, pos, gids, cfg, num_ranks,
+                                    chunk=chunk)
+    stacked = traverse.stack_levels(counts, cents, b)
+    kw = dict(seed=cfg.seed, sizes=stacked.sizes, theta=cfg.theta,
+              sigma=cfg.sigma, frontier=cfg.frontier_cap,
+              n_levels=cfg.local_levels + 1)
+    args = (stacked.counts, stacked.centroids, members, npos, vac, pos,
+            start, gids, valid, chunk, 0)
+    return args, kw, tuple(c.shape[0] for c in counts)
+
+
+def test_bh_traverse_on_the_global_tree_beyond_shared_memory(dev):
+    """K2 as the old algorithm runs it at CONFIG, R=4, rank 3: the global
+    tree of widths 8 ... 32,768 (37,448 packed nodes, 600 KB: most of it
+    read through __ldg), member gids above 65,535, gid_base 0, 262,144
+    neurons' positions: bit-equal to the plain search on every row."""
+    cfg = dataclasses.replace(CONFIG, connectivity_impl="fused")
+    args, kw, widths = _global_tree(dev, cfg, 4, 3)
+    assert widths == (8, 64, 512, 4096, 32768)
+    assert int(args[2].max()) >= 3 * cfg.neurons_per_rank
+    got = bt.bh_traverse(*args, **kw, widths=widths)
+    want = traverse.phase_b_core(*args, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert bool((want[0] >= 0).any()) and \
+        bool((want[0] // cfg.neurons_per_rank != 3).any())
+
+
+@pytest.mark.parametrize("field,value", [("connectivity_alg", "old"),
+                                         ("rate_exchange", "sparse")])
+def test_comparison_paths_equal_the_new_dense_path_on_the_card(dev, field,
+                                                               value):
+    """R=2 on the card, all five lowerings fused, through a lesion: the old
+    connectivity algorithm and the sparse exchange form the same synapses
+    as the new dense path (edge tables, every neuron field, formed and
+    deleted counts bitwise equal), with no plain int64 Threefry on a CUDA
+    tensor and health 0."""
+    scn = library.lesion_rewiring()
+    scn = dataclasses.replace(scn, events=tuple(
+        dataclasses.replace(e, t=e.t // 5) for e in scn.events))
+    base = dataclasses.replace(
+        library.SMOKE_SCENARIO_CONFIG, activity_impl="fused",
+        connectivity_impl="fused", tree_impl="fused", apply_impl="fused")
+    out = []
+    chash.plain_cuda_calls(reset=True)
+    for cfg in (base, dataclasses.replace(base, **{field: value})):
+        sim = Simulator.from_config(cfg, scenario=scn, device=dev,
+                                    num_ranks=2)
+        sim.run(4)
+        assert sim.health()["health_flags"] == 0.0
+        out.append((sim.state, sim.stats()))
+    assert chash.plain_cuda_calls(reset=True) == 0
+    (a, sa_), (b, sb) = out
+    assert torch.equal(a.in_edges, b.in_edges)
+    assert torch.equal(a.out_edges, b.out_edges)
+    for f in a.neurons._fields:
+        assert torch.equal(getattr(a.neurons, f), getattr(b.neurons, f)), f
+    for k in ("synapses_formed", "synapses_deleted"):
+        assert sa_[k] == sb[k], k
+    assert sa_["synapses_deleted"] > 0

@@ -433,7 +433,16 @@ def test_ops_bh_traverse_and_activity_window_are_their_modules():
     assert torch.equal(got[1], want[1])
     assert all(torch.equal(a, b) for a, b in zip(
         got[0], ref.activity_window_ref(*aargs, **akw)[0]))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ops.fused_activity_window(*aargs, **akw,
-                                  rate_slots=torch.zeros(1, dtype=torch.int32))
+    # the sparse exchange's operand: a (subs_cap,) rate buffer read through
+    # the (n, S) slot remap, equal to the plain window
+    gen = torch.Generator().manual_seed(3)
+    edges = torch.randint(-1, 2 * q, st.in_edges.shape, dtype=torch.int32,
+                          generator=gen)
+    slots = torch.randint(-1, 5, edges.shape, dtype=torch.int32,
+                          generator=gen)
+    sargs = (state, edges, w, torch.rand(5, generator=gen), 5.0, 1.0, 0, 0)
+    got = ops.fused_activity_window(*sargs, **akw, rate_slots=slots)
+    want = af.window_plain(*sargs, **akw, rate_slots=slots)
+    assert all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+    assert torch.equal(got[1], want[1])
 

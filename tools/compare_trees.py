@@ -14,8 +14,9 @@ kernel time for one (n, 3) ``prng.uniform`` and ``init_state``'s Threefry
 launches, and one profiled chunk of the main path (the reference apply
 lowering: its retraction and formation ranges); then, in the tree,
 ``tools/k8_call_split.py`` (K8's call time by part). Among the numbers compared:
-each kernel's call and device ms (K1-K5, retraction), both paths' chunk
-time and peak memory, and the profiled chunk's ranges. Each tree builds its
+each kernel's call and device ms (K1-K5, retraction), the three paths'
+chunk time and peak memory, the profiled chunk's ranges, and the profiled
+multi-rank chunk's device busy time and phase A's device time. Each tree builds its
 kernels under its own ``build/``. Prints one JSON line per run, then a table of the
 numbers compared, the card's name and power limit on each line. A key a tree's
 ``chip_smoke.py`` does not print (a kernel it does not have) shows as None.
@@ -159,6 +160,7 @@ def run_tree(k: int, tree: pathlib.Path) -> dict:
             "empty_kernel_device_ms")
     kt = lines.get("kernel_times", {})
     prof = lines.get("profile", {}).get("ranges", {})
+    mr_prof = lines.get("profile_multi_rank_path", {})
     res = {"run": k, "tree": name, "card": card(),
            "chip_smoke_rc": smoke.returncode, "probe_rc": probe.returncode,
            "K0_ms": kt.get("K0_ms"), "K0_device_ms": kt.get("K0_device_ms"),
@@ -202,7 +204,15 @@ def run_tree(k: int, tree: pathlib.Path) -> dict:
            "profiled_device_busy_ms": lines.get("profile", {}).get(
                "device_busy_ms"),
            "profiled_chunk_wall_ms": lines.get("profile", {}).get(
-               "chunk_wall_ms")}
+               "chunk_wall_ms"),
+           "multi_rank_chunk_ms": lines.get("multi_rank_path", {}).get(
+               "median_chunk_ms"),
+           "multi_rank_peak_mem_gb": lines.get("multi_rank_path", {}).get(
+               "peak_mem_gb"),
+           "multi_rank_profiled_busy_ms": mr_prof.get("device_busy_ms"),
+           "multi_rank_phase_a_device_ms": mr_prof.get(
+               "ranges_by_launch", {}).get("repro.conn.phase_a", {}).get(
+               "device_ms")}
     if probe.returncode:
         res["probe_err"] = probe.stderr[-2000:]
     if split.returncode:
