@@ -36,7 +36,18 @@ neurons, S=32):
   then (b)-(d) again: (b) and (c) bitwise equal to (a), the second runs to
   the first, and the ratios of the paper's abstract as this one card shows
   them; with its kernel checks (K0's GUMBEL and NORMAL draws, K1's sparse
-  operand, K2 on the global tree, K4's accept of R x n requests).
+  operand, K2 on the global tree, K4's accept of R x n requests);
+- the workloads (``workloads_path``): ``run_engram`` from a loaded
+  hemibrain-shaped surrogate connectome at R=1 (12 chunks, then again chunk
+  by chunk, bitwise equal, and under the all-reference lowering with the
+  same health flags chunk by chunk), ``run_assimilation`` through
+  ``step_with`` (12 chunks, one DynamicParams signature,
+  ``step_with(zeros)`` == ``step()``), and ``from_connectome`` at R=4
+  (262,144 neurons) under the dense and the sparse exchange in lockstep,
+  sparse == dense bitwise, health flags 0; with the leaf-sum kernel
+  (``csrc/leaf_sums.cu``, the tree build's leaf level) and K3 held against
+  their plain versions at R=1 and at ranks 1 and 2 of the R=4 surrogate,
+  whose rows are clamped into one leaf.
 
 For the kernel API and each path it checks the kernels really ran there (the
 launch counts are set to 0 just before and read just after; for K9, which of
@@ -1498,6 +1509,7 @@ def multi_rank_path(cfg, scenario, card, chunks: int = 12, num_ranks: int = 4):
     Returns (sim of the second run, launch counts)."""
     import torch
     from repro_torch.connectome import routing
+    from repro_torch.connectome import tree as ctree
     from repro_torch.core import morton
     from repro_torch.kernels import _build
     from repro_torch.kernels import activity_fused as af
@@ -1514,10 +1526,12 @@ def multi_rank_path(cfg, scenario, card, chunks: int = 12, num_ranks: int = 4):
     sa.route_device_launches(reset=True)
     chash.device_launches(reset=True)
     chash.plain_cuda_calls(reset=True)
+    ctree.plain_cuda_calls(reset=True)
     sim, rec, warm, per_chunk, flags = run_main_path(cfg, chunks - 1,
                                                      scenario, num_ranks)
     counts = _build.launch_counts()
     plain_threefry = chash.plain_cuda_calls(reset=True)
+    plain_leaf = ctree.plain_cuda_calls(reset=True)
     device_counts = {"activity_window": af.device_launches(reset=True),
                      "synapse_apply": sa.device_launches(reset=True),
                      "morton_sort": rs.morton_device_launches(reset=True),
@@ -1533,7 +1547,10 @@ def multi_rank_path(cfg, scenario, card, chunks: int = 12, num_ranks: int = 4):
     want = {"activity_window": calls, "morton_sort": calls,
             "synapse_apply": 3 * calls, "route_build": 2 * calls,
             "retract": 2 * calls, "edge_priority": calls,
-            "threefry_words": k0_calls}
+            "threefry_words": k0_calls, "leaf_sums": calls}
+    if plain_leaf:
+        fail(f"the plain leaf sums ran {plain_leaf} times on CUDA tensors "
+             f"on the multi-rank path")
     if plain_threefry:
         fail(f"the plain int64 Threefry ran {plain_threefry} times on CUDA "
              f"tensors on the multi-rank path")
@@ -1974,7 +1991,7 @@ BYTE_COUNTERS = ("formation_requests", "tree_nodes_downloaded", "rates_sent",
                  "spikes_sent")
 PATH_KERNELS = ("threefry_words", "activity_window", "bh_traverse",
                 "morton_sort", "synapse_apply", "route_build", "retract",
-                "edge_priority")
+                "edge_priority", "leaf_sums")
 
 
 def comparison_run(cfg, scenario, chunks: int, num_ranks: int):
@@ -2175,6 +2192,333 @@ def comparison_paths(base_cfg, scenario, card, chunks: int = 4,
     return runs, second
 
 
+# ---------------------------------------------------------------- workloads
+LEAF_OPS = 8        # per neuron: count atomic, place, 4 adds and 3 products
+R4_CHUNKS = 4       # timed chunks of each R=4 run, after one warm-up
+
+
+def surrogate(cfg, num_ranks: int):
+    """The hemibrain-shaped surrogate at ``num_ranks`` x CONFIG's width
+    (rows in global Morton order), and its generation seconds."""
+    from repro_torch.workloads import datasets as wds
+    n = cfg.neurons_per_rank
+    t0 = time.perf_counter()
+    ds = wds.generate_hemibrain_surrogate(
+        num_ranks * n, n, max_degree=cfg.max_synapses,
+        fraction_excitatory=cfg.fraction_excitatory)
+    return ds, time.perf_counter() - t0
+
+
+def leaf_layout(cfg, positions, rank: int, num_ranks: int):
+    """A rank's tree-build layout: (rel, slot) from K3, the rows whose leaf
+    lies outside the rank's block (clamped into its first or last leaf),
+    and the fullest leaf's occupancy."""
+    import torch
+    from repro_torch.connectome import tree as ctree
+    from repro_torch.core import morton
+    from repro_torch.kernels import radix_sort as rs
+    leaf_level, n_leaf, base = ctree._tree_geometry(rank, cfg, num_ranks)
+    leaf_base = base * 8 ** cfg.local_levels
+    kw = dict(leaf_level=leaf_level, n_leaf=n_leaf)
+    rel, slot = rs.morton_sort(positions, leaf_base, **kw)
+    raw = morton.morton_encode(positions, leaf_level) - leaf_base
+    clamped = int(((raw < 0) | (raw >= n_leaf)).sum())
+    fullest = int(torch.bincount(rel.long(), minlength=n_leaf).max())
+    return rel, slot, n_leaf, leaf_base, clamped, fullest
+
+
+def check_leaf_sums(label, cfg, positions, weights, rank: int,
+                    num_ranks: int):
+    """The leaf-sum kernel (and K3 before it) at a path's shapes: both
+    bit-equal to their plain versions, call and device ms, the plain
+    version's ms (one call), ``index_add_`` of the same sums (the library
+    call; not bit-equal: its atomics add in no fixed order) and the bound
+    (bytes: positions, weight, rel and slot in, 16 B a leaf out)."""
+    import torch
+    from repro_torch.connectome import tree as ctree
+    from repro_torch.kernels import leaf_sums as ls
+    from repro_torch.kernels import radix_sort as rs
+    rel, slot, n_leaf, leaf_base, clamped, fullest = leaf_layout(
+        cfg, positions, rank, num_ranks)
+    leaf_level = ctree._tree_geometry(rank, cfg, num_ranks)[0]
+    n = positions.shape[0]
+    shape = {"n": n, "R": num_ranks, "rank": rank, "n_leaf": n_leaf,
+             "clamped_rows": clamped, "fullest_leaf": fullest}
+    _check_exact(f"K3 morton_sort ({label})", (rel, slot),
+                 rs.morton_sort_plain(positions, leaf_base,
+                                      leaf_level=leaf_level, n_leaf=n_leaf),
+                 shape)
+    got = ls.leaf_sums(positions, weights, rel, slot, n_leaf)
+    t0 = time.perf_counter()
+    want = (ctree._leaf_sums(weights, rel, slot, n_leaf),
+            ctree._leaf_sums(positions * weights[:, None], rel, slot,
+                             n_leaf))
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    diff = _check_exact(f"leaf_sums ({label})", got, want, shape)
+    del want
+    torch.cuda.empty_cache()
+    call = lambda: ls.leaf_sums(positions, weights, rel, slot, n_leaf)
+    ms = cuda_ms(call, reps=10)
+    dev_ms = device_ms(call, 10)
+    vals = torch.cat([weights[:, None], positions * weights[:, None]], 1)
+    acc = torch.zeros((n_leaf, 4), dtype=torch.float32, device=DEV)
+    idx = rel.long()
+    lib_ms = cuda_ms(lambda: acc.index_add_(0, idx, vals), reps=10)
+    b = bound(n * (12 + 4 + 4 + 4) + n_leaf * 16, n * LEAF_OPS)
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": b[0], "bound_by": b[1],
+            "max_abs_err": diff, **shape}
+
+
+def _path_checks(label, counts, plain_leaf, plain_threefry, chunks,
+                 calls=None):
+    """Every kernel of the path launched; K1, K3 and the leaf sums once a
+    rank and chunk; no plain leaf sum or plain Threefry on a CUDA tensor."""
+    calls = chunks if calls is None else calls
+    missing = [k for k in PATH_KERNELS if counts.get(k, 0) == 0]
+    if missing:
+        fail(f"{label}: {missing} never launched")
+    for k in ("activity_window", "morton_sort", "leaf_sums"):
+        if counts[k] != calls:
+            fail(f"{label}: {k} launched {counts[k]} times, not {calls}")
+    if plain_leaf or plain_threefry:
+        fail(f"{label}: the plain leaf sums ran {plain_leaf} times and the "
+             f"plain Threefry {plain_threefry} times on CUDA tensors")
+
+
+def _reset_counts():
+    from repro_torch.connectome import tree as ctree
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import hash as chash
+    _build.reset_launch_counts()
+    ctree.plain_cuda_calls(reset=True)
+    chash.plain_cuda_calls(reset=True)
+
+
+def _read_counts():
+    """(launch counts, plain leaf sums, plain Threefry) on CUDA tensors
+    since ``_reset_counts``."""
+    from repro_torch.connectome import tree as ctree
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import hash as chash
+    return (_build.launch_counts(), ctree.plain_cuda_calls(reset=True),
+            chash.plain_cuda_calls(reset=True))
+
+
+def _loaded_flags_fault(flags, ref_flags, lesion_chunk: int):
+    """What is wrong with a loaded-connectome run's per-chunk health flags,
+    or None. From a loaded connectome the JAX reference sets two bits
+    itself (the CPU tests hold the port's flags equal to its at SMOKE
+    size): conservation (the loaded edges were never counted as formed)
+    and asymmetry (the surrogate's multi-edges). So the fused run's flags
+    must be the all-reference lowering's, chunk by chunk, hold no other
+    bit, and be 0 from the lesion's chunk on. The last is the trace
+    measured at CONFIG from seed 0 (both bits clear before the lesion), not
+    a property of every surrogate: at SMOKE size both bits stay set to the
+    end. Nothing holds the flags at CONFIG against the JAX package
+    itself."""
+    from repro_torch.telemetry import metrics as tm
+    loaded = tm.HEALTH_ASYMMETRY | tm.HEALTH_CONSERVATION
+    if flags != ref_flags:
+        return f"flags {flags}, all-reference lowering {ref_flags}"
+    if any(int(f) & ~loaded for f in flags):
+        return f"flags {flags}: a bit besides conservation and asymmetry"
+    if any(flags[lesion_chunk:]):
+        return f"flags {flags}: set after the lesion (chunk {lesion_chunk})"
+    return None
+
+
+def _same_state(a, b) -> bool:
+    import torch
+    return (torch.equal(a.out_edges, b.out_edges)
+            and torch.equal(a.in_edges, b.in_edges)
+            and all(torch.equal(getattr(a.neurons, f), getattr(b.neurons, f))
+                    for f in a.neurons._fields))
+
+
+def workloads_path(cfg, card):
+    """The workloads at CONFIG on the card, all five lowerings fused:
+    (1) ``run_engram`` from a loaded surrogate connectome at R=1 (the
+    default spec, 12 chunks), then the same protocol again chunk by chunk
+    (timed, health read) and bitwise equal, and once more under the
+    all-reference lowering, whose health flags the fused run's must equal
+    chunk by chunk (``_loaded_flags_fault``); (2) ``run_assimilation``, 12
+    chunks through ``step_with`` (K1 once a chunk, one DynamicParams
+    signature), and ``step_with(zeros)`` bitwise ``step()``; (3)
+    ``from_connectome`` at R=4 (262,144 neurons, ``dist.LocalComm``) under
+    the dense and the sparse exchange in lockstep, one warm-up and
+    ``R4_CHUNKS`` chunks each, sparse == dense bitwise and the health
+    flags 0 after every chunk;
+    the leaf sums and K3 at ranks 1 and 2 of that layout against their
+    plain versions. No plain leaf sum and no plain Threefry may run on a
+    CUDA tensor. Returns (the JSON line, the leaf-sum kernel's numbers)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.sim import phases
+    from repro_torch.sim.api import Simulator
+    from repro_torch.workloads import assimilate, engram
+    n = cfg.neurons_per_rank
+    line = {"phase": "workloads_path", "card": card, "config": "CONFIG, "
+            "all five lowerings fused", "neurons_per_rank": n}
+
+    # (1) engram from a loaded connectome, R=1
+    ds1, gen1 = surrogate(cfg, 1)
+    spec = engram.EngramSpec()
+    chunks = spec.total_chunks
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    metrics, sim = engram.run_engram(cfg, spec, dataset=ds1, device=DEV)
+    torch.cuda.synchronize()
+    engram_s = time.perf_counter() - t0
+    counts, plain_leaf, plain_tf = _read_counts()
+    _path_checks("workloads engram", counts, plain_leaf, plain_tf, chunks)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    runs = {}
+    for impl in ("fused", "reference"):
+        sim_cfg = cfg if impl == "fused" else dataclasses.replace(
+            cfg, activity_impl=impl, connectivity_impl=impl, tree_impl=impl,
+            apply_impl=impl)
+        s = Simulator.from_connectome(
+            sim_cfg, ds1, scenario=engram.scenario(spec, cfg.rate_period),
+            device=DEV)
+        ms, fl = [], []
+        for _ in range(chunks):
+            t0 = time.perf_counter()
+            s.step()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            fl.append(s.health()["health_flags"])
+        runs[impl] = (s, ms, fl)
+    (sim2, per_chunk, flags), (sim_ref, _, ref_flags) = \
+        runs["fused"], runs["reference"]
+    again = engram.recall_metrics(sim2.state, spec) == metrics and \
+        _same_state(sim.state, sim2.state)
+    flag_fault = _loaded_flags_fault(
+        flags, ref_flags, spec.train_chunks + spec.rest_chunks)
+    finite = all(bool(torch.isfinite(x).all()) for x in (
+        sim2.state.neurons.v, sim2.state.neurons.u,
+        sim2.state.neurons.calcium))
+    line["engram"] = {
+        "dataset": {"neurons": ds1.num_neurons, "edges": ds1.num_edges,
+                    "max_in_degree": int(ds1.in_degrees().max()),
+                    "generate_s": gen1},
+        "metrics": metrics, "run_engram_s": engram_s,
+        "chunk_ms": per_chunk,
+        "median_chunk_ms": sorted(per_chunk)[len(per_chunk) // 2],
+        "chunk_ms_range": [min(per_chunk), max(per_chunk)],
+        "peak_mem_gb": peak, "health_flags_per_chunk": flags,
+        "reference_health_flags_per_chunk": ref_flags,
+        "reference_state_equal": _same_state(sim2.state, sim_ref.state),
+        "launches": counts, "second_run_equal": again, "finite": finite,
+        "synapses_formed": sim2.stats()["synapses_formed"]}
+    if not again or not finite or flag_fault:
+        fail(f"workloads engram: second run equal={again}, finite={finite},"
+             f" {flag_fault}")
+    del sim, sim2, sim_ref, runs
+
+    # (2) assimilation through step_with, R=1
+    _reset_counts()
+    t0 = time.perf_counter()
+    res, asim = assimilate.run_assimilation(cfg, chunks=12, device=DEV)
+    torch.cuda.synchronize()
+    assim_s = time.perf_counter() - t0
+    counts_a, plain_leaf, plain_tf = _read_counts()
+    _path_checks("workloads assimilation", counts_a, plain_leaf, plain_tf,
+                 12)
+    a = Simulator.from_config(cfg, scenario=assimilate.default_scenario(),
+                              device=DEV)
+    b = Simulator.from_config(cfg, scenario=assimilate.default_scenario(),
+                              device=DEV)
+    zero_equal = _same_state(a.step(), b.step_with(
+        phases.DynamicParams.zeros(2, device=DEV)))
+    line["assimilation"] = {
+        "chunks": 12, "abs_err_first": float(res.abs_err[0]),
+        "abs_err_last": float(res.abs_err[-1]),
+        "abs_err": res.abs_err.tolist(),
+        "measured_driven": res.measured[:, 0].tolist(),
+        "dyn_compile_count": res.compile_count, "seconds": assim_s,
+        "ms_per_chunk": assim_s * 1e3 / 12, "launches": counts_a,
+        "step_with_zeros_equals_step": zero_equal}
+    if res.compile_count != 1 or not zero_equal or \
+            not np.isfinite(res.abs_err).all():
+        fail(f"workloads assimilation: {res.compile_count} signatures, "
+             f"step_with(zeros) == step(): {zero_equal}")
+    del asim, a, b
+
+    # (3) from_connectome at R=4, dense and sparse in lockstep
+    ds4, gen4 = surrogate(cfg, 4)
+    torch.cuda.empty_cache()
+    _reset_counts()
+    sims, install_s = {}, {}
+    for ex in ("dense", "sparse"):
+        t0 = time.perf_counter()
+        sims[ex] = Simulator.from_connectome(
+            dataclasses.replace(cfg, rate_exchange=ex), ds4, num_ranks=4,
+            device=DEV)
+        torch.cuda.synchronize()
+        install_s[ex] = time.perf_counter() - t0
+    times = {"dense": [], "sparse": []}
+    flags4 = {"dense": [], "sparse": []}
+    equal = []
+    for _ in range(R4_CHUNKS + 1):
+        for ex, s in sims.items():
+            t0 = time.perf_counter()
+            s.step()
+            torch.cuda.synchronize()
+            times[ex].append((time.perf_counter() - t0) * 1e3)
+            flags4[ex].append(s.health()["health_flags"])
+        equal.append(_same_state(sims["dense"].state, sims["sparse"].state))
+    counts4, plain_leaf, plain_tf = _read_counts()
+    calls = 2 * 4 * (R4_CHUNKS + 1)
+    _path_checks("workloads R=4", counts4, plain_leaf, plain_tf, None,
+                 calls=calls)
+    sparse_stats = sims["sparse"].stats()
+    layout = []
+    for r, st in enumerate(sims["dense"].rank_states):
+        _, _, n_leaf, _, clamped, fullest = leaf_layout(
+            cfg, st.positions, r, 4)
+        layout.append({"rank": r, "n_leaf": n_leaf,
+                       "clamped_rows": clamped, "fullest_leaf": fullest})
+    line["from_connectome_R4"] = {
+        "dataset": {"neurons": ds4.num_neurons, "edges": ds4.num_edges,
+                    "max_in_degree": int(ds4.in_degrees().max()),
+                    "generate_s": gen4},
+        "install_s": install_s,
+        "subs_cap_base": sims["sparse"].cfg.subs_cap_base,
+        "warmup_chunk_ms": {k: v[0] for k, v in times.items()},
+        "chunk_ms": {k: v[1:] for k, v in times.items()},
+        "median_chunk_ms": {k: sorted(v[1:])[len(v[1:]) // 2]
+                            for k, v in times.items()},
+        "health_flags_per_chunk": flags4, "sparse_equals_dense": equal,
+        "subscription_overflow": sparse_stats["subscription_overflow"],
+        "launches": counts4, "layout": layout}
+    if not all(equal) or any(flags4["dense"] + flags4["sparse"]):
+        fail(f"workloads R=4: sparse == dense per chunk {equal}, flags "
+             f"{flags4}")
+    del sims
+    torch.cuda.empty_cache()
+
+    # the leaf-sum kernel and K3 at the paths' shapes: R=1's first tree
+    # (init_state's positions and vacancies) and ranks 1 and 2 of the R=4
+    # surrogate (rank 2: every row clamped into one leaf)
+    st = engine.init_state(cfg, 0, 1, device=DEV)
+    leaf = {"R1": check_leaf_sums("R=1", cfg, st.positions,
+                                  st.neurons.de_elements, 0, 1)}
+    g = torch.Generator(device=DEV).manual_seed(0)
+    for r in (1, 2):
+        pos = torch.from_numpy(ds4.positions[r * n:(r + 1) * n]).to(DEV)
+        w = torch.rand(n, generator=g, device=DEV) * 1.5
+        leaf[f"R4_rank{r}"] = check_leaf_sums(f"R=4 rank {r}", cfg, pos, w,
+                                              r, 4)
+    line["leaf_sums"] = leaf
+    emit(line)
+    return line, leaf
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2355,6 +2699,7 @@ def main() -> int:
 
     # ---- path 2: the scenario through the lesion, all five kernels ------
     chunks = 12
+    from repro_torch.connectome import tree as ctree
     from repro_torch.kernels import activity_fused as af
     from repro_torch.kernels import synapse_apply as sa
     from repro_torch.kernels import radix_sort as rs
@@ -2364,12 +2709,15 @@ def main() -> int:
     rs.morton_device_launches(reset=True)
     sa.route_device_launches(reset=True)
     chash.plain_cuda_calls(reset=True)
+    ctree.plain_cuda_calls(reset=True)
     sim, rec, warm, per_chunk, flags = run_main_path(all_fused, chunks - 1,
                                                      scn)
     counts = _build.launch_counts()
     if chash.plain_cuda_calls(reset=True):
         fail("the plain int64 Threefry ran on CUDA tensors on the scenario "
              "path")
+    if ctree.plain_cuda_calls(reset=True):
+        fail("the plain leaf sums ran on CUDA tensors on the scenario path")
     device_counts = {"activity_window": af.device_launches(reset=True),
                      "synapse_apply": sa.device_launches(reset=True),
                      "morton_sort": rs.morton_device_launches(reset=True),
@@ -2379,7 +2727,8 @@ def main() -> int:
                       device_counts=device_counts)
     want = {"activity_window": chunks, "morton_sort": chunks,
             "synapse_apply": 3 * chunks, "route_build": 2 * chunks,
-            "retract": 2 * chunks, "edge_priority": chunks}
+            "retract": 2 * chunks, "edge_priority": chunks,
+            "leaf_sums": chunks}
     for name, k in want.items():
         if counts[name] != k:
             fail(f"{name} launched {counts[name]} times on the scenario "
@@ -2411,6 +2760,11 @@ def main() -> int:
         cmp_cfg, scaled(scn, 4), card,
         also_profile={"profile_multi_rank_path": sim_r4})
     del sim_r4
+    torch.cuda.empty_cache()
+
+    # ---- path 5: the workloads (engram from a loaded connectome, the
+    # assimilation loop through step_with, from_connectome at R=4)
+    wl_line, leaf = workloads_path(all_fused, card)
     torch.cuda.empty_cache()
     # the profiles last: a profiler session slows the host for the rest of
     # the process
@@ -2529,6 +2883,22 @@ def main() -> int:
          "bound_ms": k5[2][0],
          "bound_by": k5[2][1], "library_ms": None,
          "device_launches_per_call": k5[5]},
+        {"name": "leaf_sums", "route": "cuda",
+         "source": "src/repro_torch/csrc/leaf_sums.cu",
+         "replaces": "src/repro/connectome/tree.py:76 (jnp)",
+         "launches": counts["leaf_sums"],
+         "multi_rank_launches": r4_counts["leaf_sums"],
+         "workloads_launches": {
+             k: wl_line[k]["launches"]["leaf_sums"]
+             for k in ("engram", "assimilation", "from_connectome_R4")},
+         "max_abs_err": max(v["max_abs_err"] for v in leaf.values()),
+         **{k: leaf["R1"][k] for k in (
+             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")},
+         "R4": {k: {f: v[f] for f in (
+             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "clamped_rows", "fullest_leaf")}
+             for k, v in leaf.items() if k != "R1"}},
     ]
     # the comparison paths' kernels (launches: their runs of
     # comparison_paths, the profiled chunks not counted)

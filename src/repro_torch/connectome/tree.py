@@ -9,9 +9,11 @@ Float sums are taken in a fixed order on every device: a leaf's count and
 centroid are the sum of its neurons in ascending neuron index (the order of
 the reference's sequential scatter-add), and a parent's the sum of its 8
 children in order. ``index_add_`` on CUDA would add with atomics in an order
-that changes from run to run; here the leaf sums come from a dense
-(leaf, within-leaf slot) table summed column by column, so a chunk run twice
-from one seed gives bitwise-equal trees and edge tables.
+that changes from run to run; here the leaf sums come from the leaf-sum
+kernel on the card (``kernels/leaf_sums.py``: each leaf's members listed
+in ascending order and added in that order by one lane) and, on the CPU,
+from a dense (leaf, within-leaf slot) table summed column by column, so a
+chunk run twice from one seed gives bitwise-equal trees and edge tables.
 """
 from __future__ import annotations
 
@@ -74,10 +76,25 @@ def _sum8(x):
     return acc
 
 
+_PLAIN_CUDA = [0]
+
+
+def plain_cuda_calls(reset: bool = False) -> int:
+    """Calls of the plain ``_leaf_sums`` on CUDA tensors since the last
+    reset; ``reset`` sets the count to 0 after reading it."""
+    k = _PLAIN_CUDA[0]
+    if reset:
+        _PLAIN_CUDA[0] = 0
+    return k
+
+
 def _leaf_sums(values, rel, slot, n_leaf: int):
     """Per-leaf sums of ``values`` ((n,) or (n, 3)) in ascending neuron
     order: scatter each neuron into its (leaf, slot) cell of a dense table,
-    then add the slot columns in order."""
+    then add the slot columns in order. The plain version of the leaf-sum
+    kernel: it reads the width on the host and allocates n_leaf x width."""
+    if values.device.type == "cuda":
+        _PLAIN_CUDA[0] += 1
     width = int(slot.max().item()) + 1 if slot.numel() else 1
     tbl = torch.zeros((n_leaf, width) + tuple(values.shape[1:]),
                       dtype=values.dtype, device=values.device)
@@ -92,8 +109,11 @@ def _leaf_sums(values, rel, slot, n_leaf: int):
 def _assemble_tree(positions, weights, rel, slot, cfg, n_leaf: int,
                    base_cell: int, members_cap: int) -> LocalTree:
     """Leaf sums, parent aggregation, and the capped membership table."""
-    counts = [_leaf_sums(weights, rel, slot, n_leaf)]
-    centroids = [_leaf_sums(positions * weights[:, None], rel, slot, n_leaf)]
+    from repro_torch.kernels import leaf_sums   # lazy: it imports us
+    leaf_counts, leaf_cents = leaf_sums.leaf_sums(positions, weights, rel,
+                                                  slot, n_leaf)
+    counts = [leaf_counts]
+    centroids = [leaf_cents]
     for _ in range(cfg.local_levels):
         counts.insert(0, _sum8(counts[0]))
         centroids.insert(0, _sum8(centroids[0]))

@@ -64,6 +64,7 @@ SIGNATURES = {
     "repro_morton_sort_device_launches": [I],
     "repro_retract": [P] * 5 + [I, I, U, U, P],
     "repro_edge_priority": [P] * 4 + [I, U, U, P],
+    "repro_leaf_sums": [P] * 7 + [I, I, P],
     "repro_synapse_apply": [P] * 11 + [P, ctypes.c_longlong, I, I, I, I, P],
     "repro_synapse_apply_device_launches": [I],
     "repro_route_build": [P] * 5 + [ctypes.c_longlong, I, I, I, I, P],
@@ -183,7 +184,8 @@ def library() -> ctypes.CDLL:
         lib.repro_synapse_apply_workspace.argtypes = [I, I, I]
         lib.repro_synapse_apply_workspace.restype = ctypes.c_longlong
         for name in ("repro_morton_sort_workspace",
-                     "repro_route_build_workspace"):
+                     "repro_route_build_workspace",
+                     "repro_leaf_sums_workspace"):
             getattr(lib, name).argtypes = [I, I]
             getattr(lib, name).restype = ctypes.c_longlong
         lib.repro_error_string.argtypes = [ctypes.c_int]

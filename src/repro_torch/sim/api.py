@@ -5,6 +5,8 @@
 >>> state, rec = sim.run(5, recorder=observables.init_recorder(5, nb))
 >>> sim.stats()["synapses_formed"]
 >>> Simulator.from_config(cfg, num_ranks=4).run(5)   # four ranks, one card
+>>> sim = Simulator.from_connectome(cfg, dataset)    # a loaded connectome
+>>> sim.step_with(phases.DynamicParams.zeros(nb))    # a drive per region
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; without a card
 and without that argument it raises instead of silently running on the CPU
@@ -22,13 +24,18 @@ collectives every process must call.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Optional
 
+import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch import dist
+from repro_torch.connectome import routing
 from repro_torch.core import engine
+from repro_torch.core import spikes
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
 from repro_torch.scenarios import observables
@@ -70,6 +77,7 @@ class Simulator:
         self.ctx = self.ctxs[0]
         self._states: Optional[list] = None
         self._global: Optional[engine.BrainState] = None
+        self._dyn_signatures: set = set()
 
     @classmethod
     def from_config(cls, cfg, scenario=None, num_ranks: int = 1,
@@ -77,6 +85,79 @@ class Simulator:
                     ) -> "Simulator":
         return cls(cfg, scenario=scenario, num_ranks=num_ranks, device=device,
                    comm=comm)
+
+    @classmethod
+    def from_connectome(cls, cfg, dataset, scenario=None, num_ranks: int = 1,
+                        device=None, comm: Optional[dist.Comm] = None
+                        ) -> "Simulator":
+        """A Simulator whose initial state is wired from a
+        ``workloads.datasets.ConnectomeDataset`` instead of empty tables.
+
+        Checked before anything is built: the dataset's structure, its row
+        count against ``num_ranks * cfg.neurons_per_rank`` (gid == global
+        row) and its excitation layout against the (cfg, scenario)
+        population table of every rank block; no degree may exceed
+        ``cfg.max_synapses``. Under the sparse exchange the subscription
+        registry is sized from the measured per-rank count of unique remote
+        sources (baked into ``cfg.subs_cap_base``) and derived through
+        ``rebuild_exchange``, the exchange's own computation, so sparse ==
+        dense holds from the first chunk."""
+        from repro_torch.workloads import datasets as wds
+        wds.validate(dataset)
+        ranks = comm.num_ranks if comm is not None else num_ranks
+        n = cfg.neurons_per_rank
+        if dataset.num_neurons != ranks * n:
+            raise ValueError(
+                f"dataset {dataset.name!r} has {dataset.num_neurons} "
+                f"neurons; need num_ranks*neurons_per_rank = "
+                f"{ranks}*{n} = {ranks * n} (gid == global row)")
+        wds.check_population_layout(dataset, cfg, scenario, ranks)
+        if cfg.rate_exchange == "sparse" and cfg.subs_cap_base is None:
+            cfg = dataclasses.replace(
+                cfg, subs_cap_base=wds.max_unique_remote_sources(dataset, n))
+        sim = cls(cfg, scenario=scenario, num_ranks=num_ranks, device=device,
+                  comm=comm)
+        sim._install_connectome(dataset)
+        return sim
+
+    def _install_connectome(self, dataset) -> None:
+        """Overwrite the fresh state's connectivity with the dataset, rank
+        r taking rows [r n, (r + 1) n): positions, the front-packed out and
+        in edge tables, the excitation, and element counts covering the
+        wired degrees (each neuron keeps its seeded vacant draw on top, so
+        the first update grows from the loaded connectome rather than
+        retracting it). Under a process group each process installs its
+        own rank's block."""
+        from repro_torch.workloads import datasets as wds
+        n = self.cfg.neurons_per_rank
+        dev = self.device
+        with record_function("repro.sim.from_connectome"):
+            out_e, in_e = wds.edge_tables(dataset, self.cfg.max_synapses)
+
+            def block(x, r):
+                return torch.from_numpy(
+                    np.ascontiguousarray(x[r * n:(r + 1) * n])).to(dev)
+
+            states = []
+            for r, st in zip(self.ranks, self.rank_states):
+                out_deg = (out_e[r * n:(r + 1) * n] >= 0).sum(1).astype(
+                    np.float32)
+                in_deg = (in_e[r * n:(r + 1) * n] >= 0).sum(1).astype(
+                    np.float32)
+                neurons = st.neurons._replace(
+                    ax_elements=st.neurons.ax_elements
+                    + torch.from_numpy(out_deg).to(dev),
+                    de_elements=st.neurons.de_elements
+                    + torch.from_numpy(in_deg).to(dev),
+                    is_excitatory=block(dataset.is_excitatory, r))
+                states.append(st._replace(
+                    neurons=neurons, positions=block(dataset.positions, r),
+                    out_edges=block(out_e, r), in_edges=block(in_e, r)))
+            self._set_states(states)
+            # subs, rate_slots and remote_rates from the installed in-edge
+            # table (the rates are all zero, so the pushed buffer matches
+            # the dense table's zeros bit for bit)
+            self.rebuild_exchange()
 
     # ------------------------------------------------------------ state
     @property
@@ -114,15 +195,10 @@ class Simulator:
         return self.state
 
     # ------------------------------------------------------------ driving
-    def _advance(self, num_chunks: int) -> None:
-        """``num_chunks`` chunks on every rank of this process (one thread
-        a rank behind the baton when there are several)."""
-        def body(i):
-            st = self.rank_states[i]
-            for _ in range(num_chunks):
-                st = sim_phases.sim_chunk(st, self.ctxs[i])
-            return st
-
+    def _on_ranks(self, body) -> None:
+        """``body(i)`` -> the new state of the i-th rank of this process, on
+        every rank (one thread a rank behind the baton when there are
+        several)."""
         if self._group is None:
             states = [body(0)]
         else:
@@ -131,9 +207,69 @@ class Simulator:
                 device=self.device)
         self._set_states(states)
 
+    def _advance(self, num_chunks: int, ctxs=None) -> None:
+        """``num_chunks`` chunks on every rank of this process."""
+        ctxs = self.ctxs if ctxs is None else ctxs
+
+        def body(i):
+            st = self.rank_states[i]
+            for _ in range(num_chunks):
+                st = sim_phases.sim_chunk(st, ctxs[i])
+            return st
+
+        self._on_ranks(body)
+
     def step(self) -> engine.BrainState:
         """Advance one chunk (Delta activity steps + connectivity update)."""
         self._advance(1)
+        return self.state
+
+    def step_with(self, dyn) -> engine.BrainState:
+        """Advance one chunk with the ``phases.DynamicParams`` ``dyn`` on
+        every rank's context. The host may change the values between
+        chunks: they reach the kernels by pointer, nothing is rebuilt. A
+        leaf that is not a tensor on the simulator's device goes up with
+        ``non_blocking=True`` (no wait for the stream)."""
+        dyn = sim_phases.DynamicParams(*(
+            torch.as_tensor(x, dtype=torch.float32).to(
+                self.device, non_blocking=True)
+            if not isinstance(x, torch.Tensor) or x.device != self.device
+            else x for x in dyn))
+        self._dyn_signatures.add(tuple(
+            (tuple(x.shape), x.dtype, x.device) for x in dyn))
+        self._advance(1, [dataclasses.replace(c, dyn=dyn)
+                          for c in self.ctxs])
+        return self.state
+
+    def dyn_compile_count(self) -> int:
+        """The distinct (shape, dtype, device) signatures of the
+        ``DynamicParams`` leaves ``step_with`` has run: the reference's
+        retrace key (it counts jit traces; the port compiles nothing per
+        call). The assimilation loop asserts it stays 1."""
+        return len(self._dyn_signatures)
+
+    def rebuild_exchange(self) -> engine.BrainState:
+        """Re-derive the sparse exchange's fields (the subscription
+        registry, the edge -> slot remap, the subscribed-rate buffer) from
+        the in-edge table and the rates: the computation ``exchange_sparse``
+        runs at every chunk's end, on every rank (a collective under a
+        process group). No-op under the dense exchange."""
+        if self.cfg.rate_exchange != "sparse":
+            return self.state
+        cfg, n = self.cfg, self.cfg.neurons_per_rank
+        cap = routing.cap_subs(cfg, self.num_ranks)
+
+        def body(i):
+            st, ctx = self.rank_states[i], self.ctxs[i]
+            subs, rate_slots, _ = spikes.build_subscriptions(
+                st.in_edges, ctx.rank, n, cap)
+            remote_rates, _ = routing.push_subscribed_rates(
+                subs, st.neurons.rate, ctx.comm, n)
+            return st._replace(subs=subs, rate_slots=rate_slots,
+                               remote_rates=remote_rates)
+
+        with record_function("repro.sim.rebuild_exchange"):
+            self._on_ranks(body)
         return self.state
 
     def run(self, num_chunks: int, recorder=None):

@@ -10,7 +10,7 @@ implementations in ``repro_torch.connectome``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -26,11 +26,31 @@ from repro_torch.sim import registry
 from repro_torch.telemetry import metrics as telemetry_metrics
 
 
+class DynamicParams(NamedTuple):
+    """Runtime parameters a host loop may change between chunks
+    (``Simulator.step_with``). Every leaf is a tensor on the simulator's
+    device whose values reach the kernels by pointer, so new values need no
+    rebuild; only a leaf of another shape, dtype or device is a new
+    signature (``Simulator.dyn_compile_count``).
+
+    ``region_drive``: (num_buckets,) f32 additive offset on the background
+    drive MEAN per region bucket (``regions.assign_regions`` order: named
+    regions first, the trailing 'rest' bucket last). It rides on
+    ``bg_mean``, already a per-neuron operand of both activity lowerings."""
+    region_drive: Any
+
+    @staticmethod
+    def zeros(num_buckets: int, device=None) -> "DynamicParams":
+        return DynamicParams(region_drive=torch.zeros(
+            num_buckets, dtype=torch.float32, device=device))
+
+
 @dataclass
 class PhaseContext:
     """Everything a phase implementation needs besides the BrainState.
     ``comm`` is the rank's ``dist.Comm`` (its rank and rank count are
-    ``rank`` and ``num_ranks``)."""
+    ``rank`` and ``num_ranks``); ``dyn`` the ``DynamicParams`` of a
+    ``step_with`` chunk (None on ``step`` and ``run``)."""
     cfg: Any
     rank: int
     num_ranks: int
@@ -40,6 +60,7 @@ class PhaseContext:
     events: Tuple = ()
     metrics: Any = None
     comm: Any = dist.SINGLE
+    dyn: Optional[DynamicParams] = None
 
 
 def make_context(cfg, rank: int, num_ranks: int, scenario=None,
@@ -76,6 +97,17 @@ def _window_inputs(state, ctx: PhaseContext):
            table.growth_rate, table.target_calcium)
     bg_mean, bg_std = regions_mod.background_tables(state.positions,
                                                     ctx.regions, cfg)
+    if ctx.dyn is not None:
+        # the dynamic per-region drive: lift bg_mean to (n,) and add each
+        # neuron's bucket offset (one f32 add), as the reference does; both
+        # lowerings take bg_mean as an (n,) operand
+        rid = regions_mod.assign_regions(state.positions, ctx.regions)
+        if isinstance(bg_mean, torch.Tensor):
+            base = bg_mean.to(torch.float32)
+        else:
+            base = torch.full(rid.shape, bg_mean, dtype=torch.float32,
+                              device=rid.device)
+        bg_mean = base + ctx.dyn.region_drive[rid.to(torch.int64)]
     stim = proto.stim_tables(ctx.events, ctx.regions, state.positions) \
         if ctx.events else None
     lesions = proto.lesion_tables(ctx.events, ctx.regions, state.positions) \

@@ -16,6 +16,7 @@ each element is held within ``flash_attention.bf16_error_bound`` of the
 plain version (one bf16 ulp of the output plus the spread of the p
 roundings): a fixed 2e-2 would be as large as the output at long rows."""
 import dataclasses
+import functools
 import sys
 
 import pytest
@@ -1571,3 +1572,106 @@ def test_comparison_paths_equal_the_new_dense_path_on_the_card(dev, field,
     for k in ("synapses_formed", "synapses_deleted"):
         assert sa_[k] == sb[k], k
     assert sa_["synapses_deleted"] > 0
+
+
+# --------------------------------------------- leaf sums (csrc/leaf_sums.cu)
+@functools.lru_cache(maxsize=1)
+def _surrogate_r4():
+    """The R=4 surrogate at CONFIG's width (global Morton order: most rows
+    of ranks 1-3 lie outside their block and are clamped into one leaf)."""
+    from repro_torch.workloads import datasets as wds
+    n = CONFIG.neurons_per_rank
+    return wds.generate_hemibrain_surrogate(
+        4 * n, n, max_degree=CONFIG.max_synapses,
+        fraction_excitatory=CONFIG.fraction_excitatory)
+
+
+def _leaf_case(dev, case):
+    """(positions, weights, rank, num_ranks) of one tree build."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    if case.startswith("surrogate_rank"):
+        r, n = int(case[-1]), CONFIG.neurons_per_rank
+        pos = torch.from_numpy(
+            _surrogate_r4().positions[r * n:(r + 1) * n]).to(dev)
+        rank, ranks = r, 4
+    elif case == "one_leaf":     # rank 2 of 4's rows all in rank 0's block
+        pos = torch.rand(65_536, 3, generator=g, device=dev) * 0.5
+        rank, ranks = 2, 4
+    else:
+        pos = torch.rand(int(case), 3, generator=g, device=dev)
+        rank, ranks = 0, 1
+    w = torch.rand(pos.shape[0], generator=g, device=dev) * 3.0
+    w = torch.where(torch.rand(pos.shape[0], generator=g, device=dev) < 0.2,
+                    0.0, w)
+    return pos, w, rank, ranks
+
+
+def _leaf_inputs(dev, case):
+    pos, w, rank, ranks = _leaf_case(dev, case)
+    leaf_level, n_leaf, base = ctree._tree_geometry(rank, CONFIG, ranks)
+    rel, slot = rs.morton_sort_plain(
+        pos, base * 8 ** CONFIG.local_levels, leaf_level=leaf_level,
+        n_leaf=n_leaf)
+    return pos, w, rel, slot, n_leaf, rank, ranks
+
+
+@pytest.mark.parametrize("case", ["1", "3", "4099", "65537", "one_leaf",
+                                  "surrogate_rank1", "surrogate_rank2"])
+def test_leaf_sums_equal_plain(dev, case):
+    """The leaf-sum kernel against the plain ``_leaf_sums`` (a dense table
+    read column by column): bit-equal counts and centroids at odd sizes,
+    with every row in one leaf, and at ranks 1 and 2 of the R=4 CONFIG
+    surrogate (rank 2: all 65,536 rows clamped into one leaf; the plain
+    version's tables take 8.5 GB there); a second call bitwise equal."""
+    from repro_torch.kernels import leaf_sums as ls
+    pos, w, rel, slot, n_leaf, _, _ = _leaf_inputs(dev, case)
+    before = ls.launches.count
+    got = ls.leaf_sums(pos, w, rel, slot, n_leaf)
+    again = ls.leaf_sums(pos, w, rel, slot, n_leaf)
+    assert ls.launches.count == before + 2
+    want = (ctree._leaf_sums(w, rel, slot, n_leaf),
+            ctree._leaf_sums(pos * w[:, None], rel, slot, n_leaf))
+    for a, b, c in zip(got, want, again):
+        assert a.shape == b.shape
+        assert torch.equal(a, b) and torch.equal(a, c)
+    if case in ("one_leaf", "surrogate_rank2"):
+        assert int(slot.max()) == pos.shape[0] - 1
+    del want
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("rank", [1, 2, 3])
+def test_morton_sort_on_the_surrogate_ranks_equals_plain(dev, rank):
+    """K3 on the clamped layout of the R=4 CONFIG surrogate: slots up to
+    65,535 in one leaf, bit-equal to the plain version."""
+    pos, _, rank, ranks = _leaf_case(dev, f"surrogate_rank{rank}")
+    leaf_level, n_leaf, base = ctree._tree_geometry(rank, CONFIG, ranks)
+    kw = dict(leaf_level=leaf_level, n_leaf=n_leaf)
+    leaf_base = base * 8 ** CONFIG.local_levels
+    got = rs.morton_sort(pos, leaf_base, **kw)
+    want = rs.morton_sort_plain(pos, leaf_base, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["surrogate_rank2", "65537"])
+def test_tree_build_does_not_wait_for_the_card(dev, case):
+    """``_assemble_tree`` (and K3 before it) under the sync debug mode: the
+    leaf sums read no width on the host; no plain leaf sum runs on the card;
+    the tree equals the reference lowering's."""
+    pos, w, rank, ranks = _leaf_case(dev, case)
+    cfg = dataclasses.replace(CONFIG, tree_impl="fused")
+    _build.library()
+    ctree.build_tree(cfg, pos, w, rank, ranks)      # warm the caches
+    torch.cuda.synchronize()
+    ctree.plain_cuda_calls(reset=True)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ctree.build_tree(cfg, pos, w, rank, ranks)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert ctree.plain_cuda_calls(reset=True) == 0
+    want = ctree.build_local_tree(pos, w, rank, CONFIG, ranks)
+    for a, b in zip(got.counts + got.centroids, want.counts + want.centroids):
+        assert torch.equal(a, b)
+    assert torch.equal(got.leaf_members, want.leaf_members)

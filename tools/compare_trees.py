@@ -15,8 +15,9 @@ launches, and one profiled chunk of the main path (the reference apply
 lowering: its retraction and formation ranges); then, in the tree,
 ``tools/k8_call_split.py`` (K8's call time by part). Among the numbers compared:
 each kernel's call and device ms (K1-K5, retraction), the three paths'
-chunk time and peak memory, the profiled chunk's ranges, and the profiled
-multi-rank chunk's device busy time and phase A's device time. Each tree builds its
+chunk time and peak memory, the profiled chunk's ranges, the profiled
+multi-rank chunk's device busy time and phase A's device time, and the
+workloads' chunk times and the leaf sums' device time. Each tree builds its
 kernels under its own ``build/``. Prints one JSON line per run, then a table of the
 numbers compared, the card's name and power limit on each line. A key a tree's
 ``chip_smoke.py`` does not print (a kernel it does not have) shows as None.
@@ -161,6 +162,7 @@ def run_tree(k: int, tree: pathlib.Path) -> dict:
     kt = lines.get("kernel_times", {})
     prof = lines.get("profile", {}).get("ranges", {})
     mr_prof = lines.get("profile_multi_rank_path", {})
+    wl = lines.get("workloads_path", {})
     res = {"run": k, "tree": name, "card": card(),
            "chip_smoke_rc": smoke.returncode, "probe_rc": probe.returncode,
            "K0_ms": kt.get("K0_ms"), "K0_device_ms": kt.get("K0_device_ms"),
@@ -197,6 +199,8 @@ def run_tree(k: int, tree: pathlib.Path) -> dict:
                "repro.conn.tree_build", {}).get("device_ms"),
            "profiled_tree_build_launches": prof.get(
                "repro.conn.tree_build", {}).get("launches"),
+           "profiled_tree_build_span_ms": prof.get(
+               "repro.conn.tree_build", {}).get("span_ms"),
            "profiled_formation_device_ms": prof.get(
                "repro.conn.formation", {}).get("device_ms"),
            "profiled_formation_span_ms": prof.get(
@@ -212,7 +216,12 @@ def run_tree(k: int, tree: pathlib.Path) -> dict:
            "multi_rank_profiled_busy_ms": mr_prof.get("device_busy_ms"),
            "multi_rank_phase_a_device_ms": mr_prof.get(
                "ranges_by_launch", {}).get("repro.conn.phase_a", {}).get(
-               "device_ms")}
+               "device_ms"),
+           "leaf_sums_device_ms": wl.get("leaf_sums", {}).get("R1", {}).get(
+               "device_ms"),
+           "engram_chunk_ms": wl.get("engram", {}).get("median_chunk_ms"),
+           "from_connectome_R4_chunk_ms": wl.get(
+               "from_connectome_R4", {}).get("median_chunk_ms")}
     if probe.returncode:
         res["probe_err"] = probe.stderr[-2000:]
     if split.returncode:
