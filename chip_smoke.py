@@ -44,10 +44,11 @@ neurons, S=32):
   ``step_with`` (12 chunks, one DynamicParams signature,
   ``step_with(zeros)`` == ``step()``), and ``from_connectome`` at R=4
   (262,144 neurons) under the dense and the sparse exchange in lockstep,
-  sparse == dense bitwise, health flags 0; with the leaf-sum kernel
-  (``csrc/leaf_sums.cu``, the tree build's leaf level) and K3 held against
-  their plain versions at R=1 and at ranks 1 and 2 of the R=4 surrogate,
-  whose rows are clamped into one leaf.
+  sparse == dense bitwise, health flags 0; with the tree assembly
+  (``csrc/leaf_sums.cu``: the leaf sums, the parent levels and the
+  membership table in one cooperative launch) and K3 held against their
+  plain versions at R=1, at rank 3 of the multi-rank path and at ranks 1-3
+  of the R=4 surrogate, whose rows are clamped into one leaf.
 
 For the kernel API and each path it checks the kernels really ran there (the
 launch counts are set to 0 just before and read just after; for K9, which of
@@ -809,21 +810,30 @@ def check_k3(cfg, num_ranks: int = 1, rank: int = 0):
 
 
 def _apply_bytes(n, s, qm, qr):
-    """synapse_apply.py:107-115: the table in and out, messages, requests,
-    vacancies and the accept mask once each."""
-    return 2 * n * s * 4 + qm * 9 + qr * 13 + qr + n * 4
+    """The table in and out, messages (9 B), requests (9 B and, fed, their
+    4-byte priority; the keyed mode draws it), vacancies and the accept
+    mask once each."""
+    return 2 * n * s * 4 + qm * 9 + qr * 9 + qr + n * 4
 
 
 def check_k4(cfg, num_ranks: int = 1):
     """K4's two launch shapes on the scenario path, on random full-width
-    inputs: a drain at the lesion's message count (no valid requests) and
-    the accept of a full request buffer (no valid messages); at R ranks the
-    messages and requests of all R ranks' buffers (R x cap each) and
-    partner gids of every rank."""
+    inputs: a drain at the lesion's message count (no request side, null
+    pointers) and the accept of a full request buffer (no message side) in
+    the keyed mode the path runs (the priorities drawn inside K4 from the
+    accept key's words), held bitwise against K4 fed
+    ``kr.edge_priority``'s priorities and against the plain accept; at R
+    ranks the messages and requests of all R ranks' buffers (R x cap each)
+    and partner gids of every rank. At R=1 also the fused apply's accept
+    and drain under a ``FillCounter``: no placeholder operand filled."""
     import torch
+    from repro_torch import prng
     from repro_torch.connectome import routing
     from repro_torch.connectome.synapses import compact
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import retract as kr
     from repro_torch.kernels import synapse_apply as sa
+    from repro_torch.sim import registry
     n, s = cfg.neurons_per_rank, cfg.max_synapses
     g = torch.Generator(device=DEV).manual_seed(6)
     i32 = torch.int32
@@ -839,40 +849,64 @@ def check_k4(cfg, num_ranks: int = 1):
     mlid = pick[:, 0].to(i32)
     mgid = edges[pick[:, 0], pick[:, 1]]
     mval = torch.rand(qm, generator=g, device=DEV) < 0.9
-    z8 = torch.zeros(8, dtype=i32, device=DEV)
-    f8 = torch.zeros(8, dtype=torch.bool, device=DEV)
-    drain = (edges, mlid, mgid, mval, z8, z8, f8,
-             torch.zeros(8, device=DEV), torch.zeros(n, device=DEV))
-    accept = (edges, z8, z8, f8,
-              torch.randint(0, n, (qr,), generator=g, device=DEV, dtype=i32),
-              torch.randint(0, num_ranks * n, (qr,), generator=g, device=DEV,
-                            dtype=i32),
-              torch.rand(qr, generator=g, device=DEV) < 0.9,
-              torch.rand(qr, generator=g, device=DEV),
-              torch.rand(n, generator=g, device=DEV) * 6)
+    req = (torch.randint(0, n, (qr,), generator=g, device=DEV, dtype=i32),
+           torch.randint(0, num_ranks * n, (qr,), generator=g, device=DEV,
+                         dtype=i32),
+           torch.rand(qr, generator=g, device=DEV) < 0.9)
+    vac = torch.rand(n, generator=g, device=DEV) * 6
+    key = prng.split_words(prng.fold_in_words(prng.key_words(cfg.seed + 2),
+                                              5), 3)[2]
+    none3 = (None,) * 3
+    drain = ((edges, mlid, mgid, mval, None, None, None, None, None), {})
+    accept = ((edges, *none3, *req, None, vac), {"key": key})
     res = {}
-    for name, args, q in (("drain", drain, (qm, 8)),
-                          ("accept", accept, (8, qr))):
+    for name, (args, kw), q in (("drain", drain, (qm, 0)),
+                                ("accept", accept, (0, qr))):
         sa.device_launches(reset=True)
-        got = sa.synapse_apply(*args)
+        got = sa.synapse_apply(*args, **kw)
         torch.cuda.synchronize()
         per_call = sa.device_launches(reset=True)
-        want = sa.synapse_apply_plain(*args)
-        diff = _check_exact(f"K4 synapse_apply ({name})", got, want,
-                            {"n": n, "S": s, "R": num_ranks, "qm": q[0],
-                             "qr": q[1],
-                             "changed_rows": int((got[0] != edges).any(1)
-                                                 .sum()),
-                             "accepted": int(got[1].sum()),
-                             "device_launches_per_call": per_call})
+        want = sa.synapse_apply_plain(*args, **kw)
+        shape = {"n": n, "S": s, "R": num_ranks, "qm": q[0], "qr": q[1],
+                 "changed_rows": int((got[0] != edges).any(1).sum()),
+                 "accepted": int(got[1].sum()),
+                 "device_launches_per_call": per_call}
+        diff = _check_exact(f"K4 synapse_apply ({name})", got, want, shape)
         if per_call != 1:
             fail(f"K4 ({name}): {per_call} device launches in one call")
-        ms = cuda_ms(lambda: sa.synapse_apply(*args), reps=5)
-        dev_ms = device_ms(lambda: sa.synapse_apply(*args), 5)
-        plain_ms = cuda_ms(lambda: sa.synapse_apply_plain(*args), reps=1)
+        extra = {}
+        if name == "accept":
+            # the same accept fed the standalone priority kernel's draws
+            prio = kr.edge_priority(key, req[1], req[0], req[2])
+            fed_args = (edges, *none3, *req, prio, vac)
+            _check_exact(f"K4 keyed == K4 fed edge_priority (R={num_ranks})",
+                         got, sa.synapse_apply(*fed_args), shape)
+            extra = {"fed_ms": cuda_ms(lambda: sa.synapse_apply(*fed_args),
+                                       reps=5),
+                     "fed_device_ms": device_ms(
+                         lambda: sa.synapse_apply(*fed_args), 5)}
+        ms = cuda_ms(lambda: sa.synapse_apply(*args, **kw), reps=5)
+        dev_ms = device_ms(lambda: sa.synapse_apply(*args, **kw), 5)
+        plain_ms = cuda_ms(lambda: sa.synapse_apply_plain(*args, **kw),
+                           reps=1)
         ops = (n * s + q[0] + q[1]) * APPLY_OPS
+        if name == "accept":   # the keyed draws: three Threefry a request
+            ops += int(req[2].sum()) * 3 * HASH_OPS
         res[name] = (ms, plain_ms, bound(_apply_bytes(n, s, *q), ops), diff,
-                     dev_ms, per_call)
+                     dev_ms, per_call, extra)
+    if num_ranks == 1:
+        fused = registry.resolve("apply", "fused")
+        before = kr.priority_launches.count
+        with _build.FillCounter() as fills:
+            fused.accept(*req, vac, edges, key)
+            fused.deletion(edges, mlid, mgid, mval)
+        torch.cuda.synchronize()
+        drawn = kr.priority_launches.count - before
+        emit({"phase": "fused_apply_operands", "fills": fills.calls,
+              "edge_priority_launches": drawn})
+        if fills.calls or drawn:
+            fail(f"the fused apply filled {fills.calls} and launched "
+                 f"edge_priority {drawn} times")
     return res
 
 
@@ -1515,6 +1549,7 @@ def multi_rank_path(cfg, scenario, card, chunks: int = 12, num_ranks: int = 4):
     from repro_torch.kernels import activity_fused as af
     from repro_torch.kernels import bh_traverse as bt
     from repro_torch.kernels import hash as chash
+    from repro_torch.kernels import leaf_sums as ls
     from repro_torch.kernels import radix_sort as rs
     from repro_torch.kernels import synapse_apply as sa
     from repro_torch.scenarios import observables
@@ -1525,6 +1560,7 @@ def multi_rank_path(cfg, scenario, card, chunks: int = 12, num_ranks: int = 4):
     rs.morton_device_launches(reset=True)
     sa.route_device_launches(reset=True)
     chash.device_launches(reset=True)
+    ls.device_launches(reset=True)
     chash.plain_cuda_calls(reset=True)
     ctree.plain_cuda_calls(reset=True)
     sim, rec, warm, per_chunk, flags = run_main_path(cfg, chunks - 1,
@@ -1536,7 +1572,8 @@ def multi_rank_path(cfg, scenario, card, chunks: int = 12, num_ranks: int = 4):
                      "synapse_apply": sa.device_launches(reset=True),
                      "morton_sort": rs.morton_device_launches(reset=True),
                      "route_build": sa.route_device_launches(reset=True),
-                     "threefry_words": chash.device_launches(reset=True)}
+                     "threefry_words": chash.device_launches(reset=True),
+                     "tree_assembly": ls.device_launches(reset=True)}
     keys = check_path("multi_rank_path", sim, cfg, warm, per_chunk, flags,
                       counts, scenario=scenario, rec=rec,
                       device_counts=device_counts)
@@ -1546,8 +1583,8 @@ def multi_rank_path(cfg, scenario, card, chunks: int = 12, num_ranks: int = 4):
     k0_calls = 3 * num_ranks + (morton.branch_level(num_ranks) + 1) * calls
     want = {"activity_window": calls, "morton_sort": calls,
             "synapse_apply": 3 * calls, "route_build": 2 * calls,
-            "retract": 2 * calls, "edge_priority": calls,
-            "threefry_words": k0_calls, "leaf_sums": calls}
+            "retract": 2 * calls, "edge_priority": 0,
+            "threefry_words": k0_calls, "tree_assembly": calls}
     if plain_leaf:
         fail(f"the plain leaf sums ran {plain_leaf} times on CUDA tensors "
              f"on the multi-rank path")
@@ -1565,7 +1602,7 @@ def multi_rank_path(cfg, scenario, card, chunks: int = 12, num_ranks: int = 4):
                                              "streaming": 0},
                          "synapse_apply": 3 * calls, "morton_sort": calls,
                          "route_build": 2 * calls,
-                         "threefry_words": k0_calls}:
+                         "threefry_words": k0_calls, "tree_assembly": calls}:
         fail(f"the sources counted {device_counts} device launches on the "
              f"multi-rank path, not one a call")
     sym, live, cross = edge_symmetry(sim.state, cfg.neurons_per_rank)
@@ -1759,14 +1796,17 @@ def phase_profile(sims, card, trace=None):
         launched = collections.Counter(
             (e["pid"], e["tid"]) for e in events
             if e.get("cat") in ("cuda_runtime", "cuda_driver"))
+        by_launch = ranges_by_launch(events, dev)
         emit({"phase": phase, "card": card,
               "scenario": getattr(sim.scenario, "name", None),
               "chunk": sim.state.chunk - 1, "chunk_wall_ms": walls[phase],
               "device_busy_ms": busy_ms,
               "device_idle_share": (1.0 - busy_ms / walls[phase])
               if dev else None,
+              "chunk_device_launches": len(dev),
+              "tree_build": by_launch.get("repro.conn.tree_build"),
               "ranks": sim.num_ranks, "ranges": ranges,
-              "ranges_by_launch": ranges_by_launch(events, dev),
+              "ranges_by_launch": by_launch,
               "launch_calls_by_thread": sorted(launched.values()),
               "top_device": [{"name": k, "ms": v[0], "launches": v[1]}
                              for k, v in top]})
@@ -1991,7 +2031,7 @@ BYTE_COUNTERS = ("formation_requests", "tree_nodes_downloaded", "rates_sent",
                  "spikes_sent")
 PATH_KERNELS = ("threefry_words", "activity_window", "bh_traverse",
                 "morton_sort", "synapse_apply", "route_build", "retract",
-                "edge_priority", "leaf_sums")
+                "tree_assembly")
 
 
 def comparison_run(cfg, scenario, chunks: int, num_ranks: int):
@@ -2092,6 +2132,9 @@ def comparison_paths(base_cfg, scenario, card, chunks: int = 4,
         and all(torch.equal(runs[k]["ring"][c], second[k]["ring"][c])
                 for c in runs[k]["ring"]) for k in second)
     checks["d_no_k1"] = runs["d"]["counts"]["activity_window"] == 0
+    checks["no_edge_priority"] = all(
+        r["counts"]["edge_priority"] == 0
+        for r in (*runs.values(), *second.values()))
     checks["no_plain_threefry"] = all(
         r["plain_threefry"] == 0 for r in (*runs.values(), *second.values()))
     missing = {k: [n for n in PATH_KERNELS if r["counts"][n] == 0
@@ -2193,7 +2236,8 @@ def comparison_paths(base_cfg, scenario, card, chunks: int = 4,
 
 
 # ---------------------------------------------------------------- workloads
-LEAF_OPS = 8        # per neuron: count atomic, place, 4 adds and 3 products
+LEAF_OPS = 9        # per neuron: count atomic, place, table, 4 adds and
+                    # 3 products (a parent's 7 adds a cell are fewer)
 R4_CHUNKS = 4       # timed chunks of each R=4 run, after one warm-up
 
 
@@ -2227,13 +2271,16 @@ def leaf_layout(cfg, positions, rank: int, num_ranks: int):
     return rel, slot, n_leaf, leaf_base, clamped, fullest
 
 
-def check_leaf_sums(label, cfg, positions, weights, rank: int,
-                    num_ranks: int):
-    """The leaf-sum kernel (and K3 before it) at a path's shapes: both
-    bit-equal to their plain versions, call and device ms, the plain
-    version's ms (one call), ``index_add_`` of the same sums (the library
-    call; not bit-equal: its atomics add in no fixed order) and the bound
-    (bytes: positions, weight, rel and slot in, 16 B a leaf out)."""
+def check_assembly(label, cfg, positions, weights, rank: int,
+                   num_ranks: int):
+    """The tree assembly kernel (and K3 before it) at a path's shapes: every
+    level's counts and centroids and the membership table bit-equal to the
+    plain ``assemble_plain``, a second call bitwise equal, call and device
+    ms, device launches a call, the plain version's ms (one call),
+    ``index_add_`` of the leaf sums (the library call; not bit-equal: its
+    atomics add in no fixed order) and the bound (bytes: positions,
+    weight, rel and slot in; 16 B a cell of every level and the table
+    out)."""
     import torch
     from repro_torch.connectome import tree as ctree
     from repro_torch.kernels import leaf_sums as ls
@@ -2241,31 +2288,47 @@ def check_leaf_sums(label, cfg, positions, weights, rank: int,
     rel, slot, n_leaf, leaf_base, clamped, fullest = leaf_layout(
         cfg, positions, rank, num_ranks)
     leaf_level = ctree._tree_geometry(rank, cfg, num_ranks)[0]
+    levels = cfg.local_levels
+    members_cap = 4                        # build_tree's table width
     n = positions.shape[0]
     shape = {"n": n, "R": num_ranks, "rank": rank, "n_leaf": n_leaf,
+             "levels": levels + 1, "members_cap": members_cap,
              "clamped_rows": clamped, "fullest_leaf": fullest}
     _check_exact(f"K3 morton_sort ({label})", (rel, slot),
                  rs.morton_sort_plain(positions, leaf_base,
                                       leaf_level=leaf_level, n_leaf=n_leaf),
                  shape)
-    got = ls.leaf_sums(positions, weights, rel, slot, n_leaf)
+    call = lambda: ls.assemble(positions, weights, rel, slot, n_leaf,  # noqa
+                               levels, members_cap)
+    ls.device_launches(reset=True)
+    got = call()
+    torch.cuda.synchronize()
+    per_call = ls.device_launches(reset=True)
+    again = call()
+    flat = lambda t: (*t[0], *t[1], t[2])              # noqa: E731
     t0 = time.perf_counter()
-    want = (ctree._leaf_sums(weights, rel, slot, n_leaf),
-            ctree._leaf_sums(positions * weights[:, None], rel, slot,
-                             n_leaf))
+    want = ctree.assemble_plain(positions, weights, rel, slot, n_leaf, levels,
+                                members_cap)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    diff = _check_exact(f"leaf_sums ({label})", got, want, shape)
-    del want
+    shape["device_launches_per_call"] = per_call
+    diff = _check_exact(f"tree assembly ({label})", flat(got), flat(want),
+                        shape)
+    _check_exact(f"tree assembly, a second call ({label})", flat(again),
+                 flat(got), shape)
+    if per_call != 1:
+        fail(f"tree assembly ({label}): {per_call} device launches a call")
+    del want, again
     torch.cuda.empty_cache()
-    call = lambda: ls.leaf_sums(positions, weights, rel, slot, n_leaf)
-    ms = cuda_ms(call, reps=10)
-    dev_ms = device_ms(call, 10)
+    ms = cuda_ms(call, reps=50)
+    dev_ms = device_ms(call, 50)
     vals = torch.cat([weights[:, None], positions * weights[:, None]], 1)
     acc = torch.zeros((n_leaf, 4), dtype=torch.float32, device=DEV)
     idx = rel.long()
     lib_ms = cuda_ms(lambda: acc.index_add_(0, idx, vals), reps=10)
-    b = bound(n * (12 + 4 + 4 + 4) + n_leaf * 16, n * LEAF_OPS)
+    cells = sum(n_leaf >> 3 * k for k in range(levels + 1))
+    b = bound(n * (12 + 4 + 4 + 4) + cells * 16 + n_leaf * members_cap * 4,
+              n * LEAF_OPS)
     return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": b[0], "bound_by": b[1],
             "max_abs_err": diff, **shape}
@@ -2273,15 +2336,19 @@ def check_leaf_sums(label, cfg, positions, weights, rank: int,
 
 def _path_checks(label, counts, plain_leaf, plain_threefry, chunks,
                  calls=None):
-    """Every kernel of the path launched; K1, K3 and the leaf sums once a
-    rank and chunk; no plain leaf sum or plain Threefry on a CUDA tensor."""
+    """Every kernel of the path launched; K1, K3 and the tree assembly once
+    a rank and chunk; ``edge_priority`` never (K4 draws the priorities); no
+    plain leaf sum or plain Threefry on a CUDA tensor."""
     calls = chunks if calls is None else calls
     missing = [k for k in PATH_KERNELS if counts.get(k, 0) == 0]
     if missing:
         fail(f"{label}: {missing} never launched")
-    for k in ("activity_window", "morton_sort", "leaf_sums"):
+    for k in ("activity_window", "morton_sort", "tree_assembly"):
         if counts[k] != calls:
             fail(f"{label}: {k} launched {counts[k]} times, not {calls}")
+    if counts["edge_priority"]:
+        fail(f"{label}: edge_priority launched {counts['edge_priority']} "
+             f"times; K4 draws the priorities")
     if plain_leaf or plain_threefry:
         fail(f"{label}: the plain leaf sums ran {plain_leaf} times and the "
              f"plain Threefry {plain_threefry} times on CUDA tensors")
@@ -2350,7 +2417,7 @@ def workloads_path(cfg, card):
     the dense and the sparse exchange in lockstep, one warm-up and
     ``R4_CHUNKS`` chunks each, sparse == dense bitwise and the health
     flags 0 after every chunk;
-    the leaf sums and K3 at ranks 1 and 2 of that layout against their
+    the tree assembly and K3 at ranks 1-3 of that layout against their
     plain versions. No plain leaf sum and no plain Threefry may run on a
     CUDA tensor. Returns (the JSON line, the leaf-sum kernel's numbers)."""
     import numpy as np
@@ -2502,19 +2569,25 @@ def workloads_path(cfg, card):
     del sims
     torch.cuda.empty_cache()
 
-    # the leaf-sum kernel and K3 at the paths' shapes: R=1's first tree
-    # (init_state's positions and vacancies) and ranks 1 and 2 of the R=4
-    # surrogate (rank 2: every row clamped into one leaf)
+    # the tree assembly and K3 at the paths' shapes: R=1's first tree
+    # (init_state's positions and vacancies), the multi-rank path's at rank
+    # 3 of 4 (n_leaf 8,192) and ranks 1-3 of the R=4 surrogate (rank 2:
+    # every row clamped into one leaf)
     st = engine.init_state(cfg, 0, 1, device=DEV)
-    leaf = {"R1": check_leaf_sums("R=1", cfg, st.positions,
-                                  st.neurons.de_elements, 0, 1)}
+    leaf = {"R1": check_assembly("R=1", cfg, st.positions,
+                                 st.neurons.de_elements, 0, 1)}
+    st = engine.init_state(cfg, 3, 4, device=DEV)
+    leaf["multi_rank_rank3"] = check_assembly(
+        "multi-rank path, rank 3 of 4", cfg, st.positions,
+        st.neurons.de_elements, 3, 4)
+    del st
     g = torch.Generator(device=DEV).manual_seed(0)
-    for r in (1, 2):
+    for r in (1, 2, 3):
         pos = torch.from_numpy(ds4.positions[r * n:(r + 1) * n]).to(DEV)
         w = torch.rand(n, generator=g, device=DEV) * 1.5
-        leaf[f"R4_rank{r}"] = check_leaf_sums(f"R=4 rank {r}", cfg, pos, w,
-                                              r, 4)
-    line["leaf_sums"] = leaf
+        leaf[f"R4_rank{r}"] = check_assembly(f"R=4 surrogate rank {r}", cfg,
+                                             pos, w, r, 4)
+    line["tree_assembly"] = leaf
     emit(line)
     return line, leaf
 
@@ -2603,6 +2676,9 @@ def main() -> int:
           "K4_accept_device_ms": k4["accept"][4],
           "K4_accept_plain_ms": k4["accept"][1],
           "K4_accept_bound_ms": k4["accept"][2][0],
+          "K4_accept_mode": "keyed (priorities drawn in K4)",
+          "K4_accept_fed_ms": k4["accept"][6]["fed_ms"],
+          "K4_accept_fed_device_ms": k4["accept"][6]["fed_device_ms"],
           "K5_ms": k5[0], "K5_device_ms": k5[4], "K5_plain_ms": k5[1],
           "K5_bound_ms": k5[2][0], "K5_device_launches_per_call": k5[5],
           "K5_caller_inputs_device_ms": k5[6],
@@ -2633,6 +2709,8 @@ def main() -> int:
                  "K4_accept_device_ms": r4["K4"]["accept"][4],
                  "K4_accept_plain_ms": r4["K4"]["accept"][1],
                  "K4_accept_bound_ms": r4["K4"]["accept"][2][0],
+                 "K4_accept_fed_device_ms":
+                     r4["K4"]["accept"][6]["fed_device_ms"],
                  "K5_ms": r4["K5"][0], "K5_device_ms": r4["K5"][4],
                  "K5_plain_ms": r4["K5"][1], "K5_bound_ms": r4["K5"][2][0]}})
 
@@ -2701,6 +2779,7 @@ def main() -> int:
     chunks = 12
     from repro_torch.connectome import tree as ctree
     from repro_torch.kernels import activity_fused as af
+    from repro_torch.kernels import leaf_sums as ls
     from repro_torch.kernels import synapse_apply as sa
     from repro_torch.kernels import radix_sort as rs
     _build.reset_launch_counts()
@@ -2708,6 +2787,7 @@ def main() -> int:
     sa.device_launches(reset=True)
     rs.morton_device_launches(reset=True)
     sa.route_device_launches(reset=True)
+    ls.device_launches(reset=True)
     chash.plain_cuda_calls(reset=True)
     ctree.plain_cuda_calls(reset=True)
     sim, rec, warm, per_chunk, flags = run_main_path(all_fused, chunks - 1,
@@ -2721,14 +2801,15 @@ def main() -> int:
     device_counts = {"activity_window": af.device_launches(reset=True),
                      "synapse_apply": sa.device_launches(reset=True),
                      "morton_sort": rs.morton_device_launches(reset=True),
-                     "route_build": sa.route_device_launches(reset=True)}
+                     "route_build": sa.route_device_launches(reset=True),
+                     "tree_assembly": ls.device_launches(reset=True)}
     keys = check_path("scenario_path", sim, all_fused, warm, per_chunk,
                       flags, counts, scenario=scn, rec=rec,
                       device_counts=device_counts)
     want = {"activity_window": chunks, "morton_sort": chunks,
             "synapse_apply": 3 * chunks, "route_build": 2 * chunks,
-            "retract": 2 * chunks, "edge_priority": chunks,
-            "leaf_sums": chunks}
+            "retract": 2 * chunks, "edge_priority": 0,
+            "tree_assembly": chunks}
     for name, k in want.items():
         if counts[name] != k:
             fail(f"{name} launched {counts[name]} times on the scenario "
@@ -2740,10 +2821,11 @@ def main() -> int:
                                             "streaming": 0} or \
             device_counts["synapse_apply"] != 3 * chunks or \
             device_counts["morton_sort"] != chunks or \
-            device_counts["route_build"] != 2 * chunks:
+            device_counts["route_build"] != 2 * chunks or \
+            device_counts["tree_assembly"] != chunks:
         fail(f"the sources counted {device_counts} device launches on the "
              f"scenario path, not {chunks} staged K1, {3 * chunks} K4, "
-             f"{chunks} K3 and {2 * chunks} K5")
+             f"{chunks} K3, {2 * chunks} K5 and {chunks} tree assemblies")
     if counts["bh_traverse"] < chunks:
         fail(f"K2 launched {counts['bh_traverse']} times")
 
@@ -2810,7 +2892,10 @@ def main() -> int:
          "source": "src/repro_torch/csrc/retract.cu",
          "replaces": "src/repro/connectome/synapses.py:56 (jnp)",
          "launches": counts["edge_priority"],
-         "multi_rank_launches": r4_counts["edge_priority"], "max_abs_err": kr_err,
+         "multi_rank_launches": r4_counts["edge_priority"],
+         "on_the_paths": "drawn inside K4's accept (keyed mode); the "
+                         "standalone kernel is the kernel API's",
+         "max_abs_err": kr_err,
          "ms": kr_res["priority"][0], "device_ms": kr_res["priority"][1],
          "plain_ms": kr_res["priority"][2],
          "bound_ms": kr_res["priority"][3][0],
@@ -2883,21 +2968,21 @@ def main() -> int:
          "bound_ms": k5[2][0],
          "bound_by": k5[2][1], "library_ms": None,
          "device_launches_per_call": k5[5]},
-        {"name": "leaf_sums", "route": "cuda",
+        {"name": "tree_assembly", "route": "cuda",
          "source": "src/repro_torch/csrc/leaf_sums.cu",
-         "replaces": "src/repro/connectome/tree.py:76 (jnp)",
-         "launches": counts["leaf_sums"],
-         "multi_rank_launches": r4_counts["leaf_sums"],
+         "replaces": "src/repro/connectome/tree.py:68 (jnp)",
+         "launches": counts["tree_assembly"],
+         "multi_rank_launches": r4_counts["tree_assembly"],
          "workloads_launches": {
-             k: wl_line[k]["launches"]["leaf_sums"]
+             k: wl_line[k]["launches"]["tree_assembly"]
              for k in ("engram", "assimilation", "from_connectome_R4")},
          "max_abs_err": max(v["max_abs_err"] for v in leaf.values()),
          **{k: leaf["R1"][k] for k in (
              "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms")},
+             "library_ms", "device_launches_per_call")},
          "R4": {k: {f: v[f] for f in (
              "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "clamped_rows", "fullest_leaf")}
+             "library_ms", "clamped_rows", "fullest_leaf", "n_leaf")}
              for k, v in leaf.items() if k != "R1"}},
     ]
     # the comparison paths' kernels (launches: their runs of

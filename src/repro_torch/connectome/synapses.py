@@ -166,10 +166,10 @@ class ApplyImpl(NamedTuple):
     ``route`` builds the per-destination deletion-notification buffers;
     ``retract`` breaks the synapses that lost elements no longer carry.
     'reference' runs the plain torch ops above; 'fused' runs K4 and K5
-    (``kernels/synapse_apply.py``), one stage per kernel pass, and the
-    retraction and acceptance priorities of ``kernels/retract.py``. Keys are
-    key tensors or two u32 words (the fused entries take the words by
-    value)."""
+    (``kernels/synapse_apply.py``), one stage per kernel pass, K4 drawing
+    the acceptance priorities itself, and the retraction of
+    ``kernels/retract.py``. Keys are key tensors or two u32 words (the fused
+    entries take the words by value)."""
     deletion: Callable   # (edges, msg_lid, msg_gid, msg_valid)
     accept: Callable     # (tgt_lid, src_gid, valid, vacant_d, in_edges, key)
     route: Callable      # (kill, edges, my_gid_col, cfg, comm, lesions)
@@ -188,33 +188,22 @@ def _route_reference(kill, edges, my_gid_col, cfg, comm, lesions):
 
 
 def _deletion_fused(edges, msg_lid, msg_gid, msg_valid):
-    """K4 with the accept stage disabled (no valid requests): the table
-    leaves the kernel after remove + compact."""
+    """K4 with no requests: the table leaves the kernel after remove +
+    compact."""
     from repro_torch.kernels import synapse_apply as ksa  # lazy: imports us
-    n = edges.shape[0]
-    dev = edges.device
-    zi = torch.zeros(8, dtype=torch.int32, device=dev)
-    new_edges, _ = ksa.synapse_apply(
-        edges, msg_lid, msg_gid, msg_valid, zi, zi,
-        torch.zeros(8, dtype=torch.bool, device=dev),
-        torch.zeros(8, dtype=torch.float32, device=dev),
-        torch.zeros(n, dtype=torch.float32, device=dev))
+    new_edges, _ = ksa.synapse_apply(edges, msg_lid, msg_gid, msg_valid,
+                                     None, None, None, None, None)
     return new_edges
 
 
 def _accept_fused(tgt_lid, src_gid, valid, vacant_d, in_edges, key):
-    """K4 with the deletion stage disabled (no valid messages). The
-    priorities are ``request_priority``'s, drawn before the kernel by
-    ``kernels/retract.py::edge_priority``; the table (compacted on entry)
-    passes remove + compact unchanged."""
-    from repro_torch.kernels import retract as kr  # lazy: imports us
+    """K4 with no messages, in its keyed mode: the priorities are
+    ``request_priority``'s, drawn inside the kernel from the key's two
+    words; the table (compacted on entry) passes remove + compact
+    unchanged."""
     from repro_torch.kernels import synapse_apply as ksa  # lazy: imports us
-    prio = kr.edge_priority(key, src_gid, tgt_lid, valid)
-    dev = in_edges.device
-    zi = torch.zeros(8, dtype=torch.int32, device=dev)
-    new_in, acc = ksa.synapse_apply(
-        in_edges, zi, zi, torch.zeros(8, dtype=torch.bool, device=dev),
-        tgt_lid, src_gid, valid, prio, vacant_d)
+    new_in, acc = ksa.synapse_apply(in_edges, None, None, None, tgt_lid,
+                                    src_gid, valid, None, vacant_d, key=key)
     return acc, new_in
 
 

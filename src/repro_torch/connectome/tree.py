@@ -9,11 +9,13 @@ Float sums are taken in a fixed order on every device: a leaf's count and
 centroid are the sum of its neurons in ascending neuron index (the order of
 the reference's sequential scatter-add), and a parent's the sum of its 8
 children in order. ``index_add_`` on CUDA would add with atomics in an order
-that changes from run to run; here the leaf sums come from the leaf-sum
-kernel on the card (``kernels/leaf_sums.py``: each leaf's members listed
-in ascending order and added in that order by one lane) and, on the CPU,
-from a dense (leaf, within-leaf slot) table summed column by column, so a
-chunk run twice from one seed gives bitwise-equal trees and edge tables.
+that changes from run to run; here the local tree comes from the assembly
+kernel on the card (``kernels/leaf_sums.py``, one launch: each leaf's
+members listed in ascending order and added in that order, the parents
+added in order, the membership table) and, on the CPU, from
+``assemble_plain`` (a dense (leaf, within-leaf slot) table summed column by
+column), so a chunk run twice from one seed gives bitwise-equal trees and
+edge tables.
 """
 from __future__ import annotations
 
@@ -91,8 +93,9 @@ def plain_cuda_calls(reset: bool = False) -> int:
 def _leaf_sums(values, rel, slot, n_leaf: int):
     """Per-leaf sums of ``values`` ((n,) or (n, 3)) in ascending neuron
     order: scatter each neuron into its (leaf, slot) cell of a dense table,
-    then add the slot columns in order. The plain version of the leaf-sum
-    kernel: it reads the width on the host and allocates n_leaf x width."""
+    then add the slot columns in order. The plain version of the assembly
+    kernel's leaf sums: it reads the width on the host and allocates
+    n_leaf x width."""
     if values.device.type == "cuda":
         _PLAIN_CUDA[0] += 1
     width = int(slot.max().item()) + 1 if slot.numel() else 1
@@ -106,15 +109,14 @@ def _leaf_sums(values, rel, slot, n_leaf: int):
     return acc
 
 
-def _assemble_tree(positions, weights, rel, slot, cfg, n_leaf: int,
-                   base_cell: int, members_cap: int) -> LocalTree:
-    """Leaf sums, parent aggregation, and the capped membership table."""
-    from repro_torch.kernels import leaf_sums   # lazy: it imports us
-    leaf_counts, leaf_cents = leaf_sums.leaf_sums(positions, weights, rel,
-                                                  slot, n_leaf)
-    counts = [leaf_counts]
-    centroids = [leaf_cents]
-    for _ in range(cfg.local_levels):
+def assemble_plain(positions, weights, rel, slot, n_leaf: int,
+                   local_levels: int, members_cap: int):
+    """Leaf sums, parent aggregation, and the capped membership table: the
+    plain version of the assembly kernel (``kernels/leaf_sums.py``).
+    Returns (counts, centroids, leaf_members), levels 0 first."""
+    counts = [_leaf_sums(weights, rel, slot, n_leaf)]
+    centroids = [_leaf_sums(positions * weights[:, None], rel, slot, n_leaf)]
+    for _ in range(local_levels):
         counts.insert(0, _sum8(counts[0]))
         centroids.insert(0, _sum8(centroids[0]))
 
@@ -126,8 +128,17 @@ def _assemble_tree(positions, weights, rel, slot, cfg, n_leaf: int,
     tbl[rel.to(torch.int64), torch.where(ok, slot, m).to(torch.int64)] = \
         torch.arange(positions.shape[0], dtype=torch.int32,
                      device=positions.device)
-    return LocalTree(tuple(counts), tuple(centroids),
-                     tbl[:, :m].contiguous(), base_cell)
+    return tuple(counts), tuple(centroids), tbl[:, :m].contiguous()
+
+
+def _assemble_tree(positions, weights, rel, slot, cfg, n_leaf: int,
+                   base_cell: int, members_cap: int) -> LocalTree:
+    """The local tree from (rel, slot): the assembly kernel on the card,
+    ``assemble_plain`` on the CPU."""
+    from repro_torch.kernels import leaf_sums   # lazy: it imports us
+    counts, centroids, members = leaf_sums.assemble(
+        positions, weights, rel, slot, n_leaf, cfg.local_levels, members_cap)
+    return LocalTree(counts, centroids, members, base_cell)
 
 
 @registry.register_phase("tree", "reference")

@@ -4,7 +4,8 @@
 // gumbel, bh_ctr), which the TPU kernels inline into their bodies. Here it is
 // a set of __device__ functions included by the activity window (K1), the
 // Barnes-Hut traversal (K2), the retraction and priority kernels
-// (retract.cu) and the draw kernel of repro_torch.prng (hash_words.cu);
+// (retract.cu), K4's keyed accept (synapse_apply.cu) and the draw kernel of
+// repro_torch.prng (hash_words.cu);
 // repro_torch/kernels/hash.py is the plain torch version and the two are
 // held bit-equal on the card.
 //
@@ -100,6 +101,32 @@ __device__ __forceinline__ float hash_normal(uint32_t seed, uint32_t domain,
   uint32_t x0, x1;
   threefry2x32(seed, domain, ctr, entity, &x0, &x1);
   return normal_of(x0, x1);
+}
+
+// The synapse priorities (repro/connectome/synapses.py:56 edge_priority,
+// :89 request_priority), jax.random's key derivation in registers:
+//   row key   = fold_in(key, a)     = threefry(key, (0, a))
+//   pair key  = fold_in(row key, b) = threefry(row key, (0, b))
+//   priority  = uniform(pair key)  : bits = x0 ^ x1 of threefry(pair key,
+//               (0, 0)), as f32 ((bits >> 9) | 0x3F800000) - 1
+// jax.random.uniform on [0, 1) then takes floats * (1 - 0) + 0 rounded to
+// f32 and the larger of 0 and that: the product by 1 and the sum with 0 are
+// exact, and floats >= 0, so the priority is the subtraction alone (itself
+// exact: both operands lie in [1, 2)). priority() takes the row key (a row
+// drawn once, as retract.cu does), pair_priority() the key.
+__device__ __forceinline__ float priority(uint32_t rk0, uint32_t rk1,
+                                          uint32_t b) {
+  uint32_t p0, p1, x0, x1;
+  threefry2x32(rk0, rk1, 0u, b, &p0, &p1);
+  threefry2x32(p0, p1, 0u, 0u, &x0, &x1);
+  return __uint_as_float(((x0 ^ x1) >> 9) | 0x3F800000u) - 1.0f;
+}
+
+__device__ __forceinline__ float pair_priority(uint32_t k0, uint32_t k1,
+                                               uint32_t a, uint32_t b) {
+  uint32_t rk0, rk1;
+  threefry2x32(k0, k1, 0u, a, &rk0, &rk1);
+  return priority(rk0, rk1, b);
 }
 
 // (chunk, round, draw) -> u32 counter, int32 wrap-around as in the reference.

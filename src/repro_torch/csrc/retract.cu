@@ -7,18 +7,12 @@
 // retract_synapses). repro_torch/connectome/synapses.py holds the plain
 // versions (retract_synapses, edge_priority), which draw jax.random's
 // priorities through the port's int64 Threefry; here jax's key derivation
-// runs in registers from K0's device function (hash.cuh), so the two are
-// bit-equal:
+// runs in registers from K0's device functions (hash.cuh: priority,
+// pair_priority, shared with K4's keyed accept), so the two are bit-equal.
 //
-//   row key   = fold_in(key, a)    = threefry(key, (0, a))
-//   pair key  = fold_in(row key, b) = threefry(row key, (0, b))
-//   priority  = uniform(pair key)  : bits = x0 ^ x1 of threefry(pair key,
-//               (0, 0)), as f32 ((bits >> 9) | 0x3F800000) - 1
-//
-// jax.random.uniform on [0, 1) then takes floats * (1 - 0) + 0 rounded to
-// f32 and the larger of 0 and that: the product by 1 and the sum with 0 are
-// exact, and floats >= 0, so the priority is the subtraction alone (itself
-// exact: both operands lie in [1, 2)).
+// On the simulation's paths the acceptance priorities are drawn inside K4
+// (synapse_apply.cu, keyed mode); edge_priority stays as the kernel API's
+// standalone draw, held against its plain version.
 //
 // Design. retract: one warp per row, one lane per slot (S <= 32). A lane's
 // priority is drawn only where the rules need it: a row with n_delete <= 0
@@ -42,14 +36,6 @@
 namespace {
 
 constexpr int kRowsPerBlock = 8;  // warps (rows) per block of retract
-
-__device__ __forceinline__ float priority(uint32_t rk0, uint32_t rk1,
-                                          uint32_t b) {
-  uint32_t p0, p1, x0, x1;
-  repro::threefry2x32(rk0, rk1, 0u, b, &p0, &p1);
-  repro::threefry2x32(p0, p1, 0u, 0u, &x0, &x1);
-  return __uint_as_float(((x0 ^ x1) >> 9) | 0x3F800000u) - 1.0f;
-}
 
 __global__ void __launch_bounds__(kRowsPerBlock * 32) retract_kernel(
     const int* __restrict__ edges, const int* __restrict__ n_delete,
@@ -78,7 +64,7 @@ __global__ void __launch_bounds__(kRowsPerBlock * 32) retract_kernel(
       }
       rk0 = __shfl_sync(0xffffffffu, rk0, 0);
       rk1 = __shfl_sync(0xffffffffu, rk1, 0);
-      const float p = occ ? priority(rk0, rk1, (uint32_t)e) : 2.0f;
+      const float p = occ ? repro::priority(rk0, rk1, (uint32_t)e) : 2.0f;
       int rank = 0;
       for (int i = 0; i < S; ++i) {
         const float pi = __shfl_sync(0xffffffffu, p, i);
@@ -101,9 +87,8 @@ __global__ void edge_priority_kernel(const int* __restrict__ a,
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += gridDim.x * blockDim.x) {
     const bool v = valid == nullptr || valid[i] != 0;
-    uint32_t rk0, rk1;
-    repro::threefry2x32(k0, k1, 0u, v ? (uint32_t)a[i] : 0u, &rk0, &rk1);
-    out[i] = priority(rk0, rk1, v ? (uint32_t)b[i] : 0u);
+    out[i] = repro::pair_priority(k0, k1, v ? (uint32_t)a[i] : 0u,
+                                  v ? (uint32_t)b[i] : 0u);
   }
 }
 

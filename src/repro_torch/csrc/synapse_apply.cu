@@ -16,9 +16,15 @@
 // entries with the same destination rank}, entries with slot >= cap dropped
 // and counted. The plain version is routing.route_build_core.
 //
-// Both are integer-exact (the priorities are computed outside, by the same
-// torch expression for kernel and plain version), so kernel and plain version
-// agree bit for bit.
+// Both are integer-exact, so kernel and plain version agree bit for bit. K4
+// takes the acceptance priorities as an operand, or, in its keyed mode (no
+// priority operand, the accept key's two u32 words by value), draws each
+// counted request's priority once in its count pass,
+// uniform(fold_in(fold_in(key, src), tgt)) as request_priority defines it
+// (repro/connectome/synapses.py:89), from hash.cuh's pair_priority into its
+// workspace: the same bits as csrc/retract.cu's edge_priority, with no
+// launch and no (Q,) array of its own. Either side of K4 may be empty (qm =
+// 0 or qr = 0, null pointers): the caller fills no placeholder operand.
 //
 // K4 design. The JAX form lexsorts the q + n*S message and slot items; here
 // the work is per row. Messages and requests are grouped by row, and the
@@ -35,7 +41,9 @@
 // single block:
 //   0. zero the 2n per-row counts and write the accept mask in full (0);
 //   1. count: each valid message or request takes its rank inside its row
-//      from the atomicAdd that counts it (grid-stride, coalesced);
+//      from the atomicAdd that counts it (grid-stride, coalesced); in the
+//      keyed mode each counted request draws its priority here (three
+//      Threefry, 201 integer instructions, beside the atomic's latency);
 //   2. scan: block b owns a contiguous range of rows and scans the two count
 //      arrays over it in coalesced tiles of 256 (a block scan with a carry),
 //      writing row offsets local to the range and the range's totals;
@@ -94,6 +102,7 @@
 #include <stdint.h>
 
 #include "device_facts.cuh"
+#include "hash.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -148,7 +157,8 @@ struct ApplyArgs {
   const int* req_lid;
   const int* req_src;
   const unsigned char* req_valid;
-  const float* req_prio;
+  const float* req_prio;  // the operand, or prio_w in the keyed mode
+  float* prio_w;           // qr: the keyed mode's priorities (workspace)
   const float* vacant;
   unsigned char* accept;
   int* cnt;        // 2n: messages, then requests, per row
@@ -158,6 +168,8 @@ struct ApplyArgs {
   int* agg;        // 2 x grid: each range's totals
   int n, s_max, qm, qr;
   int rows;        // rows a block owns in the scan
+  int keyed;       // draw the priorities from (k0, k1) in phase 1
+  uint32_t k0, k1;
 };
 
 // One row: remove, compact, accept (m0/mc: the row's messages in
@@ -202,7 +214,7 @@ __device__ void apply_row(const ApplyArgs& a, int row, int lane, int m0,
       int bi = kNone;
       for (int k = lane; k < rc; k += 32) {
         const int idx = req_items[r0 + k];
-        const float p = a.req_prio[idx];
+        const float p = __ldcg(a.req_prio + idx);
         const bool above = pi < 0 || p > pp || (p == pp && idx > pi);
         const bool below = bi == kNone || p < bp || (p == bp && idx < bi);
         if (above && below) {
@@ -256,6 +268,11 @@ __global__ void __launch_bounds__(kApplyThreads)
     const int r = a.req_lid[k];
     if (a.req_valid[k] && r >= 0 && r < n) {
       a.rank[a.qm + k] = atomicAdd(a.cnt + n + r, 1);
+      if (a.keyed) {
+        a.prio_w[k] = repro::pair_priority(a.k0, a.k1,
+                                           (uint32_t)a.req_src[k],
+                                           (uint32_t)r);
+      }
     }
   }
   grid.sync();
@@ -654,7 +671,7 @@ int g_route_launches = 0;
 int g_apply_launches = 0;
 
 long long apply_words(int n, int qm, int qr) {
-  return 4LL * n + 2LL * ((long long)qm + qr) + 2LL * kApplyMaxGrid;
+  return 4LL * n + 2LL * ((long long)qm + qr) + 2LL * kApplyMaxGrid + qr;
 }
 
 }  // namespace
@@ -673,14 +690,17 @@ extern "C" long long repro_synapse_apply_workspace(int n, int qm, int qr) {
 }
 
 // edges (n, s_max) -> out (n, s_max); msg_* (qm,), req_* (qr,); accept (qr,)
-// bytes of 0 or 1, written in full. work: int32 workspace of `words` words
-// (repro_synapse_apply_workspace), any contents. One cooperative launch.
+// bytes of 0 or 1, written in full. A side with qm = 0 or qr = 0 may pass
+// null pointers (vacant too when qr = 0). req_prio null: the keyed mode,
+// the priorities drawn from the key words (k0, k1). work: int32 workspace
+// of `words` words (repro_synapse_apply_workspace), any contents. One
+// cooperative launch.
 extern "C" int repro_synapse_apply(
     const void* edges, void* out, const void* msg_lid, const void* msg_gid,
     const void* msg_valid, const void* req_lid, const void* req_src,
     const void* req_valid, const void* req_prio, const void* vacant,
     void* accept, void* work, long long words, int n, int s_max, int qm,
-    int qr, void* stream) {
+    int qr, unsigned int k0, unsigned int k1, void* stream) {
   if (n < 0 || s_max < 1 || s_max > 32 || words < apply_words(n, qm, qr)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -711,7 +731,12 @@ extern "C" int repro_synapse_apply(
   a.req_lid = (const int*)req_lid;
   a.req_src = (const int*)req_src;
   a.req_valid = (const unsigned char*)req_valid;
-  a.req_prio = (const float*)req_prio;
+  a.prio_w = (float*)(w + 4LL * n + 2LL * ((long long)qm + qr) +
+                      2LL * kApplyMaxGrid);
+  a.keyed = req_prio == nullptr;
+  a.req_prio = a.keyed ? a.prio_w : (const float*)req_prio;
+  a.k0 = k0;
+  a.k1 = k1;
   a.vacant = (const float*)vacant;
   a.accept = (unsigned char*)accept;
   a.cnt = w;

@@ -24,6 +24,7 @@ import subprocess
 import time
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
@@ -64,8 +65,10 @@ SIGNATURES = {
     "repro_morton_sort_device_launches": [I],
     "repro_retract": [P] * 5 + [I, I, U, U, P],
     "repro_edge_priority": [P] * 4 + [I, U, U, P],
-    "repro_leaf_sums": [P] * 7 + [I, I, P],
-    "repro_synapse_apply": [P] * 11 + [P, ctypes.c_longlong, I, I, I, I, P],
+    "repro_tree_assemble": [P] * 8 + [I, I, I, I, P],
+    "repro_tree_assemble_device_launches": [I],
+    "repro_synapse_apply": ([P] * 11 + [P, ctypes.c_longlong, I, I, I, I]
+                            + [U, U, P]),
     "repro_synapse_apply_device_launches": [I],
     "repro_route_build": [P] * 5 + [ctypes.c_longlong, I, I, I, I, P],
     "repro_route_build_device_launches": [I],
@@ -184,8 +187,7 @@ def library() -> ctypes.CDLL:
         lib.repro_synapse_apply_workspace.argtypes = [I, I, I]
         lib.repro_synapse_apply_workspace.restype = ctypes.c_longlong
         for name in ("repro_morton_sort_workspace",
-                     "repro_route_build_workspace",
-                     "repro_leaf_sums_workspace"):
+                     "repro_route_build_workspace"):
             getattr(lib, name).argtypes = [I, I]
             getattr(lib, name).restype = ctypes.c_longlong
         lib.repro_error_string.argtypes = [ctypes.c_int]
@@ -225,6 +227,32 @@ def check(rc: int, name: str) -> None:
         msg = library().repro_error_string(rc).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} "
                            f"(cudaError {rc})")
+
+
+class FillCounter(TorchDispatchMode):
+    """Inside its ``with`` block, the aten calls that fill memory with a
+    constant (``zeros``, ``full``, ``fill_``, ...), by name in ``calls``:
+    what a wrapper that fills a placeholder operand would launch."""
+
+    NAMES = frozenset(("zeros", "zeros_like", "new_zeros", "ones",
+                       "ones_like", "new_ones", "full", "full_like",
+                       "new_full", "fill", "fill_", "zero_"))
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.overloadpacket.__name__ in self.NAMES:
+            self.calls.append(func.overloadpacket.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+def as_dtype(x, dtype):
+    """``x`` as a contiguous tensor of ``dtype``: itself when it is one
+    (no copy, no launch)."""
+    return x if x.dtype == dtype and x.is_contiguous() else \
+        x.to(dtype).contiguous()
 
 
 def require_cuda(name: str, *tensors) -> None:

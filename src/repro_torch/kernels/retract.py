@@ -13,7 +13,8 @@ the kernels draw the same bits from K0's device function
 (``prng.key_words`` / ``fold_in_words`` / ``split_words``), so a call copies
 no scalar to the card; a (2,) key tensor is read back to the host first. On
 CUDA tensors they launch the kernel or raise; on CPU tensors they run the
-plain versions.
+plain versions. The fused apply's accept does not call ``edge_priority``:
+K4 draws the same priorities in its keyed mode (``kernels/synapse_apply.py``).
 """
 from __future__ import annotations
 

@@ -1615,25 +1615,41 @@ def _leaf_inputs(dev, case):
     return pos, w, rel, slot, n_leaf, rank, ranks
 
 
-@pytest.mark.parametrize("case", ["1", "3", "4099", "65537", "one_leaf",
-                                  "surrogate_rank1", "surrogate_rank2"])
-def test_leaf_sums_equal_plain(dev, case):
-    """The leaf-sum kernel against the plain ``_leaf_sums`` (a dense table
-    read column by column): bit-equal counts and centroids at odd sizes,
-    with every row in one leaf, and at ranks 1 and 2 of the R=4 CONFIG
-    surrogate (rank 2: all 65,536 rows clamped into one leaf; the plain
-    version's tables take 8.5 GB there); a second call bitwise equal."""
+_LEAF_CASES = ["1", "3", "4099", "65537", "one_leaf", "surrogate_rank1",
+               "surrogate_rank2"]
+
+
+@pytest.mark.parametrize("case,members_cap",
+                         [(c, 4) for c in _LEAF_CASES]
+                         + [("65537", 1), ("one_leaf", 64), ("4099", 0)])
+def test_leaf_sums_equal_plain(dev, case, members_cap):
+    """The assembly kernel against the plain ``assemble_plain`` (the leaf
+    sums of a dense table read column by column, ``_sum8``, the table
+    scatter): every level's counts and centroids and the membership table
+    bit-equal at odd sizes, with every row in one leaf, and at ranks 1 and
+    2 of the R=4 CONFIG surrogate (rank 2: all 65,536 rows clamped into one
+    leaf, summed by a whole block; the plain version's tables take 8.5 GB
+    there), with members_cap overflowing (1), above every count (64) and
+    0; one device launch a call; a second call bitwise equal."""
     from repro_torch.kernels import leaf_sums as ls
     pos, w, rel, slot, n_leaf, _, _ = _leaf_inputs(dev, case)
+    levels = CONFIG.local_levels
     before = ls.launches.count
-    got = ls.leaf_sums(pos, w, rel, slot, n_leaf)
-    again = ls.leaf_sums(pos, w, rel, slot, n_leaf)
+    ls.device_launches(reset=True)
+    got = ls.assemble(pos, w, rel, slot, n_leaf, levels, members_cap)
+    again = ls.assemble(pos, w, rel, slot, n_leaf, levels, members_cap)
+    torch.cuda.synchronize()
     assert ls.launches.count == before + 2
-    want = (ctree._leaf_sums(w, rel, slot, n_leaf),
-            ctree._leaf_sums(pos * w[:, None], rel, slot, n_leaf))
-    for a, b, c in zip(got, want, again):
-        assert a.shape == b.shape
-        assert torch.equal(a, b) and torch.equal(a, c)
+    assert ls.device_launches(reset=True) == 2
+    want = ctree.assemble_plain(pos, w, rel, slot, n_leaf, levels,
+                                members_cap)
+    for g, a, b in zip(got[:2], again[:2], want[:2]):
+        assert len(g) == len(b) == levels + 1
+        for x, y, z in zip(g, a, b):
+            assert x.shape == z.shape
+            assert torch.equal(x, z) and torch.equal(x, y)
+    assert got[2].shape == (n_leaf, members_cap)
+    assert torch.equal(got[2], want[2]) and torch.equal(got[2], again[2])
     if case in ("one_leaf", "surrogate_rank2"):
         assert int(slot.max()) == pos.shape[0] - 1
     del want
@@ -1657,21 +1673,126 @@ def test_morton_sort_on_the_surrogate_ranks_equals_plain(dev, rank):
 @pytest.mark.parametrize("case", ["surrogate_rank2", "65537"])
 def test_tree_build_does_not_wait_for_the_card(dev, case):
     """``_assemble_tree`` (and K3 before it) under the sync debug mode: the
-    leaf sums read no width on the host; no plain leaf sum runs on the card;
-    the tree equals the reference lowering's."""
+    assembly reads no width on the host and is one launch of its kernel
+    (one device launch); no plain leaf sum runs on the card; the tree
+    equals the reference lowering's and the plain assembly's."""
+    from repro_torch.kernels import leaf_sums as ls
     pos, w, rank, ranks = _leaf_case(dev, case)
     cfg = dataclasses.replace(CONFIG, tree_impl="fused")
     _build.library()
     ctree.build_tree(cfg, pos, w, rank, ranks)      # warm the caches
     torch.cuda.synchronize()
     ctree.plain_cuda_calls(reset=True)
+    ls.device_launches(reset=True)
+    before = ls.launches.count
     torch.cuda.set_sync_debug_mode("error")
     try:
         got = ctree.build_tree(cfg, pos, w, rank, ranks)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert ls.launches.count == before + 1
+    assert ls.device_launches(reset=True) == 1
     assert ctree.plain_cuda_calls(reset=True) == 0
     want = ctree.build_local_tree(pos, w, rank, CONFIG, ranks)
     for a, b in zip(got.counts + got.centroids, want.counts + want.centroids):
         assert torch.equal(a, b)
     assert torch.equal(got.leaf_members, want.leaf_members)
+    _, n_leaf, base = ctree._tree_geometry(rank, CONFIG, ranks)
+    rel, slot = rs.morton_sort_plain(
+        pos, base * 8 ** CONFIG.local_levels,
+        leaf_level=ctree._tree_geometry(rank, CONFIG, ranks)[0],
+        n_leaf=n_leaf)
+    plain = ctree.assemble_plain(pos, w, rel, slot, n_leaf,
+                                 CONFIG.local_levels, 4)
+    for a, b in zip(got.counts + got.centroids, plain[0] + plain[1]):
+        assert torch.equal(a, b)
+    assert torch.equal(got.leaf_members, plain[2])
+    del plain
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------- K4's keyed accept, empty sides
+def _k4_case(dev, n=4099, s=32, qm=0, qr=3 * 4099, masked=True, seed=21):
+    """A compacted (n, s) table, qm messages that hit live slots (or None)
+    and qr requests, a fifth of them to three crowded rows."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    i32 = torch.int32
+    edges = torch.randint(0, 4 * n, (n, s), generator=g, device=dev,
+                          dtype=i32)
+    edges = compact(torch.where(torch.rand(n, s, generator=g, device=dev)
+                                < 0.5, -1, edges))
+    msgs = (None,) * 3
+    if qm:
+        live = torch.nonzero(edges >= 0)
+        pick = live[torch.randint(0, live.shape[0], (qm,), generator=g,
+                                  device=dev)]
+        msgs = (pick[:, 0].to(i32), edges[pick[:, 0], pick[:, 1]],
+                torch.rand(qm, generator=g, device=dev) < 0.9)
+    tgt = torch.randint(0, n, (qr,), generator=g, device=dev, dtype=i32)
+    tgt[: qr // 5] = tgt[: qr // 5] % 3
+    src = torch.randint(0, 4 * n, (qr,), generator=g, device=dev, dtype=i32)
+    valid = torch.rand(qr, generator=g, device=dev) < 0.7 if masked else \
+        torch.ones(qr, dtype=torch.bool, device=dev)
+    vac = torch.rand(n, generator=g, device=dev) * 8
+    return edges, msgs, (tgt, src, valid), vac
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("with_messages", [False, True])
+def test_synapse_apply_keyed_equals_priorities_and_plain(dev, masked,
+                                                         with_messages):
+    """K4's keyed mode (the priorities drawn in its count pass from the key
+    words) == K4 fed ``edge_priority``'s priorities == the plain version,
+    bitwise, with every request valid or a mask, and with no message side
+    (qm = 0, null pointers) or messages too."""
+    edges, msgs, req, vac = _k4_case(dev, qm=2000 if with_messages else 0,
+                                     masked=masked)
+    words = prng.split_words(prng.fold_in_words(prng.key_words(4), 11), 3)[2]
+    keyed = sa.synapse_apply(edges, *msgs, *req, None, vac, key=words)
+    prio = kr.edge_priority(words, req[1], req[0], req[2])
+    fed = sa.synapse_apply(edges, *msgs, *req, prio, vac)
+    plain = sa.synapse_apply_plain(edges, *msgs, *req, None, vac, key=words)
+    for a, b, c in zip(keyed, fed, plain):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert keyed[1].any() and not keyed[1][req[2]].all()
+
+
+def test_synapse_apply_without_requests_equals_plain(dev):
+    """K4 with no request side (qr = 0, null pointers, no vacancies): the
+    drain alone, bit-equal to remove + compact; the accept mask empty."""
+    edges, msgs, _, _ = _k4_case(dev, qm=6000, qr=8)
+    got = sa.synapse_apply(edges, *msgs, None, None, None, None, None)
+    want = sa.synapse_apply_plain(edges, *msgs, None, None, None, None, None)
+    assert torch.equal(got[0], want[0]) and got[1].shape == (0,)
+    assert not torch.equal(got[0], edges)
+
+
+def test_fused_apply_draws_no_priorities_and_fills_nothing(dev):
+    """The fused apply's accept and drain under the sync debug mode: no
+    host read, no ``edge_priority`` launch, no constant fill of a
+    placeholder operand (``_build.FillCounter``), and the results equal
+    the reference lowering's."""
+    from repro_torch.sim import registry
+    fused = registry.resolve("apply", "fused")
+    ref = registry.resolve("apply", "reference")
+    edges, msgs, req, vac = _k4_case(dev, qm=3000)
+    words = prng.split_words(prng.fold_in_words(prng.key_words(8), 2), 3)[2]
+    _build.library()
+    fused.accept(*req, vac, edges, words)             # warm the caches
+    torch.cuda.synchronize()
+    before = (kr.priority_launches.count, sa.apply_launches.count)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with _build.FillCounter() as fills:
+            acc, new_in = fused.accept(*req, vac, edges, words)
+            drained = fused.deletion(edges, *msgs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert fills.calls == []
+    assert (kr.priority_launches.count, sa.apply_launches.count) == \
+        (before[0], before[1] + 2)
+    want_acc, want_in = ref.accept(*req, vac, edges,
+                                   prng.key_tensor(words, dev))
+    assert torch.equal(acc, want_acc) and torch.equal(new_in, want_in)
+    assert torch.equal(drained, ref.deletion(edges, *msgs))

@@ -102,6 +102,35 @@ def test_synapse_apply_with_a_stage_disabled(stage):
         assert not ga.any()
 
 
+@pytest.mark.parametrize("seed", [0, 7, 12345])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("crowd", [False, True])
+def test_keyed_accept_equals_jax_accept_requests(seed, masked, crowd):
+    """K4's keyed mode (no priority operand, the accept key's two words) on
+    CPU tensors runs ``synapse_apply_plain`` with ``request_priority``'s
+    draw: bit-equal to the JAX package's ``accept_requests`` with the key
+    derived from the same seed, with every request valid or a mask."""
+    from repro.connectome import synapses as jsyn
+    rng = np.random.default_rng(seed)
+    edges, _, _, _, rlid, rsrc, rval, _, vac = _apply_inputs(
+        rng, qr=300, crowd=crowd)
+    edges[:3, 4:] = -1                  # room in the crowded rows
+    if not masked:
+        rval = np.ones_like(rval)
+    words = prng.split_words(prng.fold_in_words(prng.key_words(seed + 2),
+                                                9), 3)[2]
+    jkey = jax.random.split(jax.random.fold_in(jax.random.key(seed + 2), 9),
+                            3)[2]
+    wa, wn = jsyn.accept_requests(*(jnp.asarray(a) for a in (
+        rlid, rsrc, rval, vac, edges)), jkey)
+    ge, ga = tsa.synapse_apply(_t(edges), None, None, None,
+                               *(_t(a) for a in (rlid, rsrc, rval)), None,
+                               _t(vac), key=words)
+    np.testing.assert_array_equal(np.asarray(wa), ga.numpy())
+    np.testing.assert_array_equal(np.asarray(wn), ge.numpy())
+    assert ga.any() and (not crowd or not ga[rval].all())
+
+
 def test_fused_apply_stages_equal_jax_fused_stages():
     rng = np.random.default_rng(5)
     edges, mlid, mgid, mval, rlid, rsrc, rval, _, vac = _apply_inputs(

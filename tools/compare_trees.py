@@ -217,8 +217,9 @@ def run_tree(k: int, tree: pathlib.Path) -> dict:
            "multi_rank_phase_a_device_ms": mr_prof.get(
                "ranges_by_launch", {}).get("repro.conn.phase_a", {}).get(
                "device_ms"),
-           "leaf_sums_device_ms": wl.get("leaf_sums", {}).get("R1", {}).get(
-               "device_ms"),
+           "leaf_sums_device_ms": (wl.get("tree_assembly")
+                                   or wl.get("leaf_sums", {})).get(
+               "R1", {}).get("device_ms"),
            "engram_chunk_ms": wl.get("engram", {}).get("median_chunk_ms"),
            "from_connectome_R4_chunk_ms": wl.get(
                "from_connectome_R4", {}).get("median_chunk_ms")}

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Where a call of K3 (``csrc/morton_sort.cu``) and of K5 (``route_build``
-in ``csrc/synapse_apply.cu``) spends its time, on one GPU.
+"""Where a call of K3 (``csrc/morton_sort.cu``), of K5 (``route_build``
+in ``csrc/synapse_apply.cu``) and of the tree assembly
+(``csrc/leaf_sums.cu``) spends its time, on one GPU.
 
     python3 tools/k35_breakdown.py
 
@@ -9,12 +10,14 @@ into ``build/k35_breakdown/``: in that build thread 0 of every block stamps
 the global timer at the end of each step of the kernel. The wrappers are
 pointed at that build and called at ``chip_smoke.py``'s shapes (``check_k3``:
 CONFIG's neurons into 4,096 cells; ``check_k5``: a lesion-sized retraction,
-half of 2,097,152 entries valid, into the lesion cap). After the device time
+half of 2,097,152 entries valid, into the lesion cap; the assembly at R=1
+on init_state's tree and with all 65,536 rows in one leaf, as rank 2 of the
+R=4 surrogate has them). After the device time
 of 20 calls (``chip_smoke.device_ms``), the stamps of one more call give
 each step's end in us from the first block's start: the earliest, mean and
 latest block that stamped it. Empty cooperative kernels at the same grids,
-with 0, 1 and 2 grid barriers, give the launch's and a barrier's own device
-time. Prints one JSON line per measurement, the card's name and power limit
+with 0, 1, 2 and 5 grid barriers, give the launch's and a barrier's own
+device time. Prints one JSON line per measurement, the card's name and power limit
 first. Reads the sources, writes only under ``build/``.
 """
 from __future__ import annotations
@@ -33,6 +36,8 @@ K3_STEPS = ("start", "encoded", "row written", "first barrier", "scanned",
 K5_STEPS = ("start", "counted", "barrier", "starts and totals",
             "placing (blocks that place)", "placed (blocks that place)",
             "end")
+TREE_STEPS = ("start", "zeroed", "counted", "scanned", "placed",
+              "leaves summed", "end")
 
 EMPTY_CU = r"""
 #include <cooperative_groups.h>
@@ -68,7 +73,8 @@ def variant(source: str, entries, marks: str, rows: int):
     for name in entries:
         getattr(lib, name).argtypes = _build.SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
-    for name in (f"{entries[0]}_workspace",):
+    name = f"{entries[0]}_workspace"
+    if hasattr(lib, name):
         getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int]
         getattr(lib, name).restype = ctypes.c_longlong
     getattr(lib, marks).argtypes = [ctypes.c_void_p]
@@ -106,6 +112,7 @@ def main() -> int:
     from repro_torch.connectome import tree as ctree
     from repro_torch.core import engine
     from repro_torch.kernels import _build
+    from repro_torch.kernels import leaf_sums as ls
     from repro_torch.kernels import radix_sort as rs
     from repro_torch.kernels import synapse_apply as sa
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -120,11 +127,14 @@ def main() -> int:
     k3 = variant("morton_sort", ("repro_morton_sort",), "repro_k3_marks", 256)
     k5 = variant("synapse_apply", ("repro_route_build",), "repro_k5_marks",
                  1024)
+    tree = variant("leaf_sums", ("repro_tree_assemble",), "repro_tree_marks",
+                   256)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     stream = _build.stream()
 
     cfg = CONFIG
-    pos = engine.init_state(cfg, 0, 1, device="cuda").positions
+    st = engine.init_state(cfg, 0, 1, device="cuda")
+    pos = st.positions
     leaf_level, n_leaf, base_cell = ctree._tree_geometry(0, cfg, 1)
     base = base_cell * 8 ** cfg.local_levels
     n, s = cfg.neurons_per_rank, cfg.max_synapses
@@ -136,6 +146,12 @@ def main() -> int:
                         other)
     mine = torch.arange(m, device="cuda", dtype=torch.int32) // s
     cap = routing.cap_deletions(cfg, True)
+    rel, slot = rs.morton_sort(pos, base, leaf_level=leaf_level,
+                               n_leaf=n_leaf)
+    one = torch.zeros(n, dtype=torch.int32, device="cuda")
+    every = torch.arange(n, dtype=torch.int32, device="cuda")
+    w = st.neurons.de_elements
+    levels = cfg.local_levels
     runs = (
         ("K3", k3, "repro_k3_marks", 256, K3_STEPS, (sms, 512),
          lambda: rs.morton_sort(pos, base, leaf_level=leaf_level,
@@ -143,7 +159,16 @@ def main() -> int:
          {"n": n, "leaf_level": leaf_level, "n_leaf": n_leaf}),
         ("K5", k5, "repro_k5_marks", 1024, K5_STEPS, (4 * sms, 256),
          lambda: sa.route_build(other, mine, n=n, num_ranks=1, cap=cap),
-         {"entries": m, "R": 1, "cap": cap}))
+         {"entries": m, "R": 1, "cap": cap}),
+        ("tree assembly", tree, "repro_tree_marks", 256, TREE_STEPS,
+         (sms, 512),
+         lambda: ls.assemble(pos, w, rel, slot, n_leaf, levels, 4),
+         {"n": n, "n_leaf": n_leaf, "levels": levels + 1}),
+        ("tree assembly, one leaf", tree, "repro_tree_marks", 256,
+         TREE_STEPS, (sms, 512),
+         lambda: ls.assemble(pos, w, one, every, n_leaf, levels, 4),
+         {"n": n, "n_leaf": n_leaf, "levels": levels + 1,
+          "fullest_leaf": n}))
     library = _build.library
     try:
         for name, lib, marks, rows, steps, grid, call, shape in runs:
@@ -156,7 +181,7 @@ def main() -> int:
                               "device_ms": dev_ms,
                               "steps": stamps(lib, marks, rows, steps)}),
                   flush=True)
-            for k in (0, 1, 2):
+            for k in (0, 1, 2, 5):
                 t = cs.device_ms(lambda: empty.syncs_run(
                     grid[0], grid[1], k, stream), 20)
                 print(json.dumps({"card": card, "empty_cooperative": {
