@@ -48,7 +48,15 @@ neurons, S=32):
   (``csrc/leaf_sums.cu``: the leaf sums, the parent levels and the
   membership table in one cooperative launch) and K3 held against their
   plain versions at R=1, at rank 3 of the multi-rank path and at ranks 1-3
-  of the R=4 surrogate, whose rows are clamped into one leaf.
+  of the R=4 surrogate, whose rows are clamped into one leaf;
+- the runtime (``runner_path``): ``SimulationRunner(SimRunnerConfig(dir,
+  ckpt_every=2), cfg=CONFIG, scenario=lesion_rewiring()).run(6)`` with all
+  five lowerings fused, every kernel of the path launched under it;
+  preempted at chunk 4 and resumed by a fresh runner, and a NaN rolled
+  back, each bitwise the uninterrupted run; a truncated newest checkpoint
+  skipped; the comparison cell saved at R=4 and restored at R=2
+  (``elastic.remesh_restore_brain``), old == new and sparse == dense
+  bitwise; checkpoint MB and the save, restore and probe times.
 
 For the kernel API and each path it checks the kernels really ran there (the
 launch counts are set to 0 just before and read just after; for K9, which of
@@ -2592,6 +2600,247 @@ def workloads_path(cfg, card):
     return line, leaf
 
 
+RUNNER_CHUNKS = 6    # the runner path's uninterrupted reference
+CKPT_ROOT = os.path.join("build", "chip_smoke_checkpoints")
+
+
+def _all_leaves_equal(a, b) -> bool:
+    """Every leaf of two states bitwise equal, the chunk counter too."""
+    import torch
+    from repro_torch.checkpoint import manager
+    la, lb = manager._flatten(a), manager._flatten(b)
+    return [k for k, _ in la] == [k for k, _ in lb] and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for (_, x), (_, y) in zip(la, lb))
+
+
+def _ckpt_mb(path: str) -> float:
+    """The bytes of a checkpoint's files, in MB (1e6)."""
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs) / 1e6
+
+
+def _timed(fn):
+    """(fn's result, its wall ms up to a synchronize)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def runner_path(cfg, scenario, cmp_cfg, cmp_scenario, card):
+    """The runtime at CONFIG on the card (``runtime.sim_runner``,
+    ``runtime.elastic``, ``checkpoint.manager``), all five lowerings fused:
+
+    R=1 under ``scenario``: an uninterrupted ``RUNNER_CHUNKS``-chunk
+    ``Simulator.run`` (the reference, timed a chunk); a runner at
+    ``ckpt_every`` 2 over the same chunks (timed an interval; the launch
+    counts set to 0 before it and read after: every kernel of the path
+    launched, K1, K3 and the tree assembly once a chunk); a runner
+    preempted at chunk 4 and a fresh one resuming there (``restarts`` 1)
+    and finishing; a runner whose state is poisoned with NaN after chunk 3
+    (``rollbacks`` >= 1); each final state bitwise the reference's, every
+    leaf and counter. The newest checkpoint truncated, a fresh runner
+    resumes at an older step. Checkpoint MB, ``save`` (the inline device ->
+    host copy and the whole write), ``restore`` and ``probe_health`` ms.
+
+    Elastic, the comparison cell (``cmp_cfg``, ``cmp_scenario``): two
+    chunks at R=4, saved, restored at R=2 (twice the neurons a rank) under
+    the new and the old connectivity algorithm: the edge tables and
+    positions as written, then after one chunk old == new (sorted rows,
+    ``synapses_formed``) and health 0; the same from a sparse R=4
+    checkpoint restored as sparse and as dense, bitwise equal after one
+    chunk. Returns (the JSON line, the runner's launch counts)."""
+    import shutil
+    import statistics
+    import torch
+    from repro_torch.checkpoint import manager
+    from repro_torch.runtime import chaos, elastic
+    from repro_torch.runtime.sim_runner import (SimRunnerConfig,
+                                                SimulationRunner)
+    from repro_torch.sim.api import Simulator
+    from repro_torch.telemetry import metrics as tm
+    n = cfg.neurons_per_rank
+    line = {"phase": "runner_path", "card": card,
+            "config": "CONFIG, all five lowerings fused, lesion_rewiring",
+            "neurons_per_rank": n}
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    os.makedirs(CKPT_ROOT)
+    try:
+        def runner(name, **kw):
+            return SimulationRunner(
+                SimRunnerConfig(os.path.join(CKPT_ROOT, name), ckpt_every=2,
+                                **kw), cfg=cfg, scenario=scenario,
+                device=DEV)
+
+        # the reference, a chunk at a time
+        ref = Simulator.from_config(cfg, scenario=scenario, device=DEV)
+        ref.init()
+        ref_ms = [_timed(lambda: ref.run(1))[1]
+                  for _ in range(RUNNER_CHUNKS)]
+        ref_stats = ref.stats()
+
+        def same(sim):
+            return _all_leaves_equal(sim.state, ref.state) and all(
+                sim.stats()[k] == ref_stats[k] for k in tm.COUNTER_KEYS)
+
+        # a runner over the same chunks: timed by interval, its launches
+        marks = []
+
+        def mark(_):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        _reset_counts()
+        plain = runner("plain")
+        plain.sim.init()
+        plain.chaos_hooks.append(mark)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        status = plain.run(RUNNER_CHUNKS)
+        counts, plain_leaf, plain_tf = _read_counts()
+        _path_checks("runner_path", counts, plain_leaf, plain_tf, None,
+                     calls=RUNNER_CHUNKS)
+        runner_ms = [(b - a) * 1e3 / 2 for a, b in zip(marks, marks[1:])]
+        line["runner"] = {
+            "status": status, "equal_to_reference": same(plain.sim),
+            "lifecycle": dict(plain.sim.lifecycle), "launches": counts,
+            "checkpoints": manager.steps_available(plain.cfg.ckpt_dir)}
+        line["chunk_ms"] = {
+            "sim_run": ref_ms, "sim_run_median": statistics.median(ref_ms),
+            "runner_ckpt_every_2": runner_ms,
+            "runner_median": statistics.median(runner_ms),
+            "runner_note": "an interval of 2 chunks / 2: its stats, health "
+                           "poll, probe and the checkpoint's inline copy "
+                           "included"}
+        if status != "done" or not line["runner"]["equal_to_reference"]:
+            fail(f"runner_path: the runner gave {status!r}, equal to the "
+                 f"uninterrupted run: {line['runner']['equal_to_reference']}")
+        del plain
+
+        # preempted at chunk 4, resumed by a fresh runner
+        r = runner("preempt")
+        r.chaos_hooks.append(chaos.preempt_after(4))
+        first = r.run(RUNNER_CHUNKS)
+        del r
+        r2 = runner("preempt")
+        resumed_at, restarts = r2.sim.chunk, r2.sim.lifecycle["restarts"]
+        second = r2.run(RUNNER_CHUNKS - resumed_at)
+        line["preempt_resume"] = {
+            "first": first, "resumed_at": resumed_at, "restarts": restarts,
+            "second": second, "equal_to_reference": same(r2.sim)}
+        if (first, resumed_at, restarts, second) != \
+                ("preempted", 4, 1, "done") or not same(r2.sim):
+            fail(f"runner_path: preempt and resume {line['preempt_resume']}")
+        del r2
+
+        # a NaN after chunk 3: rolled back, run again
+        r = runner("rollback")
+        r.chaos_hooks.append(chaos.poison_nan_once(field="v", after_chunk=3))
+        status = r.run(RUNNER_CHUNKS)
+        line["rollback"] = {"status": status,
+                            "lifecycle": dict(r.sim.lifecycle),
+                            "equal_to_reference": same(r.sim)}
+        if status != "done" or r.sim.lifecycle["rollbacks"] < 1 or \
+                not same(r.sim):
+            fail(f"runner_path: NaN rollback {line['rollback']}")
+        del r
+
+        # the newest checkpoint truncated: a fresh runner resumes older
+        ck = os.path.join(CKPT_ROOT, "preempt")
+        newest = chaos.corrupt_checkpoint(ck, mode="truncate")
+        r3 = runner("preempt")
+        line["corrupt_newest"] = {"corrupted": newest,
+                                  "resumed_at": r3.sim.chunk}
+        if not r3.sim.chunk < newest:
+            fail(f"runner_path: resumed at {r3.sim.chunk} past the corrupt "
+                 f"step {newest}")
+        del r3
+
+        # the costs at R=1, on the reference's state after the last chunk
+        save_dir = os.path.join(CKPT_ROOT, "save_r1")
+        copy_ms = [_timed(lambda: manager.host_copy(ref.state))[1]
+                   for _ in range(3)]
+        step, save_ms = _timed(lambda: ref.save(save_dir))
+        fresh = Simulator.from_config(cfg, scenario=scenario, device=DEV)
+        _, restore_ms = _timed(lambda: fresh.restore(save_dir))
+        probe = [_timed(ref.probe_health) for _ in range(4)]
+        line["costs_R1"] = {
+            "checkpoint_mb": _ckpt_mb(os.path.join(save_dir,
+                                                   f"step_{step}")),
+            "inline_copy_ms": copy_ms, "save_ms": save_ms,
+            "restore_ms": restore_ms,
+            "probe_health_ms": [ms for _, ms in probe],
+            "probe_flags": [f for f, _ in probe],
+            "restored_equal": _all_leaves_equal(fresh.state, ref.state)}
+        if not line["costs_R1"]["restored_equal"] or \
+                any(f for f, _ in probe):
+            fail(f"runner_path: restore or probe {line['costs_R1']}")
+        del ref, fresh
+        torch.cuda.empty_cache()
+
+        # elastic R=4 -> R=2, dense (new and old) and sparse (as both)
+        elastic_line = {}
+        for ex in ("dense", "sparse"):
+            c4 = dataclasses.replace(cmp_cfg, rate_exchange=ex)
+            sim4 = Simulator.from_config(c4, scenario=cmp_scenario,
+                                         num_ranks=4, device=DEV)
+            sim4.run(2)
+            d4 = os.path.join(CKPT_ROOT, f"r4_{ex}")
+            step4, save4_ms = _timed(lambda: sim4.save(d4))
+            written = {f: getattr(sim4.state, f) for f in (
+                "out_edges", "in_edges", "positions")}
+            del sim4
+            runs = {}
+            variants = (("new", {}), ("old", {"connectivity_alg": "old"})) \
+                if ex == "dense" else (("sparse", {}), (
+                    "dense", {"rate_exchange": "dense"}))
+            for name, kw in variants:
+                c2 = dataclasses.replace(c4, neurons_per_rank=2 * n, **kw)
+                (sim2, step2), ms = _timed(lambda: elastic.remesh_restore_brain(
+                    d4, c2, num_ranks=2, scenario=cmp_scenario, device=DEV))
+                as_written = step2 == step4 and all(
+                    torch.equal(getattr(sim2.state, f), x)
+                    for f, x in written.items())
+                sim2.step()
+                st = sim2.state
+                runs[name] = {
+                    "restore_ms": ms, "as_written": as_written,
+                    "health_flags": sim2.health()["health_flags"],
+                    "synapses_formed": sim2.stats()["synapses_formed"],
+                    "state": st}
+            a, b = (runs[k]["state"] for k in runs)
+            if ex == "dense":
+                equal = (torch.equal(torch.sort(a.out_edges, 1)[0],
+                                     torch.sort(b.out_edges, 1)[0])
+                         and torch.equal(torch.sort(a.in_edges, 1)[0],
+                                         torch.sort(b.in_edges, 1)[0])
+                         and runs["new"]["synapses_formed"]
+                         == runs["old"]["synapses_formed"] > 0)
+            else:
+                equal = _same_state(a, b)
+            for v in runs.values():
+                del v["state"]
+            elastic_line[ex] = {"checkpoint_mb": _ckpt_mb(os.path.join(
+                d4, f"step_{step4}")), "save_ms": save4_ms, "runs": runs,
+                "old_equals_new" if ex == "dense" else "sparse_equals_dense":
+                    equal}
+            del a, b, runs
+            torch.cuda.empty_cache()
+            bad = [k for k, v in elastic_line[ex]["runs"].items()
+                   if not v["as_written"] or v["health_flags"]]
+            if not equal or bad:
+                fail(f"runner_path: elastic R=4 -> R=2 {ex}: equal={equal},"
+                     f" not as written or unhealthy: {bad}")
+        line["elastic_R4_to_R2"] = elastic_line
+    finally:
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    emit(line)
+    return line, counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2848,6 +3097,12 @@ def main() -> int:
     # assimilation loop through step_with, from_connectome at R=4)
     wl_line, leaf = workloads_path(all_fused, card)
     torch.cuda.empty_cache()
+
+    # ---- path 6: the runtime (SimulationRunner: preempt and resume, NaN
+    # rollback, a corrupt checkpoint skipped; elastic R=4 -> R=2)
+    _, runner_counts = runner_path(all_fused, scn, cmp_cfg, scaled(scn, 4),
+                                   card)
+    torch.cuda.empty_cache()
     # the profiles last: a profiler session slows the host for the rest of
     # the process
     scenario_determinism(sim, rec, all_fused, scn, chunks, keys, card)
@@ -2866,6 +3121,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/hash.py:57",
          "launches": counts["threefry_words"],
          "multi_rank_launches": r4_counts["threefry_words"],
+         "runner_launches": runner_counts["threefry_words"],
          "main_path_launches": main_counts["threefry_words"],
          "max_abs_err": k0["max_abs_err"], "ms": k0["ms"],
          "device_ms": k0["device_ms"], "plain_ms": k0["plain_ms"],
@@ -2878,7 +3134,8 @@ def main() -> int:
          "source": "src/repro_torch/csrc/retract.cu",
          "replaces": "src/repro/connectome/synapses.py:117 (jnp)",
          "launches": counts["retract"],
-         "multi_rank_launches": r4_counts["retract"], "max_abs_err": kr_err,
+         "multi_rank_launches": r4_counts["retract"],
+         "runner_launches": runner_counts["retract"], "max_abs_err": kr_err,
          "ms": kr_res["full"][0], "device_ms": kr_res["full"][1],
          "plain_ms": kr_res["full"][2], "bound_ms": kr_res["full"][3][0],
          "bound_by": kr_res["full"][3][1], "library_ms": None,
@@ -2893,6 +3150,7 @@ def main() -> int:
          "replaces": "src/repro/connectome/synapses.py:56 (jnp)",
          "launches": counts["edge_priority"],
          "multi_rank_launches": r4_counts["edge_priority"],
+         "runner_launches": runner_counts["edge_priority"],
          "on_the_paths": "drawn inside K4's accept (keyed mode); the "
                          "standalone kernel is the kernel API's",
          "max_abs_err": kr_err,
@@ -2905,6 +3163,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/activity_fused.py:279",
          "launches": counts["activity_window"],
          "multi_rank_launches": r4_counts["activity_window"],
+         "runner_launches": runner_counts["activity_window"],
          "max_abs_err": max(k1["max_abs_err"], k1s["max_abs_err"]),
          "ms": k1_ms, "device_ms": k1_dev, "plain_ms": k1_plain,
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
@@ -2916,6 +3175,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/bh_traverse.py:77",
          "launches": counts["bh_traverse"],
          "multi_rank_launches": r4_counts["bh_traverse"],
+         "runner_launches": runner_counts["bh_traverse"],
          "max_abs_err": max(k2_abs, r4["K2"][5]),
          "ms": k2_ms, "device_ms": k2_dev, "plain_ms": k2_plain,
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
@@ -2927,6 +3187,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/radix_sort.py:135",
          "launches": counts["morton_sort"],
          "multi_rank_launches": r4_counts["morton_sort"],
+         "runner_launches": runner_counts["morton_sort"],
          "max_abs_err": max(k3[3], r4["K3"][3]),
          "R4": {"ms": r4["K3"][0], "device_ms": r4["K3"][4],
                 "plain_ms": r4["K3"][1], "bound_ms": r4["K3"][2][0],
@@ -2940,6 +3201,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/synapse_apply.py:63",
          "launches": counts["synapse_apply"],
          "multi_rank_launches": r4_counts["synapse_apply"],
+         "runner_launches": runner_counts["synapse_apply"],
          "max_abs_err": max(k4["drain"][3], k4["accept"][3],
                             r4["K4"]["drain"][3], r4["K4"]["accept"][3]),
          "R4": {part: {"ms": r4["K4"][part][0],
@@ -2960,6 +3222,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/synapse_apply.py:95",
          "launches": counts["route_build"],
          "multi_rank_launches": r4_counts["route_build"],
+         "runner_launches": runner_counts["route_build"],
          "max_abs_err": max(k5[3], r4["K5"][3]),
          "R4": {"ms": r4["K5"][0], "device_ms": r4["K5"][4],
                 "plain_ms": r4["K5"][1], "bound_ms": r4["K5"][2][0],
@@ -2973,6 +3236,7 @@ def main() -> int:
          "replaces": "src/repro/connectome/tree.py:68 (jnp)",
          "launches": counts["tree_assembly"],
          "multi_rank_launches": r4_counts["tree_assembly"],
+         "runner_launches": runner_counts["tree_assembly"],
          "workloads_launches": {
              k: wl_line[k]["launches"]["tree_assembly"]
              for k in ("engram", "assimilation", "from_connectome_R4")},

@@ -10,7 +10,8 @@ runtime argument.
 A state is one rank's. ``join_states`` makes the global view of R ranks'
 states (the JAX package's global arrays: per-neuron rows concatenated in
 rank order, so gid == global row; the replicated rates table once; the
-metrics' leading axis the ranks), and ``split_state`` goes back.
+metrics' leading axis the ranks), and ``split_state`` goes back;
+``map_rank_rows`` maps the leaves that hold a rank's rows.
 """
 from __future__ import annotations
 
@@ -103,6 +104,17 @@ def join_states(states) -> BrainState:
                       chunk=states[0].chunk,
                       stats=telemetry_metrics.join([s.stats for s in states]),
                       **rows)
+
+
+def map_rank_rows(state: BrainState, fn) -> BrainState:
+    """``state`` with ``fn`` applied to every leaf whose leading axis holds
+    the rank's rows (the neurons, the row fields, the metrics' per-rank
+    axis); the replicated rates table and the chunk as they are."""
+    return state._replace(
+        neurons=NeuronState(*(fn(x) for x in state.neurons)),
+        stats=telemetry_metrics.map_leaves(state.stats, fn),
+        **{f: None if getattr(state, f) is None else fn(getattr(state, f))
+           for f in _ROW_FIELDS})
 
 
 def split_state(state: BrainState, num_ranks: int) -> list:

@@ -1,2 +1,11 @@
-"""repro_torch.runtime: the runtime around the simulator. So far only the
-assimilation loop's chaos hook (``chaos.drop_region_input``)."""
+"""repro_torch.runtime: the runtime around the simulator, the port's copy of
+the simulator half of the JAX package's ``repro.runtime``.
+
+  sim_runner.py      ``SimulationRunner``: checkpoints, resume, rollback,
+                     degradation, preemption and a heartbeat around
+                     ``Simulator.run``
+  elastic.py         ``remesh_restore_brain``: a brain checkpoint restored
+                     on fewer ranks
+  fault_tolerance.py the atomic heartbeat file
+  chaos.py           faults injected on purpose to test recovery
+"""

@@ -7,6 +7,7 @@
 >>> Simulator.from_config(cfg, num_ranks=4).run(5)   # four ranks, one card
 >>> sim = Simulator.from_connectome(cfg, dataset)    # a loaded connectome
 >>> sim.step_with(phases.DynamicParams.zeros(nb))    # a drive per region
+>>> step = sim.save(ckpt_dir); sim.restore(ckpt_dir)  # the JAX layout
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; without a card
 and without that argument it raises instead of silently running on the CPU
@@ -19,8 +20,16 @@ Ranks: with ``num_ranks`` R > 1 and no ``comm``, the simulator runs all R
 ranks in this process on its one device, each rank's unchanged code in a
 thread of its own behind ``dist.LocalComm``'s baton (one rank at a time).
 With a ``dist.ProcessGroupComm`` it runs this process's rank of a
-``torch.distributed`` group; ``stats()`` and ``health()`` are then
-collectives every process must call.
+``torch.distributed`` group; ``stats()``, ``health()``, ``metrics()``,
+``probe_health()``, ``save``, ``restore`` and a ``run`` with a recorder are
+then collectives every process must call (``save`` all-gathers the ranks'
+rows into the JAX package's global layout, and rank 0 writes).
+
+Checkpoints (``save`` / ``restore``, through ``repro_torch.checkpoint
+.manager``) hold the global state in the JAX package's layout, so the two
+packages restore each other's. The host-side lifecycle counters
+(``telemetry.metrics.LIFECYCLE_KEYS``) live on the simulator; the runner
+(``runtime.sim_runner``) keeps them, ``stats()`` reports them.
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch import dist
+from repro_torch.checkpoint import manager
 from repro_torch.connectome import routing
 from repro_torch.core import engine
 from repro_torch.core import spikes
@@ -78,6 +88,11 @@ class Simulator:
         self._states: Optional[list] = None
         self._global: Optional[engine.BrainState] = None
         self._dyn_signatures: set = set()
+        # the ranks' rows live in several processes
+        self._spread = comm is not None and num_ranks > 1
+        # host-side runner lifecycle counters, merged into stats() and kept
+        # jointly with runtime.sim_runner.SimulationRunner
+        self.lifecycle = {k: 0 for k in telemetry_metrics.LIFECYCLE_KEYS}
 
     @classmethod
     def from_config(cls, cfg, scenario=None, num_ranks: int = 1,
@@ -187,6 +202,73 @@ class Simulator:
         self._states = list(states)
         self._global = None
 
+    @property
+    def chunk(self) -> int:
+        """The chunks completed (the same on every rank)."""
+        return self.rank_states[0].chunk
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes the checkpoints and the heartbeat:
+        rank 0 under a process group, else always."""
+        return self.comm is None or self.comm.rank == 0
+
+    def barrier(self) -> None:
+        """Wait for every process of the group (a psum); nothing without a
+        process group."""
+        if self.comm is not None:
+            float(self.comm.psum(torch.zeros(1, device=self.device)))
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of ``x`` in rank order (an all-gather; bool
+        leaves travel as uint8, which gloo takes)."""
+        if x.dtype == torch.bool:
+            return self.comm.all_gather(x.view(torch.uint8)).view(torch.bool)
+        return self.comm.all_gather(x)
+
+    def global_state(self) -> engine.BrainState:
+        """The global state in every process: ``state``, or under a process
+        group every rank's rows all-gathered (a collective)."""
+        if not self._spread:
+            return self.state
+        return engine.map_rank_rows(self.state, self._gather)
+
+    def _template(self) -> engine.BrainState:
+        """The global state's keys, shapes and dtypes without its data: the
+        current state's leaves as ``meta`` tensors, the ranks' rows joined
+        (under a process group, this rank's rows times the rank count)."""
+        def meta(_, x):
+            return torch.empty_like(x, device="meta") \
+                if isinstance(x, torch.Tensor) else x
+
+        states = [manager.map_leaves(meta, s) for s in self.rank_states]
+        if self._spread:
+            return engine.map_rank_rows(states[0], lambda x: x.new_empty(
+                (self.num_ranks * x.shape[0],) + tuple(x.shape[1:])))
+        return engine.join_states(states)
+
+    def _install(self, host: engine.BrainState) -> None:
+        """Take a global state held on the host (CPU tensors, e.g. from
+        ``manager.restore``): each rank of this process its rows (and a
+        copy of the replicated rates table), each leaf put on the device
+        with ``non_blocking=True`` (no wait for the stream)."""
+        num_ranks = self.num_ranks
+
+        def put(_, x):
+            return x.to(self.device, non_blocking=True) \
+                if isinstance(x, torch.Tensor) else x
+
+        states = []
+        for r in self.ranks:
+            def rows(x, r=r):
+                m = x.shape[0] // num_ranks
+                return x[r * m:(r + 1) * m]
+            st = engine.map_rank_rows(host, rows)
+            if st.rates_table is not None:
+                st = st._replace(rates_table=st.rates_table.clone())
+            states.append(manager.map_leaves(put, st))
+        self._set_states(states)
+
     def init(self) -> engine.BrainState:
         """(Re)initialize from cfg.seed and return the fresh state."""
         self._set_states([engine.init_state(self.cfg, r, self.num_ranks,
@@ -195,17 +277,18 @@ class Simulator:
         return self.state
 
     # ------------------------------------------------------------ driving
-    def _on_ranks(self, body) -> None:
-        """``body(i)`` -> the new state of the i-th rank of this process, on
-        every rank (one thread a rank behind the baton when there are
-        several)."""
+    def _map_ranks(self, body) -> list:
+        """``[body(i)]`` for the i-th rank of this process, on every rank
+        (one thread a rank behind the baton when there are several)."""
         if self._group is None:
-            states = [body(0)]
-        else:
-            states = self._group.run(
-                [functools.partial(body, i) for i in range(len(self.ranks))],
-                device=self.device)
-        self._set_states(states)
+            return [body(0)]
+        return self._group.run(
+            [functools.partial(body, i) for i in range(len(self.ranks))],
+            device=self.device)
+
+    def _on_ranks(self, body) -> None:
+        """``body(i)`` -> the new state of the i-th rank of this process."""
+        self._set_states(self._map_ranks(body))
 
     def _advance(self, num_chunks: int, ctxs=None) -> None:
         """``num_chunks`` chunks on every rank of this process."""
@@ -280,10 +363,6 @@ class Simulator:
         if recorder is None:
             self._advance(int(num_chunks))
             return self.state
-        if self.comm is not None and self.num_ranks > 1:
-            raise NotImplementedError(
-                "recording under a process group (the global arrays live in "
-                "several processes): ROADMAP.md Queue 1 item 11")
         if recorder.calcium.device != self.state.positions.device:
             raise ValueError(
                 f"run: the recorder lies on {recorder.calcium.device} and "
@@ -291,8 +370,22 @@ class Simulator:
                 f"observables.init_recorder(..., device=sim.device)")
         for _ in range(int(num_chunks)):
             self._advance(1)
-            recorder = self._record(recorder, self.state)
+            recorder = self._record(recorder, self._record_view())
         return self.state, recorder
+
+    def _record_view(self) -> engine.BrainState:
+        """The global arrays the recorder reads: ``state``, or under a
+        process group this rank's state with the four of them (positions,
+        calcium, rate, out_edges) all-gathered, so every process records
+        the rows the ranks in one process would."""
+        st = self.state
+        if not self._spread:
+            return st
+        g = self._gather
+        return st._replace(
+            positions=g(st.positions), out_edges=g(st.out_edges),
+            neurons=st.neurons._replace(calcium=g(st.neurons.calcium),
+                                        rate=g(st.neurons.rate)))
 
     def _record(self, rec, st):
         ctx = self.ctx
@@ -316,14 +409,33 @@ class Simulator:
             v = v.to(self.device)
         return dict(zip(keys, self.comm.psum(v).cpu().tolist()))
 
-    def stats(self) -> dict:
+    def stats(self, reduce: bool = True) -> dict:
         """The device counters summed over ranks, as floats, plus the
-        process's kernel launch counts under ``launches/<kernel>``."""
+        host-side lifecycle counters and the process's kernel launch counts
+        under ``launches/<kernel>``. ``reduce=False``: the device counters
+        only, each the (R,) host array of the ranks' values."""
+        if not reduce:
+            return dict(self.metrics().counters)
         out = self._summed(telemetry_metrics.reduce_counters(
             [s.stats for s in self.rank_states]))
+        out.update({k: float(v) for k, v in self.lifecycle.items()})
         out.update({f"launches/{k}": float(v)
                     for k, v in _build.launch_counts().items()})
         return out
+
+    def metrics(self) -> telemetry_metrics.Metrics:
+        """The global metrics tree (counters, per-chunk rings, histograms,
+        gauges) with numpy leaves, the leading axis the ranks: one transfer
+        a leaf of the joined tree (under a process group, all-gathered)."""
+        with record_function("repro.sim.metrics"):
+            if self._spread:
+                m = telemetry_metrics.map_leaves(self.state.stats,
+                                                 self._gather)
+            else:
+                m = telemetry_metrics.join([s.stats
+                                            for s in self.rank_states])
+            return telemetry_metrics.map_leaves(
+                m, lambda x: x.cpu().numpy())
 
     def health(self) -> dict:
         """The health gauges written by the last completed chunk:
@@ -333,3 +445,67 @@ class Simulator:
             [s.stats for s in self.rank_states])
         flags = g.pop("health_flags")
         return {"health_flags": flags, **self._summed(g)}
+
+    def probe_health(self) -> int:
+        """The health verdict (``phases.health_verdict``, the computation
+        that closes every chunk) on the current state, as the global
+        ``health_flags`` bitmask; on every rank, behind the baton (the
+        verdict psums). The state is left as it was: the verdict writes
+        into copies of the gauges, so ``health()``, ``stats()`` and the
+        next checkpoint see the last chunk's."""
+        def body(i):
+            st = self.rank_states[i]
+            probe = dataclasses.replace(st.stats, gauges={
+                k: v.clone() for k, v in st.stats.gauges.items()})
+            gauges = sim_phases.health_verdict(st._replace(stats=probe),
+                                               self.ctxs[i])
+            return gauges.gauges["health_flags"]
+
+        with record_function("repro.sim.probe_health"):
+            flags = self._map_ranks(body)
+        return int(flags[0].item())
+
+    # ------------------------------------------------------------ persist
+    def ckpt_metadata(self) -> dict:
+        """Checkpoint metadata: enough for a fresh process (maybe on
+        another rank count or after a degrade) to decide how to restore
+        (``runtime.sim_runner.try_resume``, ``runtime.elastic``)."""
+        return {"cfg": self.cfg.name,
+                "rate_exchange": self.cfg.rate_exchange,
+                "num_ranks": self.num_ranks,
+                "neurons_per_rank": self.cfg.neurons_per_rank,
+                "subs_cap_factor": self.cfg.subs_cap_factor,
+                "subs_cap_base": self.cfg.subs_cap_base,
+                "requests_cap_factor": self.cfg.requests_cap_factor,
+                "lifecycle": dict(self.lifecycle)}
+
+    def save(self, path: str) -> int:
+        """Atomic full-state checkpoint at ``<path>/step_<chunk>/`` in the
+        JAX package's layout (``checkpoint.manager``). Under a process
+        group the ranks' rows are all-gathered, rank 0 writes and every
+        process waits for the rename. Returns the saved chunk number."""
+        with record_function("repro.sim.save"):
+            st = self.global_state()
+            if self.is_writer:
+                manager.save(path, st.chunk, st,
+                             metadata=self.ckpt_metadata())
+            self.barrier()
+        self.lifecycle["checkpoint_saves"] += 1
+        return st.chunk
+
+    def restore(self, path: str, step: Optional[int] = None) -> int:
+        """Load a checkpoint (the latest step by default; FileNotFoundError
+        if there is none) and give each rank of this process its rows on
+        ``self.device``. ``run`` then continues bitwise as an uninterrupted
+        run: every draw is keyed by the restored chunk counter, and the
+        metrics travel with the state. Under a process group every process
+        reads the files and keeps its own rows."""
+        if step is None:
+            step = manager.latest_step(path)
+            if step is None:
+                raise FileNotFoundError(f"no checkpoint under {path!r}")
+        with record_function("repro.sim.restore"):
+            host, _ = manager.restore(path, step, self._template())
+            self._install(host)
+        self.lifecycle["checkpoint_restores"] += 1
+        return step

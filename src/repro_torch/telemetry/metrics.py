@@ -43,6 +43,11 @@ HEALTH_NONFINITE = 1     # NaN/Inf anywhere in the physical state
 HEALTH_ASYMMETRY = 2     # sum(out_live) != sum(in_live) w/o overflow
 HEALTH_CONSERVATION = 4  # live entries outside the [2F-2D, 2F-D] bound
 
+# host-side runner lifecycle counters, kept on the Simulator and merged into
+# its stats() (runtime/sim_runner.py maintains them)
+LIFECYCLE_KEYS = ("checkpoint_saves", "checkpoint_restores", "rollbacks",
+                  "restarts", "degrade_events", "heartbeat_stale")
+
 DEFAULT_HISTORY = 64
 
 
@@ -120,6 +125,12 @@ def split(m: Metrics, num_ranks: int) -> list:
     return [Metrics(*({k: v[r:r + 1].clone()
                        for k, v in getattr(m, part).items()}
                       for part in _PARTS)) for r in range(num_ranks)]
+
+
+def map_leaves(m: Metrics, fn) -> Metrics:
+    """``m`` with every leaf replaced by ``fn(leaf)``."""
+    return Metrics(*({k: fn(v) for k, v in getattr(m, part).items()}
+                     for part in _PARTS))
 
 
 def reduce_counters(per_rank) -> Dict[str, float]:

@@ -1796,3 +1796,87 @@ def test_fused_apply_draws_no_priorities_and_fills_nothing(dev):
                                    prng.key_tensor(words, dev))
     assert torch.equal(acc, want_acc) and torch.equal(new_in, want_in)
     assert torch.equal(drained, ref.deletion(edges, *msgs))
+
+
+# ------------------------------------------------------------ runtime
+def _all_fused(cfg):
+    return dataclasses.replace(cfg, activity_impl="fused",
+                               connectivity_impl="fused", tree_impl="fused",
+                               apply_impl="fused")
+
+
+def _states_equal(a, b):
+    from repro_torch.checkpoint import manager
+    la, lb = manager._flatten(a), manager._flatten(b)
+    assert [k for k, _ in la] == [k for k, _ in lb]
+    for (k, x), (_, y) in zip(la, lb):
+        if isinstance(x, torch.Tensor):
+            assert x.device == y.device and torch.equal(x, y), k
+        else:
+            assert x == y, k
+
+
+@pytest.mark.parametrize("num_ranks", [1, 4])
+def test_save_restore_on_the_card_bit_identical(dev, tmp_path, num_ranks):
+    """A checkpoint saved from the card and restored onto it: two more
+    chunks bitwise equal to the writer's two more, every leaf on the card."""
+    cfg = _all_fused(SMOKE_CONFIG)
+    a = Simulator.from_config(cfg, num_ranks=num_ranks, device=dev)
+    a.run(2)
+    assert a.save(str(tmp_path)) == 2
+    a.run(2)
+    b = Simulator.from_config(cfg, num_ranks=num_ranks, device=dev)
+    assert b.restore(str(tmp_path)) == 2
+    assert all(x.is_cuda for s in b.rank_states for x in s.neurons)
+    b.run(2)
+    _states_equal(a.state, b.state)
+
+
+def test_probe_health_leaves_the_gauges_on_the_card(dev):
+    """probe_health on a poisoned state flags it and leaves the gauges (so
+    health() and the next checkpoint) as the last chunk wrote them."""
+    from repro_torch.telemetry import metrics as tm
+    sim = Simulator.from_config(_all_fused(SMOKE_CONFIG), num_ranks=2,
+                                device=dev)
+    sim.run(2)
+    assert sim.probe_health() == 0
+    st = sim.state
+    v = st.neurons.v.clone()
+    v[3] = float("nan")
+    sim.state = st._replace(neurons=st.neurons._replace(v=v))
+    gauges = [{k: x.clone() for k, x in s.stats.gauges.items()}
+              for s in sim.rank_states]
+    before = sim.health()
+    assert sim.probe_health() == tm.HEALTH_NONFINITE
+    assert sim.health() == before
+    for g, s in zip(gauges, sim.rank_states):
+        for k, x in s.stats.gauges.items():
+            assert x.is_cuda and torch.equal(x, g[k]), k
+
+
+def test_runner_kill_and_resume_on_the_card(dev, tmp_path):
+    """The runner preempted at chunk 2 and a fresh one resuming there
+    finish bitwise equal to an uninterrupted run, every kernel of the path
+    launched under the runner."""
+    from repro_torch.runtime import chaos
+    from repro_torch.runtime.sim_runner import (SimRunnerConfig,
+                                                SimulationRunner)
+    cfg = _all_fused(SMOKE_CONFIG)
+    ref = Simulator.from_config(cfg, device=dev)
+    ref.run(4)
+    ck = str(tmp_path / "ck")
+    _build.reset_launch_counts()
+    r = SimulationRunner(SimRunnerConfig(ck, ckpt_every=1), cfg=cfg,
+                         device=dev)
+    r.chaos_hooks.append(chaos.preempt_after(2))
+    assert r.run(4) == "preempted"
+    r2 = SimulationRunner(SimRunnerConfig(ck, ckpt_every=1), cfg=cfg,
+                          device=dev)
+    assert r2.sim.chunk == 2 and r2.sim.lifecycle["restarts"] == 1
+    assert r2.run(2) == "done"
+    counts = _build.launch_counts()
+    for k in ("activity_window", "bh_traverse", "morton_sort",
+              "synapse_apply", "route_build", "tree_assembly"):
+        assert counts[k] > 0, k
+    assert counts["activity_window"] == 4
+    _states_equal(ref.state, r2.sim.state)

@@ -34,6 +34,21 @@ def test_no_jax_or_reference_import(path):
         assert top not in FORBIDDEN, f"{path.name} imports {name}"
 
 
+RUNTIME_FILES = sorted((PKG / "checkpoint").rglob("*.py")) + sorted(
+    (PKG / "runtime").rglob("*.py"))
+
+
+@pytest.mark.parametrize("path", RUNTIME_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_checkpoint_and_runtime_need_no_ml_dtypes(path):
+    """The checkpoint manager reads bf16 leaves without ml_dtypes, which the
+    card's machine does not have; nor does the runtime import it."""
+    for name in _imported(path):
+        top = name.split(".")[0]
+        assert top not in FORBIDDEN + ("ml_dtypes",), \
+            f"{path.name} imports {name}"
+
+
 def test_fresh_interpreter_loads_no_jax():
     mods = sorted(
         "repro_torch." + str(p.relative_to(PKG).with_suffix("")).replace(
@@ -76,6 +91,27 @@ def test_constructors_default_to_the_card():
         observables.init_recorder(4, 2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         engine.init_state(SMOKE_CONFIG, 0, 1)
+
+
+def test_runner_and_elastic_default_to_the_card(tmp_path):
+    """``SimulationRunner`` and ``elastic.remesh_restore_brain`` without a
+    device resolve it as every entry point does: with no card they raise
+    rather than run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the runner then lands on cuda")
+    from repro_torch.configs.msp_brain import SMOKE_CONFIG
+    from repro_torch.runtime import elastic
+    from repro_torch.runtime.sim_runner import (SimRunnerConfig,
+                                                SimulationRunner)
+    from repro_torch.sim.api import Simulator
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SimulationRunner(SimRunnerConfig(str(tmp_path)), cfg=SMOKE_CONFIG)
+    Simulator.from_config(SMOKE_CONFIG, device="cpu").save(str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        elastic.remesh_restore_brain(str(tmp_path), SMOKE_CONFIG)
+    sim, step = elastic.remesh_restore_brain(str(tmp_path), SMOKE_CONFIG,
+                                             device="cpu")
+    assert step == 0 and sim.device.type == "cpu"
 
 
 def test_converters_default_to_the_card():
