@@ -56,7 +56,16 @@ neurons, S=32):
   back, each bitwise the uninterrupted run; a truncated newest checkpoint
   skipped; the comparison cell saved at R=4 and restored at R=2
   (``elastic.remesh_restore_brain``), old == new and sparse == dense
-  bitwise; checkpoint MB and the save, restore and probe times.
+  bitwise; checkpoint MB and the save, restore and probe times;
+- the multi-tenant service (``service_path``): ``SimulationService(cfg,
+  ServiceConfig(num_slots=4, queue_cap=8), scenario=lesion_rewiring())``
+  with six tenants submitted as ``launch/serve.py`` submits them, every
+  lane on the five fused lowerings, slot 1 NaN-poisoned after its first
+  chunk and rolled back: every tenant bitwise its solo run, co-tenant
+  observations bitwise an unpoisoned run's, the launches those of the
+  admissions and lane-chunks; R=4 dense and sparse on two slots; tick ms,
+  requests a second, ``isolation_overhead_x``, a profiled tick's idle
+  share and the readouts' ms (``service_metrics``).
 
 For the kernel API and each path it checks the kernels really ran there (the
 launch counts are set to 0 just before and read just after; for K9, which of
@@ -2841,6 +2850,341 @@ def runner_path(cfg, scenario, cmp_cfg, cmp_scenario, card):
     return line, counts
 
 
+SERVICE_TENANTS = 6     # seeds 100-105, priority i % 2, as serve.py
+SERVICE_CHUNKS = 3      # submits them
+STEADY_CHUNKS = 25      # the timed window: four tenants, four lanes a tick
+
+
+def _service_run(cfg, scenario, num_slots: int, tenants: int, chunks: int,
+                 poison: bool, num_ranks: int = 1, timed: bool = False):
+    """A ``SimulationService`` at ``cfg`` on the card with ``tenants``
+    requests submitted as ``launch/serve.py`` submits them (seed 100 + i,
+    priority i % 2), slot 1 NaN-poisoned after its first chunk when
+    ``poison``, driven to idle: through ``run_until_idle``, or with
+    ``timed`` tick by tick (the same loop), each tick's wall ms and lanes
+    stepped recorded. Returns (service, handles, tick ms, lanes a tick,
+    wall s from the first submit to idle)."""
+    import torch
+    from repro_torch.runtime import chaos
+    from repro_torch.service import (ServiceConfig, SimRequest,
+                                     SimulationService)
+    svc = SimulationService(cfg, ServiceConfig(num_slots=num_slots,
+                                               queue_cap=8),
+                            scenario=scenario, num_ranks=num_ranks,
+                            device=DEV)
+    if poison:
+        svc.chaos_hooks.append(chaos.poison_slot_nan(1, after_chunk=1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = [svc.submit(SimRequest(seed=100 + i, chunks=chunks,
+                                     priority=i % 2, tag=f"tenant{i}"))
+               for i in range(tenants)]
+    ticks, lanes = [], []
+    if timed:
+        more = True
+        while more:
+            before = svc.batch.lane_chunks
+            more, ms = _timed(svc.tick)
+            ticks.append(ms)
+            lanes.append(svc.batch.lane_chunks - before)
+    else:
+        svc.run_until_idle()
+    torch.cuda.synchronize()
+    return svc, handles, ticks, lanes, time.perf_counter() - t0
+
+
+def _service_launch_faults(counts, admitted: int, lane_chunks: int,
+                           num_ranks: int):
+    """{kernel: (launched, wanted)} where the service's launches are not
+    the admissions' and the lane-chunks' (every rank's): K0 three a rank
+    and admission (``init_state``), and at R > 1 two a rank and lane-chunk
+    (phase A's Gumbel draws); K1, K2, K3 and the tree assembly one a rank
+    and lane-chunk, K4 three, K5 and the retraction two, ``edge_priority``
+    none."""
+    per = num_ranks * lane_chunks
+    want = {"activity_window": per, "bh_traverse": per, "morton_sort": per,
+            "tree_assembly": per, "synapse_apply": 3 * per,
+            "route_build": 2 * per, "retract": 2 * per, "edge_priority": 0,
+            "threefry_words": 3 * num_ranks * admitted
+            + (2 * per if num_ranks > 1 else 0)}
+    return {k: (counts.get(k, 0), v) for k, v in want.items()
+            if counts.get(k, 0) != v}
+
+
+def _serve_driver():
+    """``python -m repro_torch.launch.serve --smoke`` in this process, on
+    the card (its default device), the launch counts set to 0 before it
+    and read after: exit code 0, its three tenants DONE, and the launches
+    of three admissions and nine lane-chunks (two slots, three tenants of
+    three chunks, nothing replayed), no plain version on a CUDA tensor."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve
+    _reset_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = serve.main(["--smoke"])
+    counts, plain_leaf, plain_tf = _read_counts()
+    lines = out.getvalue().splitlines()
+    res = {"rc": rc, "tenant_lines": [x.strip() for x in lines
+                                      if x.strip().startswith("tenant")],
+           "last_line": lines[-1] if lines else None, "launches": counts,
+           "launch_faults": _service_launch_faults(counts, 3, 9, 1),
+           "plain_leaf_sums_on_cuda": plain_leaf,
+           "plain_threefry_on_cuda": plain_tf}
+    if rc != 0 or res["last_line"] != "3/3 tenants DONE" \
+            or res["launch_faults"] or plain_leaf or plain_tf:
+        fail(f"service_path serve driver: {res}")
+    return res
+
+
+def _profile_tick(svc, card):
+    """One tick of ``svc`` under torch.profiler
+    (build/chip_smoke_service_tick_trace.json): the device busy time
+    (kernels, copies, memsets) against the tick's wall time, and the
+    ranges with the device work launched inside them
+    (``ranges_by_launch``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("chip_smoke.service_tick"):
+            t0 = time.perf_counter()
+            svc.tick()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "chip_smoke_service_tick_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    w = next(e for e in events if e.get("cat") == "user_annotation"
+             and e["name"] == "chip_smoke.service_tick")
+    lo, hi = w["ts"], w["ts"] + w["dur"]
+    events = [e for e in events if "ts" in e and lo <= e["ts"] <= hi
+              and e is not w]
+    dev = [e for e in events
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy = sum(e["dur"] for e in dev) / 1e3
+    ranges = ranges_by_launch(events, dev)
+    return {"tick_wall_ms": wall, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall if dev else None,
+            "device_launches": len(dev),
+            "ranges_by_launch": {k: v for k, v in ranges.items()
+                                 if k.startswith(("repro.service",
+                                                  "repro.activity",
+                                                  "repro.connectivity",
+                                                  "repro.health"))}}
+
+
+def service_path(cfg, scenario, cmp_cfg, cmp_scenario, card):
+    """The multi-tenant service at CONFIG on the card
+    (``repro_torch.service``), all five lowerings fused in every lane:
+
+    R=1 under ``scenario``: six tenants (seeds 100-105, 3 chunks each,
+    priority i % 2, as ``launch/serve.py`` submits them) on four slots,
+    queue cap 8. Solo references first, ``Simulator.from_config(replace(cfg,
+    seed=s), scenario=...)`` a chunk at a time (timed); an unpoisoned run
+    tick by tick (its wall time gives requests a second); then the same with slot 1
+    NaN-poisoned after its first chunk, through ``run_until_idle``, the
+    launch counts set to 0 before it and read after: all DONE, a quarantine
+    and a rollback, every final state bitwise its solo run, the co-tenants'
+    observations bitwise the unpoisoned run's, every kernel's launches
+    those of the admissions and lane-chunks (``_service_launch_faults``),
+    the health flags and a probe 0 on every lane. The readouts' ms
+    (``probe``, ``observe``, ``health_flags``, a lane's snapshot) on the
+    final lanes. The serve driver's smoke run (``_serve_driver``).
+
+    The timed window: four tenants of ``STEADY_CHUNKS`` chunks on four
+    slots, so that every tick steps four lanes; the first tick (the
+    admissions and the lanes' first chunk) is left out. Its p50 and max
+    tick ms, and ``isolation_overhead_x`` as
+    ``benchmarks/bench_service.py`` defines it: the p50 tick over the
+    tenants over a solo chunk, here the median of seed 100's chunks 2 to
+    ``STEADY_CHUNKS`` after an untimed first chunk (the chunks the window's
+    ticks run). Then one profiled tick of four lanes.
+
+    R=4, the comparison cell (``cmp_cfg``, ``cmp_scenario``) dense and
+    sparse: two slots, two tenants of 2 chunks, slot 1 poisoned; each
+    tenant bitwise its solo R=4 run. Returns (the JSON line, the R=1
+    poisoned run's launch counts with its K0 draws by mode under
+    ``modes``, the R=4 runs' launch counts)."""
+    import numpy as np
+    import statistics
+    import torch
+    from repro_torch.kernels import hash as chash
+    from repro_torch.service import RequestStatus
+    from repro_torch.sim.api import Simulator
+    line = {"phase": "service_path", "card": card,
+            "config": "CONFIG, all five lowerings fused in every lane, "
+                      "lesion_rewiring", "neurons_per_rank":
+                cfg.neurons_per_rank, "slots": 4, "queue_cap": 8,
+            "tenants": SERVICE_TENANTS, "chunks_per_tenant": SERVICE_CHUNKS}
+    seeds = [100 + i for i in range(SERVICE_TENANTS)]
+
+    # the solo references
+    solo = {}
+    for s in seeds:
+        sim = Simulator.from_config(dataclasses.replace(cfg, seed=s),
+                                    scenario=scenario, device=DEV)
+        sim.run(SERVICE_CHUNKS)
+        solo[s] = sim.state
+        del sim
+
+    # an unpoisoned run, tick by tick
+    _, clean, clean_ms, clean_lanes, wall = _service_run(
+        cfg, scenario, 4, SERVICE_TENANTS, SERVICE_CHUNKS, poison=False,
+        timed=True)
+
+    # slot 1 poisoned, through run_until_idle, its launches counted
+    _reset_counts()
+    chash.mode_launches(reset=True)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    svc, hs, _, _, poisoned_s = _service_run(
+        cfg, scenario, 4, SERVICE_TENANTS, SERVICE_CHUNKS, poison=True)
+    counts, plain_leaf, plain_tf = _read_counts()
+    modes = chash.mode_launches(reset=True)
+    peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    stats = svc.stats()
+    admitted, lane_chunks = stats["requests_admitted"], svc.batch.lane_chunks
+    statuses = [h.result.status.value for h in hs]
+    bitwise = [h.result.status is RequestStatus.DONE
+               and _all_leaves_equal(h.result.final_state,
+                                     solo[h.request.seed]) for h in hs]
+    cotenants = [np.array_equal(h.result.observations,
+                                clean[i].result.observations)
+                 for i, h in enumerate(hs) if i != 1]
+    launch_faults = _service_launch_faults(counts, admitted, lane_chunks, 1)
+    flags = svc.batch.health_flags(svc.state).tolist()
+    probed = svc.batch.probe(svc.state).tolist()
+
+    # the readouts on the four final lanes
+    def ms3(fn):
+        return [_timed(fn)[1] for _ in range(3)]
+
+    readouts = {"probe_ms": ms3(lambda: svc.batch.probe(svc.state)),
+                "observe_ms": ms3(lambda: svc.batch.observe(svc.state)),
+                "health_flags_ms": ms3(
+                    lambda: svc.batch.health_flags(svc.state)),
+                "snapshot_ms": ms3(lambda: svc.batch.extract(svc.state, 0)),
+                "lanes": sum(x is not None for x in svc.state)}
+    del svc, solo
+    torch.cuda.empty_cache()
+    line["serve_driver"] = _serve_driver()
+    torch.cuda.empty_cache()
+
+    line["R1"] = {
+        "statuses": statuses, "stats": stats, "lane_chunks": lane_chunks,
+        "retries": [h.result.retries for h in hs],
+        "bitwise_solo": bitwise, "cotenant_observations_equal": cotenants,
+        "health_flags": flags, "probe_flags": probed, "launches": counts,
+        "draw_launches_by_mode": modes,
+        "launch_faults": launch_faults, "plain_leaf_sums_on_cuda":
+            plain_leaf, "plain_threefry_on_cuda": plain_tf,
+        "poisoned_run_s": poisoned_s}
+    if any(st != "done" for st in statuses) or stats["quarantines"] < 1 \
+            or stats["slot_rollbacks"] < 1 or not all(bitwise) \
+            or not all(cotenants) or launch_faults or any(flags) \
+            or any(probed) or plain_leaf or plain_tf:
+        fail(f"service_path R=1: {line['R1']}")
+
+    # R=4, dense and sparse: two tenants, slot 1 poisoned
+    r4 = {}
+    for ex in ("dense", "sparse"):
+        c4 = dataclasses.replace(cmp_cfg, rate_exchange=ex)
+        ref = {}
+        for s in (100, 101):
+            sim = Simulator.from_config(dataclasses.replace(c4, seed=s),
+                                        scenario=cmp_scenario, num_ranks=4,
+                                        device=DEV)
+            sim.run(2)
+            ref[s] = sim.state
+            del sim
+        _reset_counts()
+        svc4, h4, _, _, sec = _service_run(c4, cmp_scenario, 2, 2, 2,
+                                           poison=True, num_ranks=4)
+        c4_counts, _, _ = _read_counts()
+        st4 = svc4.stats()
+        r4[ex] = {
+            "statuses": [h.result.status.value for h in h4],
+            "quarantines": st4["quarantines"],
+            "slot_rollbacks": st4["slot_rollbacks"],
+            "lane_chunks": svc4.batch.lane_chunks, "seconds": sec,
+            "bitwise_solo": [h.result.status is RequestStatus.DONE
+                             and _all_leaves_equal(h.result.final_state,
+                                                   ref[h.request.seed])
+                             for h in h4],
+            "launches": c4_counts, "launch_faults": _service_launch_faults(
+                c4_counts, st4["requests_admitted"],
+                svc4.batch.lane_chunks, 4)}
+        del svc4, h4, ref
+        torch.cuda.empty_cache()
+        if not all(r4[ex]["bitwise_solo"]) or r4[ex]["quarantines"] < 1 \
+                or r4[ex]["launch_faults"]:
+            fail(f"service_path R=4 {ex}: {r4[ex]}")
+    line["R4"] = r4
+
+    # the timed window: every tick steps four lanes, the first left out
+    sim = Simulator.from_config(dataclasses.replace(cfg, seed=100),
+                                scenario=scenario, device=DEV)
+    sim.run(1)
+    solo_ms = [_timed(lambda: sim.run(1))[1]
+               for _ in range(STEADY_CHUNKS - 1)]
+    solo_median = statistics.median(solo_ms)
+    del sim
+    steady_svc, _, tick_ms, lanes, _ = _service_run(
+        cfg, scenario, 4, 4, STEADY_CHUNKS, poison=False, timed=True)
+    if lanes[:STEADY_CHUNKS] != [4] * STEADY_CHUNKS \
+            or steady_svc.stats()["quarantines"]:
+        fail(f"service_path: the timed window stepped {lanes} lanes a "
+             f"tick, {steady_svc.stats()}")
+    tick_ms = tick_ms[1:STEADY_CHUNKS]
+    del steady_svc
+    torch.cuda.empty_cache()
+
+    # one tick of four lanes profiled (after an unprofiled first tick)
+    from repro_torch.service import (ServiceConfig, SimRequest,
+                                     SimulationService)
+    prof_svc = SimulationService(cfg, ServiceConfig(num_slots=4),
+                                 scenario=scenario, device=DEV)
+    for i in range(4):
+        prof_svc.submit(SimRequest(seed=100 + i, chunks=2))
+    prof_svc.tick()
+    profiled = _profile_tick(prof_svc, card)
+    del prof_svc
+    torch.cuda.empty_cache()
+
+    p50 = float(np.percentile(tick_ms, 50))
+    emit({"phase": "service_metrics", "card": card,
+          "window": f"4 tenants x {STEADY_CHUNKS} chunks on 4 slots, 4 "
+                    f"lanes every tick, the first tick left out",
+          "tick_ms": tick_ms, "tick_ms_p50": p50,
+          "tick_ms_max": max(tick_ms),
+          "tick_ms_p99": float(np.percentile(tick_ms, 99))
+          if len(tick_ms) >= 100 else None,
+          "tick_ms_p99_note": f"{len(tick_ms)} ticks: a p99 needs 100; "
+                              f"tick_ms_max given",
+          "solo_chunk_ms": solo_ms, "solo_chunk_ms_median": solo_median,
+          "isolation_overhead_x": p50 / 4 / solo_median,
+          "isolation_overhead_note": "p50 tick / 4 tenants / the solo "
+                                     "chunk's median (bench_service.py)",
+          "requests_per_s": SERVICE_TENANTS / wall,
+          "requests_per_s_run": f"{SERVICE_TENANTS} tenants x "
+                                f"{SERVICE_CHUNKS} chunks on 4 slots, first "
+                                f"submit to idle, admissions included",
+          "clean_run_tick_ms": clean_ms,
+          "clean_run_lanes_per_tick": clean_lanes,
+          "profiled_tick": profiled, **readouts, "peak_mem_gb": peak_gb})
+    emit(line)
+    return line, dict(counts, modes=modes), {ex: r4[ex]["launches"]
+                                             for ex in r4}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3103,6 +3447,12 @@ def main() -> int:
     _, runner_counts = runner_path(all_fused, scn, cmp_cfg, scaled(scn, 4),
                                    card)
     torch.cuda.empty_cache()
+
+    # ---- path 7: the multi-tenant service (six tenants on four slots at
+    # R=1, a poisoned slot rolled back; R=4 dense and sparse)
+    _, service_counts, service_r4 = service_path(
+        all_fused, scn, cmp_cfg, scaled(scn, 4), card)
+    torch.cuda.empty_cache()
     # the profiles last: a profiler session slows the host for the rest of
     # the process
     scenario_determinism(sim, rec, all_fused, scn, chunks, keys, card)
@@ -3306,6 +3656,23 @@ def main() -> int:
             "plain_ms": e["plain_ms"],
             "bound_ms": e["bound"][0], "bound_by": e["bound"][1],
             "library_ms": e["library_ms"], **e.get("extra", {})})
+    # the service's launches: its R=1 poisoned run (the K0 draws by mode;
+    # the old algorithms' variants do not run in the service cells) and its
+    # R=4 runs
+    for e in kernels:
+        base, _, variant = e["name"].partition(" (")
+        variant = variant.rstrip(")")
+        if variant in ("gumbel", "normal"):
+            e["service_launches"] = service_counts["modes"][variant]
+        elif variant == "sparse rates":
+            e["service_launches"] = service_r4["sparse"].get(base, 0)
+            e["service_launches_run"] = "R=4 sparse"
+        else:
+            e["service_launches"] = 0 if variant else \
+                service_counts.get(base, 0)
+        if not variant:
+            e["service_R4_launches"] = {ex: c.get(base, 0)
+                                        for ex, c in service_r4.items()}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "card": card})
     emit({"kernels": kernels})

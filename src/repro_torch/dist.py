@@ -36,6 +36,7 @@ Collective outputs are read, never written in place, as jax's arrays.
 """
 from __future__ import annotations
 
+import functools
 import threading
 from typing import Callable, List, Sequence
 
@@ -212,6 +213,17 @@ class LocalComm:
         if self._error:
             raise self._error[0]
         return results
+
+
+def map_ranks(group, num_ranks: int, body: Callable[[int], object],
+              device=None) -> list:
+    """``[body(i) for i in range(num_ranks)]``: a plain call for one rank
+    (``group`` None), else each as rank ``i`` of the ``LocalComm``
+    ``group`` (one thread a rank behind the baton)."""
+    if group is None:
+        return [body(0)]
+    return group.run([functools.partial(body, i) for i in range(num_ranks)],
+                     device=device)
 
 
 class _LocalRankComm(Comm):

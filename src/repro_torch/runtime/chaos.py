@@ -20,12 +20,27 @@ exactly:
                             runner's degradation ladder;
   * ``drop_region_input``   one region's external drive zeroed for k
                             chunks (the assimilation loop's hook).
+
+Slot hooks attack a single tenant of the multi-tenant service
+(``SimulationService.chaos_hooks``, fired after each tick's step, before
+the health read):
+
+  * ``poison_slot_nan``       one element of ONE slot's lane set to NaN,
+                              the fault-isolation attack (co-tenants must
+                              stay bitwise their solo runs);
+  * ``stall_slot``            one slot's credited progress frozen for N
+                              ticks (the stall-watchdog attack);
+  * ``overflow_slot_config``  not a hook: a request whose chunk budget is
+                              past the admission cap (the typed-rejection
+                              attack).
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 from typing import Optional
+
+import numpy as np
 
 
 def poison_nan_once(field: str = "v", index: int = 0,
@@ -93,6 +108,62 @@ def corrupt_checkpoint(ckpt_dir: str, step: Optional[int] = None,
     else:
         raise ValueError(f"unknown mode {mode!r}")
     return step
+
+
+def poison_slot_nan(slot: int, field: str = "v", index: int = 0,
+                    after_chunk: int = 0):
+    """Service hook: once slot ``slot``'s chunk counter reaches
+    ``after_chunk``, set element ``index`` of that lane's global
+    ``neurons.<field>`` (or ``positions``) to NaN, exactly once. It writes
+    in place, into the rank state that holds that element; no other lane
+    and no snapshot shares that tensor (``SlotBatch.place`` and ``extract``
+    copy). The service must quarantine and roll back that slot while every
+    co-tenant stays bitwise its solo run."""
+    fired = {"done": False}
+
+    def hook(service):
+        if fired["done"]:
+            return
+        st = service.state
+        if int(service.batch.chunks(st)[slot]) < after_chunk:
+            return
+        fired["done"] = True
+        lane = st[slot]
+        if lane is None:       # an empty slot: nothing runs there
+            return
+        leaves = [s.positions if field == "positions"
+                  else getattr(s.neurons, field) for s in lane]
+        rank, local = divmod(index, leaves[0].numel())
+        leaf = leaves[rank]
+        leaf[tuple(int(i) for i in np.unravel_index(
+            local, tuple(leaf.shape)))] = float("nan")
+
+    return hook
+
+
+def stall_slot(slot: int, ticks: int = 4, after_tick: int = 0):
+    """Service hook: once the service reaches ``after_tick``, freeze slot
+    ``slot``'s credited progress for ``ticks`` ticks, exactly once. The
+    stall watchdog must quarantine (and eventually evict) only that
+    slot."""
+    fired = {"done": False}
+
+    def hook(service):
+        if fired["done"] or service.tick_count < after_tick:
+            return
+        fired["done"] = True
+        service.slots[slot].stall_ticks = ticks
+
+    return hook
+
+
+def overflow_slot_config(request, max_chunks_per_request: int):
+    """A copy of ``request`` whose chunk budget exceeds the service's
+    admission cap: submitting it must raise the typed
+    ``IncompatibleRequest``, never enqueue (the single-tenant overflow
+    attack on admission control)."""
+    return dataclasses.replace(request,
+                               chunks=max_chunks_per_request + 1)
 
 
 def overflow_config(cfg, subs_cap_factor: float = 0.0001,

@@ -46,8 +46,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, List, Optional
 
-from torch.profiler import record_function
-
+from repro_torch import telemetry
 from repro_torch.checkpoint import manager
 from repro_torch.checkpoint.manager import AsyncCheckpointer
 from repro_torch.connectome import routing
@@ -152,7 +151,8 @@ class SimulationRunner:
         meta = manifest.get("metadata", {})
         mine = self.sim.ckpt_metadata()
         direct = all(meta.get(k) == mine[k] for k in _SHAPE_KEYS)
-        with record_function("repro.runner.restore"):
+        with telemetry.span("runner.restore", step=step,
+                            elastic=not direct):
             if direct:
                 self.sim.restore(self.cfg.ckpt_dir, step)
                 self.sim.lifecycle.update(
@@ -174,7 +174,7 @@ class SimulationRunner:
         if self.sim.probe_health() != 0:
             return False
         step = self.sim.chunk
-        with record_function("repro.runner.checkpoint_save"):
+        with telemetry.span("runner.checkpoint_save", step=step):
             tree = self.sim.global_state()
             if self.sim.is_writer:
                 self.ckpt.save(step, tree,
@@ -193,7 +193,7 @@ class SimulationRunner:
             raise RuntimeError(
                 f"giving up after {self.cfg.max_rollbacks} rollbacks")
         self._sync()
-        with record_function("repro.runner.rollback"):
+        with telemetry.span("runner.rollback"):
             for step in reversed(
                     manager.steps_available(self.cfg.ckpt_dir)):
                 try:
@@ -254,7 +254,8 @@ class SimulationRunner:
         if not self._checkpoint():
             return    # poisoned right now: the health path rolls back
         self._sync()
-        with record_function("repro.runner.degrade"):
+        with telemetry.span("runner.degrade", action=action,
+                            chunk=self._last_saved_chunk):
             self.sim, _ = self._elastic(new_cfg, self._last_saved_chunk)
         self.degrades += 1
         self.sim.lifecycle["degrade_events"] += 1

@@ -34,14 +34,12 @@ packages restore each other's. The host-side lifecycle counters
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
-from repro_torch import dist
+from repro_torch import dist, telemetry
 from repro_torch.checkpoint import manager
 from repro_torch.connectome import routing
 from repro_torch.core import engine
@@ -81,9 +79,11 @@ class Simulator:
             comms = [self._group.comm(r) for r in range(num_ranks)]
         # the ranks this process runs, and each one's context
         self.ranks = tuple(c.rank for c in comms)
-        self.ctxs = [sim_phases.make_context(cfg, c.rank, num_ranks,
-                                             scenario, device=self.device,
-                                             comm=c) for c in comms]
+        with telemetry.span("sim.construct", ranks=num_ranks,
+                            n=cfg.neurons_per_rank):
+            self.ctxs = [sim_phases.make_context(cfg, c.rank, num_ranks,
+                                                 scenario, device=self.device,
+                                                 comm=c) for c in comms]
         self.ctx = self.ctxs[0]
         self._states: Optional[list] = None
         self._global: Optional[engine.BrainState] = None
@@ -146,7 +146,9 @@ class Simulator:
         from repro_torch.workloads import datasets as wds
         n = self.cfg.neurons_per_rank
         dev = self.device
-        with record_function("repro.sim.from_connectome"):
+        with telemetry.span("sim.from_connectome",
+                            neurons=dataset.num_neurons,
+                            edges=dataset.num_edges):
             out_e, in_e = wds.edge_tables(dataset, self.cfg.max_synapses)
 
             def block(x, r):
@@ -271,20 +273,19 @@ class Simulator:
 
     def init(self) -> engine.BrainState:
         """(Re)initialize from cfg.seed and return the fresh state."""
-        self._set_states([engine.init_state(self.cfg, r, self.num_ranks,
-                                            self.scenario, device=self.device)
-                          for r in self.ranks])
+        with telemetry.span("sim.init"):
+            self._set_states([engine.init_state(self.cfg, r, self.num_ranks,
+                                                self.scenario,
+                                                device=self.device)
+                              for r in self.ranks])
         return self.state
 
     # ------------------------------------------------------------ driving
     def _map_ranks(self, body) -> list:
         """``[body(i)]`` for the i-th rank of this process, on every rank
         (one thread a rank behind the baton when there are several)."""
-        if self._group is None:
-            return [body(0)]
-        return self._group.run(
-            [functools.partial(body, i) for i in range(len(self.ranks))],
-            device=self.device)
+        return dist.map_ranks(self._group, len(self.ranks), body,
+                              self.device)
 
     def _on_ranks(self, body) -> None:
         """``body(i)`` -> the new state of the i-th rank of this process."""
@@ -304,7 +305,8 @@ class Simulator:
 
     def step(self) -> engine.BrainState:
         """Advance one chunk (Delta activity steps + connectivity update)."""
-        self._advance(1)
+        with telemetry.span("sim.step"):
+            self._advance(1)
         return self.state
 
     def step_with(self, dyn) -> engine.BrainState:
@@ -320,8 +322,9 @@ class Simulator:
             else x for x in dyn))
         self._dyn_signatures.add(tuple(
             (tuple(x.shape), x.dtype, x.device) for x in dyn))
-        self._advance(1, [dataclasses.replace(c, dyn=dyn)
-                          for c in self.ctxs])
+        with telemetry.span("sim.step_with"):
+            self._advance(1, [dataclasses.replace(c, dyn=dyn)
+                              for c in self.ctxs])
         return self.state
 
     def dyn_compile_count(self) -> int:
@@ -351,7 +354,7 @@ class Simulator:
             return st._replace(subs=subs, rate_slots=rate_slots,
                                remote_rates=remote_rates)
 
-        with record_function("repro.sim.rebuild_exchange"):
+        with telemetry.span("sim.rebuild_exchange"):
             self._on_ranks(body)
         return self.state
 
@@ -360,17 +363,20 @@ class Simulator:
         ``observables.Recorder``) one row of per-region observables is
         recorded on the global state after every chunk and
         ``(state, recorder)`` is returned; without it, the final state."""
-        if recorder is None:
-            self._advance(int(num_chunks))
-            return self.state
-        if recorder.calcium.device != self.state.positions.device:
+        state = self.state   # init outside the span
+        if recorder is not None and \
+                recorder.calcium.device != state.positions.device:
             raise ValueError(
                 f"run: the recorder lies on {recorder.calcium.device} and "
                 f"the simulator on {self.device}; build it with "
                 f"observables.init_recorder(..., device=sim.device)")
-        for _ in range(int(num_chunks)):
-            self._advance(1)
-            recorder = self._record(recorder, self._record_view())
+        with telemetry.span("sim.run", chunks=int(num_chunks)):
+            if recorder is None:
+                self._advance(int(num_chunks))
+                return self.state
+            for _ in range(int(num_chunks)):
+                self._advance(1)
+                recorder = self._record(recorder, self._record_view())
         return self.state, recorder
 
     def _record_view(self) -> engine.BrainState:
@@ -427,7 +433,7 @@ class Simulator:
         """The global metrics tree (counters, per-chunk rings, histograms,
         gauges) with numpy leaves, the leading axis the ranks: one transfer
         a leaf of the joined tree (under a process group, all-gathered)."""
-        with record_function("repro.sim.metrics"):
+        with telemetry.span("sim.metrics"):
             if self._spread:
                 m = telemetry_metrics.map_leaves(self.state.stats,
                                                  self._gather)
@@ -454,14 +460,9 @@ class Simulator:
         into copies of the gauges, so ``health()``, ``stats()`` and the
         next checkpoint see the last chunk's."""
         def body(i):
-            st = self.rank_states[i]
-            probe = dataclasses.replace(st.stats, gauges={
-                k: v.clone() for k, v in st.stats.gauges.items()})
-            gauges = sim_phases.health_verdict(st._replace(stats=probe),
-                                               self.ctxs[i])
-            return gauges.gauges["health_flags"]
+            return sim_phases.probe_flags(self.rank_states[i], self.ctxs[i])
 
-        with record_function("repro.sim.probe_health"):
+        with telemetry.span("sim.probe_health"):
             flags = self._map_ranks(body)
         return int(flags[0].item())
 
@@ -484,7 +485,7 @@ class Simulator:
         JAX package's layout (``checkpoint.manager``). Under a process
         group the ranks' rows are all-gathered, rank 0 writes and every
         process waits for the rename. Returns the saved chunk number."""
-        with record_function("repro.sim.save"):
+        with telemetry.span("sim.save", step=self.chunk):
             st = self.global_state()
             if self.is_writer:
                 manager.save(path, st.chunk, st,
@@ -504,7 +505,7 @@ class Simulator:
             step = manager.latest_step(path)
             if step is None:
                 raise FileNotFoundError(f"no checkpoint under {path!r}")
-        with record_function("repro.sim.restore"):
+        with telemetry.span("sim.restore", step=step):
             host, _ = manager.restore(path, step, self._template())
             self._install(host)
         self.lifecycle["checkpoint_restores"] += 1

@@ -9,7 +9,7 @@ implementations in ``repro_torch.connectome``.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
@@ -229,6 +229,15 @@ def health_verdict(state, ctx: PhaseContext):
     return state.stats.set_gauges({
         "health_flags": flags, "nonfinite_state": nonfinite,
         "out_edges_live": out_live, "in_edges_live": in_live})
+
+
+def probe_flags(state, ctx: PhaseContext) -> torch.Tensor:
+    """The ``health_flags`` gauge that ``health_verdict`` gives the state
+    as it is now, judged into copies of the gauges, so the state keeps the
+    last chunk's verdict. Every rank calls it (the verdict psums)."""
+    gauges = {k: v.clone() for k, v in state.stats.gauges.items()}
+    probe = state._replace(stats=replace(state.stats, gauges=gauges))
+    return health_verdict(probe, ctx).gauges["health_flags"]
 
 
 def sim_chunk(state, ctx: PhaseContext):

@@ -25,8 +25,8 @@ import json
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
-from torch.profiler import record_function
 
+from repro_torch import telemetry
 from repro_torch.configs.msp_brain import SMOKE_CONFIG, BrainConfig
 from repro_torch.scenarios.protocol import Scenario
 from repro_torch.scenarios.regions import Region, assign_regions, num_buckets
@@ -108,7 +108,7 @@ class AssimilationLoop:
         drives = np.zeros((T, self.nb), np.float32)
         abs_err = np.zeros((T,), np.float32)
         bg = self.sim.cfg.background_mean
-        with record_function("repro.workloads.assimilate"):
+        with telemetry.span("workloads.assimilate", chunks=T, nb=self.nb):
             for t in range(T):
                 self.chunk_index = t
                 for hook in self.hooks:

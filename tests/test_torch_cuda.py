@@ -1880,3 +1880,62 @@ def test_runner_kill_and_resume_on_the_card(dev, tmp_path):
         assert counts[k] > 0, k
     assert counts["activity_window"] == 4
     _states_equal(ref.state, r2.sim.state)
+
+
+# ------------------------------------------------------------ service
+def test_service_lanes_fused_on_the_card(dev):
+    """A 2-slot service at SMOKE_CONFIG with all five fused lowerings: three
+    tenants, slot 1 NaN-poisoned after its first chunk and rolled back;
+    every tenant bitwise its solo fused run, every kernel of the chunk
+    launched once (K4 three times, K5 and the retraction twice) a
+    lane-chunk, replays included, and K0 three times an admission."""
+    from repro_torch.runtime import chaos
+    from repro_torch.service import (RequestStatus, ServiceConfig,
+                                     SimRequest, SimulationService)
+    cfg = _all_fused(SMOKE_CONFIG)
+    solo = {}
+    for s in (100, 101, 102):
+        sim = Simulator.from_config(dataclasses.replace(cfg, seed=s),
+                                    device=dev)
+        sim.run(3)
+        solo[s] = sim.state
+    _build.reset_launch_counts()
+    svc = SimulationService(cfg, ServiceConfig(num_slots=2), device=dev)
+    svc.chaos_hooks.append(chaos.poison_slot_nan(1, after_chunk=1))
+    hs = [svc.submit(SimRequest(seed=s, chunks=3)) for s in solo]
+    svc.run_until_idle()
+    counts = _build.launch_counts()
+    stats = svc.stats()
+    assert stats["quarantines"] == 1 and stats["slot_rollbacks"] == 1
+    assert hs[1].result.retries == 1
+    for h in hs:
+        assert h.result.status is RequestStatus.DONE
+        assert all(x.is_cuda for x in h.result.final_state.neurons)
+        _states_equal(h.result.final_state, solo[h.request.seed])
+    lane_chunks = svc.batch.lane_chunks
+    assert lane_chunks == 9 + 1          # slot 1 replays its first chunk
+    want = {"activity_window": 1, "bh_traverse": 1, "morton_sort": 1,
+            "tree_assembly": 1, "synapse_apply": 3, "route_build": 2,
+            "retract": 2}
+    for k, per in want.items():
+        assert counts[k] == per * lane_chunks, k
+    assert counts["edge_priority"] == 0
+    assert counts["threefry_words"] == 3 * stats["requests_admitted"]
+    assert not svc.batch.health_flags(svc.state).any()
+    assert not svc.batch.probe(svc.state).any()
+
+
+def test_serve_driver_launches_the_kernels(dev, capsys):
+    """``repro_torch.launch.serve --smoke`` on its default device, the
+    card: its three tenants DONE, and the kernels of three admissions and
+    nine lane-chunks launched (two slots, three tenants of three chunks,
+    nothing replayed)."""
+    from repro_torch.launch import serve
+    _build.reset_launch_counts()
+    assert serve.main(["--smoke"]) == 0
+    counts = _build.launch_counts()
+    assert capsys.readouterr().out.splitlines()[-1] == "3/3 tenants DONE"
+    want = {"activity_window": 9, "bh_traverse": 9, "morton_sort": 9,
+            "tree_assembly": 9, "synapse_apply": 27, "route_build": 18,
+            "retract": 18, "threefry_words": 9, "edge_priority": 0}
+    assert {k: counts[k] for k in want} == want

@@ -182,3 +182,21 @@ def test_chip_smoke_refuses_alone_in_a_directory(tmp_path):
     assert out.returncode != 0
     assert "not beside this script" in out.stderr
     assert '"ok": true' not in out.stdout
+
+
+def test_service_and_serve_default_to_the_card():
+    """``SlotBatch``, ``SimulationService`` and the serve driver without a
+    device resolve it as every entry point does: with no card they raise
+    rather than run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the service then lands on cuda")
+    from repro_torch.configs.msp_brain import SMOKE_CONFIG
+    from repro_torch.launch import serve
+    from repro_torch.service import SimulationService, SlotBatch
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SlotBatch(SMOKE_CONFIG, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SimulationService(SMOKE_CONFIG)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--smoke"])
+    assert SlotBatch(SMOKE_CONFIG, 2, device="cpu").device.type == "cpu"
