@@ -65,7 +65,19 @@ neurons, S=32):
   observations bitwise an unpoisoned run's, the launches those of the
   admissions and lane-chunks; R=4 dense and sparse on two slots; tick ms,
   requests a second, ``isolation_overhead_x``, a profiled tick's idle
-  share and the readouts' ms (``service_metrics``).
+  share and the readouts' ms (``service_metrics``);
+- the LM serving path (``lm_serve_path``, each cell in a process of its
+  own): ``build_model(get_config(arch))`` for qwen2-7b (28 layers, B=8, a
+  1,024-token prompt, 32 greedy decode steps) and recurrentgemma-2b (26
+  layers, 8 of them local attention; B=4, a 2,560-token prompt past the
+  2,048 window, 32 steps), bf16 at full width and depth, the prefill's
+  attention on K9: K9's launches one a prefill attention layer and none a
+  decode step, fused == the reference attention lowering (logits within
+  twice the reference's own error against its f32 evaluation, greedy
+  tokens equal but for counted near-ties), prefill + decode == forward,
+  a second run bitwise equal, a decode step with no host wait; prefill ms,
+  decode ms a step, tokens a second and peak GB beside their bounds, a
+  profiled decode step.
 
 For the kernel API and each path it checks the kernels really ran there (the
 launch counts are set to 0 just before and read just after; for K9, which of
@@ -3185,6 +3197,466 @@ def service_path(cfg, scenario, cmp_cfg, cmp_scenario, card):
                                              for ex in r4}
 
 
+
+# ------------------------------------------------------------ the LM path
+# (arch, batch, prompt tokens, greedy decode steps): the full configs
+# (configs/qwen2_7b.py: 28 layers, d_model 3,584, 7.62e9 parameters;
+# configs/recurrentgemma_2b.py: 26 layers, 8 of them local attention with a
+# window of 2,048, which the prompt passes), bf16, weights from seed 0, the
+# prompt from seed 1; no cut
+LM_CELLS = (("qwen2-7b", 8, 1024, 32), ("recurrentgemma-2b", 4, 2560, 32))
+LM_TIMEOUT_S = 420
+
+
+def _lm_f32(tree):
+    if isinstance(tree, dict):
+        return {k: _lm_f32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_lm_f32(v) for v in tree]
+    return tree.float()
+
+
+def _lm_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _lm_leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _lm_leaves(v)
+    else:
+        yield tree
+
+
+def lm_work(cfg, params, batch: int, prompt: int, steps: int):
+    """The least time of the prefill and of the median decode step, from the
+    config and the params: each weight read once (the embedding table's B
+    rows only), the KV cache written once by the prefill and the valid
+    entries read once a step; bf16 multiply-adds (2 operations) at the
+    tensor cores' bf16 rate and the RG-LRU gates' float32 ones at the FP32
+    rate, attention at 4 D operations a (query, key) pair; and the least
+    memory a server holds, the params and one decode state. Returns
+    {"prefill": (ms, by, bytes, bf16 ops, f32 ops), "decode": (...),
+    "memory_gb": GB}."""
+    import torch
+    emb = params["embed"]["table"]
+    wbytes = sum(t.numel() * t.element_size() for t in _lm_leaves(params))
+    pbytes = wbytes
+    wbytes += batch * cfg.d_model * emb.element_size() - emb.numel() * \
+        emb.element_size()
+    layer_leaves = list(_lm_leaves(params.get("layers_stacked")
+                                   or params["layers"]))
+    macs = {torch.bfloat16: 0, torch.float32: 0}
+    for t in layer_leaves:
+        if t.dim() >= 2:        # a matmul weight (or the conv's taps)
+            macs[t.dtype] += t.numel()
+    head = cfg.d_model * cfg.vocab_size
+    kinds = cfg.pattern()
+    n_attn = sum(k == "attn" for k in kinds)
+    kv_pos = 2 * batch * cfg.num_kv_heads * cfg.head_dim * emb.element_size()
+    window = cfg.attn_window
+    tokens = batch * prompt
+
+    def one(nbytes, bf16_ops, f32_ops):
+        ms = {"bytes": nbytes / H100_BYTES_PER_S * 1e3,
+              "operations": max(bf16_ops / H100_BF16_OPS_PER_S,
+                                f32_ops / H100_FP32_OPS_PER_S) * 1e3}
+        by = max(ms, key=ms.get)
+        return ms[by], by, nbytes, bf16_ops, f32_ops
+
+    slots = min(prompt, window) if window else prompt
+    attn_pre = 4 * cfg.head_dim * cfg.num_heads * batch * \
+        attention_pairs(prompt, prompt, window) * n_attn
+    pre = one(wbytes + n_attn * kv_pos * slots,
+              2 * tokens * macs[torch.bfloat16] + 2 * batch * head
+              + attn_pre, 2 * tokens * macs[torch.float32])
+    pos = prompt + steps // 2
+    seen = min(pos + 1, window) if window else pos + 1
+    dec = one(wbytes + n_attn * kv_pos * (seen + 1),
+              2 * batch * (macs[torch.bfloat16] + head)
+              + 4 * cfg.head_dim * cfg.num_heads * batch * seen * n_attn,
+              2 * batch * macs[torch.float32])
+    rec = sum(k == "rglru" for k in kinds) * batch * cfg.d_model * 4 * \
+        cfg.rglru_conv_width          # h and the conv tail, f32
+    state = n_attn * kv_pos * (window or prompt + steps) + rec
+    return {"prefill": pre, "decode": dec, "memory_gb": (pbytes + state) / 1e9}
+
+
+def _lm_profile(fn, name: str):
+    """One call of ``fn`` under torch.profiler
+    (build/chip_smoke_<name>_trace.json): its wall ms, the device's busy ms
+    (kernels, copies, memsets), idle share and launches, the kernels that
+    take the most device time."""
+    import collections
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(f"chip_smoke.{name}"):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"chip_smoke_{name}_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    w = next(e for e in events if e.get("cat") == "user_annotation"
+             and e["name"] == f"chip_smoke.{name}")
+    lo, hi = w["ts"], w["ts"] + w["dur"]
+    dev = [e for e in events if "ts" in e and lo <= e["ts"] <= hi
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy = sum(e["dur"] for e in dev) / 1e3
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in dev:
+        by_name[e["name"][:80]][0] += e["dur"] / 1e3
+        by_name[e["name"][:80]][1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall if dev else None,
+            "device_launches": len(dev),
+            "top_device": [{"name": k, "ms": v[0], "launches": v[1]}
+                           for k, v in top]}
+
+
+def _lm_first_attention(api, params, cfg, batch):
+    """q (pre-scaled as the model scales it), k and v of the first
+    attention layer of the prefill of ``batch``."""
+    import torch
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import apply_norm
+    x = tfm.embed_inputs(params, cfg, batch["tokens"])
+    pos = torch.arange(x.shape[1], device=x.device)
+    for i, kind in enumerate(cfg.pattern()):
+        p = tfm.layer_params(params, i)
+        if kind == "attn":
+            q, k, v = tfm._project_qkv(p["attn"], cfg,
+                                       apply_norm(cfg, p["ln1"], x), pos)
+            return attn.prescale(q), k.contiguous(), v.contiguous()
+        x, _ = tfm.apply_layer_full(p, cfg, kind, x, pos)
+    raise ValueError("no attention layer")
+
+
+def _greedy_agreement(got, want, want_logits, tol):
+    """Row by row, the first step where the greedy tokens differ must be a
+    near-tie of the reference's logits (top-2 gap under ``tol``); that ends
+    the row's comparison. Returns (near-ties, decisions compared, rows'
+    compared steps) or raises through ``fail``."""
+    import torch
+    ties = compared = 0
+    upto = []
+    for b in range(want.shape[0]):
+        n = want.shape[1]
+        for t in range(want.shape[1]):
+            compared += 1
+            if int(got[b, t]) == int(want[b, t]):
+                continue
+            top2 = torch.topk(want_logits[t][b].float(), 2).values
+            gap = float(top2[0] - top2[1])
+            if gap >= tol:
+                fail(f"lm_serve_path: row {b} step {t}: greedy token "
+                     f"{int(got[b, t])} against {int(want[b, t])}, a top-2 "
+                     f"gap of {gap} (tolerance {tol})")
+            ties += 1
+            n = t
+            break
+        upto.append(n)
+    return ties, compared, upto
+
+
+def lm_cell(arch: str, batch: int, prompt: int, steps: int, card: str):
+    """One LM cell on the card: ``build_model(get_config(arch))``, greedy
+    prefill + ``steps`` decode steps (the attention lowering fused: K9 on
+    every attention layer's prefill). Checks, failing otherwise: K9's device
+    launches (counted in the .cu source) one a prefill attention layer and
+    none a decode step; the fused model against the same params on the
+    reference attention lowering (the plain chunked online softmax),
+    logits within the tolerance below and greedy tokens equal but for
+    counted near-ties; the first attention layer's K9 output within
+    ``flash_attention.bf16_error_bound`` (scale 1.0 on the pre-scaled q);
+    prefill + decode against ``transformer.forward`` at the same
+    positions; a second run bitwise equal; one decode step under
+    ``torch.cuda.set_sync_debug_mode("error")``. The logits tolerance: both
+    lowerings are bf16 evaluations of one model, so the reference's own
+    error against its float32 evaluation (the params cast to f32, the plain
+    attention in f32) sets the scale: tol = 2 max |ref - f32| over the
+    prefill's logits. Reports init s, prefill ms (CUDA events), decode ms a
+    step (median and spread of steps 2-32), tokens a second, peak GB and a
+    profiled decode step, each beside its bound (``lm_work``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import lm_logits
+    cfg = get_config(arch)
+    n_attn = sum(k == "attn" for k in cfg.pattern())
+    api = build_model(cfg)
+    pad = prompt + steps + 2        # room for the sync-debug and profiled steps
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(0, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch_in = serve_lm.make_batch(cfg, batch, prompt, DEV, seed=1)
+    res = {"arch": arch, "batch": batch, "prompt": prompt,
+           "decode_steps": steps, "pad_cache_to": pad,
+           "layers": cfg.num_layers, "attention_layers": n_attn,
+           "d_model": cfg.d_model, "heads": [cfg.num_heads,
+                                             cfg.num_kv_heads],
+           "head_dim": cfg.head_dim, "window": cfg.attn_window,
+           "vocab": cfg.vocab_size, "params": cfg.param_count(),
+           "cut": None, "init_s": init_s}
+
+    def drive(count: bool, timed: bool):
+        """api.prefill + ``steps`` decode steps: tokens, logits, and (when
+        ``count``) K9's launches after the prefill and over the steps, or
+        (when ``timed``) the prefill's and each step's CUDA-event ms."""
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(2 * steps + 2)] if timed else None
+        if count:
+            _build.reset_launch_counts()
+            fa.device_launches(reset=True)
+        if timed:
+            torch.cuda.synchronize()
+            ev[0].record()
+        logits, state = api.prefill(params, batch_in, pad_cache_to=pad)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        if timed:
+            ev[1].record()
+        if count:
+            pre = (_build.launch_counts()["flash_attention"],
+                   fa.device_launches(reset=True))
+        toks, all_logits = [tok], [logits]
+        for i in range(steps):
+            if timed:
+                ev[2 + 2 * i].record()
+            logits, state = api.decode_step(params, state, tok)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+            if timed:
+                ev[3 + 2 * i].record()
+            toks.append(tok)
+            all_logits.append(logits)
+        out = {"tokens": torch.stack(toks, 1), "logits": all_logits}
+        if count:
+            out["launches"] = {
+                "prefill": pre[0], "prefill_device": pre[1],
+                "decode": _build.launch_counts()["flash_attention"] - pre[0],
+                "decode_device": fa.device_launches(reset=True)}
+        if timed:
+            torch.cuda.synchronize()
+            out["prefill_ms"] = ev[0].elapsed_time(ev[1])
+            out["step_ms"] = [ev[2 + 2 * i].elapsed_time(ev[3 + 2 * i])
+                              for i in range(steps)]
+        return out
+
+    first = drive(count=True, timed=False)
+    want_k9 = {name: (n_attn if name == "wgmma_bf16" else 0)
+               for name in fa.KERNELS}
+    got = first["launches"]
+    res["k9_launches"] = got
+    if got["prefill"] != n_attn or got["prefill_device"] != want_k9 or \
+            got["decode"] != 0 or any(got["decode_device"].values()):
+        fail(f"lm_serve_path {arch}: K9 launches {got}, not {n_attn} "
+             f"wgmma_bf16 a prefill and none a decode step")
+    second = drive(count=False, timed=True)
+    same = torch.equal(first["tokens"], second["tokens"]) and all(
+        torch.equal(a, b) for a, b in zip(first["logits"], second["logits"]))
+    res["second_run_bitwise_equal"] = same
+    if not same:
+        fail(f"lm_serve_path {arch}: a second run differs")
+    # the serving peak: params, two runs' caches and logits, activations
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    steps_ms = sorted(second["step_ms"][1:])
+    med = steps_ms[len(steps_ms) // 2]
+    res.update({"prefill_ms": second["prefill_ms"],
+                "decode_step_ms": {"median": med, "min": steps_ms[0],
+                                   "max": steps_ms[-1],
+                                   "steps": "2-%d" % steps},
+                "tokens_per_s": batch * 1e3 / med})
+    work = lm_work(cfg, params, batch, prompt, steps)
+    for key in ("prefill", "decode"):
+        ms, by, nbytes, bf, f32 = work[key]
+        res[f"{key}_bound"] = {"ms": ms, "by": by, "bytes": nbytes,
+                               "bf16_ops": bf, "f32_ops": f32}
+    res["tokens_per_s_bound"] = batch * 1e3 / work["decode"][0]
+    res["peak_gb_bound"] = work["memory_gb"]
+    del second
+
+    # the reference attention lowering, the same params and prompt
+    ref_api = build_model(cfg.replace(attention_impl="reference"))
+    _build.reset_launch_counts()
+    ref_toks, ref_logits = serve_lm.generate(ref_api, params, batch_in,
+                                             steps + 1, pad)
+    if _build.launch_counts()["flash_attention"]:
+        fail(f"lm_serve_path {arch}: the reference lowering launched K9")
+    # the tolerance: the reference's error against its f32 evaluation
+    p32 = _lm_f32(params)
+    f32_api = build_model(cfg.replace(dtype="float32",
+                                      attention_impl="reference"))
+    l32, _ = f32_api.prefill(p32, batch_in, pad_cache_to=pad)
+    del p32
+    torch.cuda.empty_cache()
+    ref_err = float((ref_logits[0].float() - l32).abs().max())
+    tol = 2.0 * ref_err
+    res["tolerance"] = {"logits": tol, "ref_vs_f32_max_abs": ref_err,
+                        "fused_vs_f32_max_abs": float(
+                            (first["logits"][0].float() - l32).abs().max()),
+                        "logits_max_abs": float(l32.abs().max()),
+                        "rule": "2 max|ref - f32| over the prefill logits"}
+    del l32
+    pre_err = float((first["logits"][0].float()
+                     - ref_logits[0].float()).abs().max())
+    ties, compared, upto = _greedy_agreement(first["tokens"], ref_toks,
+                                             ref_logits, tol)
+    dec_err = 0.0
+    for b, n in enumerate(upto):       # logits while the contexts agree
+        for t in range(1, min(n, steps) + 1):
+            dec_err = max(dec_err, float(
+                (first["logits"][t][b].float()
+                 - ref_logits[t][b].float()).abs().max()))
+    res["fused_vs_reference"] = {
+        "prefill_logits_max_abs": pre_err, "decode_logits_max_abs": dec_err,
+        "greedy_decisions_compared": compared, "near_ties": ties,
+        "rows_compared_steps": upto}
+    if pre_err > tol or dec_err > tol:
+        fail(f"lm_serve_path {arch}: fused against reference logits "
+             f"{pre_err} (prefill), {dec_err} (decode) > {tol}")
+    del ref_logits, ref_toks
+
+    # prefill + decode against the full forward at the same positions
+    seq = torch.cat([batch_in["tokens"], first["tokens"][:, :steps]], 1)
+    hidden, _ = tfm.forward(params, cfg, seq, return_hidden=True)
+    fwd = lm_logits(params["head"], params["embed"], cfg,
+                    hidden[:, prompt - 1:])
+    del hidden
+    fwd_err = max(float((first["logits"][t].float()
+                         - fwd[:, t].float()).abs().max())
+                  for t in range(steps + 1))
+    res["serve_vs_forward_max_abs"] = fwd_err
+    if fwd_err > tol:
+        fail(f"lm_serve_path {arch}: prefill + decode against forward "
+             f"{fwd_err} > {tol}")
+    del fwd, first
+    torch.cuda.empty_cache()
+
+    # K9 at this model's first attention layer: within the bf16 bound of
+    # its plain version on the same (pre-scaled) q, scale 1.0; times
+    q, k, v = _lm_first_attention(api, params, cfg, batch_in)
+    w = cfg.attn_window
+    kern = fa.flash_attention_fwd(q, k, v, causal=True, window=w, scale=1.0)
+    plain = fa.flash_attention_plain(q, k, v, causal=True, window=w,
+                                     scale=1.0)
+    lim = fa.bf16_error_bound(plain, q, k, v, causal=True, window=w,
+                              scale=1.0)
+    diff = (kern.float() - plain.float()).abs()
+    k9 = {"shape": {"B": batch, "Hq": cfg.num_heads, "Hkv": cfg.num_kv_heads,
+                    "S": q.shape[2], "D": cfg.head_dim, "window": w},
+          "max_abs_err": float(diff.max()),
+          "max_err_over_bound": float((diff / lim).max())}
+    del plain, lim, diff
+    if k9["max_err_over_bound"] > 1.0:
+        fail(f"lm_serve_path {arch}: K9 at the first attention layer "
+             f"{k9['max_err_over_bound']} times its bf16 bound")
+    call = lambda: fa.flash_attention_fwd(   # noqa: E731
+        q, k, v, causal=True, window=w, scale=1.0)
+    k9["ms"] = cuda_ms(call, reps=10)
+    k9["device_ms"] = device_ms(call, 10)
+    k9["plain_ms"] = cuda_ms(lambda: fa.flash_attention_plain(
+        q, k, v, causal=True, window=w, scale=1.0), reps=1)
+    import torch.nn.functional as F
+    if w and w < q.shape[2]:
+        pos = torch.arange(q.shape[2], device=DEV)
+        mask = (pos[None, :] <= pos[:, None]) & \
+            (pos[:, None] - pos[None, :] < w)
+        lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
+            q, k, v, attn_mask=mask, enable_gqa=True, scale=1.0)
+    else:
+        lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
+            q, k, v, is_causal=True, enable_gqa=True, scale=1.0)
+    k9["library_ms"] = cuda_ms(lib, reps=10)
+    pairs = batch * cfg.num_heads * attention_pairs(q.shape[2], k.shape[2], w)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    k9["bound_ms"], k9["bound_by"] = bound(
+        nbytes, fp_ops=4 * cfg.head_dim * pairs,
+        fp_ops_per_s=H100_BF16_OPS_PER_S)
+    k9["launches"] = got["prefill"]
+    res["k9"] = k9
+    del q, k, v, kern
+    torch.cuda.empty_cache()
+
+    # one decode step with no host wait, then one profiled (after a warm
+    # step): a profiler session slows the host for the rest of the process,
+    # so it comes last
+    logits, state = api.prefill(params, batch_in, pad_cache_to=pad)
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    logits, state = api.decode_step(params, state, tok)
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, state = api.decode_step(params, state, tok)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+    except RuntimeError as e:
+        fail(f"lm_serve_path {arch}: a decode step waits for the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    res["decode_step_without_host_wait"] = True
+    res["peak_gb_with_checks"] = torch.cuda.max_memory_allocated() / 1e9
+    res["profiled_decode_step"] = _lm_profile(
+        lambda: api.decode_step(params, state, tok),
+        f"lm_{arch.replace('-', '_')}_decode")
+    res["profiled_decode_step"]["bound_ms"] = work["decode"][0]
+    res["card"] = card
+    return res
+
+
+def lm_serve_path(card: str):
+    """Each LM cell in a process of its own (``python3 chip_smoke.py
+    lm_serve_path <arch>``), so that neither its memory nor its profiler
+    session reaches the brain phases' timings. Emits the phase line and
+    returns it."""
+    cells = []
+    for arch, _, _, _ in LM_CELLS:
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "lm_serve_path",
+             arch], capture_output=True, text=True, timeout=LM_TIMEOUT_S,
+            env=dict(os.environ))
+        if out.returncode != 0:
+            fail(f"lm_serve_path {arch}: exit {out.returncode}\n"
+                 f"{out.stdout[-3000:]}\n{out.stderr[-6000:]}")
+        cells.append(json.loads(out.stdout.strip().splitlines()[-1]))
+    line = {"phase": "lm_serve_path", "card": card, "cells": cells}
+    emit(line)
+    return line
+
+
+def lm_child(arch: str) -> int:
+    """The child of ``lm_serve_path``: one cell, its result as the last
+    line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cell = next(c for c in LM_CELLS if c[0] == arch)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    emit(lm_cell(*cell, card=smi))
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3320,6 +3792,10 @@ def main() -> int:
                            k9_kernels, card)
     del api_inp, api_out
     torch.cuda.empty_cache()     # the paths start from an empty cache
+
+    # ---- the LM serving path: qwen2-7b and recurrentgemma-2b at full
+    # width, K9 on every prefill attention layer (a process a cell) -------
+    lm = lm_serve_path(card)
 
     # ---- fused == reference on the card, small size --------------------
     exact_kernels = k1["exact"] and k1s["exact"] and k2_err == 0
@@ -3656,6 +4132,27 @@ def main() -> int:
             "plain_ms": e["plain_ms"],
             "bound_ms": e["bound"][0], "bound_by": e["bound"][1],
             "library_ms": e["library_ms"], **e.get("extra", {})})
+    # K9 on the LM serving path: its launches a prefill (none a decode
+    # step) and its times at each model's first attention layer
+    for e in kernels:
+        if e["name"] == "flash_attention":
+            e["lm_serve_path_launches"] = {
+                c["arch"]: {"prefill": c["k9_launches"]["prefill"],
+                            "decode": c["k9_launches"]["decode"]}
+                for c in lm["cells"]}
+    for c in lm["cells"]:
+        k9 = c["k9"]
+        kernels.append({
+            "name": f"flash_attention ({c['arch']} prefill)", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:94",
+            "launches": c["k9_launches"]["prefill"]
+            + c["k9_launches"]["decode"],
+            "launches_per_decode_step": c["k9_launches"]["decode"],
+            "max_abs_err": k9["max_abs_err"], "ms": k9["ms"],
+            "device_ms": k9["device_ms"], "plain_ms": k9["plain_ms"],
+            "bound_ms": k9["bound_ms"], "bound_by": k9["bound_by"],
+            "library_ms": k9["library_ms"], "shape": k9["shape"]})
     # the service's launches: its R=1 poisoned run (the K0 draws by mode;
     # the old algorithms' variants do not run in the service cells) and its
     # R=4 runs
@@ -3683,4 +4180,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["lm_serve_path"]:
+        sys.exit(lm_child(sys.argv[2]))
     sys.exit(main())

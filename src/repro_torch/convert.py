@@ -10,6 +10,13 @@ imports neither jax nor the reference package. The tests use it to inject a
 reference state into the port phase by phase, ``scenario_from_reference``
 to hand one protocol to both sides, and ``neuron_params_from_numpy`` to hand
 both the same per-neuron constants.
+
+For the LM stack, ``lm_params_from_numpy`` / ``lm_state_from_numpy`` take a
+reference param tree or decode state pulled to the host (nested dicts and
+lists of numpy arrays) and copy it leaf by leaf onto a device; a bf16 leaf
+(``ml_dtypes.bfloat16`` there, recognised by its dtype's name) goes through
+its 16 bits, so this module needs no ``ml_dtypes``. ``lm_params_to_numpy``
+goes the other way, a bf16 leaf as its uint16 bits.
 """
 from __future__ import annotations
 
@@ -128,3 +135,48 @@ def neuron_params_from_numpy(obj, device=None) -> NeuronParams:
         return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
 
     return NeuronParams(*(conv(getattr(obj, f)) for f in NeuronParams._fields))
+
+
+def _leaf_from_numpy(x, device):
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        bits = np.array(a).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def lm_params_from_numpy(tree, device=None) -> dict:
+    """A reference LM param tree (numpy leaves) -> the port's params on
+    ``device`` (the card when None, as every entry point), the same keys."""
+    device = resolve_device(device)
+    return _tree_map(lambda x: _leaf_from_numpy(x, device), tree)
+
+
+def lm_state_from_numpy(tree, device=None) -> dict:
+    """A reference decode state ({"pos", "layers"}, numpy leaves) -> the
+    port's on ``device``; ``pos`` a 0-d int32 tensor."""
+    device = resolve_device(device)
+    out = _tree_map(lambda x: _leaf_from_numpy(x, device), tree)
+    out["pos"] = out["pos"].to(torch.int32).reshape(())
+    return out
+
+
+def _leaf_to_numpy(t):
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def lm_params_to_numpy(tree) -> dict:
+    """The port's params (or decode state) -> nested dicts and lists of
+    numpy arrays (a bf16 leaf as its uint16 bits)."""
+    return _tree_map(_leaf_to_numpy, tree)

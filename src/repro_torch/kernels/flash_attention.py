@@ -11,7 +11,9 @@ f32/bf16, or a head dimension that is not a multiple of 16 in [16, 256]); on
 a CPU tensor it runs the plain version. ``kernel_for`` picks the kernel from
 the dtype and head dimension alone, before any launch: bf16 at D = 64, 128
 or 256 runs on ``wgmma`` with TMA loads, other bf16 head dimensions on
-``mma.sync``, f32 on FFMA.
+``mma.sync``, f32 on FFMA. ``scale`` multiplies the scores (1/sqrt(D) when
+None): the LM's prefill passes a q it pre-scaled and rounded as the JAX
+model does, with ``scale=1.0``.
 """
 from __future__ import annotations
 
@@ -50,14 +52,18 @@ def _window(window, s: int) -> int:
     return int(window) if window and 0 < window < s else 0
 
 
-def _probs(q, k, causal, window):
+def _probs(q, k, causal, window, scale=None):
     """The full softmax in float32: (B, Hq, S, Skv)."""
     hq, sq, d = q.shape[1], q.shape[2], q.shape[3]
     skv = k.shape[2]
     f32 = torch.float32
     kf = torch.repeat_interleave(k, hq // k.shape[1], dim=1).to(f32)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.to(f32), kf) / torch.sqrt(
-        torch.tensor(float(d), dtype=f32, device=q.device))
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(f32), kf)
+    if scale is None:
+        s = s / torch.sqrt(torch.tensor(float(d), dtype=f32,
+                                        device=q.device))
+    else:
+        s = s * float(scale)
     qpos = torch.arange(sq, device=q.device)[:, None]
     kpos = torch.arange(skv, device=q.device)[None, :]
     ok = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
@@ -74,15 +80,16 @@ def _values(v, hq):
         torch.float32)
 
 
-def flash_attention_plain(q, k, v, *, causal=True, window=0):
+def flash_attention_plain(q, k, v, *, causal=True, window=0, scale=None):
     """q: (B, Hq, S, D); k, v: (B, Hkv, Skv, D) -> (B, Hq, S, D) in q's
-    dtype."""
-    p = _probs(q, k, causal, window)
+    dtype; scores scaled by ``scale`` (1/sqrt(D) when None)."""
+    p = _probs(q, k, causal, window, scale)
     return torch.einsum("bhqk,bhkd->bhqd", p, _values(v, q.shape[1])).to(
         q.dtype)
 
 
-def bf16_error_bound(plain, q, k, v, *, causal=True, window=0):
+def bf16_error_bound(plain, q, k, v, *, causal=True, window=0,
+                     scale=None):
     """Per output element, how far the bf16 kernel may lie from ``plain``
     (the plain version's output on the same bf16 inputs): 2**-7 |plain|
     for the two roundings of the output to bf16 (one ulp), plus
@@ -90,19 +97,22 @@ def bf16_error_bound(plain, q, k, v, *, causal=True, window=0):
     bf16 before P V (relative error at most 2**-9 each). That second term
     is a hard bound for rows of at most 64 keys and about 14 standard
     deviations of the rounding sum for longer rows, where a fixed tolerance
-    would be as large as the output itself."""
-    p = _probs(q, k, causal, window)
+    would be as large as the output itself. ``scale`` as in
+    ``flash_attention_plain``."""
+    p = _probs(q, k, causal, window, scale)
     spread = torch.einsum("bhqk,bhkd->bhqd", p * p,
                           _values(v, q.shape[1]).square()).sqrt()
     return 2.0 ** -7 * plain.float().abs() + 2.0 ** -6 * spread
 
 
-def flash_attention_fwd(q, k, v, *, causal=True, window=0):
-    """Attention forward (K9); shapes as ``flash_attention_plain``. A row
+def flash_attention_fwd(q, k, v, *, causal=True, window=0, scale=None):
+    """Attention forward (K9); shapes and ``scale`` as
+    ``flash_attention_plain``. A row
     with no valid key (only with a window, when q_pos >= Skv + window - 1)
     gets the plain version's answer, the mean of V over all keys."""
     if q.device.type != "cuda":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     scale=scale)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError("flash_attention: q (B, Hq, S, D), k and v "
                          "(B, Hkv, Skv, D)")
@@ -133,7 +143,7 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0):
     lib = _build.library()
     args = (qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(), b,
             hq, hkv, s, skv, d, int(bool(causal)), _window(window, s),
-            1.0 / math.sqrt(d))
+            1.0 / math.sqrt(d) if scale is None else float(scale))
     if kernel == "wgmma_bf16":
         rc = lib.repro_flash_attention_wgmma(*args, _build.stream())
     else:

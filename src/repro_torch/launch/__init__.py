@@ -1,2 +1,3 @@
 """repro_torch.launch: command-line drivers (``serve``: the multi-tenant
-simulation service)."""
+simulation service; ``serve_lm``: batched LM serving, prefill + KV-cache
+decode)."""

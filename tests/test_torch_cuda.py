@@ -1939,3 +1939,125 @@ def test_serve_driver_launches_the_kernels(dev, capsys):
             "tree_assembly": 9, "synapse_apply": 27, "route_build": 18,
             "retract": 18, "threefry_words": 9, "edge_priority": 0}
     assert {k: counts[k] for k in want} == want
+
+
+# ---------------------------------------------------------------- the LM
+def _lm_f32(tree):
+    if isinstance(tree, dict):
+        return {k: _lm_f32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_lm_f32(v) for v in tree]
+    return tree.float()
+
+
+@pytest.mark.parametrize("b,hq,hkv,d,s,window", [
+    (2, 28, 4, 128, 300, 0),          # qwen2-7b's heads, full causal
+    (1, 10, 1, 256, 2100, 2048),      # recurrentgemma-2b's, past the window
+])
+def test_lm_chunked_attention_runs_k9_on_a_prescaled_q(dev, b, hq, hkv, d,
+                                                       s, window):
+    """On the card the model's prefill attention is one K9 launch (its
+    wgmma kernel at these head dims) on q pre-scaled as JAX scales it,
+    with ``scale=1.0``: within ``bf16_error_bound`` of K9's plain version
+    on the same inputs, as the reference lowering (the plain chunked
+    online softmax) is; K9 takes no softcap and no explicit positions."""
+    from repro_torch.models import attention as attn
+    g = torch.Generator(device=dev).manual_seed(s)
+    q = torch.randn((b, hq, s, d), generator=g, device=dev).bfloat16()
+    k = torch.randn((b, hkv, s, d), generator=g, device=dev).bfloat16()
+    v = torch.randn((b, hkv, s, d), generator=g, device=dev).bfloat16()
+    fa.device_launches(reset=True)
+    got = attn.chunked_attention(q, k, v, causal=True, window=window)
+    assert fa.device_launches(reset=True) == {
+        "wgmma_bf16": 1, "mma_sync_bf16": 0, "ffma_f32": 0}
+    ref = attn.chunked_attention(q, k, v, causal=True, window=window,
+                                 impl="reference")
+    assert not any(fa.device_launches(reset=True).values())
+    pre = attn.prescale(q)
+    plain = fa.flash_attention_plain(pre, k, v, causal=True, window=window,
+                                     scale=1.0)
+    lim = fa.bf16_error_bound(plain, pre, k, v, causal=True, window=window,
+                              scale=1.0)
+    assert bool(((got.float() - plain.float()).abs() <= lim).all())
+    assert bool(((ref.float() - plain.float()).abs() <= lim).all())
+    with pytest.raises(NotImplementedError, match="softcap"):
+        attn.chunked_attention(q, k, v, softcap=30.0)
+    with pytest.raises(NotImplementedError, match="positions"):
+        attn.chunked_attention(q, k, v, q_positions=torch.arange(
+            s, device=dev))
+
+
+@pytest.mark.parametrize("arch,layers,s", [("qwen2-7b", 1, 300),
+                                           ("recurrentgemma-2b", 3, 2100)])
+def test_lm_full_width_layers_fused_against_reference(dev, arch, layers, s):
+    """The full config cut to its first layers (qwen2-7b: one attention
+    layer; recurrentgemma-2b: rglru, rglru, attn, the prompt past the
+    2,048 window), bf16: prefill and one decode step on the fused lowering
+    (K9) against the reference lowering with the same params; logits within
+    twice the reference's error against its f32 evaluation (the rule
+    ``chip_smoke.py`` holds the whole models to)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import build_model
+    cfg = get_config(arch).replace(num_layers=layers)
+    api = build_model(cfg)
+    ref = build_model(cfg.replace(attention_impl="reference"))
+    params = api.init(0, device=dev)
+    batch = serve_lm.make_batch(cfg, 2, s, dev)
+    _build.reset_launch_counts()
+    f_logits, f_state = api.prefill(params, batch, pad_cache_to=s + 2)
+    assert _build.launch_counts()["flash_attention"] == 1
+    r_logits, r_state = ref.prefill(params, batch, pad_cache_to=s + 2)
+    assert _build.launch_counts()["flash_attention"] == 1
+    l32, _ = build_model(cfg.replace(
+        dtype="float32", attention_impl="reference")).prefill(
+        _lm_f32(params), batch, pad_cache_to=s + 2)
+    tol = 2.0 * float((r_logits.float() - l32).abs().max())
+    assert float((f_logits.float() - r_logits.float()).abs().max()) <= tol
+    tok = torch.argmax(r_logits, -1).to(torch.int32)
+    f_next, _ = api.decode_step(params, f_state, tok)
+    r_next, _ = ref.decode_step(params, r_state, tok)
+    assert _build.launch_counts()["flash_attention"] == 1
+    assert float((f_next.float() - r_next.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("arch,kw", [("qwen2-7b", {"scan_layers": True}),
+                                     ("recurrentgemma-2b", {})])
+def test_lm_decode_step_without_host_wait(dev, arch, kw):
+    """A decode step (stacked caches; the RG-LRU states and a ring past its
+    window) runs under ``set_sync_debug_mode("error")``: ``pos`` stays on
+    the device, the cache write and the masks read it there. ``init``
+    lands on the card by default."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import build_model
+    cfg = get_smoke_config(arch).replace(**kw)
+    api = build_model(cfg)
+    params = api.init(0)
+    assert params["embed"]["table"].is_cuda
+    batch = serve_lm.make_batch(cfg, 2, 20, dev)
+    logits, state = api.prefill(params, batch, pad_cache_to=24)
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    logits, state = api.decode_step(params, state, tok)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            logits, state = api.decode_step(params, state, tok)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(state["pos"]) == 23
+
+
+def test_lm_serve_driver_on_the_card(dev, capsys):
+    """``repro_torch.launch.serve_lm`` on its default device: qwen3-14b
+    and recurrentgemma-2b served (K9 on their 2 + 1 prefill attention
+    layers), xlstm-125m and whisper-base named as later slices."""
+    from repro_torch.launch import serve_lm
+    _build.reset_launch_counts()
+    assert serve_lm.main([]) == 0
+    assert _build.launch_counts()["flash_attention"] == 3
+    lines = capsys.readouterr().out.splitlines()
+    assert "4x24+12" in lines[0] and "4x24+12" in lines[1]
+    assert "not ported yet" in lines[2] and "not ported yet" in lines[3]

@@ -200,3 +200,32 @@ def test_service_and_serve_default_to_the_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--smoke"])
     assert SlotBatch(SMOKE_CONFIG, 2, device="cpu").device.type == "cpu"
+
+
+def test_lm_entry_points_default_to_the_card():
+    """``build_model(cfg).init``, ``init_decode_state``, the LM serve
+    driver and ``convert.lm_params_from_numpy`` without a device resolve it
+    as every entry point does: with no card they raise rather than run on
+    the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the LM then lands on cuda")
+    import numpy as np
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import build_model
+    api = build_model(get_smoke_config("qwen2-7b"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.init(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.init_decode_state(1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_lm.serve("qwen2-7b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_lm.main(["--arch", "qwen2-7b"])
+    tree = {"embed": {"table": np.zeros((2, 3), np.float32)}}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.lm_params_from_numpy(tree)
+    assert convert.lm_params_from_numpy(
+        tree, device="cpu")["embed"]["table"].device.type == "cpu"
+    assert api.init(0, device="meta")["embed"]["table"].device.type == "meta"
