@@ -68,16 +68,22 @@ neurons, S=32):
   share and the readouts' ms (``service_metrics``);
 - the LM serving path (``lm_serve_path``, each cell in a process of its
   own): ``build_model(get_config(arch))`` for qwen2-7b (28 layers, B=8, a
-  1,024-token prompt, 32 greedy decode steps) and recurrentgemma-2b (26
+  1,024-token prompt, 32 greedy decode steps), recurrentgemma-2b (26
   layers, 8 of them local attention; B=4, a 2,560-token prompt past the
-  2,048 window, 32 steps), bf16 at full width and depth, the prefill's
-  attention on K9: K9's launches one a prefill attention layer and none a
-  decode step, fused == the reference attention lowering (logits within
-  twice the reference's own error against its f32 evaluation, greedy
-  tokens equal but for counted near-ties), prefill + decode == forward,
-  a second run bitwise equal, a decode step with no host wait; prefill ms,
-  decode ms a step, tokens a second and peak GB beside their bounds, a
-  profiled decode step.
+  2,048 window, 32 steps), moonshot-v1-16b-a3b (48 layers of 64 experts
+  top-6; B=8, 1,024, 32), xlstm-125m (12 mLSTM / sLSTM layers, no
+  attention; B=8, 1,024, 32) and whisper-base (6 + 6 layers over 1,500
+  stub frames; B=16, a 64-token prompt, 32 steps), bf16 at full width and
+  depth, the prefill's attention on K9: K9's launches one a prefill
+  attention (48 / 0 / 18 for the new three) and none a decode step, fused
+  == the reference attention lowering (logits within twice the
+  reference's own error against its f32 evaluation, greedy tokens equal
+  but for counted near-ties; the MoE's expert ids compared layer by layer,
+  every flip a near-tie; xlstm-125m bitwise), prefill + decode == forward,
+  a second run bitwise equal, a decode step with no host wait, K9 at each
+  model's attention shapes against its plain version; prefill ms, decode
+  ms a step, tokens a second and peak GB beside their bounds, a profiled
+  decode step.
 
 For the kernel API and each path it checks the kernels really ran there (the
 launch counts are set to 0 just before and read just after; for K9, which of
@@ -96,6 +102,7 @@ line. Imports torch and the port only (no jax, no repro).
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -3199,13 +3206,24 @@ def service_path(cfg, scenario, cmp_cfg, cmp_scenario, card):
 
 
 # ------------------------------------------------------------ the LM path
-# (arch, batch, prompt tokens, greedy decode steps): the full configs
-# (configs/qwen2_7b.py: 28 layers, d_model 3,584, 7.62e9 parameters;
-# configs/recurrentgemma_2b.py: 26 layers, 8 of them local attention with a
-# window of 2,048, which the prompt passes), bf16, weights from seed 0, the
-# prompt from seed 1; no cut
-LM_CELLS = (("qwen2-7b", 8, 1024, 32), ("recurrentgemma-2b", 4, 2560, 32))
+# (arch, batch, prompt tokens, greedy decode steps): the full configs, bf16,
+# weights from seed 0, the prompt (and whisper's stub frames) from seed 1;
+# no cut. configs/qwen2_7b.py: 28 layers, d_model 3,584, 7.62e9
+# parameters; configs/recurrentgemma_2b.py: 26 layers, 8 of them local
+# attention with a window of 2,048, which the prompt passes;
+# configs/moonshot_v1_16b_a3b.py: 48 stacked layers, d 2,048, 64 experts
+# top-6 (2.806e10 parameters, 3.97e9 active); configs/xlstm_125m.py: 12
+# layers alternating mLSTM and sLSTM, d 768; configs/whisper_base.py: 6
+# encoder and 6 decoder layers over 1,500 frames, d 512
+LM_CELLS = (("qwen2-7b", 8, 1024, 32), ("recurrentgemma-2b", 4, 2560, 32),
+            ("moonshot-v1-16b-a3b", 8, 1024, 32), ("xlstm-125m", 8, 1024, 32),
+            ("whisper-base", 16, 64, 32))
 LM_TIMEOUT_S = 420
+# prefills timed a cell: the median is the cell's prefill ms
+LM_PREFILL_SAMPLES = 5
+# float32 logits: 2e-3 absolute plus 2e-3 relative, the JAX package's own
+# test_prefill_decode_match_forward tolerance (the CPU tests' F32_TOL)
+LM_F32_TOL = 2e-3
 
 
 def _lm_f32(tree):
@@ -3216,45 +3234,120 @@ def _lm_f32(tree):
     return tree.float()
 
 
-def _lm_leaves(tree):
+class _LayersF32:
+    """A model's layers read as float32 one at a time: each read casts the
+    layer's params, and the copy is freed with the caller's reference, so
+    the f32 evaluation never holds a float32 copy of the whole model."""
+
+    def __init__(self, get, n: int):
+        self._get, self._n = get, n
+
+    def __len__(self):
+        return self._n
+
+    def __getitem__(self, i):
+        if not 0 <= i < self._n:
+            raise IndexError(i)
+        return _lm_f32(self._get(i))
+
+
+def _lm_f32_params(params):
+    """The params for the f32 evaluation: the embedding, head and norms cast
+    whole, the layers (stacked or a list; whisper's encoder and decoder
+    lists) cast one at a time (``_LayersF32``)."""
+    from repro_torch.models import transformer as tfm
+    out = {}
+    for key, v in params.items():
+        if key == "layers_stacked":
+            out["layers"] = _LayersF32(
+                lambda i: tfm.layer_params(params, i), tfm.num_layers(params))
+        elif key in ("layers", "enc_layers", "dec_layers"):
+            out[key] = _LayersF32(v.__getitem__, len(v))
+        else:
+            out[key] = _lm_f32(v)
+    return out
+
+
+def _lm_named(tree, path=()):
+    """(path, leaf) of every leaf of a params or state tree."""
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _lm_leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _lm_leaves(v)
+        for k, v in tree.items():
+            yield from _lm_named(v, path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _lm_named(v, path + (i,))
     else:
-        yield tree
+        yield path, tree
 
 
-def lm_work(cfg, params, batch: int, prompt: int, steps: int):
+def _lm_leaves(tree):
+    for _, t in _lm_named(tree):
+        yield t
+
+
+def _lm_k9_layers(cfg) -> int:
+    """K9 launches a prefill: one an attention (whisper: each encoder
+    layer's, each decoder layer's self and cross attention)."""
+    if cfg.family == "audio":
+        return cfg.encoder_layers + 2 * cfg.num_layers
+    return sum(k == "attn" for k in cfg.pattern())
+
+
+def lm_work(cfg, params, batch: int, prompt: int, steps: int,
+            routed=None):
     """The least time of the prefill and of the median decode step, from the
-    config and the params: each weight read once (the embedding table's B
-    rows only), the KV cache written once by the prefill and the valid
-    entries read once a step; bf16 multiply-adds (2 operations) at the
-    tensor cores' bf16 rate and the RG-LRU gates' float32 ones at the FP32
-    rate, attention at 4 D operations a (query, key) pair; and the least
+    config and the params: each weight the step needs read once (the
+    embedding table's B rows only; a decode step of whisper reads the
+    decoder's weights but its cross k / v projections, whose products are
+    cached; of the MoE experts, ``routed`` (the distinct experts the
+    median step routes to, a layer) of ``num_experts``, all when None),
+    the caches written once by the prefill and the valid entries read once
+    a step, a recurrent state read and written once a step; bf16
+    multiply-adds (2 operations) at the tensor cores' bf16 rate (an MoE
+    expert's at ``top_k`` of ``num_experts`` a token, as
+    ``ModelConfig.active_param_count`` counts them) and float32 ones (the
+    router, the RG-LRU gates, the xLSTM gates and recurrences) at the FP32
+    rate; attention at 4 D operations a (query, key) pair; and the least
     memory a server holds, the params and one decode state. Returns
     {"prefill": (ms, by, bytes, bf16 ops, f32 ops), "decode": (...),
     "memory_gb": GB}."""
     import torch
+    from repro_torch.models import build_model
+    bf16, f32 = torch.bfloat16, torch.float32
     emb = params["embed"]["table"]
-    wbytes = sum(t.numel() * t.element_size() for t in _lm_leaves(params))
-    pbytes = wbytes
-    wbytes += batch * cfg.d_model * emb.element_size() - emb.numel() * \
-        emb.element_size()
-    layer_leaves = list(_lm_leaves(params.get("layers_stacked")
-                                   or params["layers"]))
-    macs = {torch.bfloat16: 0, torch.float32: 0}
-    for t in layer_leaves:
-        if t.dim() >= 2:        # a matmul weight (or the conv's taps)
-            macs[t.dtype] += t.numel()
+    es = emb.element_size()
+    audio = cfg.family == "audio"
+    s_enc = cfg.encoder_seq if audio else 0
+    e, k = cfg.num_experts, cfg.top_k
+    n_moe = sum(kd == "attn" for kd in cfg.pattern()) if cfg.moe else 0
+    frac = sum(routed) / (n_moe * e) if routed else 1.0
+    layer_keys = ("layers", "layers_stacked", "enc_layers", "dec_layers")
+    pbytes = 0
+    dec_bytes = batch * cfg.d_model * es       # the step's embedding rows
+    macs_tok = {bf16: 0.0, f32: 0.0}           # a decoder token
+    macs_frame = {bf16: 0.0, f32: 0.0}         # an encoder frame
+    for path, t in _lm_named(params):
+        nbytes = t.numel() * t.element_size()
+        pbytes += nbytes
+        expert = "moe" in path and path[-1] in ("w_up", "w_gate", "w_down")
+        frame_side = path[0] == "enc_layers" or path[0] == "enc_norm" or (
+            "xattn" in path and path[-1] in ("wk", "wv"))
+        if path[0] in layer_keys and t.dim() >= 2:
+            macs = macs_frame if frame_side else macs_tok
+            macs[t.dtype] += t.numel() * (k / e if expert else 1.0)
+        if not frame_side and path != ("embed", "table"):
+            dec_bytes += nbytes * (frac if expert else 1.0)
     head = cfg.d_model * cfg.vocab_size
     kinds = cfg.pattern()
-    n_attn = sum(k == "attn" for k in kinds)
-    kv_pos = 2 * batch * cfg.num_kv_heads * cfg.head_dim * emb.element_size()
+    n_self = cfg.num_layers if audio else sum(kd == "attn" for kd in kinds)
+    n_mlstm = sum(kd == "mlstm" for kd in kinds)
+    hd, hq = cfg.head_dim, cfg.num_heads
+    kv_pos = 2 * batch * cfg.num_kv_heads * hd * es
     window = cfg.attn_window
     tokens = batch * prompt
+    # the mLSTM's recurrence a token: C updated and read, 2 multiply-adds a
+    # (hd x hd) cell a head
+    rec_macs = n_mlstm * 2 * hq * hd * hd
 
     def one(nbytes, bf16_ops, f32_ops):
         ms = {"bytes": nbytes / H100_BYTES_PER_S * 1e3,
@@ -3263,22 +3356,35 @@ def lm_work(cfg, params, batch: int, prompt: int, steps: int):
         by = max(ms, key=ms.get)
         return ms[by], by, nbytes, bf16_ops, f32_ops
 
+    state = build_model(cfg).init_decode_state(batch, prompt + steps,
+                                               device="meta")
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in _lm_leaves(state["layers"]))
+    rec_bytes = sum(t.numel() * t.element_size()
+                    for path, t in _lm_named(state["layers"])
+                    if path[-1] not in ("k", "v", "xk", "xv"))
     slots = min(prompt, window) if window else prompt
-    attn_pre = 4 * cfg.head_dim * cfg.num_heads * batch * \
-        attention_pairs(prompt, prompt, window) * n_attn
-    pre = one(wbytes + n_attn * kv_pos * slots,
-              2 * tokens * macs[torch.bfloat16] + 2 * batch * head
-              + attn_pre, 2 * tokens * macs[torch.float32])
+    attn_pre = 4 * hd * hq * batch * (
+        attention_pairs(prompt, prompt, window) * n_self
+        + s_enc * s_enc * cfg.encoder_layers + prompt * s_enc * cfg.num_layers)
+    pre = one(pbytes - emb.numel() * es + batch * cfg.d_model * es
+              + kv_pos * (n_self * slots + cfg.num_layers * s_enc)
+              + rec_bytes,
+              2 * tokens * macs_tok[bf16] + 2 * batch * s_enc
+              * macs_frame[bf16] + 2 * batch * head + attn_pre,
+              2 * tokens * (macs_tok[f32] + rec_macs)
+              + 2 * batch * s_enc * macs_frame[f32])
     pos = prompt + steps // 2
     seen = min(pos + 1, window) if window else pos + 1
-    dec = one(wbytes + n_attn * kv_pos * (seen + 1),
-              2 * batch * (macs[torch.bfloat16] + head)
-              + 4 * cfg.head_dim * cfg.num_heads * batch * seen * n_attn,
-              2 * batch * macs[torch.float32])
-    rec = sum(k == "rglru" for k in kinds) * batch * cfg.d_model * 4 * \
-        cfg.rglru_conv_width          # h and the conv tail, f32
-    state = n_attn * kv_pos * (window or prompt + steps) + rec
-    return {"prefill": pre, "decode": dec, "memory_gb": (pbytes + state) / 1e9}
+    dec = one(dec_bytes + kv_pos * (n_self * (seen + 1)
+                                    + cfg.num_layers * s_enc)
+              + 2 * rec_bytes,
+              2 * batch * (macs_tok[bf16] + head)
+              + 4 * hd * hq * batch * (seen * n_self
+                                       + s_enc * cfg.num_layers),
+              2 * batch * (macs_tok[f32] + rec_macs))
+    return {"prefill": pre, "decode": dec,
+            "memory_gb": (pbytes + state_bytes) / 1e9}
 
 
 def _lm_profile(fn, name: str):
@@ -3322,13 +3428,42 @@ def _lm_profile(fn, name: str):
                            for k, v in top]}
 
 
-def _lm_first_attention(api, params, cfg, batch):
-    """q (pre-scaled as the model scales it), k and v of the first
-    attention layer of the prefill of ``batch``."""
+def _lm_attention_inputs(params, cfg, batch):
+    """K9's inputs at the model's own attention shapes: q (pre-scaled as
+    the model scales it), k, v, causal and window. A decoder-only model:
+    its first attention layer ("prefill"); whisper: the first encoder
+    layer's self-attention ("encoder", non-causal over the frames) and the
+    first decoder layer's cross-attention ("cross", the prompt against the
+    encoded frames); xLSTM: none."""
     import torch
     from repro_torch.models import attention as attn
+    from repro_torch.models import encdec
     from repro_torch.models import transformer as tfm
-    from repro_torch.models.layers import apply_norm
+    from repro_torch.models.layers import apply_norm, dtype_of, embed_tokens
+    if cfg.family == "audio":
+        p = params["enc_layers"][0]["attn"]
+        h = apply_norm(cfg, params["enc_layers"][0]["ln1"],
+                       encdec._with_positions(
+                           batch["frames"].to(dtype_of(cfg))))
+        b, s, _ = h.shape
+        q = encdec._heads(h @ p["wq"], b, s, cfg.num_heads, cfg.head_dim)
+        k, v = encdec._kv(p, cfg, h)
+        out = [("encoder", attn.prescale(q), k.contiguous(),
+                v.contiguous(), False, 0)]
+        mem = encdec.encode(params, cfg, batch["frames"])
+        d0 = params["dec_layers"][0]
+        x = encdec._with_positions(embed_tokens(params["embed"],
+                                                batch["tokens"]))
+        h = apply_norm(cfg, d0["ln1"], x)
+        x = x + encdec._mha(d0["attn"], cfg, h, h, causal=True)
+        h = apply_norm(cfg, d0["ln_x"], x)
+        b, s, _ = h.shape
+        q = encdec._heads(h @ d0["xattn"]["wq"], b, s, cfg.num_heads,
+                          cfg.head_dim)
+        k, v = encdec._kv(d0["xattn"], cfg, mem)
+        out.append(("cross", attn.prescale(q), k.contiguous(),
+                    v.contiguous(), False, 0))
+        return out
     x = tfm.embed_inputs(params, cfg, batch["tokens"])
     pos = torch.arange(x.shape[1], device=x.device)
     for i, kind in enumerate(cfg.pattern()):
@@ -3336,9 +3471,30 @@ def _lm_first_attention(api, params, cfg, batch):
         if kind == "attn":
             q, k, v = tfm._project_qkv(p["attn"], cfg,
                                        apply_norm(cfg, p["ln1"], x), pos)
-            return attn.prescale(q), k.contiguous(), v.contiguous()
+            return [("prefill", attn.prescale(q), k.contiguous(),
+                     v.contiguous(), True, cfg.attn_window)]
         x, _ = tfm.apply_layer_full(p, cfg, kind, x, pos)
-    raise ValueError("no attention layer")
+    return []
+
+
+class _GcPauses:
+    """The ms the interpreter's garbage collector ran while inside
+    (``gc.callbacks``), in ``ms``."""
+
+    def __enter__(self):
+        self.ms, self._t0 = 0.0, None
+        gc.callbacks.append(self._note)
+        return self
+
+    def _note(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.ms += (time.perf_counter() - self._t0) * 1e3
+            self._t0 = None
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._note)
 
 
 def _greedy_agreement(got, want, want_logits, tol):
@@ -3368,35 +3524,164 @@ def _greedy_agreement(got, want, want_logits, tol):
     return ties, compared, upto
 
 
+class _Routing:
+    """Records the port's ``moe.topk_routing`` calls in order: (expert ids,
+    router logits in float32, the run's own top-k ids). With ``replay``
+    (expert ids, one tensor a call in call order) the routing is pinned:
+    each call routes to the replayed ids, its gates the run's own
+    probabilities there (renormalised) and its aux the run's own
+    probabilities against the replayed top-1, as ``topk_routing``
+    computes them; its own top-k (the stable descending sort) is recorded
+    beside them. Unpinned, the run routes as it would: the record's extra
+    matmul leaves the model's own arithmetic as it is."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self._moe, self._real, self.calls = moe, moe.topk_routing, []
+
+        def rec(r, x, k):
+            logits = x.float() @ r
+            if self.replay is None:
+                out = self._real(r, x, k)
+                self.calls.append((out[1], logits, out[1]))
+                return out
+            ids = self.replay[len(self.calls)]
+            probs = torch.softmax(logits, dim=-1)
+            own = torch.sort(probs, dim=-1, descending=True,
+                             stable=True).indices[:, :k].to(torch.int32)
+            gates = probs.gather(1, ids.long())
+            gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True),
+                                            1e-9)
+            e = r.shape[1]
+            top1 = torch.zeros(e, dtype=torch.float32,
+                               device=x.device).scatter_add_(
+                0, ids[:, 0].long(), torch.ones(ids.shape[0],
+                                                device=x.device))
+            aux = e * torch.sum(probs.mean(0) * top1 / ids.shape[0])
+            self.calls.append((ids, logits, own))
+            return gates, ids, aux
+        moe.topk_routing = rec
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.topk_routing = self._real
+
+    def ids(self):
+        return [c[0] for c in self.calls]
+
+
+def _lm_census(arch, calls, n_layers: int, bounds, what: str):
+    """The routing flips of a pinned run (``_Routing`` with ``replay``):
+    tokens whose own top-k ids differ from the replayed ones, the
+    decisions the run would have taken otherwise. Each must be a near-tie
+    of the run's own router logits: the gap between the first differing
+    rank and the next below ``bounds[layer]``. Returns {"flips",
+    "decisions", "flips_per_layer", "max_gap", "max_prob_gap",
+    "max_gap_over_bound"}."""
+    import torch
+    out = {"flips": 0, "decisions": 0, "flips_per_layer": [0] * n_layers,
+           "max_gap": 0.0, "max_prob_gap": 0.0, "max_gap_over_bound": 0.0}
+    for i, (ids, lg, own) in enumerate(calls):
+        layer = i % n_layers
+        out["decisions"] += ids.shape[0]
+        ne = own != ids
+        rows = torch.nonzero(ne.any(-1)).flatten()
+        if not len(rows):
+            continue
+        out["flips"] += len(rows)
+        out["flips_per_layer"][layer] += len(rows)
+        r0 = ne[rows].int().argmax(-1)[:, None]
+        srt = torch.sort(lg[rows], dim=-1, descending=True).values
+        gap = srt.gather(1, r0) - srt.gather(1, r0 + 1)
+        prob = torch.softmax(lg[rows], -1).sort(-1, descending=True).values
+        pgap = prob.gather(1, r0) - prob.gather(1, r0 + 1)
+        over = float((gap / bounds[layer]).max())
+        out["max_gap"] = max(out["max_gap"], float(gap.max()))
+        out["max_prob_gap"] = max(out["max_prob_gap"], float(pgap.max()))
+        out["max_gap_over_bound"] = max(out["max_gap_over_bound"], over)
+        if over > 1.0:
+            fail(f"lm_serve_path {arch} {what}: layer {layer}: a routing "
+                 f"flip at a router-logit gap {float(gap.max())}, above "
+                 f"the near-tie bound {bounds[layer]}")
+    return out
+
+
+def _lm_teacher(api, params, batch_in, tokens, steps: int, pad: int):
+    """Prefill, then ``steps`` decode steps fed ``tokens[:, i]`` (another
+    run's greedy tokens): the logits of each."""
+    logits, state = api.prefill(params, batch_in, pad_cache_to=pad)
+    out = [logits]
+    for i in range(steps):
+        logits, state = api.decode_step(params, state, tokens[:, i])
+        out.append(logits)
+    return out
+
+
+def _lm_positions(calls, n_layers: int, rows: int):
+    """A serve run's routing as a forward takes it: per MoE layer the
+    prefill's ids and each step's side by side along the positions,
+    (rows * positions, k)."""
+    import torch
+    per = [[] for _ in range(n_layers)]
+    for i, (ids, _, _) in enumerate(calls):
+        per[i % n_layers].append(ids.reshape(rows, -1, ids.shape[-1]))
+    return [torch.cat(p, 1).reshape(-1, p[0].shape[-1]) for p in per]
+
+
 def lm_cell(arch: str, batch: int, prompt: int, steps: int, card: str):
     """One LM cell on the card: ``build_model(get_config(arch))``, greedy
     prefill + ``steps`` decode steps (the attention lowering fused: K9 on
-    every attention layer's prefill). Checks, failing otherwise: K9's device
-    launches (counted in the .cu source) one a prefill attention layer and
-    none a decode step; the fused model against the same params on the
-    reference attention lowering (the plain chunked online softmax),
-    logits within the tolerance below and greedy tokens equal but for
-    counted near-ties; the first attention layer's K9 output within
-    ``flash_attention.bf16_error_bound`` (scale 1.0 on the pre-scaled q);
-    prefill + decode against ``transformer.forward`` at the same
-    positions; a second run bitwise equal; one decode step under
-    ``torch.cuda.set_sync_debug_mode("error")``. The logits tolerance: both
-    lowerings are bf16 evaluations of one model, so the reference's own
-    error against its float32 evaluation (the params cast to f32, the plain
-    attention in f32) sets the scale: tol = 2 max |ref - f32| over the
-    prefill's logits. Reports init s, prefill ms (CUDA events), decode ms a
-    step (median and spread of steps 2-32), tokens a second, peak GB and a
+    every attention of the prefill). Checks, failing otherwise: K9's device
+    launches (counted in the .cu source) one a prefill attention and none a
+    decode step; the fused model against the same params on the reference
+    attention lowering (the plain chunked online softmax; for a model with
+    no attention the two are one code and must be bitwise equal), logits
+    within the tolerance below and greedy tokens equal but
+    for counted near-ties; K9 at the model's attention shapes within
+    ``flash_attention.bf16_error_bound`` of its plain version (scale 1.0 on
+    the pre-scaled q); prefill + decode against the full forward at the
+    same positions (for the ssm family, whose prefill hands its scans' own
+    final carry to the steps, also in float32 within ``LM_F32_TOL``); a
+    second run bitwise equal; one decode step under
+    ``torch.cuda.set_sync_debug_mode("error")``. The logits tolerance:
+    both lowerings are bf16 evaluations of one model, so the reference's
+    own error against its float32 evaluation (the params cast to f32 a
+    layer at a time, the plain attention in f32) sets the scale: tol = 2
+    max |ref - f32| over the prefill's logits.
+
+    The MoE's routing is a discrete decision on bf16 activations: a token
+    whose k-th and (k+1)-th router logits nearly tie takes another expert
+    under another rounding, and that changes its row from then on. So the
+    reference and its f32 evaluation run on the fused run's tokens (teacher
+    forcing) with the fused run's expert ids (``_Routing`` replay), and
+    each records the decisions it would have taken: every such flip must
+    be a near-tie, its router-logit gap at most twice the layer's largest
+    |ref - f32| router logit (``_lm_census``); the logits then compare the
+    lowerings' arithmetic on every row and step. The MoE's
+    serve-against-forward check runs at a capacity no token overflows
+    (``capacity_factor`` = experts / top_k: the capacity quantises with the
+    token count, so the prefill, the steps and the forward would drop other
+    slots), the forward routed as the serve run, its flips held the same
+    way. Reports init s, prefill ms (CUDA events; the median of
+    ``LM_PREFILL_SAMPLES``, each beside its host ms, GC ms and new device
+    allocations), decode ms a step
+    (median and spread of steps 2-32), tokens a second, peak GB and a
     profiled decode step, each beside its bound (``lm_work``)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import serve_lm
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, encdec
     from repro_torch.models import transformer as tfm
     from repro_torch.models.layers import lm_logits
     cfg = get_config(arch)
-    n_attn = sum(k == "attn" for k in cfg.pattern())
+    n_k9 = _lm_k9_layers(cfg)
+    n_moe = sum(k == "attn" for k in cfg.pattern()) if cfg.moe else 0
     api = build_model(cfg)
     pad = prompt + steps + 2        # room for the sync-debug and profiled steps
     torch.cuda.reset_peak_memory_stats()
@@ -3407,40 +3692,42 @@ def lm_cell(arch: str, batch: int, prompt: int, steps: int, card: str):
     batch_in = serve_lm.make_batch(cfg, batch, prompt, DEV, seed=1)
     res = {"arch": arch, "batch": batch, "prompt": prompt,
            "decode_steps": steps, "pad_cache_to": pad,
-           "layers": cfg.num_layers, "attention_layers": n_attn,
+           "layers": cfg.num_layers, "attention_layers": n_k9,
            "d_model": cfg.d_model, "heads": [cfg.num_heads,
                                              cfg.num_kv_heads],
            "head_dim": cfg.head_dim, "window": cfg.attn_window,
            "vocab": cfg.vocab_size, "params": cfg.param_count(),
-           "cut": None, "init_s": init_s}
+           "active_params": cfg.active_param_count(), "cut": None,
+           "init_s": init_s}
+    if cfg.moe:
+        res["experts"] = {"num": cfg.num_experts, "top_k": cfg.top_k,
+                          "capacity_factor": cfg.capacity_factor}
+    if cfg.family == "audio":
+        res["encoder"] = {"layers": cfg.encoder_layers,
+                          "frames": cfg.encoder_seq}
 
     def drive(count: bool, timed: bool):
         """api.prefill + ``steps`` decode steps: tokens, logits, and (when
         ``count``) K9's launches after the prefill and over the steps, or
-        (when ``timed``) the prefill's and each step's CUDA-event ms."""
+        (when ``timed``) each step's CUDA-event ms."""
         ev = [torch.cuda.Event(enable_timing=True)
-              for _ in range(2 * steps + 2)] if timed else None
+              for _ in range(2 * steps)] if timed else None
         if count:
             _build.reset_launch_counts()
             fa.device_launches(reset=True)
-        if timed:
-            torch.cuda.synchronize()
-            ev[0].record()
         logits, state = api.prefill(params, batch_in, pad_cache_to=pad)
         tok = torch.argmax(logits, -1).to(torch.int32)
-        if timed:
-            ev[1].record()
         if count:
             pre = (_build.launch_counts()["flash_attention"],
                    fa.device_launches(reset=True))
         toks, all_logits = [tok], [logits]
         for i in range(steps):
             if timed:
-                ev[2 + 2 * i].record()
+                ev[2 * i].record()
             logits, state = api.decode_step(params, state, tok)
             tok = torch.argmax(logits, -1).to(torch.int32)
             if timed:
-                ev[3 + 2 * i].record()
+                ev[2 * i + 1].record()
             toks.append(tok)
             all_logits.append(logits)
         out = {"tokens": torch.stack(toks, 1), "logits": all_logits}
@@ -3451,20 +3738,30 @@ def lm_cell(arch: str, batch: int, prompt: int, steps: int, card: str):
                 "decode_device": fa.device_launches(reset=True)}
         if timed:
             torch.cuda.synchronize()
-            out["prefill_ms"] = ev[0].elapsed_time(ev[1])
-            out["step_ms"] = [ev[2 + 2 * i].elapsed_time(ev[3 + 2 * i])
+            out["step_ms"] = [ev[2 * i].elapsed_time(ev[2 * i + 1])
                               for i in range(steps)]
         return out
 
-    first = drive(count=True, timed=False)
-    want_k9 = {name: (n_attn if name == "wgmma_bf16" else 0)
+    with _Routing() as rec_fused:
+        first = drive(count=True, timed=False)
+    want_k9 = {name: (n_k9 if name == "wgmma_bf16" else 0)
                for name in fa.KERNELS}
     got = first["launches"]
     res["k9_launches"] = got
-    if got["prefill"] != n_attn or got["prefill_device"] != want_k9 or \
+    if got["prefill"] != n_k9 or got["prefill_device"] != want_k9 or \
             got["decode"] != 0 or any(got["decode_device"].values()):
-        fail(f"lm_serve_path {arch}: K9 launches {got}, not {n_attn} "
+        fail(f"lm_serve_path {arch}: K9 launches {got}, not {n_k9} "
              f"wgmma_bf16 a prefill and none a decode step")
+    routed = None
+    if n_moe:
+        # the distinct experts the median step routes to, a layer
+        mid = (1 + steps // 2) * n_moe
+        routed = [int(ids.unique().numel())
+                  for ids in rec_fused.ids()[mid:mid + n_moe]]
+        res["decode_routed_experts"] = {
+            "step": steps // 2 + 1, "per_layer_min": min(routed),
+            "per_layer_max": max(routed),
+            "mean": sum(routed) / len(routed)}
     second = drive(count=False, timed=True)
     same = torch.equal(first["tokens"], second["tokens"]) and all(
         torch.equal(a, b) for a, b in zip(first["logits"], second["logits"]))
@@ -3473,14 +3770,37 @@ def lm_cell(arch: str, batch: int, prompt: int, steps: int, card: str):
         fail(f"lm_serve_path {arch}: a second run differs")
     # the serving peak: params, two runs' caches and logits, activations
     res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # the prefill: LM_PREFILL_SAMPLES of them, each between CUDA events,
+    # beside the host's ms to queue it (near the events' ms where the host
+    # sets the pace), the ms the garbage collector ran meanwhile and the
+    # allocator's new device allocations (cudaMalloc calls)
+    samples = []
+    for _ in range(LM_PREFILL_SAMPLES):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        mallocs = torch.cuda.memory_stats().get("num_device_alloc", 0)
+        with _GcPauses() as pauses:
+            ev[0].record()
+            t_host = time.perf_counter()
+            logits, _ = api.prefill(params, batch_in, pad_cache_to=pad)
+            torch.argmax(logits, -1)
+            ev[1].record()
+            host = (time.perf_counter() - t_host) * 1e3
+        torch.cuda.synchronize()
+        allocs = torch.cuda.memory_stats().get("num_device_alloc", 0)
+        samples.append({"ms": ev[0].elapsed_time(ev[1]), "host_ms": host,
+                        "gc_ms": pauses.ms, "device_allocs": allocs - mallocs})
+        del logits
     steps_ms = sorted(second["step_ms"][1:])
     med = steps_ms[len(steps_ms) // 2]
-    res.update({"prefill_ms": second["prefill_ms"],
+    res.update({"prefill_ms": sorted(x["ms"] for x in samples)[
+                    len(samples) // 2],
+                "prefill_samples": samples,
                 "decode_step_ms": {"median": med, "min": steps_ms[0],
                                    "max": steps_ms[-1],
                                    "steps": "2-%d" % steps},
                 "tokens_per_s": batch * 1e3 / med})
-    work = lm_work(cfg, params, batch, prompt, steps)
+    work = lm_work(cfg, params, batch, prompt, steps, routed)
     for key in ("prefill", "decode"):
         ms, by, nbytes, bf, f32 = work[key]
         res[f"{key}_bound"] = {"ms": ms, "by": by, "bytes": nbytes,
@@ -3489,20 +3809,30 @@ def lm_cell(arch: str, batch: int, prompt: int, steps: int, card: str):
     res["peak_gb_bound"] = work["memory_gb"]
     del second
 
-    # the reference attention lowering, the same params and prompt
+    # the reference attention lowering, the same params and prompt (the
+    # MoE: on the fused run's tokens and routing, pinned)
     ref_api = build_model(cfg.replace(attention_impl="reference"))
-    _build.reset_launch_counts()
-    ref_toks, ref_logits = serve_lm.generate(ref_api, params, batch_in,
-                                             steps + 1, pad)
-    if _build.launch_counts()["flash_attention"]:
-        fail(f"lm_serve_path {arch}: the reference lowering launched K9")
-    # the tolerance: the reference's error against its f32 evaluation
-    p32 = _lm_f32(params)
     f32_api = build_model(cfg.replace(dtype="float32",
                                       attention_impl="reference"))
-    l32, _ = f32_api.prefill(p32, batch_in, pad_cache_to=pad)
-    del p32
+    _build.reset_launch_counts()
+    if n_moe:
+        with _Routing(replay=rec_fused.ids()) as rec_ref:
+            ref_logits = _lm_teacher(ref_api, params, batch_in,
+                                     first["tokens"], steps, pad)
+        ref_toks = torch.stack([torch.argmax(x, -1).to(torch.int32)
+                                for x in ref_logits], 1)
+        with _Routing(replay=rec_fused.ids()[:n_moe]) as rec_f32:
+            l32, _ = f32_api.prefill(_lm_f32_params(params), batch_in,
+                                     pad_cache_to=pad)
+    else:
+        ref_toks, ref_logits = serve_lm.generate(ref_api, params, batch_in,
+                                                 steps + 1, pad)
+        l32, _ = f32_api.prefill(_lm_f32_params(params), batch_in,
+                                 pad_cache_to=pad)
+    if _build.launch_counts()["flash_attention"]:
+        fail(f"lm_serve_path {arch}: the reference lowering launched K9")
     torch.cuda.empty_cache()
+    # the tolerance: the reference's error against its f32 evaluation
     ref_err = float((ref_logits[0].float() - l32).abs().max())
     tol = 2.0 * ref_err
     res["tolerance"] = {"logits": tol, "ref_vs_f32_max_abs": ref_err,
@@ -3511,10 +3841,38 @@ def lm_cell(arch: str, batch: int, prompt: int, steps: int, card: str):
                         "logits_max_abs": float(l32.abs().max()),
                         "rule": "2 max|ref - f32| over the prefill logits"}
     del l32
+    if n_moe:
+        # a layer's near-tie bound: twice its largest |ref - f32| router
+        # logit over the prefill's tokens, the routing the same
+        bounds = [2.0 * float((lr - lf).abs().max())
+                  for (_, lr, _), (_, lf, _) in zip(rec_ref.calls[:n_moe],
+                                                    rec_f32.calls)]
+        res["routing"] = {
+            "rule": "the reference and its f32 evaluation routed as the "
+                    "fused run; a flip (a token whose own top-k differs) "
+                    "must have a router-logit gap <= 2 max|ref - f32| "
+                    "router logit of its layer",
+            "near_tie_bound_per_layer": {"min": min(bounds),
+                                         "max": max(bounds)},
+            "reference_vs_fused": _lm_census(
+                arch, rec_ref.calls, n_moe, bounds,
+                "the reference against the fused routing"),
+            "f32_vs_fused": _lm_census(
+                arch, rec_f32.calls, n_moe, [float("inf")] * n_moe,
+                "the f32 evaluation against the fused routing")}
+        del rec_ref, rec_f32
+    if not n_k9:                     # no attention: one code, bitwise
+        same = torch.equal(first["tokens"], ref_toks) and all(
+            torch.equal(a, b) for a, b in zip(first["logits"], ref_logits))
+        res["fused_vs_reference_bitwise_equal"] = same
+        if not same:
+            fail(f"lm_serve_path {arch}: the two lowerings differ")
     pre_err = float((first["logits"][0].float()
                      - ref_logits[0].float()).abs().max())
     ties, compared, upto = _greedy_agreement(first["tokens"], ref_toks,
                                              ref_logits, tol)
+    if n_moe:                          # teacher-forced: every step agrees
+        upto = [steps] * batch
     dec_err = 0.0
     for b, n in enumerate(upto):       # logits while the contexts agree
         for t in range(1, min(n, steps) + 1):
@@ -3528,67 +3886,127 @@ def lm_cell(arch: str, batch: int, prompt: int, steps: int, card: str):
     if pre_err > tol or dec_err > tol:
         fail(f"lm_serve_path {arch}: fused against reference logits "
              f"{pre_err} (prefill), {dec_err} (decode) > {tol}")
-    del ref_logits, ref_toks
+    del ref_logits, ref_toks, rec_fused
 
     # prefill + decode against the full forward at the same positions
     seq = torch.cat([batch_in["tokens"], first["tokens"][:, :steps]], 1)
-    hidden, _ = tfm.forward(params, cfg, seq, return_hidden=True)
+    if n_moe:
+        # at a capacity no token overflows (the capacity quantises with
+        # the token count), the steps fed the fused run's tokens, the
+        # forward routed as the serve run
+        nd_cfg = cfg.replace(capacity_factor=cfg.num_experts / cfg.top_k)
+        nd_api = build_model(nd_cfg)
+        with _Routing() as rec_serve:
+            serve_logits = _lm_teacher(nd_api, params, batch_in,
+                                       first["tokens"], steps, pad)
+        with _Routing(replay=_lm_positions(rec_serve.calls, n_moe,
+                                           batch)) as rec_fwd:
+            hidden, _ = tfm.forward(params, nd_cfg, seq, return_hidden=True)
+        res["serve_vs_forward_routing"] = dict(
+            _lm_census(arch, rec_fwd.calls, n_moe, bounds,
+                       "the forward against the serve run's routing"),
+            capacity_factor=nd_cfg.capacity_factor)
+        del rec_serve, rec_fwd
+    else:
+        serve_logits = first["logits"]
+        if cfg.family == "audio":
+            hidden, _ = encdec.forward(params, cfg, batch_in["frames"], seq,
+                                       return_hidden=True)
+        else:
+            hidden, _ = tfm.forward(params, cfg, seq, return_hidden=True)
     fwd = lm_logits(params["head"], params["embed"], cfg,
                     hidden[:, prompt - 1:])
     del hidden
-    fwd_err = max(float((first["logits"][t].float()
-                         - fwd[:, t].float()).abs().max())
-                  for t in range(steps + 1))
+    fwd_err = max(float((serve_logits[t].float() - fwd[:, t].float()).abs()
+                        .max()) for t in range(steps + 1))
     res["serve_vs_forward_max_abs"] = fwd_err
     if fwd_err > tol:
         fail(f"lm_serve_path {arch}: prefill + decode against forward "
              f"{fwd_err} > {tol}")
-    del fwd, first
+    del fwd, serve_logits
+    if cfg.family == "ssm":
+        # the xLSTM prefill hands its scans' own final carry to the steps
+        # (JAX replays the step form). The bf16 tolerance is the model's
+        # bf16 error, too wide to see a wrong carry, so the float32 build of
+        # the same params serves and runs the forward too, held to
+        # LM_F32_TOL
+        p32 = _lm_f32(params)
+        cfg32 = cfg.replace(dtype="float32")
+        s32 = _lm_teacher(build_model(cfg32), p32, batch_in,
+                          first["tokens"], steps, pad)
+        hidden, _ = tfm.forward(p32, cfg32, seq, return_hidden=True)
+        f32 = lm_logits(p32["head"], p32["embed"], cfg32,
+                        hidden[:, prompt - 1:])
+        del hidden
+        err = over = 0.0
+        for t in range(steps + 1):
+            d = (s32[t] - f32[:, t]).abs()
+            err = max(err, float(d.max()))
+            over = max(over, float((d / (LM_F32_TOL * (
+                1.0 + f32[:, t].abs()))).max()))
+        res["serve_vs_forward_f32"] = {
+            "max_abs": err, "max_over_tolerance": over,
+            "logits_max_abs": float(f32.abs().max()),
+            "rule": f"{LM_F32_TOL} absolute + {LM_F32_TOL} relative"}
+        del p32, s32, f32
+        if over > 1.0:
+            fail(f"lm_serve_path {arch}: float32 prefill + decode against "
+                 f"forward {err}, {over} times the tolerance")
+    del first
     torch.cuda.empty_cache()
 
-    # K9 at this model's first attention layer: within the bf16 bound of
-    # its plain version on the same (pre-scaled) q, scale 1.0; times
-    q, k, v = _lm_first_attention(api, params, cfg, batch_in)
-    w = cfg.attn_window
-    kern = fa.flash_attention_fwd(q, k, v, causal=True, window=w, scale=1.0)
-    plain = fa.flash_attention_plain(q, k, v, causal=True, window=w,
-                                     scale=1.0)
-    lim = fa.bf16_error_bound(plain, q, k, v, causal=True, window=w,
-                              scale=1.0)
-    diff = (kern.float() - plain.float()).abs()
-    k9 = {"shape": {"B": batch, "Hq": cfg.num_heads, "Hkv": cfg.num_kv_heads,
-                    "S": q.shape[2], "D": cfg.head_dim, "window": w},
-          "max_abs_err": float(diff.max()),
-          "max_err_over_bound": float((diff / lim).max())}
-    del plain, lim, diff
-    if k9["max_err_over_bound"] > 1.0:
-        fail(f"lm_serve_path {arch}: K9 at the first attention layer "
-             f"{k9['max_err_over_bound']} times its bf16 bound")
-    call = lambda: fa.flash_attention_fwd(   # noqa: E731
-        q, k, v, causal=True, window=w, scale=1.0)
-    k9["ms"] = cuda_ms(call, reps=10)
-    k9["device_ms"] = device_ms(call, 10)
-    k9["plain_ms"] = cuda_ms(lambda: fa.flash_attention_plain(
-        q, k, v, causal=True, window=w, scale=1.0), reps=1)
+    # K9 at this model's attention shapes: within the bf16 bound of its
+    # plain version on the same (pre-scaled) q, scale 1.0; times
     import torch.nn.functional as F
-    if w and w < q.shape[2]:
-        pos = torch.arange(q.shape[2], device=DEV)
-        mask = (pos[None, :] <= pos[:, None]) & \
-            (pos[:, None] - pos[None, :] < w)
-        lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
-            q, k, v, attn_mask=mask, enable_gqa=True, scale=1.0)
-    else:
-        lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
-            q, k, v, is_causal=True, enable_gqa=True, scale=1.0)
-    k9["library_ms"] = cuda_ms(lib, reps=10)
-    pairs = batch * cfg.num_heads * attention_pairs(q.shape[2], k.shape[2], w)
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    k9["bound_ms"], k9["bound_by"] = bound(
-        nbytes, fp_ops=4 * cfg.head_dim * pairs,
-        fp_ops_per_s=H100_BF16_OPS_PER_S)
-    k9["launches"] = got["prefill"]
-    res["k9"] = k9
-    del q, k, v, kern
+    res["k9"] = []
+    for label, q, k, v, causal, w in _lm_attention_inputs(params, cfg,
+                                                          batch_in):
+        kern = fa.flash_attention_fwd(q, k, v, causal=causal, window=w,
+                                      scale=1.0)
+        plain = fa.flash_attention_plain(q, k, v, causal=causal, window=w,
+                                         scale=1.0)
+        lim = fa.bf16_error_bound(plain, q, k, v, causal=causal, window=w,
+                                  scale=1.0)
+        diff = (kern.float() - plain.float()).abs()
+        k9 = {"label": label,
+              "shape": {"B": batch, "Hq": cfg.num_heads,
+                        "Hkv": cfg.num_kv_heads, "S": q.shape[2],
+                        "Skv": k.shape[2], "D": cfg.head_dim,
+                        "causal": causal, "window": w},
+              "max_abs_err": float(diff.max()),
+              "max_err_over_bound": float((diff / lim).max())}
+        del plain, lim, diff, kern
+        if k9["max_err_over_bound"] > 1.0:
+            fail(f"lm_serve_path {arch}: K9 at the {label} attention "
+                 f"{k9['max_err_over_bound']} times its bf16 bound")
+
+        def call(q=q, k=k, v=v, causal=causal, w=w):
+            return fa.flash_attention_fwd(q, k, v, causal=causal, window=w,
+                                          scale=1.0)
+        k9["ms"] = cuda_ms(call, reps=10)
+        k9["device_ms"] = device_ms(call, 10)
+        k9["plain_ms"] = cuda_ms(lambda: fa.flash_attention_plain(
+            q, k, v, causal=causal, window=w, scale=1.0), reps=1)
+        if w and w < q.shape[2]:
+            pos = torch.arange(q.shape[2], device=DEV)
+            mask = (pos[None, :] <= pos[:, None]) & \
+                (pos[:, None] - pos[None, :] < w)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, attn_mask=mask, enable_gqa=True, scale=1.0)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=causal, enable_gqa=True, scale=1.0)
+        k9["library_ms"] = cuda_ms(lib, reps=10)
+        pairs = batch * cfg.num_heads * (
+            attention_pairs(q.shape[2], k.shape[2], w) if causal
+            else q.shape[2] * k.shape[2])
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        k9["bound_ms"], k9["bound_by"] = bound(
+            nbytes, fp_ops=4 * cfg.head_dim * pairs,
+            fp_ops_per_s=H100_BF16_OPS_PER_S)
+        k9["launches"] = got["prefill"]
+        res["k9"].append(k9)
+        del q, k, v
     torch.cuda.empty_cache()
 
     # one decode step with no host wait, then one profiled (after a warm
@@ -3793,8 +4211,9 @@ def main() -> int:
     del api_inp, api_out
     torch.cuda.empty_cache()     # the paths start from an empty cache
 
-    # ---- the LM serving path: qwen2-7b and recurrentgemma-2b at full
-    # width, K9 on every prefill attention layer (a process a cell) -------
+    # ---- the LM serving path: qwen2-7b, recurrentgemma-2b,
+    # moonshot-v1-16b-a3b, xlstm-125m and whisper-base at full width, K9 on
+    # every prefill attention (a process a cell) ---------------------------
     lm = lm_serve_path(card)
 
     # ---- fused == reference on the card, small size --------------------
@@ -4141,18 +4560,19 @@ def main() -> int:
                             "decode": c["k9_launches"]["decode"]}
                 for c in lm["cells"]}
     for c in lm["cells"]:
-        k9 = c["k9"]
-        kernels.append({
-            "name": f"flash_attention ({c['arch']} prefill)", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:94",
-            "launches": c["k9_launches"]["prefill"]
-            + c["k9_launches"]["decode"],
-            "launches_per_decode_step": c["k9_launches"]["decode"],
-            "max_abs_err": k9["max_abs_err"], "ms": k9["ms"],
-            "device_ms": k9["device_ms"], "plain_ms": k9["plain_ms"],
-            "bound_ms": k9["bound_ms"], "bound_by": k9["bound_by"],
-            "library_ms": k9["library_ms"], "shape": k9["shape"]})
+        for k9 in c["k9"]:
+            kernels.append({
+                "name": f"flash_attention ({c['arch']} {k9['label']})",
+                "route": "cuda",
+                "source": "src/repro_torch/csrc/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:94",
+                "launches": c["k9_launches"]["prefill"]
+                + c["k9_launches"]["decode"],
+                "launches_per_decode_step": c["k9_launches"]["decode"],
+                "max_abs_err": k9["max_abs_err"], "ms": k9["ms"],
+                "device_ms": k9["device_ms"], "plain_ms": k9["plain_ms"],
+                "bound_ms": k9["bound_ms"], "bound_by": k9["bound_by"],
+                "library_ms": k9["library_ms"], "shape": k9["shape"]})
     # the service's launches: its R=1 poisoned run (the K0 draws by mode;
     # the old algorithms' variants do not run in the service cells) and its
     # R=4 runs

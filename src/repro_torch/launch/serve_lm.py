@@ -9,9 +9,9 @@ the JAX package's ``examples/serve_lm.py``.
 prompt's prefill (its attention on K9 on the card), then ``gen - 1`` decode
 steps, each feeding back the argmax. It runs on the card unless ``device``
 names another (``device.resolve_device``). ``main`` serves the example's
-architectures that the port has: qwen3-14b (full attention) and
-recurrentgemma-2b (RG-LRU + a ring window); xlstm-125m and whisper-base
-wait for their slices and are named as such.
+four architectures: qwen3-14b (full attention), recurrentgemma-2b (RG-LRU
++ a ring window), xlstm-125m (mLSTM / sLSTM, no attention) and
+whisper-base (the encoder-decoder over stub audio frames).
 """
 from __future__ import annotations
 
@@ -23,14 +23,15 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
-from repro_torch.models.transformer import LATER
 
 EXAMPLE_ARCHS = ("qwen3-14b", "recurrentgemma-2b", "xlstm-125m",
                  "whisper-base")
 
 
 def make_batch(cfg, batch_size: int, prompt: int, device, seed: int = 1):
-    """Prompt tokens (and the vlm's patch embeddings) drawn from ``seed``."""
+    """Prompt tokens (and the vlm's patch embeddings, the audio model's
+    frame embeddings from the stub frontend, in bf16) drawn from
+    ``seed``."""
     gen = torch.Generator(device=device).manual_seed(seed)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (batch_size, prompt),
                                      generator=gen, dtype=torch.int32,
@@ -38,6 +39,10 @@ def make_batch(cfg, batch_size: int, prompt: int, device, seed: int = 1):
     if cfg.family == "vlm":
         batch["patch_embeds"] = torch.randn(
             (batch_size, cfg.num_patches, cfg.d_model), generator=gen,
+            device=device).to(torch.bfloat16)
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn(
+            (batch_size, cfg.encoder_seq, cfg.d_model), generator=gen,
             device=device).to(torch.bfloat16)
     return batch
 
@@ -89,10 +94,6 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=12)
     args = ap.parse_args(argv)
     for arch in args.arch or EXAMPLE_ARCHS:
-        family = get_smoke_config(arch).family
-        if family in ("moe", "ssm", "audio"):
-            print(f"{arch:22s} not ported yet: {LATER[family]}")
-            continue
         serve(arch, args.batch, args.prompt, args.gen, args.device)
     return 0
 

@@ -1,10 +1,12 @@
 """Serving: prefill (full-sequence forward producing the decode state) and
-single-token decode steps for the attn and rglru blocks.
+single-token decode steps for every block kind (attn with its MLP or MoE,
+rglru, mlstm, slstm).
 
 The port of the JAX package's ``repro/models/decode.py``. State layouts:
   attn (full)    : k, v (B, Hkv, S_max, hd)          slot = position
   attn (window)  : k, v (B, Hkv, W, hd)  ring buffer  slot = position % W
   rglru          : h (B, W), conv_tail (B, K-1, W)
+  mlstm / slstm  : recurrent dicts from ``models/ssm.py``
 Stacked configs keep one (L, ...) tensor a leaf, as JAX's scan does.
 ``pos`` is a 0-d int32 tensor on the device: the cache write and the masks
 read it there, so a decode step never waits for the host.
@@ -12,8 +14,9 @@ read it there, so a decode step never waits for the host.
 Unlike JAX's functional update, ``decode_step`` writes the new position's k
 and v into the caches in place (the state it returns holds the same cache
 tensors): that saves a copy of every cache a step. Clone a state to decode
-from it twice. Not here yet: the split-KV decode and ``state_shardings``
-(ROADMAP Queue 1 item 14f), the xLSTM states (14c).
+from it twice. The xLSTM prefill keeps each scan's own final carry (JAX
+replays the step form over the sequence for it). Not here yet: the
+split-KV decode and ``state_shardings`` (ROADMAP Queue 1 item 14f).
 """
 from __future__ import annotations
 
@@ -23,12 +26,14 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (apply_norm, dtype_of, embed_tokens,
-                                       lm_logits, sinusoidal_positions)
-from repro_torch.models.transformer import (LATER, _project_qkv, attn_full,
+                                       lm_logits, no_mesh,
+                                       sinusoidal_positions)
+from repro_torch.models.transformer import (_project_qkv, attn_full,
                                             embed_inputs, ffn_block,
-                                            layer_params, no_mesh,
-                                            num_layers, stacked)
+                                            layer_params, num_layers,
+                                            stacked)
 
 
 # ================================================================ state init
@@ -47,8 +52,10 @@ def init_layer_state(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
         return _attn_cache(cfg, batch, max_seq, device)
     if kind == "rglru":
         return rglru_lib.rglru_init_state(cfg, batch, cfg.d_model, device)
-    if kind in ("mlstm", "slstm"):
-        raise NotImplementedError(f"{kind} states are {LATER[kind]}")
+    if kind == "mlstm":
+        return ssm_lib.mlstm_init_state(cfg, batch, device)
+    if kind == "slstm":
+        return ssm_lib.slstm_init_state(cfg, batch, cfg.d_model, device)
     raise ValueError(kind)
 
 
@@ -103,12 +110,16 @@ def attn_block_decode(p, cfg: ModelConfig, x_t, cache, pos, mesh=None):
 
 def apply_layer_decode(p, cfg: ModelConfig, kind, x_t, lstate, pos,
                        mesh=None):
+    if kind == "mlstm":
+        return ssm_lib.mlstm_step(p["kind_mlstm"], cfg, x_t, lstate)
+    if kind == "slstm":
+        return ssm_lib.slstm_step(p["kind_slstm"], cfg, x_t, lstate)
     if kind == "attn":
         x_t, lstate = attn_block_decode(p, cfg, x_t, lstate, pos, mesh)
     elif kind == "rglru":
         x_t, lstate = rglru_lib.rglru_step(p["rec"], cfg, x_t, lstate)
     else:
-        raise NotImplementedError(f"{kind} blocks are {LATER.get(kind)}")
+        raise ValueError(kind)
     if cfg.d_ff:
         x3, _ = ffn_block(p, cfg, x_t[:, None, :], mesh)
         x_t = x3[:, 0, :]
@@ -182,8 +193,14 @@ def prefill(params, cfg: ModelConfig, tokens, *, extra_embeds=None,
         elif kind == "rglru":
             x, st = rglru_lib.rglru_forward(layer_p["rec"], cfg, x,
                                             return_state=True)
+        elif kind in ("mlstm", "slstm"):
+            scan = ssm_lib.mlstm_scan if kind == "mlstm" else \
+                ssm_lib.slstm_scan
+            x, st = scan(layer_p["kind_" + kind], cfg, x, return_state=True)
+            layers.append(st)
+            continue                        # no FFN after an xLSTM block
         else:
-            raise NotImplementedError(f"{kind} blocks are {LATER.get(kind)}")
+            raise ValueError(kind)
         if cfg.d_ff:
             x, _ = ffn_block(layer_p, cfg, x)
         layers.append(st)

@@ -12,13 +12,29 @@ as the JAX package's ``vmap`` over stacked layers does.
 """
 from __future__ import annotations
 
-import numpy as np
+import math
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 
 F32 = torch.float32
+# a leaf with more elements than this (a float32 draw above 16 GiB:
+# moonshot-v1-16b-a3b's stacked experts, (48, 64, 2048, 1408)) is drawn one
+# leading slice at a time into the target dtype; smaller leaves in one draw
+SLICE_ELEMENTS = 2 ** 32
+
+
+# what a later slice of the port takes on
+LATER = {"mesh": "ROADMAP Queue 1 item 14f (the sharded paths)"}
+
+
+def no_mesh(mesh):
+    if mesh is not None:
+        raise NotImplementedError(
+            f"the port runs the LM on one device without a mesh; sharded "
+            f"layouts are {LATER['mesh']}")
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -26,9 +42,17 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 
 
 def normal(gen, shape, scale, dtype, device):
-    """N(0, 1) * scale drawn in float32, then cast (as the JAX init)."""
-    x = torch.randn(tuple(shape), generator=gen, dtype=F32, device=device)
-    return x.mul_(scale).to(dtype)
+    """N(0, 1) * scale drawn in float32, then cast (as the JAX init); above
+    ``SLICE_ELEMENTS`` a leading slice at a time, so that no float32 copy
+    of the whole leaf is held."""
+    shape = tuple(shape)
+    if gen is None or math.prod(shape) <= SLICE_ELEMENTS:
+        x = torch.randn(shape, generator=gen, dtype=F32, device=device)
+        return x.mul_(scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for i in range(shape[0]):
+        out[i] = normal(gen, shape[1:], scale, dtype, device)
+    return out
 
 
 def ones(shape, device):
@@ -107,13 +131,20 @@ def apply_rope(x, positions, cfg: ModelConfig):
     return torch.cat([y1.to(x.dtype), y2.to(x.dtype), xp], dim=-1)
 
 
+def sinusoidal_at(positions, d: int):
+    """Rows ``positions`` (an integer tensor, read on its device) of the
+    whisper-style sinusoidal table: (..., d) float32, computed in float64
+    as the reference's numpy table is, then rounded (no copy from the
+    host, so a decode step never waits for one)."""
+    f64 = torch.float64
+    i = torch.arange(d // 2, dtype=f64, device=positions.device)
+    ang = positions.to(f64)[..., None] / torch.pow(10_000.0, 2 * i / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(F32)
+
+
 def sinusoidal_positions(seq: int, d: int, device):
     """Whisper-style fixed sinusoidal embeddings (seq, d) in float32."""
-    pos = np.arange(seq)[:, None]
-    i = np.arange(d // 2)[None, :]
-    ang = pos / np.power(10_000.0, 2 * i / d)
-    emb = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
-    return torch.from_numpy(emb.astype(np.float32)).to(device)
+    return sinusoidal_at(torch.arange(seq, device=device), d)
 
 
 # ---------------------------------------------------------------- MLP

@@ -2,13 +2,13 @@
 prefill / decode, and ``input_specs`` / ``decode_state_specs`` /
 ``param_specs`` as tensors on the ``meta`` device (no allocation).
 
-The port of the JAX package's ``repro/models/model.py`` for the dense, vlm
-and hybrid families. ``init(seed, device=None)`` runs on the card unless the
-caller names another device (``device.resolve_device``); the other entry
-points run where the params lie. ``loss`` is the forward pass and its
-cross-entropy only: training, with its backward, is ROADMAP Queue 1 item
-14e. The moe, ssm and audio families raise ``NotImplementedError`` naming
-their items.
+The port of the JAX package's ``repro/models/model.py`` for every family
+(dense, vlm, hybrid, moe, ssm, and the audio encoder-decoder, whose batch
+carries ``frames``). ``init(seed, device=None)`` runs on the card unless
+the caller names another device (``device.resolve_device``); the other
+entry points run where the params lie. ``loss`` is the forward pass, its
+cross-entropy and the MoE aux term only: training, with its backward, is
+ROADMAP Queue 1 item 14e.
 """
 from __future__ import annotations
 
@@ -20,11 +20,12 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import decode as decode_lib
+from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import dtype_of
 
 AUX_WEIGHT = 0.01  # MoE load-balance loss weight
-FAMILIES = ("dense", "vlm", "hybrid")
+FAMILIES = ("dense", "vlm", "hybrid", "moe", "ssm", "audio")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,11 +47,6 @@ def _split_batch(cfg: ModelConfig, batch: Dict[str, Any]):
 
 
 def _check_family(cfg: ModelConfig):
-    if cfg.family == "moe" or cfg.moe:
-        raise NotImplementedError(f"the moe family is {tfm.LATER['moe']}")
-    if cfg.family in ("ssm", "audio"):
-        raise NotImplementedError(
-            f"the {cfg.family} family is {tfm.LATER[cfg.family]}")
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
 
@@ -61,11 +57,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     dev = resolve_device(device)
     gen = None if dev.type == "meta" else \
         torch.Generator(device=dev).manual_seed(seed)
+    if cfg.family == "audio":
+        return encdec_lib.init_params(gen, cfg, dev)
     return tfm.init_params(gen, cfg, dev)
 
 
 def build_model(cfg: ModelConfig) -> ModelAPI:
     _check_family(cfg)
+    if cfg.family == "audio":
+        return _build_encdec(cfg)
 
     def init(seed=0, device=None):
         return init_params(cfg, seed, device)
@@ -89,6 +89,31 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
 
     def dstate(batch, max_seq, device=None):
         return decode_lib.init_decode_state(cfg, batch, max_seq,
+                                            resolve_device(device))
+
+    return ModelAPI(cfg, init, loss, prefill, dstep, dstate)
+
+
+def _build_encdec(cfg: ModelConfig) -> ModelAPI:
+    def init(seed=0, device=None):
+        return init_params(cfg, seed, device)
+
+    def loss(params, batch, mesh=None):
+        logits, aux = encdec_lib.forward(params, cfg, batch["frames"],
+                                         batch["tokens"], mesh=mesh)
+        ce = tfm.cross_entropy(logits[:, :-1, :], batch["tokens"][:, 1:])
+        return ce, {"ce": ce, "aux": aux}
+
+    def prefill(params, batch, mesh=None, pad_cache_to=0):
+        return encdec_lib.prefill(params, cfg, batch["frames"],
+                                  batch["tokens"], mesh=mesh,
+                                  pad_cache_to=pad_cache_to)
+
+    def dstep(params, state, tokens, mesh=None):
+        return encdec_lib.decode_step(params, cfg, state, tokens, mesh=mesh)
+
+    def dstate(batch, max_seq, device=None):
+        return encdec_lib.init_decode_state(cfg, batch, max_seq,
                                             resolve_device(device))
 
     return ModelAPI(cfg, init, loss, prefill, dstep, dstate)

@@ -1,13 +1,13 @@
-"""Decoder-only LM assembled from blocks (attn / rglru), full-sequence form.
+"""Decoder-only LM assembled from blocks (attn / moe / mlstm / slstm /
+rglru), full-sequence form.
 
-The port of the JAX package's ``repro/models/transformer.py`` for the dense,
-vlm and hybrid families. Uniform attention configs keep JAX's stacked layout
-(``layers_stacked``: every leaf with a leading L axis) and loop over it in
-Python; heterogeneous patterns keep a list (``layers``). One device and no
-mesh: the sharding constraints of the JAX module drop out, and a ``mesh``
-raises (the sharded paths are ROADMAP Queue 1 item 14f). Not here yet:
-``_remat`` and training (item 14e), ``vocab_parallel_cross_entropy``
-(14f), the moe block (14b), the xLSTM blocks (14c).
+The port of the JAX package's ``repro/models/transformer.py``. Uniform
+attention configs keep JAX's stacked layout (``layers_stacked``: every leaf
+with a leading L axis, the MoE leaves too) and loop over it in Python;
+heterogeneous patterns keep a list (``layers``). One device and no mesh:
+the sharding constraints of the JAX module drop out, and a ``mesh`` raises
+(the sharded paths are ROADMAP Queue 1 item 14f). Not here yet: ``_remat``
+and training (item 14e), ``vocab_parallel_cross_entropy`` (14f).
 """
 from __future__ import annotations
 
@@ -15,29 +15,17 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (apply_mlp, apply_norm, apply_rope,
                                        dtype_of, embed_tokens,
                                        init_embedding, init_lm_head,
-                                       init_mlp, init_norm, lm_logits, normal,
-                                       ones, sinusoidal_positions, zeros)
+                                       init_mlp, init_norm, lm_logits, no_mesh,
+                                       normal, ones, sinusoidal_positions,
+                                       zeros)
 
 F32 = torch.float32
-
-# the JAX package's families and blocks that later slices port
-LATER = {"moe": "ROADMAP Queue 1 item 14b (moe.py)",
-         "ssm": "ROADMAP Queue 1 item 14c (ssm.py / xlstm)",
-         "mlstm": "ROADMAP Queue 1 item 14c (ssm.py / xlstm)",
-         "slstm": "ROADMAP Queue 1 item 14c (ssm.py / xlstm)",
-         "audio": "ROADMAP Queue 1 item 14d (encdec.py / whisper)",
-         "mesh": "ROADMAP Queue 1 item 14f (the sharded paths)"}
-
-
-def no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            f"the port runs the LM on one device without a mesh; sharded "
-            f"layouts are {LATER['mesh']}")
 
 
 def stacked(cfg: ModelConfig) -> bool:
@@ -68,8 +56,12 @@ def init_attn_weights(gen, cfg: ModelConfig, d: int, device, lead=()):
 
 
 def init_layer(gen, cfg: ModelConfig, kind: str, device, lead=()):
-    if kind in ("mlstm", "slstm"):
-        raise NotImplementedError(f"{kind} blocks are {LATER[kind]}")
+    if kind == "mlstm":
+        return {"kind_mlstm": ssm_lib.init_mlstm(gen, cfg, cfg.d_model,
+                                                 device, lead)}
+    if kind == "slstm":
+        return {"kind_slstm": ssm_lib.init_slstm(gen, cfg, cfg.d_model,
+                                                 device, lead)}
     p = {"ln2": init_norm(cfg, cfg.d_model, device, lead)}
     if kind == "attn":
         p["ln1"] = init_norm(cfg, cfg.d_model, device, lead)
@@ -81,8 +73,10 @@ def init_layer(gen, cfg: ModelConfig, kind: str, device, lead=()):
         raise ValueError(kind)
     if cfg.d_ff:
         if cfg.moe and kind == "attn":
-            raise NotImplementedError(f"MoE layers are {LATER['moe']}")
-        p["mlp"] = init_mlp(gen, cfg, cfg.d_model, cfg.d_ff, device, lead)
+            p["moe"] = moe_lib.init_moe(gen, cfg, cfg.d_model, device, lead)
+        else:
+            p["mlp"] = init_mlp(gen, cfg, cfg.d_model, cfg.d_ff, device,
+                                lead)
     return p
 
 
@@ -168,8 +162,12 @@ def attn_block_full(p, cfg: ModelConfig, x, positions):
 
 
 def ffn_block(p, cfg: ModelConfig, x, mesh=None):
-    no_mesh(mesh)
+    """x + the layer's MLP or MoE of its norm; (x, aux)."""
     h = apply_norm(cfg, p["ln2"], x)
+    if "moe" in p:
+        y, aux = moe_lib.apply_moe(p["moe"], cfg, h, mesh=mesh)
+        return x + y, aux
+    no_mesh(mesh)
     return x + apply_mlp(p["mlp"], cfg, h), torch.zeros((), dtype=F32,
                                                         device=x.device)
 
@@ -177,12 +175,16 @@ def ffn_block(p, cfg: ModelConfig, x, mesh=None):
 def apply_layer_full(p, cfg: ModelConfig, kind: str, x, positions,
                      mesh=None):
     """One layer, full-sequence. Returns (x, aux)."""
+    if kind in ("mlstm", "slstm"):
+        scan = ssm_lib.mlstm_scan if kind == "mlstm" else ssm_lib.slstm_scan
+        return scan(p["kind_" + kind], cfg, x), torch.zeros(
+            (), dtype=F32, device=x.device)
     if kind == "attn":
         x = attn_block_full(p, cfg, x, positions)
     elif kind == "rglru":
         x = rglru_lib.rglru_forward(p["rec"], cfg, x)  # block owns its norm
     else:
-        raise NotImplementedError(f"{kind} blocks are {LATER.get(kind)}")
+        raise ValueError(kind)
     if cfg.d_ff:
         return ffn_block(p, cfg, x, mesh)
     return x, torch.zeros((), dtype=F32, device=x.device)

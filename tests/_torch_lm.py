@@ -23,7 +23,8 @@ from repro_torch.configs import get_smoke_config as tget
 from repro_torch.models import build_model as tbuild
 
 SERVED = ("qwen2-7b", "qwen3-14b", "starcoder2-15b", "chatglm3-6b",
-          "llava-next-34b", "recurrentgemma-2b")
+          "llava-next-34b", "recurrentgemma-2b", "moonshot-v1-16b-a3b",
+          "arctic-480b", "xlstm-125m", "whisper-base")
 F32_TOL = 2e-3
 
 
@@ -35,30 +36,38 @@ def configs(arch, **kw):
     return jget(arch).replace(**kw), tget(arch).replace(**kw)
 
 
+EMBEDS = ("patch_embeds", "frames")
+
+
 def inputs(cfg, batch, seq, seed=0):
-    """numpy tokens (batch, seq) and, for the vlm, patch embeddings."""
+    """numpy tokens (batch, seq) and, for the vlm, patch embeddings; for
+    the audio model, frame embeddings (the stub frontend's output)."""
     rng = np.random.default_rng(seed)
     out = {"tokens": rng.integers(0, cfg.vocab_size, (batch, seq)).astype(
         np.int32)}
     if cfg.family == "vlm":
         out["patch_embeds"] = rng.normal(
             size=(batch, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        out["frames"] = rng.normal(
+            size=(batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
     return out
 
 
 def jax_batch(arrays, cfg, seq=None):
     out = {"tokens": jnp.asarray(arrays["tokens"][:, :seq])}
-    if "patch_embeds" in arrays:
-        out["patch_embeds"] = jnp.asarray(arrays["patch_embeds"]).astype(
-            cfg.dtype)
+    for k in EMBEDS:
+        if k in arrays:
+            out[k] = jnp.asarray(arrays[k]).astype(cfg.dtype)
     return out
 
 
 def torch_batch(arrays, cfg, seq=None, device="cpu"):
     out = {"tokens": torch.from_numpy(arrays["tokens"][:, :seq]).to(device)}
-    if "patch_embeds" in arrays:
-        out["patch_embeds"] = torch.from_numpy(arrays["patch_embeds"]).to(
-            device=device, dtype=getattr(torch, cfg.dtype))
+    for k in EMBEDS:
+        if k in arrays:
+            out[k] = torch.from_numpy(arrays[k]).to(
+                device=device, dtype=getattr(torch, cfg.dtype))
     return out
 
 
@@ -76,7 +85,7 @@ def serve_both(arch, dtype, prompt=12, steps=3, seed=0, **kw):
     first decode step from JAX's prefill state carried across
     (``convert.lm_state_from_numpy``). Returns {"prefill": (port, jax),
     "decode": [(port, jax), ...], "injected": (port, jax), "loss": ...,
-    "state": ...}."""
+    "aux": ..., "state": ...}."""
     jcfg, tcfg = configs(arch, dtype=dtype, **kw)
     japi, tapi = jbuild(jcfg), tbuild(tcfg)
     jp = jax.jit(japi.init)(jax.random.key(seed))
@@ -100,9 +109,10 @@ def serve_both(arch, dtype, prompt=12, steps=3, seed=0, **kw):
         if i == 0:
             out["injected"] = (tapi.decode_step(
                 tp, injected, torch.from_numpy(tok))[0], jl)
-    out["loss"] = (tapi.loss(tp, torch_batch(arr, tcfg))[0],
-                   jax.jit(lambda p, b: japi.loss(p, b)[0])(
-                       jp, jax_batch(arr, jcfg)))
+    tloss, tm = tapi.loss(tp, torch_batch(arr, tcfg))
+    jloss, jm = jax.jit(japi.loss)(jp, jax_batch(arr, jcfg))
+    out["loss"] = (tloss, jloss)
+    out["aux"] = (tm["aux"], jm["aux"])
     out["state"] = (ts, js)
     return out
 

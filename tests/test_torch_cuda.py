@@ -17,6 +17,7 @@ plain version (one bf16 ulp of the output plus the spread of the p
 roundings): a fixed 2e-2 would be as large as the output at long rows."""
 import dataclasses
 import functools
+import os
 import sys
 
 import pytest
@@ -2021,13 +2022,17 @@ def test_lm_full_width_layers_fused_against_reference(dev, arch, layers, s):
     assert float((f_next.float() - r_next.float()).abs().max()) <= tol
 
 
-@pytest.mark.parametrize("arch,kw", [("qwen2-7b", {"scan_layers": True}),
-                                     ("recurrentgemma-2b", {})])
+@pytest.mark.parametrize("arch,kw", [
+    ("qwen2-7b", {"scan_layers": True}), ("recurrentgemma-2b", {}),
+    ("moonshot-v1-16b-a3b", {"scan_layers": True}), ("arctic-480b", {}),
+    ("xlstm-125m", {}), ("whisper-base", {})])
 def test_lm_decode_step_without_host_wait(dev, arch, kw):
     """A decode step (stacked caches; the RG-LRU states and a ring past its
-    window) runs under ``set_sync_debug_mode("error")``: ``pos`` stays on
-    the device, the cache write and the masks read it there. ``init``
-    lands on the card by default."""
+    window; the MoE dispatch's sorts, scatter and gather; the xLSTM
+    states; whisper's position row and cross-attention) runs under
+    ``set_sync_debug_mode("error")``: ``pos`` stays on the device, the
+    cache write, the masks and the position embedding read it there.
+    ``init`` lands on the card by default."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch import serve_lm
     from repro_torch.models import build_model
@@ -2051,13 +2056,123 @@ def test_lm_decode_step_without_host_wait(dev, arch, kw):
 
 
 def test_lm_serve_driver_on_the_card(dev, capsys):
-    """``repro_torch.launch.serve_lm`` on its default device: qwen3-14b
-    and recurrentgemma-2b served (K9 on their 2 + 1 prefill attention
-    layers), xlstm-125m and whisper-base named as later slices."""
+    """``repro_torch.launch.serve_lm`` on its default device: the example's
+    four architectures served, K9 on each prefill attention: qwen3-14b 2,
+    recurrentgemma-2b 1, xlstm-125m 0, whisper-base 6 (2 encoder, 2
+    decoder self, 2 cross)."""
     from repro_torch.launch import serve_lm
     _build.reset_launch_counts()
     assert serve_lm.main([]) == 0
-    assert _build.launch_counts()["flash_attention"] == 3
+    assert _build.launch_counts()["flash_attention"] == 9
     lines = capsys.readouterr().out.splitlines()
-    assert "4x24+12" in lines[0] and "4x24+12" in lines[1]
-    assert "not ported yet" in lines[2] and "not ported yet" in lines[3]
+    assert [x.split()[0] for x in lines] == list(serve_lm.EXAMPLE_ARCHS)
+    assert all("4x24+12" in x for x in lines)
+
+
+@pytest.mark.parametrize("b,h,d,sq,skv,causal", [
+    (2, 8, 64, 1500, 1500, False),    # whisper-base's encoder
+    (2, 8, 64, 64, 1500, False),      # its cross-attention, a 64-token prompt
+    (2, 8, 64, 64, 64, True)])        # its decoder's self-attention
+def test_lm_chunked_attention_k9_at_whisper_shapes(dev, b, h, d, sq, skv,
+                                                   causal):
+    """The encoder-decoder's three attentions, as ``encdec._mha`` calls
+    them (no positions): one K9 wgmma launch each, within
+    ``bf16_error_bound`` of K9's plain version on the pre-scaled q, as the
+    reference lowering is (chunks of 750 over 1,500 keys)."""
+    from repro_torch.models import attention as attn
+    g = torch.Generator(device=dev).manual_seed(sq + skv)
+    q = torch.randn((b, h, sq, d), generator=g, device=dev).bfloat16()
+    k = torch.randn((b, h, skv, d), generator=g, device=dev).bfloat16()
+    v = torch.randn((b, h, skv, d), generator=g, device=dev).bfloat16()
+    fa.device_launches(reset=True)
+    got = attn.chunked_attention(q, k, v, causal=causal)
+    assert fa.device_launches(reset=True) == {
+        "wgmma_bf16": 1, "mma_sync_bf16": 0, "ffma_f32": 0}
+    ref = attn.chunked_attention(q, k, v, causal=causal, impl="reference")
+    pre = attn.prescale(q)
+    plain = fa.flash_attention_plain(pre, k, v, causal=causal, scale=1.0)
+    lim = fa.bf16_error_bound(plain, pre, k, v, causal=causal, scale=1.0)
+    assert bool(((got.float() - plain.float()).abs() <= lim).all())
+    assert bool(((ref.float() - plain.float()).abs() <= lim).all())
+
+
+def _routing():
+    """``chip_smoke._Routing``, unpinned: it records the port's
+    ``moe.topk_routing`` calls, (expert ids, router logits, ids) each."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(root)
+    return chip_smoke._Routing()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_arctic_smoke_fused_against_reference(dev, dtype):
+    """arctic-480b's smoke config (2 layers, 128 -> 8 experts top-2 with
+    the dense residual, 4/2 GQA heads of 16) on the card, prefill and two
+    decode steps, fused (K9 on both prefill attention layers) against the
+    reference lowering with the same params: the expert ids layer by
+    layer, every flip a near-tie of the reference's router logits (gap
+    below twice the layer's largest fused - reference logit difference),
+    and the logits of the rows without a flip (and, where slots were
+    dropped, before the first flipped row) within twice the
+    reference's error against its float32 evaluation (float32: 2e-3)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import build_model
+    cfg = get_smoke_config("arctic-480b").replace(dtype=dtype)
+    api = build_model(cfg)
+    ref = build_model(cfg.replace(attention_impl="reference"))
+    params = api.init(0, device=dev)
+    batch = serve_lm.make_batch(cfg, 4, 40, dev)
+
+    def serve(a):
+        logits, state = a.prefill(params, batch, pad_cache_to=43)
+        out = [logits]
+        for i in range(2):                  # the same tokens for both
+            logits, state = a.decode_step(params, state,
+                                          batch["tokens"][:, i])
+            out.append(logits)
+        return out
+    _build.reset_launch_counts()
+    fa.device_launches(reset=True)
+    with _routing() as f_rec:
+        f_out = serve(api)
+    assert _build.launch_counts()["flash_attention"] == 2
+    assert sum(fa.device_launches(reset=True).values()) == 2
+    with _routing() as r_rec:
+        r_out = serve(ref)
+    f_calls, r_calls = f_rec.calls, r_rec.calls
+    assert _build.launch_counts()["flash_attention"] == 2
+    assert len(f_calls) == len(r_calls) == 3 * cfg.num_layers
+    from repro_torch.models import moe
+    flipped_rows = set()
+    for (fe, fl, _), (re_, rl, _) in zip(f_calls, r_calls):
+        t = fe.shape[0]
+        per_row = t // 4
+        noise = float((fl - rl).abs().max())
+        cap = moe._capacity(t, cfg.top_k, cfg.num_experts,
+                            cfg.capacity_factor)
+        drops = any(bool((moe.positions_within(e.reshape(-1).long(),
+                                               cfg.num_experts) >= cap).any())
+                    for e in (fe, re_))
+        for tok in torch.nonzero((fe != re_).any(1)).flatten().tolist():
+            srt = torch.sort(rl[tok], descending=True).values
+            r0 = int(torch.nonzero(fe[tok] != re_[tok])[0])
+            assert float(srt[r0] - srt[r0 + 1]) <= 2 * noise
+            # under dropped slots a flip moves the later rows' slots too
+            flipped_rows.update(range(tok // per_row, 4) if drops
+                                else [tok // per_row])
+    keep = [r for r in range(4) if r not in flipped_rows]
+    assert keep
+    if dtype == "float32":
+        tol = 2e-3
+    else:
+        l32, _ = build_model(cfg.replace(
+            dtype="float32", attention_impl="reference")).prefill(
+            _lm_f32(params), batch, pad_cache_to=43)
+        tol = 2.0 * float((r_out[0].float() - l32).abs().max())
+    for f, r in zip(f_out, r_out):
+        assert float((f[keep].float() - r[keep].float()).abs().max()) <= tol

@@ -2,8 +2,10 @@
 package's ``examples/serve_lm.py``: the example runs as it is (its
 ``jnp`` wrapped so that the test reads every argmax's logits and the
 stacked tokens), and the port serves the same arch from the example's own
-params (``api.init(jax.random.key(0))``, carried across) and prompt
-(``jax.random.randint(jax.random.key(1), ...)``), on the CPU in bf16.
+params (``api.init(jax.random.key(0))``, carried across), prompt
+(``jax.random.randint(jax.random.key(1), ...)``) and, for whisper-base,
+frames (``jax.random.normal`` from the same key), on the CPU in bf16, for
+each of the example's four architectures.
 
 Greedy tokens must be equal; where a row's tokens first differ, the
 example's logits there must be a near-tie (top-2 gap under the bf16 logits
@@ -55,7 +57,7 @@ def example():
     return mod
 
 
-@pytest.mark.parametrize("arch", ["qwen3-14b", "recurrentgemma-2b"])
+@pytest.mark.parametrize("arch", serve_lm.EXAMPLE_ARCHS)
 def test_serve_matches_the_example(arch, example, monkeypatch, capsys):
     rec = _Recorder()
     monkeypatch.setattr(example, "jnp", rec)
@@ -63,13 +65,19 @@ def test_serve_matches_the_example(arch, example, monkeypatch, capsys):
     line = capsys.readouterr().out
     cfg = jget(arch)
     params = jbuild(cfg).init(jax.random.key(0))
-    prompt = jax.random.randint(jax.random.key(1), (4, 24), 0,
-                                cfg.vocab_size)
+    key = jax.random.key(1)
+    prompt = jax.random.randint(key, (4, 24), 0, cfg.vocab_size)
+    batch = {"tokens": torch.from_numpy(np.array(prompt))}
+    if cfg.family == "audio":          # the example's frames, same key
+        frames = jax.random.normal(key, (4, cfg.encoder_seq, cfg.d_model),
+                                   jnp.bfloat16)
+        batch["frames"] = convert.lm_params_from_numpy(
+            {"f": jax.device_get(frames)}, device="cpu")["f"]
     toks = serve_lm.serve(
         arch, device="cpu",
         params=convert.lm_params_from_numpy(jax.device_get(params),
                                             device="cpu"),
-        batch={"tokens": torch.from_numpy(np.array(prompt))})
+        batch=batch)
     out = capsys.readouterr().out
     assert toks.shape == (4, 12) and rec.tokens.shape == (4, 12)
     assert f"sample={rec.tokens[0, :6].tolist()}" in line
@@ -84,9 +92,9 @@ def test_serve_matches_the_example(arch, example, monkeypatch, capsys):
 
 
 def test_main_serves_the_ported_archs_and_names_the_rest(capsys):
+    """All four of the example's architectures are ported and served."""
     assert serve_lm.main(["--device", "cpu", "--batch", "2", "--prompt",
                           "8", "--gen", "3"]) == 0
     lines = capsys.readouterr().out.splitlines()
     assert [x.split()[0] for x in lines] == list(serve_lm.EXAMPLE_ARCHS)
-    assert "2x8+3" in lines[0] and "2x8+3" in lines[1]
-    assert "item 14c" in lines[2] and "item 14d" in lines[3]
+    assert all("2x8+3" in x and "sample=" in x for x in lines)

@@ -10,7 +10,8 @@ generators differ, and a leaf of 512 draws estimates its spread within
 about 6 %). Inside the port: prefill + decode logits equal the full
 forward's at the same positions (2e-3 in float32, JAX's own test; eight
 bf16 ulps at the logits' scale in bf16), through a ring window that the
-prompt and the decode pass. Families that later slices port raise.
+prompt and the decode pass, for every family (the MoE at JAX's ample
+capacity). The MoE's sharded strategies raise naming their item.
 """
 import jax
 import numpy as np
@@ -28,10 +29,11 @@ from repro.models import build_model as jbuild
 from repro.models import model as jmodel
 from repro_torch import convert
 from repro_torch.configs import (ARCH_IDS, SHAPES, applicable_shapes,
-                                 get_config, get_shape, get_smoke_config,
-                                 supports_long_context)
+                                 get_config, get_shape, supports_long_context)
+from repro_torch.configs import get_smoke_config as tget
 from repro_torch.models import build_model, model as tmodel
 from repro_torch.models import decode as tdecode
+from repro_torch.models import encdec as tencdec
 from repro_torch.models import transformer as ttfm
 
 
@@ -129,27 +131,37 @@ def test_init_matches_jax_tree_and_scales(arch):
     assert torch.equal(got[k], again[k]) and not torch.equal(got[k], other[k])
 
 
-SELF_CASES = [(a, {}) for a in SERVED] + [
+# ample MoE capacity, as JAX's own test: capacity buckets quantise with the
+# token count, so the prefill, the steps and the forward drop other slots
+SELF_CASES = [(a, {"capacity_factor": 8.0} if "moe" in tget(a).family
+               else {}) for a in SERVED] + [
     ("qwen2-7b", {"scan_layers": True, "attn_window": 8})]
+
+
+def _forward(params, cfg, batch):
+    if cfg.family == "audio":
+        return tencdec.forward(params, cfg, batch["frames"], batch["tokens"])
+    return ttfm.forward(params, cfg, batch["tokens"],
+                        extra_embeds=batch.get("patch_embeds"))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch,kw", SELF_CASES,
-                         ids=[a + ("-stacked-window" if kw else "")
-                              for a, kw in SELF_CASES])
+                         ids=[a + ("-stacked-window" if "attn_window" in kw
+                                   else "") for a, kw in SELF_CASES])
 def test_prefill_and_decode_match_forward(arch, kw, dtype):
     """JAX's ``test_prefill_decode_match_forward`` inside the port, over 6
     decode steps: a 20-token prompt passes recurrentgemma's window of 16
     and the stacked variant's window of 8, so the ring is rolled at the
-    prefill and wraps while decoding."""
+    prefill and wraps while decoding; the xLSTM states carry from the
+    scans into the steps; whisper's decoder reads the encoded frames."""
     _, cfg = configs(arch, dtype=dtype, **kw)
     api = build_model(cfg)
     params = api.init(3, device="cpu")
     t, steps = 20, 6
     arr = inputs(cfg, 2, t + steps, seed=5)
     full = torch_batch(arr, cfg)
-    extra = full.get("patch_embeds")
-    logits, _ = ttfm.forward(params, cfg, full["tokens"], extra_embeds=extra)
+    logits, _ = _forward(params, cfg, full)
     n_extra = cfg.num_patches if cfg.family == "vlm" else 0
     p_logits, state = api.prefill(params, torch_batch(arr, cfg, t),
                                   pad_cache_to=n_extra + t + steps)
@@ -215,13 +227,26 @@ def test_converters_round_trip_bf16_bits():
     assert _flat(st).keys() == _flat(state).keys()
 
 
-@pytest.mark.parametrize("arch,item", [("moonshot-v1-16b-a3b", "14b"),
-                                       ("arctic-480b", "14b"),
-                                       ("xlstm-125m", "14c"),
-                                       ("whisper-base", "14d")])
-def test_later_families_raise_naming_their_item(arch, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        build_model(get_smoke_config(arch))
+@pytest.mark.parametrize("strategy", ["move_data", "move_compute"])
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "arctic-480b"])
+def test_moe_on_a_mesh_raises_naming_its_item(arch, strategy):
+    """The moe family is served; its sharded strategies wait for item 14f:
+    ``apply_moe`` under a mesh raises naming the strategy and the item,
+    the model's prefill too."""
+    from repro_torch.models import moe as tmoe
+    _, cfg = configs(arch, dtype="float32")
+    cfg = cfg.replace(parallel=cfg.parallel.replace(moe_strategy=strategy))
+    api = build_model(cfg)
+    params = api.init(0, device="cpu")
+    p = ttfm.layer_params(params, 0)["moe"]
+    x = torch.zeros((1, 4, cfg.d_model))
+    with pytest.raises(NotImplementedError, match=f"{strategy}.*item 14f"):
+        tmoe.apply_moe(p, cfg, x, mesh=object())
+    with pytest.raises(NotImplementedError, match="item 14f"):
+        api.prefill(params, {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
+                    mesh=object())
+    y, aux = tmoe.apply_moe(p, cfg, x)          # no mesh: moe_local
+    assert y.shape == x.shape and float(aux) > 0.0
 
 
 def test_a_mesh_raises_and_the_lowering_is_checked():
