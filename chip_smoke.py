@@ -83,7 +83,21 @@ neurons, S=32):
   a second run bitwise equal, a decode step with no host wait, K9 at each
   model's attention shapes against its plain version; prefill ms, decode
   ms a step, tokens a second and peak GB beside their bounds, a profiled
-  decode step.
+  decode step;
+- the LM training path (``lm_train_path``, a process of its own):
+  ``launch/train.py::build_everything(get_config("qwen2-7b"), None, 1,
+  4096)`` at full width and depth, bf16, ``remat="full"``, a bf16 AdamW
+  state, its train step (``launch/steps.py::make_train_step``) a warm-up
+  and five timed steps: K9 forward with its logsumexp 56 times a step (28,
+  and 28 recomputed) and K9's backward (``csrc/flash_attention_bwd.cu``)
+  28 times, counted in the sources; the loss fused against the reference
+  lowering within twice the reference's error against float32, every
+  leaf's gradient so at 2 layers, a second run from the seed bitwise
+  (losses, params, m and v), K9's backward at qwen2-7b's,
+  recurrentgemma-2b's and whisper-base's shapes and one f32 shape within
+  twice the plain version's error against float64; step ms, tokens a
+  second, the share of the bf16 peak, the step's split, peak GB and a
+  profiled step.
 
 For the kernel API and each path it checks the kernels really ran there (the
 launch counts are set to 0 just before and read just after; for K9, which of
@@ -104,6 +118,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -4075,6 +4090,420 @@ def lm_child(arch: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------- LM training
+# the training cell: arch, batch, sequence (train_4k's 4,096 tokens, the
+# batch cut from 256 to the 1 a card holds)
+TRAIN_CELL = ("qwen2-7b", 1, 4096)
+TRAIN_WARMUP = 1
+TRAIN_STEPS = 5          # timed, after the warm-up
+TRAIN_TIMEOUT_S = 600
+# K9's backward at the models' shapes: (label, B, Hq, Hkv, Sq, Skv, D,
+# dtype, causal, window)
+BWD_SHAPES = (
+    ("qwen2-7b", 1, 28, 4, 4096, 4096, 128, "bfloat16", True, 0),
+    ("recurrentgemma-2b local", 1, 10, 1, 4096, 4096, 256, "bfloat16", True,
+     2048),
+    ("whisper-base encoder", 16, 8, 8, 1500, 1500, 64, "bfloat16", False, 0),
+    ("whisper-base cross", 16, 8, 8, 64, 1500, 64, "bfloat16", False, 0),
+    ("qwen2-7b f32", 1, 28, 4, 1024, 1024, 128, "float32", True, 0),
+)
+
+
+def _bwd_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """Valid (q, k) pairs of one head (top-left positions)."""
+    if causal:
+        return attention_pairs(sq, skv, window)
+    return sq * skv
+
+
+def _sdpa_bwd_ms(q, k, v, do, causal: bool, window: int) -> float:
+    """SDPA's backward alone (``torch.autograd.grad`` of one forward,
+    retained), the library's time for K9's backward; a window as a boolean
+    mask."""
+    import torch
+    import torch.nn.functional as F
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    mask = None
+    if window:
+        qp = torch.arange(q.shape[2], device=q.device)[:, None]
+        kp = torch.arange(k.shape[2], device=q.device)[None, :]
+        mask = (kp <= qp) & (qp - kp < window)
+    out = F.scaled_dot_product_attention(
+        *leaves, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=q.shape[1] != k.shape[1])
+    return cuda_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                               retain_graph=True), 5)
+
+
+def k9_bwd_check(label, b, hq, hkv, sq, skv, d, dtype, causal, window):
+    """K9's backward at one shape: dq, dk, dv each within twice the plain
+    version's own error against its float64 evaluation
+    (``flash_attention.bwd_tolerance``), a second call bitwise equal, its
+    device launches those ``bwd_launches_per_call`` names; call ms, device
+    ms, the plain version's ms, SDPA's backward ms and the bound (five
+    products of 2 D flops a valid pair and head at the dtype's peak, or
+    q, k, v, dO, lse read and dq, dk, dv written once)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=DEV).manual_seed(sq + skv + d)
+    q, do = (torch.randn(b, hq, sq, d, generator=g, device=DEV).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn(b, hkv, skv, d, generator=g, device=DEV).to(dt)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window)
+    _, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    fa.bwd_device_launches(reset=True)
+    got = fa.flash_attention_bwd(q, k, v, lse, do, **kw)
+    torch.cuda.synchronize()
+    ran = fa.bwd_device_launches(reset=True)
+    if sum(ran.values()) != fa.bwd_launches_per_call(dt, d):
+        fail(f"K9 backward {label}: device launches {ran}")
+    again = fa.flash_attention_bwd(q, k, v, lse, do, **kw)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        fail(f"K9 backward {label}: a second call differs")
+    del again
+    exact, tol = fa.bwd_tolerance(q, k, v, do, **kw)
+    errs = [float((x.double() - e).abs().max()) for x, e in zip(got, exact)]
+    del exact
+    for name, e, t in zip(("dq", "dk", "dv"), errs, tol):
+        if not e <= t:
+            fail(f"K9 backward {label}: {name} error {e} above {t} (twice "
+                 f"the plain version's own)")
+    torch.cuda.empty_cache()
+    call = lambda: fa.flash_attention_bwd(q, k, v, lse, do, **kw)  # noqa
+    ms = cuda_ms(call, 5)
+    dev_ms = device_ms(call, 5)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_plain_bwd(
+        q, k, v, do, **kw), 2, warmup=1)
+    torch.cuda.empty_cache()
+    lib_ms = _sdpa_bwd_ms(q, k, v, do, causal, window)
+    el = q.element_size()
+    nbytes = el * (3 * q.numel() + 2 * k.numel() + 2 * v.numel()) + \
+        4 * lse.numel()
+    ops = 5 * 2 * d * _bwd_pairs(sq, skv, causal, window) * hq * b
+    bms, by = bound(nbytes, fp_ops=ops, fp_ops_per_s=(
+        H100_BF16_OPS_PER_S if dtype == "bfloat16" else H100_FP32_OPS_PER_S))
+    out = {"label": label, "shape": {"B": b, "Hq": hq, "Hkv": hkv, "Sq": sq,
+                                     "Skv": skv, "D": d, "dtype": dtype,
+                                     "causal": causal, "window": window},
+           "max_abs_err": max(errs), "err": dict(zip(("dq", "dk", "dv"),
+                                                     errs)),
+           "tolerance": dict(zip(("dq", "dk", "dv"), tol)),
+           "device_launches_per_call": ran, "ms": ms, "device_ms": dev_ms,
+           "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
+           "bound_by": by}
+    del q, k, v, do, lse, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fingerprint(tree) -> list:
+    """Each leaf's bits folded into an int64 (a weighted sum, weights odd
+    and distinct a position, wrapping): equal trees give equal lists, and a
+    difference in one element changes its leaf's entry."""
+    import torch
+    from repro_torch.optim.optimizer import leaves
+    out = []
+    for x in leaves(tree):
+        flat = x.detach().reshape(-1)
+        bits = flat.view(torch.int16 if x.element_size() == 2 else
+                         torch.int32)
+        acc = torch.zeros((), dtype=torch.int64, device=x.device)
+        for i in range(0, bits.numel(), 1 << 26):
+            part = bits[i:i + (1 << 26)].to(torch.int64)
+            w = torch.arange(i, i + part.numel(), dtype=torch.int64,
+                             device=x.device).mul_(2654435761).add_(1)
+            acc += torch.sum(part * (w | 1))
+        out.append(acc)
+    return torch.stack(out).cpu().tolist()
+
+
+def _train_counts():
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    c = _build.launch_counts()
+    return {"forward": c["flash_attention"],
+            "backward_calls": c["flash_attention_bwd"],
+            "forward_device": fa.device_launches(reset=True),
+            "backward_device": fa.bwd_device_launches(reset=True)}
+
+
+def _reset_train_counts():
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    _build.reset_launch_counts()
+    fa.device_launches(reset=True)
+    fa.bwd_device_launches(reset=True)
+
+
+def _train_grads_check(cfg, batch):
+    """Full width, the first 2 layers: every leaf's gradient of the fused
+    model (K9 and its backward) against the reference lowering's (the plain
+    chunked attention, autograd) on the same params, within twice the
+    reference's own error against its float32 evaluation, leaf by leaf."""
+    import torch
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizer import tree_map
+    api = build_model(cfg)
+    params = api.init(0, device=DEV)
+    _reset_train_counts()
+    lf, _, gf = loss_and_grads(api, params, batch)
+    n = _train_counts()
+    if n["forward"] != 2 * cfg.num_layers or \
+            n["backward_device"]["dq_bf16"] != cfg.num_layers:
+        fail(f"lm_train_path: the 2-layer fused step launched {n}")
+    _reset_train_counts()
+    lr, _, gr = loss_and_grads(build_model(cfg.replace(
+        attention_impl="reference")), params, batch)
+    if _train_counts()["forward"]:
+        fail("lm_train_path: the reference lowering launched K9")
+    p32 = tree_map(lambda t: t.detach().float(), params)
+    l32, _, g32 = loss_and_grads(build_model(cfg.replace(
+        dtype="float32", attention_impl="reference")), p32, batch)
+    worst, rows = 0.0, []
+    for (path, a), b, c in zip(_lm_named(gf), _lm_leaves(gr),
+                               _lm_leaves(g32)):
+        tol = 2.0 * float((b.float() - c).abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        if not err <= tol:
+            fail(f"lm_train_path: grad {'/'.join(map(str, path))}: fused - "
+                 f"reference {err} above {tol}")
+        share = err / tol if tol > 0 else 0.0
+        worst = max(worst, share)
+        rows.append({"leaf": "/".join(map(str, path)), "err": err,
+                     "tol": tol})
+    out = {"layers": cfg.num_layers, "loss": [float(lf), float(lr),
+                                              float(l32)],
+           "leaves": len(rows), "worst_share_of_tolerance": worst,
+           "largest": max(rows, key=lambda r: r["err"] / max(r["tol"],
+                                                              1e-30))}
+    del params, gf, gr, g32, p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_run(cfg, batch: int, seq: int, checks: bool):
+    """``build_everything`` and TRAIN_WARMUP + TRAIN_STEPS steps through
+    its train step, each step's K9 launches counted (56 forwards: 28, and
+    28 recomputed under full remat; 28 backward calls); losses, step ms,
+    peak GB and the params' and optimizer state's fingerprint. With
+    ``checks``: before the steps, the loss on the fused, the reference and
+    the float32 lowerings (fused - reference within twice |reference -
+    f32|) and a prefill under ``no_grad`` (28 forwards, no backward); after
+    them, one step split by CUDA events into forward, backward and update,
+    and a profiled step."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.steps import opt_config_for
+    from repro_torch.launch.train import build_everything
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizer import adamw_update, leaves, tree_map
+    n_layers = cfg.num_layers
+    t0 = time.perf_counter()
+    api, params, opt, step, data = build_everything(cfg, None, batch, seq,
+                                                    seed=0, device=DEV)
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0}
+    if checks:
+        probe = TokenPipeline(DataConfig(cfg.vocab_size, seq, batch, seed=0),
+                              device=DEV)
+        b0 = next(probe)
+        probe.close()
+        with torch.no_grad():
+            _reset_train_counts()
+            lf = float(api.loss(params, b0)[0])
+            n = _train_counts()
+            lr = float(build_model(cfg.replace(
+                attention_impl="reference")).loss(params, b0)[0])
+            l32 = float(build_model(cfg.replace(
+                dtype="float32", attention_impl="reference")).loss(
+                _lm_f32_params(params), b0)[0])
+            _reset_train_counts()
+            api.prefill(params, b0)
+            pre = _train_counts()
+        tol = 2.0 * abs(lr - l32)
+        out["loss_check"] = {"fused": lf, "reference": lr, "f32": l32,
+                             "tolerance": tol, "no_grad_loss_launches": n,
+                             "prefill_launches": pre}
+        if not abs(lf - lr) <= tol:
+            fail(f"lm_train_path: fused loss {lf} against reference {lr}: "
+                 f"above {tol}")
+        if pre["forward"] != n_layers or pre["backward_calls"] or \
+                pre["forward_device"]["wgmma_bf16"] != n_layers:
+            fail(f"lm_train_path: a prefill under no_grad launched {pre}")
+        torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, host_ms, counts = [], [], [], []
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+        b = next(data)
+        _reset_train_counts()
+        ev[0].record()
+        t1 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        loss = float(m["loss"])          # the step's one host wait
+        ev[1].record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t1) * 1e3)
+        step_ms.append(ev[0].elapsed_time(ev[1]))
+        counts.append(_train_counts())
+        losses.append(loss)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    per_call = {"dq_bf16": 1, "dkdv_bf16": 1}
+    for i, c in enumerate(counts):
+        want_bwd = {k: n_layers * per_call.get(k, 0)
+                    for k in c["backward_device"]}
+        if c["forward"] != 2 * n_layers or \
+                c["forward_device"]["wgmma_bf16"] != 2 * n_layers or \
+                c["backward_calls"] != 2 * n_layers or \
+                c["backward_device"] != want_bwd:
+            fail(f"lm_train_path: step {i}: K9 launches {c}, not "
+                 f"{2 * n_layers} forwards and {n_layers} backward calls")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"lm_train_path: losses {losses}")
+    out.update(losses=losses, step_ms=step_ms, host_ms=host_ms,
+               launches_per_step=counts[-1],
+               fingerprint=_fingerprint({"params": params, "opt": opt}))
+    if checks:
+        # one more step in its three parts (launch/steps.py's train step
+        # written out), CUDA events between them
+        b = next(data)
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        e[0].record()
+        loss, _ = api.loss(params, b)
+        e[1].record()
+        loss.backward()
+        e[2].record()
+        grads = tree_map(lambda p: p.grad, params)
+        params, opt, _ = adamw_update(params, grads, opt,
+                                      opt_config_for(cfg))
+        e[3].record()
+        for p in leaves(params):
+            p.grad = None
+        del grads, loss
+        torch.cuda.synchronize()
+        out["split_ms"] = {"forward": e[0].elapsed_time(e[1]),
+                           "backward": e[1].elapsed_time(e[2]),
+                           "update": e[2].elapsed_time(e[3])}
+        holder = {}
+
+        def one():
+            holder["r"] = step(params, opt, next(data))
+        out["profile"] = _lm_profile(one, f"lm_train_{cfg.name}")
+    data.close()
+    del api, params, opt, step, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_cell(arch: str, batch: int, seq: int, card: str):
+    """The LM training cell on the card: K9's backward at the models'
+    shapes (``k9_bwd_check``); ``get_config(arch)`` cut to 2 layers at full
+    width, its gradients fused against reference (``_train_grads_check``);
+    then at full width and depth, bf16, ``remat="full"`` (the config's),
+    ``opt_state_dtype="bfloat16"`` (the config's knob; an f32 m and v would
+    not fit the card beside the params and grads), tokens from
+    ``TokenPipeline`` seed 0: ``_train_run`` twice from the same seed, the
+    second's losses and fingerprint bitwise the first's. Checks: K9's
+    launches a step, every loss finite, the first within 0.5 of ln V (a
+    random init). Reports step ms (median and spread), tokens a second,
+    the share of the bf16 peak (6 N T plus the attention's 3 x 4 D flops a
+    valid pair, head and layer, over step time x 989e12: model flops, the
+    full remat's recomputed forward not counted), the split of a step,
+    peak GB and a profiled step."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    base = get_config(arch)
+    cfg = base.replace(parallel=dataclasses.replace(
+        base.parallel, opt_state_dtype="bfloat16"))
+    res = {"arch": arch, "batch": batch, "seq": seq,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": [cfg.num_heads, cfg.num_kv_heads],
+           "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "params": cfg.param_count(),
+           "remat": cfg.parallel.remat,
+           "opt_state_dtype": cfg.parallel.opt_state_dtype,
+           "cut": f"batch 256 -> {batch}", "card": card}
+    res["k9_backward"] = [k9_bwd_check(*c) for c in BWD_SHAPES]
+    probe = TokenPipeline(DataConfig(cfg.vocab_size, seq, batch, seed=0),
+                          device=DEV)
+    b0 = next(probe)
+    probe.close()
+    res["grads_2_layers"] = _train_grads_check(cfg.replace(num_layers=2), b0)
+    del b0
+    first = _train_run(cfg, batch, seq, checks=True)
+    second = _train_run(cfg, batch, seq, checks=False)
+    if first["losses"] != second["losses"] or \
+            first["fingerprint"] != second["fingerprint"]:
+        fail(f"lm_train_path: a second run differs: losses "
+             f"{first['losses']} against {second['losses']}")
+    lnv = math.log(cfg.vocab_size)
+    if abs(first["losses"][0] - lnv) > 0.5:
+        fail(f"lm_train_path: first loss {first['losses'][0]} not within "
+             f"0.5 of ln V = {lnv}")
+    timed = sorted(first["step_ms"][TRAIN_WARMUP:])
+    med = timed[len(timed) // 2]
+    tokens = batch * seq
+    pairs = attention_pairs(seq, seq, cfg.attn_window) * batch
+    attn_flops = 3 * 4 * cfg.head_dim * pairs * cfg.num_heads * \
+        cfg.num_layers
+    flops = 6 * cfg.param_count() * tokens + attn_flops
+    res.update(
+        first={k: v for k, v in first.items() if k != "fingerprint"},
+        second_losses=second["losses"], second_step_ms=second["step_ms"],
+        bitwise_second_run=True, step_ms_median=med,
+        step_ms_spread=[timed[0], timed[-1]],
+        tokens_per_s=tokens / (med / 1e3), model_flops_per_step=flops,
+        bound_ms=flops / H100_BF16_OPS_PER_S * 1e3,
+        bf16_peak_share=flops / (med / 1e3) / H100_BF16_OPS_PER_S,
+        peak_gb=first["peak_gb"], ln_v=lnv)
+    return res
+
+
+def lm_train_path(card: str):
+    """The training cell in a process of its own (``python3 chip_smoke.py
+    lm_train_path <arch>``), as ``lm_serve_path`` runs each of its cells.
+    Emits the phase line and returns it."""
+    arch = TRAIN_CELL[0]
+    out = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "lm_train_path", arch],
+        capture_output=True, text=True, timeout=TRAIN_TIMEOUT_S,
+        env=dict(os.environ))
+    if out.returncode != 0:
+        fail(f"lm_train_path {arch}: exit {out.returncode}\n"
+             f"{out.stdout[-3000:]}\n{out.stderr[-6000:]}")
+    cell = json.loads(out.stdout.strip().splitlines()[-1])
+    line = {"phase": "lm_train_path", "card": card, "cells": [cell]}
+    emit(line)
+    return line
+
+
+def lm_train_child(arch: str) -> int:
+    """The child of ``lm_train_path``: the cell, its result as the last
+    line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cell = next(c for c in (TRAIN_CELL,) if c[0] == arch)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    emit(lm_train_cell(*cell, card=smi))
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4215,6 +4644,10 @@ def main() -> int:
     # moonshot-v1-16b-a3b, xlstm-125m and whisper-base at full width, K9 on
     # every prefill attention (a process a cell) ---------------------------
     lm = lm_serve_path(card)
+
+    # ---- LM training: qwen2-7b at full width and depth, K9 forward and
+    # its backward on every attention of a step (a process of its own) ----
+    train = lm_train_path(card)
 
     # ---- fused == reference on the card, small size --------------------
     exact_kernels = k1["exact"] and k1s["exact"] and k2_err == 0
@@ -4573,6 +5006,34 @@ def main() -> int:
                 "device_ms": k9["device_ms"], "plain_ms": k9["plain_ms"],
                 "bound_ms": k9["bound_ms"], "bound_by": k9["bound_by"],
                 "library_ms": k9["library_ms"], "shape": k9["shape"]})
+    # K9 on the LM training path: its forwards a step (with the logsumexp,
+    # 28 + 28 recomputed under full remat) and its backward at each shape
+    tcell = train["cells"][0]
+    per_step = tcell["first"]["launches_per_step"]
+    n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    for e in kernels:
+        if e["name"] == "flash_attention":
+            e["lm_train_path_launches"] = {
+                tcell["arch"]: {"forward_per_step": per_step["forward"],
+                                "steps": n_steps}}
+    for bw in tcell["k9_backward"]:
+        kernels.append({
+            "name": f"flash_attention_bwd ({bw['label']})", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:94 (its "
+                        "backward, which the JAX package has not: it "
+                        "differentiates src/repro/models/attention.py:48)",
+            "launches": (sum(per_step["backward_device"].values()) * n_steps
+                         if bw["label"] == tcell["arch"] else 0),
+            "launches_per_train_step": (
+                per_step["backward_device"]
+                if bw["label"] == tcell["arch"] else None),
+            "device_launches_per_call": bw["device_launches_per_call"],
+            "max_abs_err": bw["max_abs_err"], "tolerance": bw["tolerance"],
+            "ms": bw["ms"], "device_ms": bw["device_ms"],
+            "plain_ms": bw["plain_ms"], "bound_ms": bw["bound_ms"],
+            "bound_by": bw["bound_by"], "library_ms": bw["library_ms"],
+            "shape": bw["shape"]})
     # the service's launches: its R=1 poisoned run (the K0 draws by mode;
     # the old algorithms' variants do not run in the service cells) and its
     # R=4 runs
@@ -4602,4 +5063,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["lm_serve_path"]:
         sys.exit(lm_child(sys.argv[2]))
+    if sys.argv[1:2] == ["lm_train_path"]:
+        sys.exit(lm_train_child(sys.argv[2]))
     sys.exit(main())

@@ -180,3 +180,21 @@ def lm_params_to_numpy(tree) -> dict:
     """The port's params (or decode state) -> nested dicts and lists of
     numpy arrays (a bf16 leaf as its uint16 bits)."""
     return _tree_map(_leaf_to_numpy, tree)
+
+
+def lm_opt_state_from_numpy(tree, device=None) -> dict:
+    """A reference AdamW state ({"m", "v", "step"}, numpy leaves) -> the
+    port's on ``device``; ``step`` a 0-d int32 tensor."""
+    device = resolve_device(device)
+    return {"m": lm_params_from_numpy(tree["m"], device),
+            "v": lm_params_from_numpy(tree["v"], device),
+            "step": torch.tensor(int(np.asarray(tree["step"])),
+                                 dtype=torch.int32, device=device)}
+
+
+def lm_opt_state_to_numpy(state) -> dict:
+    """The port's AdamW state -> {"m", "v", "step"} of numpy arrays (bf16
+    leaves as their uint16 bits, ``step`` an int32 scalar)."""
+    return {"m": lm_params_to_numpy(state["m"]),
+            "v": lm_params_to_numpy(state["v"]),
+            "step": np.asarray(int(state["step"]), np.int32)}

@@ -120,7 +120,7 @@ template <int DCAP>
 __global__ void __launch_bounds__(128)
     flash_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                const uint16_t* __restrict__ v, uint16_t* __restrict__ o,
-               Attn a) {
+               float* __restrict__ lse, Attn a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int D = a.D;
   const int ld = D + 8;         // row stride of Qs and Ks (elements)
@@ -256,6 +256,9 @@ __global__ void __launch_bounds__(128)
     const int row = row0 + 8 * r;
     if (row >= a.S) continue;
     const float den = fmaxf(l_r[r], 1e-30f);
+    if (lse != nullptr && t == 0) {
+      lse[(size_t)(b * a.Hq + h) * a.S + row] = m_r[r] + logf(den);
+    }
 #pragma unroll
     for (int j = 0; j < DCAP / 8; ++j) {
       if (j < D / 8) {
@@ -269,7 +272,8 @@ __global__ void __launch_bounds__(128)
 template <int DCAP>
 __global__ void __launch_bounds__(256)
     flash_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, Attn a) {
+              const float* __restrict__ v, float* __restrict__ o,
+              float* __restrict__ lse, Attn a) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int NC = DCAP / 16;   // O columns a thread
   const int D = a.D;
@@ -411,6 +415,9 @@ __global__ void __launch_bounds__(256)
     const int row = q0 + 4 * rg + i;
     if (row >= a.S) continue;
     const float den = fmaxf(l_r[i], 1e-30f);
+    if (lse != nullptr && cg == 0) {
+      lse[(size_t)(b * a.Hq + h) * a.S + row] = m_r[i] + logf(den);
+    }
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
       const int col = cg + 16 * j;
@@ -595,7 +602,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     flash_bf16_wgmma(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
-                     uint16_t* __restrict__ o, Attn a) {
+                     uint16_t* __restrict__ o, float* __restrict__ lse,
+                     Attn a) {
   using T = WgTile<D, BK>;
   constexpr int kHalves = D / 64;
   extern __shared__ unsigned char smem_raw[];
@@ -705,6 +713,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       const int row = row0 + 8 * r;
       if (row >= a.S) continue;
       const float den = fmaxf(l_r[r], 1e-30f);
+      if (lse != nullptr && tq4 == 0) {   // m is in raw score units here
+        lse[(size_t)(b * a.Hq + h) * a.S + row] = m_r[r] * a.scale +
+                                                  logf(den);
+      }
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         *reinterpret_cast<uint32_t*>(ob + (size_t)row * D + j * 8 + 2 * tq4) =
@@ -767,7 +779,7 @@ bool tensor_map(CUtensorMap* map, const void* base, int d, int rows,
 
 template <int D, int BK>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                 const Attn& a, cudaStream_t s) {
+                 float* lse, const Attn& a, cudaStream_t s) {
   CUtensorMap tq, tk, tv;
   if (!tensor_map(&tq, q, D, a.S, a.B * a.Hq, kWgBQ) ||
       !tensor_map(&tk, k, D, a.Skv, a.B * a.Hkv, BK) ||
@@ -784,15 +796,15 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
     sized = true;
   }
   const dim3 grid((a.S + kWgBQ - 1) / kWgBQ, a.Hq, a.B);
-  flash_bf16_wgmma<D, BK><<<grid, kWgThreads, smem, s>>>(tq, tk, tv,
-                                                        (uint16_t*)o, a);
+  flash_bf16_wgmma<D, BK><<<grid, kWgThreads, smem, s>>>(
+      tq, tk, tv, (uint16_t*)o, lse, a);
   ++g_launches[0];
   return (int)cudaGetLastError();
 }
 
 template <int DCAP>
 int launch(bool bf16, const void* q, const void* k, const void* v, void* o,
-           const Attn& a, cudaStream_t s) {
+           float* lse, const Attn& a, cudaStream_t s) {
   const dim3 grid((a.S + kBQ - 1) / kBQ, a.Hq, a.B);
   if (bf16) {
     const size_t smem = ((size_t)(kBQ + kBK) * (a.D + 8) +
@@ -803,7 +815,7 @@ int launch(bool bf16, const void* q, const void* k, const void* v, void* o,
     if (err != cudaSuccess) return (int)err;
     flash_bf16<DCAP><<<grid, 128, smem, s>>>(
         (const uint16_t*)q, (const uint16_t*)k, (const uint16_t*)v,
-        (uint16_t*)o, a);
+        (uint16_t*)o, lse, a);
     ++g_launches[1];
   } else {
     const size_t smem = ((size_t)a.D * (kBQ + kBK) + (size_t)kBK * a.D +
@@ -813,7 +825,8 @@ int launch(bool bf16, const void* q, const void* k, const void* v, void* o,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
     flash_f32<DCAP><<<grid, 256, smem, s>>>((const float*)q, (const float*)k,
-                                            (const float*)v, (float*)o, a);
+                                            (const float*)v, (float*)o, lse,
+                                            a);
     ++g_launches[2];
   }
   return (int)cudaGetLastError();
@@ -824,8 +837,11 @@ int launch(bool bf16, const void* q, const void* k, const void* v, void* o,
 // q (B, Hq, S, D), k and v (B, Hkv, Skv, D), contiguous, all f32 or all bf16
 // (bf16 != 0) -> o like q. Hq a multiple of Hkv; D a multiple of 16 in
 // [16, 256]; window 0 for none (the wrapper passes 0 for a window >= S).
+// lse: null, or (B, Hq, S) f32 that receives each row's logsumexp of the
+// scaled scores, m + log(l) (the backward's input, flash_attention_bwd.cu).
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o, int B, int Hq,
+                                     const void* v, void* o, void* lse,
+                                     int B, int Hq,
                                      int Hkv, int S, int Skv, int D,
                                      int causal, int window, float scale,
                                      int bf16, void* stream) {
@@ -836,16 +852,18 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   if (B <= 0 || Hq <= 0 || S <= 0) return (int)cudaGetLastError();
   const Attn a{B, Hq, Hkv, S, Skv, D, causal, window, scale};
   cudaStream_t s = (cudaStream_t)stream;
-  if (D <= 64) return launch<64>(bf16 != 0, q, k, v, o, a, s);
-  if (D <= 128) return launch<128>(bf16 != 0, q, k, v, o, a, s);
-  if (D <= 192) return launch<192>(bf16 != 0, q, k, v, o, a, s);
-  return launch<256>(bf16 != 0, q, k, v, o, a, s);
+  float* l = (float*)lse;
+  if (D <= 64) return launch<64>(bf16 != 0, q, k, v, o, l, a, s);
+  if (D <= 128) return launch<128>(bf16 != 0, q, k, v, o, l, a, s);
+  if (D <= 192) return launch<192>(bf16 != 0, q, k, v, o, l, a, s);
+  return launch<256>(bf16 != 0, q, k, v, o, l, a, s);
 }
 
 // The bf16 kernel on wgmma and TMA, for D = 64, 128 or 256 (the wrapper
 // takes it for those); arguments as repro_flash_attention.
 extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
-                                           const void* v, void* o, int B,
+                                           const void* v, void* o, void* lse,
+                                           int B,
                                            int Hq, int Hkv, int S, int Skv,
                                            int D, int causal, int window,
                                            float scale, void* stream) {
@@ -856,9 +874,10 @@ extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
   if (B <= 0 || Hq <= 0 || S <= 0) return (int)cudaGetLastError();
   const Attn a{B, Hq, Hkv, S, Skv, D, causal, window, scale};
   cudaStream_t s = (cudaStream_t)stream;
-  if (D == 64) return launch_wgmma<64, 128>(q, k, v, o, a, s);
-  if (D == 128) return launch_wgmma<128, 128>(q, k, v, o, a, s);
-  return launch_wgmma<256, 64>(q, k, v, o, a, s);
+  float* l = (float*)lse;
+  if (D == 64) return launch_wgmma<64, 128>(q, k, v, o, l, a, s);
+  if (D == 128) return launch_wgmma<128, 128>(q, k, v, o, l, a, s);
+  return launch_wgmma<256, 64>(q, k, v, o, l, a, s);
 }
 
 // Launches of kernel `kernel` (0 wgmma bf16, 1 mma.sync bf16, 2 FFMA f32)

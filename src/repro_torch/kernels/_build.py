@@ -77,9 +77,11 @@ SIGNATURES = {
     "repro_radix_argsort": [P] * 4 + [ctypes.c_longlong, I, I, P],
     "repro_radix_argsort_device_launches": [I],
     "repro_bh_gauss": [P] * 6 + [I, I, I, F, P],
-    "repro_flash_attention": [P] * 4 + [I] * 8 + [F, I, P],
-    "repro_flash_attention_wgmma": [P] * 4 + [I] * 8 + [F, P],
+    "repro_flash_attention": [P] * 5 + [I] * 8 + [F, I, P],
+    "repro_flash_attention_wgmma": [P] * 5 + [I] * 8 + [F, P],
     "repro_flash_attention_device_launches": [I, I],
+    "repro_flash_attention_bwd": [P] * 9 + [I] * 8 + [F, I, P],
+    "repro_flash_attention_bwd_device_launches": [I, I],
 }
 
 

@@ -14,6 +14,14 @@ or 256 runs on ``wgmma`` with TMA loads, other bf16 head dimensions on
 ``mma.sync``, f32 on FFMA. ``scale`` multiplies the scores (1/sqrt(D) when
 None): the LM's prefill passes a q it pre-scaled and rounded as the JAX
 model does, with ``scale=1.0``.
+
+K9's backward (``flash_attention_bwd``, ``csrc/flash_attention_bwd.cu``)
+is new in the port: the JAX package differentiates its plain attention, so
+no TPU kernel stands behind it. It takes the row logsumexp that the forward
+writes when asked (``return_lse=True``) and gives dQ, dK, dV, the gradient
+of ``flash_attention_plain``, whose plain counterpart is
+``flash_attention_plain_bwd`` (autograd through it). ``flash_attention``
+runs the two as one ``torch.autograd.Function`` when a gradient is wanted.
 """
 from __future__ import annotations
 
@@ -26,8 +34,10 @@ from repro_torch.kernels import _build
 NEG = -1e30
 
 launches = _build.LaunchCounter("flash_attention")
+bwd_launches = _build.LaunchCounter("flash_attention_bwd")
 WGMMA_HEAD_DIMS = (64, 128, 256)
 KERNELS = ("wgmma_bf16", "mma_sync_bf16", "ffma_f32")
+BWD_KERNELS = ("dq_bf16", "dkdv_bf16", "dq_f32", "dkdv_f32")
 
 
 def kernel_for(dtype, d: int) -> str:
@@ -46,17 +56,32 @@ def device_launches(*, reset: bool = False) -> dict:
             for i, name in enumerate(KERNELS)}
 
 
+def bwd_device_launches(*, reset: bool = False) -> dict:
+    """Launches of each backward kernel on the card, counted in
+    ``csrc/flash_attention_bwd.cu``; ``reset`` as ``device_launches``."""
+    lib = _build.library()
+    return {name: int(lib.repro_flash_attention_bwd_device_launches(
+        i, int(reset))) for i, name in enumerate(BWD_KERNELS)}
+
+
+def bwd_launches_per_call(dtype, d: int) -> int:
+    """The backward's kernel launches a call: dQ, then dK and dV (bf16 at
+    D > 128 in two launches, one for each)."""
+    return 3 if dtype == torch.bfloat16 and d > 128 else 2
+
+
 def _window(window, s: int) -> int:
     """The window as the kernel takes it: 0 for none; a window of at least S
     masks nothing (q_pos - k_pos <= S - 1)."""
     return int(window) if window and 0 < window < s else 0
 
 
-def _probs(q, k, causal, window, scale=None):
-    """The full softmax in float32: (B, Hq, S, Skv)."""
+def _scores(q, k, causal, window, scale=None):
+    """The scaled scores in float32, masked ones set to NEG: (B, Hq, S,
+    Skv)."""
     hq, sq, d = q.shape[1], q.shape[2], q.shape[3]
     skv = k.shape[2]
-    f32 = torch.float32
+    f32 = _compute_dtype(q)
     kf = torch.repeat_interleave(k, hq // k.shape[1], dim=1).to(f32)
     s = torch.einsum("bhqd,bhkd->bhqk", q.to(f32), kf)
     if scale is None:
@@ -71,13 +96,22 @@ def _probs(q, k, causal, window, scale=None):
         ok &= kpos <= qpos
     if window and window > 0:
         ok &= qpos - kpos < window
-    s = torch.where(ok, s, torch.tensor(NEG, dtype=f32, device=q.device))
-    return torch.softmax(s, dim=-1)
+    return torch.where(ok, s, torch.tensor(NEG, dtype=f32, device=q.device))
+
+
+def _probs(q, k, causal, window, scale=None):
+    """The full softmax in float32: (B, Hq, S, Skv)."""
+    return torch.softmax(_scores(q, k, causal, window, scale), dim=-1)
+
+
+def _compute_dtype(x):
+    """float32, or float64 for a float64 evaluation of the same function."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
 def _values(v, hq):
     return torch.repeat_interleave(v, hq // v.shape[1], dim=1).to(
-        torch.float32)
+        _compute_dtype(v))
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=0, scale=None):
@@ -86,6 +120,38 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, scale=None):
     p = _probs(q, k, causal, window, scale)
     return torch.einsum("bhqk,bhkd->bhqd", p, _values(v, q.shape[1])).to(
         q.dtype)
+
+
+def lse_plain(q, k, *, causal=True, window=0, scale=None):
+    """Each row's logsumexp of its scaled scores, float32 (B, Hq, S): what
+    the forward writes with ``return_lse=True``."""
+    return torch.logsumexp(_scores(q, k, causal, window, scale), dim=-1)
+
+
+def flash_attention_plain_bwd(q, k, v, dout, *, causal=True, window=0,
+                              scale=None):
+    """(dq, dk, dv): autograd through ``flash_attention_plain`` at ``dout``,
+    the backward's plain version."""
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = flash_attention_plain(qq, kk, vv, causal=causal, window=window,
+                                    scale=scale)
+        return torch.autograd.grad(out, (qq, kk, vv), dout)
+
+
+def bwd_tolerance(q, k, v, dout, *, causal=True, window=0, scale=None):
+    """How far K9's backward may lie from the exact gradient: for each of
+    dq, dk, dv, twice the plain version's own largest error against its
+    float64 evaluation on the same inputs (the plain version sums in f32
+    and rounds once to the inputs' dtype; the kernel's split bf16 products
+    leave it about the same final rounding). Returns (the float64
+    gradients, the three tolerances)."""
+    kw = dict(causal=causal, window=window, scale=scale)
+    plain = flash_attention_plain_bwd(q, k, v, dout, **kw)
+    exact = flash_attention_plain_bwd(
+        *(t.double() for t in (q, k, v, dout)), **kw)
+    return exact, tuple(2.0 * float((p.double() - e).abs().max())
+                        for p, e in zip(plain, exact))
 
 
 def bf16_error_bound(plain, q, k, v, *, causal=True, window=0,
@@ -105,33 +171,47 @@ def bf16_error_bound(plain, q, k, v, *, causal=True, window=0,
     return 2.0 ** -7 * plain.float().abs() + 2.0 ** -6 * spread
 
 
-def flash_attention_fwd(q, k, v, *, causal=True, window=0, scale=None):
-    """Attention forward (K9); shapes and ``scale`` as
-    ``flash_attention_plain``. A row
-    with no valid key (only with a window, when q_pos >= Skv + window - 1)
-    gets the plain version's answer, the mean of V over all keys."""
-    if q.device.type != "cuda":
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     scale=scale)
+def _check(q, k, v, name="flash_attention"):
+    """Raise on operands K9 does not take; the kernel that takes them."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError("flash_attention: q (B, Hq, S, D), k and v "
-                         "(B, Hkv, Skv, D)")
+        raise ValueError(f"{name}: q (B, Hq, S, D), k and v "
+                         f"(B, Hkv, Skv, D)")
     b, hq, s, d = q.shape
     _, hkv, skv, dk = k.shape
     if k.shape[0] != b or dk != d or hkv == 0 or hq % hkv:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
+        raise ValueError(f"{name}: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} do not agree (Hq must be a "
                          f"multiple of Hkv)")
     if q.dtype not in (torch.float32, torch.bfloat16) or \
             k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention: q, k, v must all be float32 or "
+        raise TypeError(f"{name}: q, k, v must all be float32 or "
                         f"all bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     if d % 16 or not 16 <= d <= 256:
-        raise ValueError(f"flash_attention: head dimension {d} is not a "
+        raise ValueError(f"{name}: head dimension {d} is not a "
                          f"multiple of 16 in [16, 256]")
     if skv == 0:
-        raise ValueError("flash_attention: no keys")
-    kernel = kernel_for(q.dtype, d)
+        raise ValueError(f"{name}: no keys")
+    return kernel_for(q.dtype, d)
+
+
+def flash_attention_fwd(q, k, v, *, causal=True, window=0, scale=None,
+                        return_lse=False):
+    """Attention forward (K9); shapes and ``scale`` as
+    ``flash_attention_plain``. A row
+    with no valid key (only with a window, when q_pos >= Skv + window - 1)
+    gets the plain version's answer, the mean of V over all keys. With
+    ``return_lse`` also each row's logsumexp, (out, lse (B, Hq, S) float32),
+    the backward's input."""
+    if q.device.type != "cuda":
+        out = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                    scale=scale)
+        if not return_lse:
+            return out
+        return out, lse_plain(q, k, causal=causal, window=window,
+                              scale=scale)
+    kernel = _check(q, k, v)
+    b, hq, s, d = q.shape
+    _, hkv, skv, _ = k.shape
     qc, kc, vc = (t.contiguous() for t in (q, k, v))
     if kernel == "wgmma_bf16":
         # TMA reads from 16-byte aligned bases only: a view that starts
@@ -139,9 +219,12 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, scale=None):
         qc, kc, vc = (t if t.data_ptr() % 16 == 0 else t.clone()
                       for t in (qc, kc, vc))
     out = torch.empty_like(qc)
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     _build.require_cuda("flash_attention", qc, kc, vc, out)
     lib = _build.library()
-    args = (qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(), b,
+    args = (qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), b,
             hq, hkv, s, skv, d, int(bool(causal)), _window(window, s),
             1.0 / math.sqrt(d) if scale is None else float(scale))
     if kernel == "wgmma_bf16":
@@ -151,4 +234,77 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, scale=None):
             *args, int(q.dtype == torch.bfloat16), _build.stream())
     _build.check(rc, "flash_attention")
     launches.add()
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q, k, v, lse, dout, *, causal=True, window=0,
+                        scale=None):
+    """K9's backward: (dq, dk, dv) like (q, k, v), from the forward's
+    ``lse`` (``return_lse=True``) and the output's gradient ``dout``;
+    shapes and ``scale`` as ``flash_attention_plain``. On a CUDA tensor it
+    launches ``csrc/flash_attention_bwd.cu`` or raises (what the forward
+    refuses, and a window that leaves a row with no valid key); on a CPU
+    tensor it runs ``flash_attention_plain_bwd``."""
+    if q.device.type != "cuda":
+        return flash_attention_plain_bwd(q, k, v, dout, causal=causal,
+                                         window=window, scale=scale)
+    _check(q, k, v, "flash_attention_bwd")
+    b, hq, s, d = q.shape
+    _, hkv, skv, _ = k.shape
+    w = _window(window, s)
+    if w and s >= skv + w:
+        raise ValueError(f"flash_attention_bwd: window {w} leaves rows "
+                         f"{skv + w - 1}.. of {s} with no valid key")
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError(f"flash_attention_bwd: dout {tuple(dout.shape)} "
+                         f"{dout.dtype} is not like q {tuple(q.shape)} "
+                         f"{q.dtype}")
+    if lse.shape != (b, hq, s) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: lse must be ({b}, {hq}, "
+                         f"{s}) float32, got {tuple(lse.shape)} {lse.dtype}")
+    qc, kc, vc, lc, oc = (t.contiguous() for t in (q, k, v, lse, dout))
+    dq, dk, dv = (torch.empty_like(t) for t in (qc, kc, vc))
+    dsum = torch.empty_like(lc)
+    _build.require_cuda("flash_attention_bwd", qc, kc, vc, lc, oc, dq, dk,
+                        dv, dsum)
+    rc = _build.library().repro_flash_attention_bwd(
+        qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), oc.data_ptr(),
+        lc.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, hq, hkv, s, skv, d, int(bool(causal)), w,
+        1.0 / math.sqrt(d) if scale is None else float(scale),
+        int(q.dtype == torch.bfloat16), _build.stream())
+    _build.check(rc, "flash_attention_bwd")
+    bwd_launches.add(bwd_launches_per_call(q.dtype, d))
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """K9 with its gradient: the forward saves its logsumexp, the backward
+    is ``flash_attention_bwd``. CUDA tensors only (the CPU's autograd runs
+    through the plain versions)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                       scale=scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, lse)
+        ctx.mask = (causal, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, lse = ctx.saved_tensors
+        causal, window, scale = ctx.mask
+        dq, dk, dv = flash_attention_bwd(q, k, v, lse, dout, causal=causal,
+                                         window=window, scale=scale)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
+    """K9 forward, differentiable: through ``FlashAttention`` when a CUDA
+    operand wants a gradient, else ``flash_attention_fwd``."""
+    if q.device.type == "cuda" and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, window, scale)
+    return flash_attention_fwd(q, k, v, causal=causal, window=window,
+                               scale=scale)

@@ -8,7 +8,9 @@ of the same math". Here the lowering is chosen explicitly
 (``impl``, the config's ``attention_impl``):
 
 - ``fused``: on a CUDA tensor it launches K9
-  (``kernels/flash_attention.py::flash_attention_fwd``), and raises on what
+  (``kernels/flash_attention.py::flash_attention``: the forward alone, or,
+  when a gradient is wanted, ``FlashAttention``, whose backward is K9's
+  backward kernel), and raises on what
   K9 does not take (a logit softcap, explicit positions: K9 takes only the
   top-left ``arange`` positions the prefill passes as ``None``; a head
   dimension outside its range); it never quietly runs the plain version.
@@ -89,8 +91,8 @@ def chunked_attention(q, k, v, *, causal=True, window=0, q_positions=None,
             raise NotImplementedError(
                 "chunked_attention: K9 takes only the top-left arange "
                 "positions, passed as None")
-        return fa.flash_attention_fwd(prescale(q), k, v, causal=causal,
-                                      window=window, scale=1.0)
+        return fa.flash_attention(prescale(q), k, v, causal=causal,
+                                  window=window, scale=1.0)
     return _chunked_plain(q, k, v, causal, window, q_positions,
                           kv_positions, q_chunk, kv_chunk, softcap)
 

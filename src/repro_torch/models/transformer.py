@@ -6,12 +6,20 @@ attention configs keep JAX's stacked layout (``layers_stacked``: every leaf
 with a leading L axis, the MoE leaves too) and loop over it in Python;
 heterogeneous patterns keep a list (``layers``). One device and no mesh:
 the sharding constraints of the JAX module drop out, and a ``mesh`` raises
-(the sharded paths are ROADMAP Queue 1 item 14f). Not here yet: ``_remat``
-and training (item 14e), ``vocab_parallel_cross_entropy`` (14f).
+(the sharded paths are ROADMAP Queue 1 item 14f). Not here yet:
+``vocab_parallel_cross_entropy`` (14f).
+
+Training: ``forward`` indexes the stacked tree once (``unstack``: one
+``torch.unbind`` a leaf), so its backward stacks the layers' gradients once
+instead of adding a zero-filled (L, ...) gradient per layer; and wraps each
+layer in ``_remat`` (``cfg.parallel.remat``) when a gradient is wanted.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
@@ -108,6 +116,15 @@ def _index(tree, i):
     return tree[i]
 
 
+def unstack(tree, n: int) -> list:
+    """The stacked tree as ``n`` per-layer trees, each leaf split once with
+    ``torch.unbind`` (views; one backward node a leaf)."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
 def num_layers(params) -> int:
     if "layers_stacked" in params:
         return params["layers_stacked"]["ln2"]["scale"].shape[0]
@@ -191,6 +208,32 @@ def apply_layer_full(p, cfg: ModelConfig, kind: str, x, positions,
 
 
 # ================================================================ forward
+# the matrix products whose outputs ``dots_saveable`` keeps (JAX's
+# checkpoint_policies.dots_saveable saves every dot_general's output)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS else \
+        ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under the config's rematerialisation: 'none' keeps every
+    activation; 'full' keeps the layer's inputs and recomputes the rest in
+    the backward; 'dots_saveable' keeps the matrix products' outputs too.
+    Non-reentrant ``torch.utils.checkpoint``, as JAX's ``jax.checkpoint``."""
+    mode = cfg.parallel.remat
+    if mode == "none":
+        return fn
+    kw = {"use_reentrant": False}
+    if mode == "dots_saveable":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(ckpt.checkpoint, fn, **kw)
+
+
 def embed_inputs(params, cfg: ModelConfig, tokens, extra_embeds=None):
     """Token embeddings with the vlm's patch embeddings prepended (and
     sinusoidal positions where the config has no rotary dims)."""
@@ -214,9 +257,14 @@ def forward(params, cfg: ModelConfig, tokens, *, extra_embeds=None,
     positions = torch.arange(x.shape[1], device=x.device)
     aux_total = torch.zeros((), dtype=F32, device=x.device)
     pattern = cfg.pattern()
-    for i in range(num_layers(params)):
-        x, a = apply_layer_full(layer_params(params, i), cfg, pattern[i], x,
-                                positions)
+    layers = params["layers"] if "layers" in params else \
+        unstack(params["layers_stacked"], num_layers(params))
+    grad = torch.is_grad_enabled() and x.requires_grad
+    for i, layer_p in enumerate(layers):
+        fn = functools.partial(apply_layer_full, layer_p, cfg, pattern[i])
+        if grad:
+            fn = _remat(fn, cfg)
+        x, a = fn(x, positions)
         aux_total = aux_total + a
     x = apply_norm(cfg, params["final_norm"], x)
     if return_hidden:

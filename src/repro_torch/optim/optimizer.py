@@ -1,0 +1,145 @@
+"""AdamW with an optional bf16 state, a cosine schedule and gradient
+clipping.
+
+The port of the JAX package's ``repro/optim/optimizer.py``: the same
+schedule, the same f32 arithmetic in the same order for each element, weight
+decay on matrices only (``p.ndim >= 2``). ``step`` stays a 0-d int32 tensor
+on the params' device, so the learning rate and the bias corrections are
+computed there and the host never waits for them.
+
+Where the JAX module maps one f32 update over each whole leaf, this one
+walks each leaf in slices of at most ``SLICE`` elements and writes params, m
+and v back in place: at qwen2-7b's width a stacked leaf holds 1.9e9
+elements, and a whole-leaf f32 update would hold several 7.6-GB
+temporaries. The update is elementwise, so the slices give the same bits;
+``global_norm`` sums the slices' squares one after another, an order JAX
+does not take (the tests' tolerance covers it). ``adamw_update`` returns
+the same (mutated) param tree.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+
+import torch
+
+F32 = torch.float32
+SLICE = 1 << 26    # elements a slice: ~1.9 GB of f32 temporaries at most
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_frac: float = 0.1
+    state_dtype: str = "float32"     # 'bfloat16' halves optimizer memory
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+
+def leaves(tree) -> list:
+    """The tree's tensors (None too) in the JAX package's flatten order:
+    dict keys sorted, lists by index."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def lr_at(cfg: OptimizerConfig, step):
+    """The learning rate at ``step`` (a tensor: a 0-d f32 tensor on its
+    device; a number: a CPU one), as the JAX schedule computes it."""
+    step = step.to(F32) if isinstance(step, torch.Tensor) else \
+        torch.tensor(float(step), dtype=F32)
+    warm = cfg.lr * torch.clamp((step + 1) / max(cfg.warmup_steps, 1),
+                                max=1.0)
+    t = torch.clamp((step - cfg.warmup_steps)
+                    / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    cos = cfg.min_lr_frac + (1 - cfg.min_lr_frac) * 0.5 * (
+        1 + torch.cos(math.pi * t))
+    return torch.where(step < cfg.warmup_steps, warm, cfg.lr * cos)
+
+
+def init_opt_state(params, cfg: OptimizerConfig):
+    dt = getattr(torch, cfg.state_dtype)
+    first = next(x for x in leaves(params) if x is not None)
+    return {"m": tree_map(lambda p: torch.zeros(p.shape, dtype=dt,
+                                                device=p.device), params),
+            "v": tree_map(lambda p: torch.zeros(p.shape, dtype=dt,
+                                                device=p.device), params),
+            "step": torch.zeros((), dtype=torch.int32, device=first.device)}
+
+
+def _slices(x):
+    if not x.is_contiguous():
+        raise ValueError("adamw_update: every leaf must be contiguous (its "
+                         "slices are updated in place)")
+    flat = x.view(-1)
+    for i in range(0, flat.numel(), SLICE):
+        yield flat[i:i + SLICE]
+
+
+def global_norm(tree):
+    """sqrt of the sum of every element's square, in f32 (a None leaf
+    counts as zeros)."""
+    xs = [x for x in leaves(tree) if x is not None]
+    total = torch.zeros((), dtype=F32, device=xs[0].device)
+    for x in xs:
+        for part in _slices(x):
+            total = total + torch.sum(torch.square(part.to(F32)))
+    return torch.sqrt(total)
+
+
+def _update(p, g, m, v, scale, lr, c1, c2, cfg: OptimizerConfig,
+            decay: bool):
+    """One slice, in place: JAX's ``upd`` for each element."""
+    g = g.to(F32) * scale
+    mf = m.to(F32).mul_(cfg.b1).add_(g * (1 - cfg.b1))
+    vf = v.to(F32).mul_(cfg.b2).add_(g.square_().mul_(1 - cfg.b2))
+    u = (mf / c1).div_((vf / c2).sqrt_().add_(cfg.eps))
+    pf = p.to(F32)
+    if decay:  # decoupled weight decay on matrices only
+        u.add_(cfg.weight_decay * pf)
+    p.copy_(pf.sub_(lr * u))
+    m.copy_(mf)
+    v.copy_(vf)
+
+
+@torch.no_grad()
+def adamw_update(params, grads, opt_state, cfg: OptimizerConfig):
+    """Returns (params, new_opt_state, stats): params, m and v updated in
+    place (a None grad is a zero one), the state's step one on. ``grads``
+    is a tree like ``params`` or the list of its leaves in flatten order."""
+    step = opt_state["step"]
+    gn = global_norm(grads)
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0) \
+        if cfg.grad_clip > 0 else torch.ones((), dtype=F32, device=gn.device)
+    lr = lr_at(cfg, step)
+    c1 = 1.0 - cfg.b1 ** (step.to(F32) + 1)
+    c2 = 1.0 - cfg.b2 ** (step.to(F32) + 1)
+    for p, g, m, v in zip(leaves(params), leaves(grads),
+                          leaves(opt_state["m"]), leaves(opt_state["v"])):
+        if g is None:
+            g = torch.zeros_like(p)
+        for ps, gs, ms, vs in zip(_slices(p), _slices(g), _slices(m),
+                                  _slices(v)):
+            _update(ps, gs, ms, vs, scale, lr, c1, c2, cfg, p.dim() >= 2)
+    new_state = {"m": opt_state["m"], "v": opt_state["v"], "step": step + 1}
+    return params, new_state, {"grad_norm": gn, "lr": lr}

@@ -1055,6 +1055,120 @@ def test_flash_attention_refuses_what_it_does_not_take(dev, d, dtype):
         fa.flash_attention_fwd(q, q, q)
 
 
+BWD_CASES = [(200, 200, True, 0), (300, 300, True, 64), (64, 300, False, 0),
+             (300, 130, False, 0)]
+
+
+def _bwd_inputs(dev, b, hq, hkv, s, skv, d, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn(b, hq, s, d, generator=g, device=dev).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, hkv, skv, d, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,skv,causal,window", BWD_CASES)
+@pytest.mark.parametrize("group", [1, 7])
+def test_flash_attention_bwd_equals_plain(dev, d, dtype, s, skv, causal,
+                                          window, group):
+    """K9's backward (from the forward's logsumexp) at causal, window,
+    non-causal and cross-attention shapes (Sq 64 against Skv 300, and Skv
+    below S), G = 1 and 7 query heads a kv head, over ragged tiles: each of
+    dq, dk, dv within twice the plain version's own error against its
+    float64 evaluation (``flash_attention.bwd_tolerance``), its launches
+    those ``bwd_launches_per_call`` names, counted in the source."""
+    q, k, v, do = _bwd_inputs(dev, 2, 2 * group, 2, s, skv, d, dtype,
+                              s + skv + d + group)
+    kw = dict(causal=causal, window=window)
+    _, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    before = fa.bwd_launches.count
+    fa.bwd_device_launches(reset=True)
+    got = fa.flash_attention_bwd(q, k, v, lse, do, **kw)
+    n = fa.bwd_launches_per_call(dtype, d)
+    assert fa.bwd_launches.count == before + n
+    kinds = fa.bwd_device_launches(reset=True)
+    assert sum(kinds.values()) == n
+    assert kinds["dq_bf16" if dtype == torch.bfloat16 else "dq_f32"] == 1
+    exact, tol = fa.bwd_tolerance(q, k, v, do, **kw)
+    for name, x, e, t, like in zip("qkv", got, exact, tol, (q, k, v)):
+        assert x.dtype == dtype and x.shape == like.shape
+        err = float((x.double() - e).abs().max())
+        assert err <= t, (name, err, t)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_is_deterministic(dev, dtype):
+    """No atomics: a second backward is bitwise equal (qwen2-7b's heads)."""
+    q, k, v, do = _bwd_inputs(dev, 1, 28, 4, 700, 700, 128, dtype, 5)
+    _, lse = fa.flash_attention_fwd(q, k, v, return_lse=True)
+    first = fa.flash_attention_bwd(q, k, v, lse, do)
+    for a, b in zip(first, fa.flash_attention_bwd(q, k, v, lse, do)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d,dtype", [(64, torch.bfloat16),
+                                     (128, torch.bfloat16),
+                                     (256, torch.bfloat16),
+                                     (96, torch.bfloat16),
+                                     (128, torch.float32)])
+def test_flash_attention_fwd_logsumexp(dev, d, dtype):
+    """Each forward kernel writes the rows' logsumexp when asked (the
+    plain ``lse_plain`` within 1e-5 relative plus 1e-4), and its output
+    is bitwise the one it gives without it."""
+    q, k, v, _ = _bwd_inputs(dev, 2, 4, 2, 300, 300, d, dtype, d)
+    out, lse = fa.flash_attention_fwd(q, k, v, window=100, return_lse=True)
+    assert torch.equal(out, fa.flash_attention_fwd(q, k, v, window=100))
+    torch.testing.assert_close(
+        lse, fa.lse_plain(q, k, window=100), rtol=1e-5, atol=1e-4)
+
+
+def test_flash_attention_autograd_runs_both_kernels(dev):
+    """``flash_attention`` (and the model's fused ``chunked_attention``)
+    with a gradient wanted: one forward (with its logsumexp) and one
+    backward call, whose grads are ``flash_attention_bwd``'s bitwise; under
+    ``no_grad`` one forward and no backward."""
+    from repro_torch.models import attention as attn
+    q, k, v, do = _bwd_inputs(dev, 1, 8, 2, 260, 260, 128,
+                              torch.bfloat16, 3)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    _build.reset_launch_counts()
+    out = fa.flash_attention(*leaves, causal=True)
+    out.backward(do)
+    counts = _build.launch_counts()
+    assert counts["flash_attention"] == 1
+    assert counts["flash_attention_bwd"] == 2
+    _, lse = fa.flash_attention_fwd(q, k, v, return_lse=True)
+    for t, want in zip(leaves, fa.flash_attention_bwd(q, k, v, lse, do)):
+        assert torch.equal(t.grad, want)
+    _build.reset_launch_counts()
+    qq = q.clone().requires_grad_(True)
+    attn.chunked_attention(qq, k, v).float().sum().backward()
+    assert _build.launch_counts()["flash_attention_bwd"] == 2
+    assert qq.grad is not None
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        attn.chunked_attention(qq, k, v)
+    assert _build.launch_counts()["flash_attention"] == 1
+    assert _build.launch_counts()["flash_attention_bwd"] == 0
+
+
+def test_flash_attention_bwd_refuses_what_it_does_not_take(dev):
+    """Rows with no valid key (a window, Skv < S) and float16 raise before
+    any launch."""
+    q, k, v, do = _bwd_inputs(dev, 1, 2, 2, 200, 70, 64, torch.float32, 1)
+    lse = torch.zeros(1, 2, 200, device=dev)
+    before = fa.bwd_launches.count
+    with pytest.raises(ValueError, match="no valid key"):
+        fa.flash_attention_bwd(q, k, v, lse, do, window=32)
+    h = q.half()
+    with pytest.raises(TypeError):
+        fa.flash_attention_bwd(h, h, h, lse, h)
+    assert fa.bwd_launches.count == before
+
+
 # ---------------------------------------------- retraction and priorities
 def _retract_case(dev, case, n=CONFIG.neurons_per_rank,
                   s=CONFIG.max_synapses):
@@ -2020,6 +2134,113 @@ def test_lm_full_width_layers_fused_against_reference(dev, arch, layers, s):
     r_next, _ = ref.decode_step(params, r_state, tok)
     assert _build.launch_counts()["flash_attention"] == 1
     assert float((f_next.float() - r_next.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("scan", [False, True])
+def test_lm_train_fused_against_reference_grads(dev, scan):
+    """The qwen2-7b smoke model in bf16 (head dim 16: K9's mma.sync
+    forward and its backward) on the card: every leaf's gradient of the
+    fused model within twice the reference lowering's own error against
+    its float32 evaluation, the reference's gradients on the same params;
+    two forward launches an attention layer (the full remat recomputes it)
+    and one backward call."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizer import leaves, tree_map
+    cfg = get_smoke_config("qwen2-7b").replace(scan_layers=scan)
+    api = build_model(cfg)
+    params = api.init(0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 96), generator=g,
+                                     device=dev, dtype=torch.int32)}
+    _build.reset_launch_counts()
+    _, _, gf = loss_and_grads(api, params, batch)
+    counts = _build.launch_counts()
+    assert counts["flash_attention"] == 2 * cfg.num_layers
+    assert counts["flash_attention_bwd"] == 2 * cfg.num_layers
+    _, _, gr = loss_and_grads(build_model(cfg.replace(
+        attention_impl="reference")), params, batch)
+    p32 = tree_map(lambda t: t.detach().float(), params)
+    _, _, g32 = loss_and_grads(build_model(cfg.replace(
+        dtype="float32", attention_impl="reference")), p32, batch)
+    for a, b, c in zip(leaves(gf), leaves(gr), leaves(g32)):
+        tol = 2.0 * float((b.float() - c).abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= tol
+
+
+def test_lm_train_step_without_host_wait(dev):
+    """A train step at the qwen2-7b smoke width (the stacked layout, full
+    remat, K9 forward and backward, the sliced AdamW) runs under
+    ``set_sync_debug_mode("error")``: reading the loss after it is the
+    step's only host wait, as in JAX."""
+    import math
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import build_everything
+    cfg = get_smoke_config("qwen2-7b").replace(scan_layers=True)
+    _, params, opt, step, data = build_everything(cfg, None, 2, 64,
+                                                  device=dev)
+    params, opt, m = step(params, opt, next(data))
+    assert math.isfinite(float(m["loss"]))
+    batch = next(data)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        params, opt, m = step(params, opt, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert math.isfinite(float(m["loss"])) and int(opt["step"]) == 2
+    data.close()
+
+
+def test_lm_training_runner_on_the_card(dev, tmp_path):
+    """``TrainingRunner`` over ``build_everything`` at the qwen2-7b smoke
+    width on the card: 4 steps straight, and 2 steps, preempted, resumed by
+    a new runner for 2 more, bitwise equal; a NaN batch rolled back to the
+    last checkpoint and consumed, the run going on to its end."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.train import build_everything
+    from repro_torch.optim.optimizer import leaves
+    from repro_torch.runtime.fault_tolerance import (RunnerConfig,
+                                                     TrainingRunner)
+    cfg = get_smoke_config("qwen2-7b")
+
+    def runner(path, start=0):
+        _, params, opt, step, data = build_everything(cfg, None, 2, 64,
+                                                      device=dev)
+        data.close()
+        data = TokenPipeline(DataConfig(cfg.vocab_size, 64, 2, seed=0),
+                             start_step=start, device=dev)
+        return TrainingRunner(RunnerConfig(ckpt_dir=str(path), ckpt_every=2),
+                              step, params, opt, data)
+    straight = runner(tmp_path / "a")
+    assert straight.run(4) == "done"
+    first = runner(tmp_path / "b")
+    first.run(2)
+    first.preempt()
+    assert first.run(1) == "preempted"
+    second = runner(tmp_path / "b", start=2)
+    assert second.try_resume() and second.step == 2
+    second.run(2)
+    for a, b in zip(leaves({"p": straight.params, "o": straight.opt_state}),
+                    leaves({"p": second.params, "o": second.opt_state})):
+        assert torch.equal(a, b)
+    poisoned = runner(tmp_path / "c")
+    nan_at = {"i": 0}
+
+    def hook(step, batch):
+        nan_at["i"] += 1
+        if nan_at["i"] == 4:    # the 4th batch: its step's params go NaN
+            for p in leaves(poisoned.params)[:1]:
+                p.data.fill_(float("nan"))
+        return batch
+    assert poisoned.run(5, poison_hook=hook) == "done"
+    assert poisoned.rollbacks == 1 and poisoned.step == 5
+    assert all(bool(torch.isfinite(p).all()) for p in
+               leaves(poisoned.params))
+    for r in (straight, first, second, poisoned):
+        r.data.close()
 
 
 @pytest.mark.parametrize("arch,kw", [
