@@ -4135,29 +4135,61 @@ def _sdpa_bwd_ms(q, k, v, do, causal: bool, window: int) -> float:
                                                retain_graph=True), 5)
 
 
-def k9_bwd_check(label, b, hq, hkv, sq, skv, d, dtype, causal, window):
-    """K9's backward at one shape: dq, dk, dv each within twice the plain
-    version's own error against its float64 evaluation
-    (``flash_attention.bwd_tolerance``), a second call bitwise equal, its
-    device launches those ``bwd_launches_per_call`` names; call ms, device
-    ms, the plain version's ms, SDPA's backward ms and the bound (five
-    products of 2 D flops a valid pair and head at the dtype's peak, or
-    q, k, v, dO, lse read and dq, dk, dv written once)."""
+def sm_clock_mhz(fn, seconds: float = 0.3) -> float:
+    """The SM clock while ``fn`` runs back to back for about ``seconds``:
+    the median of ``nvidia-smi``'s samples every 20 ms over the window (a
+    compute-bound kernel's time scales with it)."""
     import torch
-    from repro_torch.kernels import flash_attention as fa
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits", "-lms", "20"], stdout=subprocess.PIPE,
+        stderr=subprocess.DEVNULL, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate(timeout=30)
+    mhz = sorted(float(x) for x in out.split() if x.replace(".", "").isdigit())
+    return mhz[len(mhz) // 2] if mhz else float("nan")
+
+
+def _bwd_inputs(b, hq, hkv, sq, skv, d, dtype):
+    """q, k, v, dO of K9's backward at one shape, seeded by the shape."""
+    import torch
     dt = getattr(torch, dtype)
     g = torch.Generator(device=DEV).manual_seed(sq + skv + d)
     q, do = (torch.randn(b, hq, sq, d, generator=g, device=DEV).to(dt)
              for _ in range(2))
     k, v = (torch.randn(b, hkv, skv, d, generator=g, device=DEV).to(dt)
             for _ in range(2))
+    return q, k, v, do
+
+
+def k9_bwd_check(label, b, hq, hkv, sq, skv, d, dtype, causal, window):
+    """K9's backward at one shape: dq, dk, dv each within twice the plain
+    version's own error against its float64 evaluation
+    (``flash_attention.bwd_tolerance``), a second call bitwise equal, its
+    device launches those ``bwd_kernel_launches`` names (the kernels
+    ``bwd_kernel_for`` picks); call ms, device ms, the plain version's ms,
+    SDPA's backward ms and the bound (five products of 2 D flops a valid
+    pair and head at the dtype's peak, or q, k, v, dO, lse read and dq, dk,
+    dv written once), and the wgmma design's own work at the bf16 peak
+    (12 products); the SM clock under back-to-back calls."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    dt = getattr(torch, dtype)
+    q, k, v, do = _bwd_inputs(b, hq, hkv, sq, skv, d, dtype)
     kw = dict(causal=causal, window=window)
     _, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
     fa.bwd_device_launches(reset=True)
     got = fa.flash_attention_bwd(q, k, v, lse, do, **kw)
     torch.cuda.synchronize()
     ran = fa.bwd_device_launches(reset=True)
-    if sum(ran.values()) != fa.bwd_launches_per_call(dt, d):
+    if ran != fa.bwd_kernel_launches(dt, d, hq // hkv):
         fail(f"K9 backward {label}: device launches {ran}")
     again = fa.flash_attention_bwd(q, k, v, lse, do, **kw)
     if not all(torch.equal(x, y) for x, y in zip(got, again)):
@@ -4174,6 +4206,7 @@ def k9_bwd_check(label, b, hq, hkv, sq, skv, d, dtype, causal, window):
     call = lambda: fa.flash_attention_bwd(q, k, v, lse, do, **kw)  # noqa
     ms = cuda_ms(call, 5)
     dev_ms = device_ms(call, 5)
+    clock = sm_clock_mhz(call)
     plain_ms = cuda_ms(lambda: fa.flash_attention_plain_bwd(
         q, k, v, do, **kw), 2, warmup=1)
     torch.cuda.empty_cache()
@@ -4182,20 +4215,138 @@ def k9_bwd_check(label, b, hq, hkv, sq, skv, d, dtype, causal, window):
     nbytes = el * (3 * q.numel() + 2 * k.numel() + 2 * v.numel()) + \
         4 * lse.numel()
     ops = 5 * 2 * d * _bwd_pairs(sq, skv, causal, window) * hq * b
-    bms, by = bound(nbytes, fp_ops=ops, fp_ops_per_s=(
-        H100_BF16_OPS_PER_S if dtype == "bfloat16" else H100_FP32_OPS_PER_S))
+    rate = H100_BF16_OPS_PER_S if dtype == "bfloat16" else \
+        H100_FP32_OPS_PER_S
+    bms, by = bound(nbytes, fp_ops=ops, fp_ops_per_s=rate)
+    kernel = fa.bwd_kernel_for(dt, d)
     out = {"label": label, "shape": {"B": b, "Hq": hq, "Hkv": hkv, "Sq": sq,
                                      "Skv": skv, "D": d, "dtype": dtype,
                                      "causal": causal, "window": window},
+           "kernel": kernel,
+           "source": "src/repro_torch/csrc/" + (
+               "flash_attention_bwd_wgmma.cu" if kernel == "wgmma_bf16"
+               else "flash_attention_bwd.cu"),
+           "design_12_products_ms": (ops * 12 / 5 / rate * 1e3
+                                     if kernel == "wgmma_bf16" else None),
            "max_abs_err": max(errs), "err": dict(zip(("dq", "dk", "dv"),
                                                      errs)),
            "tolerance": dict(zip(("dq", "dk", "dv"), tol)),
            "device_launches_per_call": ran, "ms": ms, "device_ms": dev_ms,
-           "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
-           "bound_by": by}
+           "sm_clock_mhz": clock, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "bound_ms": bms, "bound_by": by}
     del q, k, v, do, lse, got
     torch.cuda.empty_cache()
     return out
+
+
+def k9_bwd_split(label, b, hq, hkv, sq, skv, d, dtype, causal, window):
+    """K9's backward at one shape by kernel: each backward kernel's device
+    ms a call from a ``torch.profiler`` trace of three calls (the sum of
+    its kernel's durations over 3) and the device's span over them (first
+    kernel's start to last kernel's end, over 3), right after the SM clock
+    under back-to-back calls (``sm_clock_mhz``), beside a bound of its
+    own: dq three
+    products (Q K^T, dO V^T, dS K), dkdv four (K Q^T, V dO^T, P^T dO, dS^T
+    Q), each of 2 D flops a valid pair and head at the bf16 peak; the group
+    sum its bytes (the f32 partials read, the bf16 dK and dV written)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import flash_attention as fa
+    dt = getattr(torch, dtype)
+    q, k, v, do = _bwd_inputs(b, hq, hkv, sq, skv, d, dtype)
+    kw = dict(causal=causal, window=window)
+    _, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    clock = sm_clock_mhz(lambda: fa.flash_attention_bwd(q, k, v, lse, do,
+                                                        **kw))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fa.flash_attention_bwd(q, k, v, lse, do, **kw)
+        torch.cuda.synchronize()
+    ms = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = e.cuda_time_total
+        for name in fa.BWD_KERNELS:
+            if name in e.key:
+                ms[name] = ms.get(name, 0.0) + t / 3 / 1e3
+    # the device's span over the three calls: the kernels and the gaps
+    # between them
+    ranges = [e.time_range for e in prof.events()
+              if any(name in e.name for name in fa.BWD_KERNELS) and
+              str(getattr(e, "device_type", "")).endswith("CUDA")]
+    span = (max(r.end for r in ranges) - min(r.start for r in ranges)) / \
+        3 / 1e3 if ranges else None
+    pairs = _bwd_pairs(sq, skv, causal, window) * hq * b
+    per_product = 2 * d * pairs / H100_BF16_OPS_PER_S * 1e3
+    part_bytes = 2 * b * hq * skv * d * 4 + 2 * k.numel() * 2
+    bounds = {"dq_wgmma": (3 * per_product, "operations"),
+              "dkdv_wgmma": (4 * per_product, "operations"),
+              "group_sum": bound(part_bytes)}
+    out = {"label": label, "device_span_ms_per_call": span,
+           "sm_clock_mhz": clock,
+           "launches_per_call": fa.bwd_kernel_launches(dt, d, hq // hkv),
+           "kernels": {name: {"device_ms": t,
+                              "bound_ms": bounds.get(name, (None,))[0],
+                              "bound_by": bounds.get(name, (None, None))[1]}
+                       for name, t in ms.items()}}
+    del q, k, v, do, lse, prof
+    torch.cuda.empty_cache()
+    return out
+
+
+def k9_fwd_lse_check(b, hq, hkv, s, d):
+    """K9's forward with its logsumexp (``return_lse=True``, as the
+    training step's ``FlashAttention`` calls it) at the training shape,
+    causal, bf16: the output within ``bf16_error_bound`` of the plain
+    version, the logsumexp within 1e-5 relative plus 1e-4 of ``lse_plain``;
+    call ms, device ms, the plain version's ms (output and logsumexp),
+    SDPA's forward ms and the bound (4 D flops a valid pair and head)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    bf = torch.bfloat16
+    g = torch.Generator(device=DEV).manual_seed(s + d)
+    q = torch.randn(b, hq, s, d, generator=g, device=DEV).to(bf)
+    k, v = (torch.randn(b, hkv, s, d, generator=g, device=DEV).to(bf)
+            for _ in range(2))
+    fa.device_launches(reset=True)
+    out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True)
+    ran = fa.device_launches(reset=True)
+    plain = fa.flash_attention_plain(q, k, v)
+    lim = fa.bf16_error_bound(plain, q, k, v)
+    diff = (out.float() - plain.float()).abs()
+    ratio = float((diff / lim).max())
+    lse_err = float(((lse - fa.lse_plain(q, k)).abs() /
+                     (1e-4 + 1e-5 * lse.abs())).max())
+    if ran != {n: int(n == "wgmma_bf16") for n in fa.KERNELS} or \
+            not ratio <= 1.0 or not lse_err <= 1.0:
+        fail(f"K9 forward with its logsumexp: launches {ran}, error "
+             f"{ratio} of its bound, logsumexp {lse_err} of its tolerance")
+    err = float(diff.max())
+    del plain, lim, diff
+    torch.cuda.empty_cache()
+    call = lambda: fa.flash_attention_fwd(q, k, v,  # noqa: E731
+                                          return_lse=True)
+    plain_call = lambda: (fa.flash_attention_plain(q, k, v),  # noqa: E731
+                          fa.lse_plain(q, k))
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=True, enable_gqa=True)
+    pairs = b * hq * attention_pairs(s, s, 0)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + 4 * lse.numel()
+    bms, by = bound(nbytes, fp_ops=4 * d * pairs,
+                    fp_ops_per_s=H100_BF16_OPS_PER_S)
+    res = {"shape": {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d,
+                     "causal": True, "dtype": "bfloat16"},
+           "device_launches_per_call": ran, "max_abs_err": err,
+           "max_err_over_bound": ratio, "lse_err_over_tolerance": lse_err,
+           "ms": cuda_ms(call, 5), "device_ms": device_ms(call, 5),
+           "plain_ms": cuda_ms(plain_call, 1),
+           "library_ms": cuda_ms(lib, 5), "library_device_ms":
+           device_ms(lib, 5), "bound_ms": bms, "bound_by": by}
+    del q, k, v, out, lse
+    torch.cuda.empty_cache()
+    return res
 
 
 def _fingerprint(tree) -> list:
@@ -4237,6 +4388,15 @@ def _reset_train_counts():
     fa.bwd_device_launches(reset=True)
 
 
+def _bwd_per_call(cfg) -> dict:
+    """Each K9 backward kernel's device launches a call at the model's
+    attention (bf16, its head dimension and group size)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    return fa.bwd_kernel_launches(torch.bfloat16, cfg.head_dim,
+                                  cfg.num_heads // cfg.num_kv_heads)
+
+
 def _train_grads_check(cfg, batch):
     """Full width, the first 2 layers: every leaf's gradient of the fused
     model (K9 and its backward) against the reference lowering's (the plain
@@ -4251,8 +4411,9 @@ def _train_grads_check(cfg, batch):
     _reset_train_counts()
     lf, _, gf = loss_and_grads(api, params, batch)
     n = _train_counts()
+    want_bwd = {k: cfg.num_layers * c for k, c in _bwd_per_call(cfg).items()}
     if n["forward"] != 2 * cfg.num_layers or \
-            n["backward_device"]["dq_bf16"] != cfg.num_layers:
+            n["backward_device"] != want_bwd:
         fail(f"lm_train_path: the 2-layer fused step launched {n}")
     _reset_train_counts()
     lr, _, gr = loss_and_grads(build_model(cfg.replace(
@@ -4352,16 +4513,16 @@ def _train_run(cfg, batch: int, seq: int, checks: bool):
         counts.append(_train_counts())
         losses.append(loss)
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    per_call = {"dq_bf16": 1, "dkdv_bf16": 1}
+    per_call = _bwd_per_call(cfg)
+    want_bwd = {k: n_layers * n for k, n in per_call.items()}
     for i, c in enumerate(counts):
-        want_bwd = {k: n_layers * per_call.get(k, 0)
-                    for k in c["backward_device"]}
         if c["forward"] != 2 * n_layers or \
                 c["forward_device"]["wgmma_bf16"] != 2 * n_layers or \
-                c["backward_calls"] != 2 * n_layers or \
+                c["backward_calls"] != sum(want_bwd.values()) or \
                 c["backward_device"] != want_bwd:
             fail(f"lm_train_path: step {i}: K9 launches {c}, not "
-                 f"{2 * n_layers} forwards and {n_layers} backward calls")
+                 f"{2 * n_layers} forwards and {n_layers} backward calls "
+                 f"of {per_call} each")
     if not all(math.isfinite(x) for x in losses):
         fail(f"lm_train_path: losses {losses}")
     out.update(losses=losses, step_ms=step_ms, host_ms=host_ms,
@@ -4431,6 +4592,8 @@ def lm_train_cell(arch: str, batch: int, seq: int, card: str):
            "opt_state_dtype": cfg.parallel.opt_state_dtype,
            "cut": f"batch 256 -> {batch}", "card": card}
     res["k9_backward"] = [k9_bwd_check(*c) for c in BWD_SHAPES]
+    res["k9_forward_lse"] = k9_fwd_lse_check(
+        batch, cfg.num_heads, cfg.num_kv_heads, seq, cfg.head_dim)
     probe = TokenPipeline(DataConfig(cfg.vocab_size, seq, batch, seed=0),
                           device=DEV)
     b0 = next(probe)
@@ -4463,6 +4626,10 @@ def lm_train_cell(arch: str, batch: int, seq: int, card: str):
         bound_ms=flops / H100_BF16_OPS_PER_S * 1e3,
         bf16_peak_share=flops / (med / 1e3) / H100_BF16_OPS_PER_S,
         peak_gb=first["peak_gb"], ln_v=lnv)
+    # after every timed step: a profiler session slows the host's launches
+    # for the rest of the process
+    res["k9_backward_split"] = [k9_bwd_split(*c) for c in BWD_SHAPES
+                                if c[7] == "bfloat16"]
     return res
 
 
@@ -5016,13 +5183,26 @@ def main() -> int:
             e["lm_train_path_launches"] = {
                 tcell["arch"]: {"forward_per_step": per_step["forward"],
                                 "steps": n_steps}}
+    fl = tcell["k9_forward_lse"]
+    kernels.append({
+        "name": f"flash_attention ({tcell['arch']} training, with its "
+                f"logsumexp)", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:94",
+        "launches": per_step["forward"] * n_steps,
+        "launches_per_train_step": per_step["forward"],
+        "max_abs_err": fl["max_abs_err"], "ms": fl["ms"],
+        "device_ms": fl["device_ms"], "plain_ms": fl["plain_ms"],
+        "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
+        "library_ms": fl["library_ms"], "shape": fl["shape"]})
+    bwd_replaces = ("src/repro/kernels/flash_attention.py:94 (its backward, "
+                    "which the JAX package has not: it differentiates "
+                    "src/repro/models/attention.py:48)")
     for bw in tcell["k9_backward"]:
         kernels.append({
             "name": f"flash_attention_bwd ({bw['label']})", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:94 (its "
-                        "backward, which the JAX package has not: it "
-                        "differentiates src/repro/models/attention.py:48)",
+            "source": bw["source"], "device_kernels": bw["kernel"],
+            "replaces": bwd_replaces,
             "launches": (sum(per_step["backward_device"].values()) * n_steps
                          if bw["label"] == tcell["arch"] else 0),
             "launches_per_train_step": (
@@ -5033,7 +5213,28 @@ def main() -> int:
             "ms": bw["ms"], "device_ms": bw["device_ms"],
             "plain_ms": bw["plain_ms"], "bound_ms": bw["bound_ms"],
             "bound_by": bw["bound_by"], "library_ms": bw["library_ms"],
+            "design_12_products_ms": bw["design_12_products_ms"],
             "shape": bw["shape"]})
+    # each backward kernel apart (a profiled call's device ms), at the
+    # training path's shape with its launches there, at the others with 0
+    whole = {bw["label"]: bw for bw in tcell["k9_backward"]}
+    for sp in tcell["k9_backward_split"]:
+        on_path = sp["label"] == tcell["arch"]
+        for name, kt in sp["kernels"].items():
+            kernels.append({
+                "name": f"flash_attention_bwd {name} ({sp['label']})",
+                "route": "cuda",
+                "source": whole[sp["label"]]["source"],
+                "replaces": bwd_replaces,
+                "launches": (per_step["backward_device"][name] * n_steps
+                             if on_path else 0),
+                "launches_per_call": sp["launches_per_call"][name],
+                "max_abs_err": whole[sp["label"]]["max_abs_err"],
+                "ms": kt["device_ms"], "device_ms": kt["device_ms"],
+                "plain_ms": whole[sp["label"]]["plain_ms"],
+                "plain_is": "the whole backward's plain version",
+                "bound_ms": kt["bound_ms"], "bound_by": kt["bound_by"],
+                "library_ms": None})
     # the service's launches: its R=1 poisoned run (the K0 draws by mode;
     # the old algorithms' variants do not run in the service cells) and its
     # R=4 runs

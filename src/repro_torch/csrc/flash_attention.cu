@@ -69,6 +69,11 @@
 
 namespace {
 
+using hopper::fast_exp2;
+using hopper::pack_bf16;
+using hopper::pack_p;
+using hopper::tensor_map;
+
 constexpr float kNeg = -1e30f;
 constexpr int kBQ = 64;    // q rows a block
 constexpr int kBK = 64;    // keys a kv tile
@@ -105,11 +110,6 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 __device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
@@ -455,21 +455,6 @@ __device__ __forceinline__ float masked_raw(const Attn& a, float s, int q,
   return s;
 }
 
-template <int N>
-__device__ __forceinline__ void wgmma_s(float* d, uint64_t a, uint64_t b,
-                                        int acc) {
-  if constexpr (N == 64) hopper::wgmma_ss_n64(d, a, b, acc);
-  else hopper::wgmma_ss_n128(d, a, b, acc);
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a,
-                                         uint64_t b) {
-  if constexpr (N == 64) hopper::wgmma_rs_n64(d, a, b, 1);
-  else if constexpr (N == 128) hopper::wgmma_rs_n128(d, a, b, 1);
-  else hopper::wgmma_rs_n256(d, a, b, 1);
-}
-
 // S = Q K^T (raw scores), 64 x BK in registers, from the warpgroup's 64 q
 // rows at q_base and the K tile at k_base; committed, not awaited.
 template <int D, int BK>
@@ -480,19 +465,10 @@ __device__ __forceinline__ void issue_s(float* sacc, uint32_t q_base,
   hopper::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t qa = q_base + (kk / 4) * kWgBQ * 128 + (kk % 4) * 32;
-    const uint32_t kb = k_base + (kk / 4) * BK * 128 + (kk % 4) * 32;
-    wgmma_s<BK>(sacc, hopper::sw128_desc(qa, 16, 1024),
-                hopper::sw128_desc(kb, 16, 1024), kk > 0);
+    hopper::wgmma_ss<BK>(sacc, hopper::kmajor_desc<kWgBQ>(q_base, kk),
+                         hopper::kmajor_desc<BK>(k_base, kk), kk > 0);
   }
   hopper::wgmma_commit();
-}
-
-// 2^x by one MUFU.EX2 (subnormal results flush to 0)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // Online softmax of one tile's raw scores in place: updates the rows' max
@@ -567,19 +543,6 @@ __device__ __forceinline__ void rescale(float* oacc, const float* corr) {
   }
 }
 
-// P rounded to bf16 in the layout of wgmma's register A operand (that of
-// the S accumulators: rows g and g + 8, keys 2 t, 2 t + 1 and + 8)
-template <int BK>
-__device__ __forceinline__ void pack_p(uint32_t (*pf)[4], const float* sacc) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    pf[kk][0] = pack_bf16(sacc[8 * kk + 0], sacc[8 * kk + 1]);
-    pf[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
-    pf[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
-    pf[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
-  }
-}
-
 // O += P V from the V tile at v_base ([key][D] is MN-major for B: 64-column
 // boxes BK * 128 bytes apart, 8 keys 1,024 bytes apart); committed, not
 // awaited.
@@ -591,8 +554,7 @@ __device__ __forceinline__ void issue_pv(float* oacc, uint32_t (*pf)[4],
   hopper::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
-    wgmma_pv<D>(oacc, pf[kk],
-                hopper::sw128_desc(v_base + kk * 16 * 128, BK * 128, 1024));
+    hopper::wgmma_rs<D>(oacc, pf[kk], hopper::mnmajor_desc<BK>(v_base, kk));
   }
   hopper::wgmma_commit();
 }
@@ -730,52 +692,6 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 // Launches of each kernel (0 wgmma bf16, 1 mma.sync bf16, 2 FFMA f32),
 // counted beside each launch.
 int g_launches[3] = {0, 0, 0};
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, found through the runtime's entry
-// point query: no -lcuda in the link line.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
-// A (d, rows, planes) bf16 tensor as boxes of 64 columns x box_rows rows,
-// swizzled by 128 bytes; rows past the end read as zeros.
-bool tensor_map(CUtensorMap* map, const void* base, int d, int rows,
-                int planes, int box_rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
-                              (cuuint64_t)planes};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
-                                 (cuuint64_t)rows * d * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <int D, int BK>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,

@@ -1,9 +1,15 @@
 // Hopper building blocks for the port's kernels, as inline PTX: mbarriers,
 // TMA tile loads, wgmma shared-memory descriptors and warpgroup matrix
-// products. Used by csrc/flash_attention.cu (K9's bf16 kernel). Everything
-// here exists only for sm_90a.
+// products; and the tile helpers that K9's forward (csrc/flash_attention.cu)
+// and its backward (csrc/flash_attention_bwd_wgmma.cu) share: the tensor
+// maps that lay a (rows, D) bf16 tile out as 64-column boxes in the 128-byte
+// swizzle, and the packing of f32 accumulators into bf16 A fragments. The
+// device code exists only for sm_90a.
 #pragma once
 
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -97,6 +103,23 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
   return (uint64_t)((addr & 0x3FFFFu) >> 4) |
          ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | (1ull << 62);
+}
+
+// D (64 x 32, f32) (+)= A (64 x 16) . B (16 x 32), both in shared
+// memory and K-major
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15 "
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 // D (64 x 64, f32) (+)= A (64 x 16) . B (16 x 64), both in shared
@@ -247,6 +270,113 @@ __device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a,
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// D (64 x N) (+)= A . B^T over one k16 slice, both K-major in shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b,
+                                         int acc) {
+  if constexpr (N == 32) wgmma_ss_n32(d, a, b, acc);
+  else if constexpr (N == 64) wgmma_ss_n64(d, a, b, acc);
+  else wgmma_ss_n128(d, a, b, acc);
+}
+
+// D (64 x N) += A (registers) . B (MN-major in shared memory), one k16 slice
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t b) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, b, 1);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, b, 1);
+  else wgmma_rs_n256(d, a, b, 1);
+}
+
+// Descriptors of a tile stored as 64-column boxes of `rows` rows each
+// ([D/64][rows][64] bf16, 128-byte swizzle), from its shared address:
+// k16 slice kk of 16 columns, K-major (the tile's rows are the operand's M
+// or N rows) ...
+template <int ROWS>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t base, int kk) {
+  return sw128_desc(base + (kk / 4) * ROWS * 128 + (kk % 4) * 32, 16, 1024);
+}
+
+// ... and MN-major (the tile's rows are the K dimension: rows 16 kk to
+// 16 kk + 15, every column as N)
+template <int ROWS>
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t base, int kk) {
+  return sw128_desc(base + kk * 16 * 128, ROWS * 128, 1024);
+}
+
+// 2^x by one MUFU.EX2 (subnormal results flush to 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// An accumulator of 64 rows x N columns (rows g and g + 8, columns 2 t,
+// 2 t + 1 and + 8 of each 16, as wgmma leaves it) rounded to bf16 in the
+// layout of wgmma's register A operand (64 x N, K = N)
+template <int N>
+__device__ __forceinline__ void pack_p(uint32_t (*pf)[4], const float* sacc) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    pf[kk][0] = pack_bf16(sacc[8 * kk + 0], sacc[8 * kk + 1]);
+    pf[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
+    pf[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
+    pf[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
+  }
+}
+
+// ---- tensor maps (host) ---------------------------------------------------
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, found through the runtime's entry
+// point query: no -lcuda in the link line.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// A (d, rows, planes) bf16 tensor as boxes of 64 columns x box_rows rows,
+// swizzled by 128 bytes; rows past the end read as zeros.
+inline bool tensor_map(CUtensorMap* map, const void* base, int d, int rows,
+                       int planes, int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
+                                 (cuuint64_t)rows * d * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

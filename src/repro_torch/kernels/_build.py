@@ -82,6 +82,8 @@ SIGNATURES = {
     "repro_flash_attention_device_launches": [I, I],
     "repro_flash_attention_bwd": [P] * 9 + [I] * 8 + [F, I, P],
     "repro_flash_attention_bwd_device_launches": [I, I],
+    "repro_flash_attention_bwd_wgmma": [P] * 10 + [I] * 8 + [F, P],
+    "repro_flash_attention_bwd_wgmma_device_launches": [I, I],
 }
 
 

@@ -15,13 +15,19 @@ or 256 runs on ``wgmma`` with TMA loads, other bf16 head dimensions on
 None): the LM's prefill passes a q it pre-scaled and rounded as the JAX
 model does, with ``scale=1.0``.
 
-K9's backward (``flash_attention_bwd``, ``csrc/flash_attention_bwd.cu``)
-is new in the port: the JAX package differentiates its plain attention, so
-no TPU kernel stands behind it. It takes the row logsumexp that the forward
-writes when asked (``return_lse=True``) and gives dQ, dK, dV, the gradient
-of ``flash_attention_plain``, whose plain counterpart is
-``flash_attention_plain_bwd`` (autograd through it). ``flash_attention``
-runs the two as one ``torch.autograd.Function`` when a gradient is wanted.
+K9's backward (``flash_attention_bwd``) is new in the port: the JAX package
+differentiates its plain attention, so no TPU kernel stands behind it. It
+takes the row logsumexp that the forward writes when asked
+(``return_lse=True``) and gives dQ, dK, dV, the gradient of
+``flash_attention_plain``, whose plain counterpart is
+``flash_attention_plain_bwd`` (autograd through it). ``bwd_kernel_for``
+picks its kernels from the dtype and head dimension alone, as
+``kernel_for`` does: bf16 at D = 64, 128 or 256 on ``wgmma`` with TMA loads
+(``csrc/flash_attention_bwd_wgmma.cu``: dq, dkdv a block per q head, and
+the group sum when Hq > Hkv), other bf16 head dimensions on ``mma.sync``
+and f32 on FFMA (``csrc/flash_attention_bwd.cu``). ``flash_attention``
+runs the forward and backward as one ``torch.autograd.Function`` when a
+gradient is wanted.
 """
 from __future__ import annotations
 
@@ -37,7 +43,8 @@ launches = _build.LaunchCounter("flash_attention")
 bwd_launches = _build.LaunchCounter("flash_attention_bwd")
 WGMMA_HEAD_DIMS = (64, 128, 256)
 KERNELS = ("wgmma_bf16", "mma_sync_bf16", "ffma_f32")
-BWD_KERNELS = ("dq_bf16", "dkdv_bf16", "dq_f32", "dkdv_f32")
+BWD_KERNELS = ("dq_bf16", "dkdv_bf16", "dq_f32", "dkdv_f32", "dq_wgmma",
+               "dkdv_wgmma", "group_sum")
 
 
 def kernel_for(dtype, d: int) -> str:
@@ -58,16 +65,41 @@ def device_launches(*, reset: bool = False) -> dict:
 
 def bwd_device_launches(*, reset: bool = False) -> dict:
     """Launches of each backward kernel on the card, counted in
-    ``csrc/flash_attention_bwd.cu``; ``reset`` as ``device_launches``."""
+    ``csrc/flash_attention_bwd.cu`` (the first four of ``BWD_KERNELS``) and
+    ``csrc/flash_attention_bwd_wgmma.cu`` (the last three); ``reset`` as
+    ``device_launches``."""
     lib = _build.library()
-    return {name: int(lib.repro_flash_attention_bwd_device_launches(
-        i, int(reset))) for i, name in enumerate(BWD_KERNELS)}
+    counts = [lib.repro_flash_attention_bwd_device_launches(i, int(reset))
+              for i in range(4)]
+    counts += [lib.repro_flash_attention_bwd_wgmma_device_launches(
+        i, int(reset)) for i in range(3)]
+    return {name: int(n) for name, n in zip(BWD_KERNELS, counts)}
 
 
-def bwd_launches_per_call(dtype, d: int) -> int:
-    """The backward's kernel launches a call: dQ, then dK and dV (bf16 at
-    D > 128 in two launches, one for each)."""
-    return 3 if dtype == torch.bfloat16 and d > 128 else 2
+def bwd_kernel_for(dtype, d: int) -> str:
+    """The backward kernels that take q of this dtype and head dimension,
+    by the forward's names: ``wgmma_bf16`` (dq_wgmma, dkdv_wgmma,
+    group_sum), ``mma_sync_bf16`` (dq_bf16, dkdv_bf16) or ``ffma_f32``."""
+    return kernel_for(dtype, d)
+
+
+def bwd_kernel_launches(dtype, d: int, group: int = 1) -> dict:
+    """Each backward kernel's launches a call (``BWD_KERNELS``' names):
+    dQ, then dK and dV; on wgmma a group sum when ``group`` (Hq / Hkv) > 1,
+    on mma.sync at D > 128 dK and dV apart."""
+    kernel = bwd_kernel_for(dtype, d)
+    if kernel == "wgmma_bf16":
+        per = {"dq_wgmma": 1, "dkdv_wgmma": 1, "group_sum": int(group > 1)}
+    elif kernel == "mma_sync_bf16":
+        per = {"dq_bf16": 1, "dkdv_bf16": 2 if d > 128 else 1}
+    else:
+        per = {"dq_f32": 1, "dkdv_f32": 1}
+    return {name: per.get(name, 0) for name in BWD_KERNELS}
+
+
+def bwd_launches_per_call(dtype, d: int, group: int = 1) -> int:
+    """The backward's kernel launches a call (``bwd_kernel_launches``)."""
+    return sum(bwd_kernel_launches(dtype, d, group).values())
 
 
 def _window(window, s: int) -> int:
@@ -242,13 +274,13 @@ def flash_attention_bwd(q, k, v, lse, dout, *, causal=True, window=0,
     """K9's backward: (dq, dk, dv) like (q, k, v), from the forward's
     ``lse`` (``return_lse=True``) and the output's gradient ``dout``;
     shapes and ``scale`` as ``flash_attention_plain``. On a CUDA tensor it
-    launches ``csrc/flash_attention_bwd.cu`` or raises (what the forward
-    refuses, and a window that leaves a row with no valid key); on a CPU
-    tensor it runs ``flash_attention_plain_bwd``."""
+    launches the kernels ``bwd_kernel_for`` names or raises (what the
+    forward refuses, and a window that leaves a row with no valid key); on
+    a CPU tensor it runs ``flash_attention_plain_bwd``."""
     if q.device.type != "cuda":
         return flash_attention_plain_bwd(q, k, v, dout, causal=causal,
                                          window=window, scale=scale)
-    _check(q, k, v, "flash_attention_bwd")
+    kernel = _check(q, k, v, "flash_attention_bwd")   # = bwd_kernel_for
     b, hq, s, d = q.shape
     _, hkv, skv, _ = k.shape
     w = _window(window, s)
@@ -263,18 +295,32 @@ def flash_attention_bwd(q, k, v, lse, dout, *, causal=True, window=0,
         raise ValueError(f"flash_attention_bwd: lse must be ({b}, {hq}, "
                          f"{s}) float32, got {tuple(lse.shape)} {lse.dtype}")
     qc, kc, vc, lc, oc = (t.contiguous() for t in (q, k, v, lse, dout))
+    if kernel == "wgmma_bf16":
+        # TMA reads from 16-byte aligned bases only, as in the forward
+        qc, kc, vc, oc = (t if t.data_ptr() % 16 == 0 else t.clone()
+                          for t in (qc, kc, vc, oc))
     dq, dk, dv = (torch.empty_like(t) for t in (qc, kc, vc))
     dsum = torch.empty_like(lc)
     _build.require_cuda("flash_attention_bwd", qc, kc, vc, lc, oc, dq, dk,
                         dv, dsum)
-    rc = _build.library().repro_flash_attention_bwd(
-        qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), oc.data_ptr(),
-        lc.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, hq, hkv, s, skv, d, int(bool(causal)), w,
-        1.0 / math.sqrt(d) if scale is None else float(scale),
-        int(q.dtype == torch.bfloat16), _build.stream())
+    lib = _build.library()
+    ptrs = (qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), oc.data_ptr(),
+            lc.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr())
+    dims = (b, hq, hkv, s, skv, d, int(bool(causal)), w,
+            1.0 / math.sqrt(d) if scale is None else float(scale))
+    if kernel == "wgmma_bf16":
+        # each q head's dK and dV in f32, summed over the group after
+        part = torch.empty((2, b, hq, skv, d), dtype=torch.float32,
+                           device=q.device) if hq > hkv else None
+        rc = lib.repro_flash_attention_bwd_wgmma(
+            *ptrs, None if part is None else part.data_ptr(), *dims,
+            _build.stream())
+    else:
+        rc = lib.repro_flash_attention_bwd(
+            *ptrs, *dims, int(q.dtype == torch.bfloat16), _build.stream())
     _build.check(rc, "flash_attention_bwd")
-    bwd_launches.add(bwd_launches_per_call(q.dtype, d))
+    bwd_launches.add(bwd_launches_per_call(q.dtype, d, hq // hkv))
     return dq, dk, dv
 
 

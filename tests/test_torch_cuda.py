@@ -1068,18 +1068,22 @@ def _bwd_inputs(dev, b, hq, hkv, s, skv, d, dtype, seed):
     return q, k, v, do
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,dtype", [
+    (64, torch.float32), (128, torch.float32), (256, torch.float32),
+    (64, torch.bfloat16), (128, torch.bfloat16), (256, torch.bfloat16),
+    (96, torch.bfloat16), (192, torch.bfloat16)])
 @pytest.mark.parametrize("s,skv,causal,window", BWD_CASES)
-@pytest.mark.parametrize("group", [1, 7])
+@pytest.mark.parametrize("group", [1, 4, 7])
 def test_flash_attention_bwd_equals_plain(dev, d, dtype, s, skv, causal,
                                           window, group):
     """K9's backward (from the forward's logsumexp) at causal, window,
     non-causal and cross-attention shapes (Sq 64 against Skv 300, and Skv
-    below S), G = 1 and 7 query heads a kv head, over ragged tiles: each of
-    dq, dk, dv within twice the plain version's own error against its
-    float64 evaluation (``flash_attention.bwd_tolerance``), its launches
-    those ``bwd_launches_per_call`` names, counted in the source."""
+    below S), G = 1, 4 and 7 query heads a kv head, over ragged tiles: each
+    of dq, dk, dv within twice the plain version's own error against its
+    float64 evaluation (``flash_attention.bwd_tolerance``); the kernels
+    launched, counted in the sources, those ``bwd_kernel_for`` names
+    (bf16 at D 64 / 128 / 256 on wgmma with the group sum at G > 1, at D
+    96 / 192 on mma.sync, f32 on FFMA)."""
     q, k, v, do = _bwd_inputs(dev, 2, 2 * group, 2, s, skv, d, dtype,
                               s + skv + d + group)
     kw = dict(causal=causal, window=window)
@@ -1087,11 +1091,10 @@ def test_flash_attention_bwd_equals_plain(dev, d, dtype, s, skv, causal,
     before = fa.bwd_launches.count
     fa.bwd_device_launches(reset=True)
     got = fa.flash_attention_bwd(q, k, v, lse, do, **kw)
-    n = fa.bwd_launches_per_call(dtype, d)
+    n = fa.bwd_launches_per_call(dtype, d, group)
     assert fa.bwd_launches.count == before + n
     kinds = fa.bwd_device_launches(reset=True)
-    assert sum(kinds.values()) == n
-    assert kinds["dq_bf16" if dtype == torch.bfloat16 else "dq_f32"] == 1
+    assert kinds == fa.bwd_kernel_launches(dtype, d, group)
     exact, tol = fa.bwd_tolerance(q, k, v, do, **kw)
     for name, x, e, t, like in zip("qkv", got, exact, tol, (q, k, v)):
         assert x.dtype == dtype and x.shape == like.shape
@@ -1101,11 +1104,40 @@ def test_flash_attention_bwd_equals_plain(dev, d, dtype, s, skv, causal,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_bwd_is_deterministic(dev, dtype):
-    """No atomics: a second backward is bitwise equal (qwen2-7b's heads)."""
+    """No atomics: a second backward is bitwise equal (qwen2-7b's heads;
+    bf16 on the wgmma kernels and their group sum)."""
     q, k, v, do = _bwd_inputs(dev, 1, 28, 4, 700, 700, 128, dtype, 5)
     _, lse = fa.flash_attention_fwd(q, k, v, return_lse=True)
+    fa.bwd_device_launches(reset=True)
     first = fa.flash_attention_bwd(q, k, v, lse, do)
+    assert fa.bwd_device_launches(reset=True) == fa.bwd_kernel_launches(
+        dtype, 128, 7)
     for a, b in zip(first, fa.flash_attention_bwd(q, k, v, lse, do)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("offset", [1, 8])
+def test_flash_attention_bwd_takes_unaligned_views(dev, offset):
+    """TMA needs 16-byte aligned bases: q, k, v and dout that start
+    ``offset`` bf16 elements into their storage give their clones' grads,
+    bitwise, on the wgmma backward."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    bf = torch.bfloat16
+
+    def view(heads):
+        base = torch.randn(offset + 2 * heads * 200 * 128, generator=g,
+                           device=dev).to(bf)
+        return base[offset:].view(2, heads, 200, 128)
+
+    q, k, v, do = view(4), view(1), view(1), view(4)
+    assert q.data_ptr() % 16 == 2 * offset % 16
+    _, lse = fa.flash_attention_fwd(q, k, v, return_lse=True)
+    fa.bwd_device_launches(reset=True)
+    got = fa.flash_attention_bwd(q, k, v, lse, do)
+    assert fa.bwd_device_launches(reset=True)["dq_wgmma"] == 1
+    want = fa.flash_attention_bwd(q.clone(), k.clone(), v.clone(), lse,
+                                  do.clone())
+    for a, b in zip(got, want):
         assert torch.equal(a, b)
 
 
@@ -1138,15 +1170,16 @@ def test_flash_attention_autograd_runs_both_kernels(dev):
     out = fa.flash_attention(*leaves, causal=True)
     out.backward(do)
     counts = _build.launch_counts()
+    per_call = fa.bwd_launches_per_call(torch.bfloat16, 128, 4)
     assert counts["flash_attention"] == 1
-    assert counts["flash_attention_bwd"] == 2
+    assert counts["flash_attention_bwd"] == per_call
     _, lse = fa.flash_attention_fwd(q, k, v, return_lse=True)
     for t, want in zip(leaves, fa.flash_attention_bwd(q, k, v, lse, do)):
         assert torch.equal(t.grad, want)
     _build.reset_launch_counts()
     qq = q.clone().requires_grad_(True)
     attn.chunked_attention(qq, k, v).float().sum().backward()
-    assert _build.launch_counts()["flash_attention_bwd"] == 2
+    assert _build.launch_counts()["flash_attention_bwd"] == per_call
     assert qq.grad is not None
     _build.reset_launch_counts()
     with torch.no_grad():

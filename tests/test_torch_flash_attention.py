@@ -212,3 +212,34 @@ def test_kernel_choice_depends_on_dtype_and_head_dim_only(d, dtype, kernel):
     q = torch.zeros(1, 2, 8, d, dtype=dtype)
     ops.flash_attention(q, q, q)
     assert fa.launches.count == before
+
+
+@pytest.mark.parametrize("d,dtype,group,kernel,per_call", [
+    (64, torch.bfloat16, 1, "wgmma_bf16",
+     {"dq_wgmma": 1, "dkdv_wgmma": 1}),
+    (128, torch.bfloat16, 7, "wgmma_bf16",
+     {"dq_wgmma": 1, "dkdv_wgmma": 1, "group_sum": 1}),
+    (256, torch.bfloat16, 1, "wgmma_bf16",
+     {"dq_wgmma": 1, "dkdv_wgmma": 1}),
+    (256, torch.bfloat16, 10, "wgmma_bf16",
+     {"dq_wgmma": 1, "dkdv_wgmma": 1, "group_sum": 1}),
+    (96, torch.bfloat16, 4, "mma_sync_bf16", {"dq_bf16": 1, "dkdv_bf16": 1}),
+    (192, torch.bfloat16, 1, "mma_sync_bf16",
+     {"dq_bf16": 1, "dkdv_bf16": 2}),
+    (128, torch.float32, 7, "ffma_f32", {"dq_f32": 1, "dkdv_f32": 1}),
+    (256, torch.float32, 1, "ffma_f32", {"dq_f32": 1, "dkdv_f32": 1})])
+def test_bwd_kernel_choice_depends_on_dtype_head_dim_and_group_only(
+        d, dtype, group, kernel, per_call):
+    """The backward's kernels, and each one's launches a call, follow from
+    the dtype, D and the group size alone (the group sum only on wgmma with
+    Hq > Hkv), and a CPU tensor launches none of them."""
+    assert fa.bwd_kernel_for(dtype, d) == kernel
+    want = {name: per_call.get(name, 0) for name in fa.BWD_KERNELS}
+    assert fa.bwd_kernel_launches(dtype, d, group) == want
+    assert fa.bwd_launches_per_call(dtype, d, group) == sum(want.values())
+    before = fa.bwd_launches.count
+    q = torch.zeros(1, group, 8, d, dtype=dtype)
+    k = torch.zeros(1, 1, 8, d, dtype=dtype)
+    lse = fa.lse_plain(q, k)
+    fa.flash_attention_bwd(q, k, k, lse, q)
+    assert fa.bwd_launches.count == before
