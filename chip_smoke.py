@@ -127,6 +127,13 @@ import time
 H100_BYTES_PER_S = 3.35e12    # HBM3 rate of an H100 SXM (data sheet)
 H100_FP32_OPS_PER_S = 67e12   # FP32 rate outside the tensor cores (data sheet)
 H100_BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core rate (data sheet)
+# dense TF32 tensor-core rate (data sheet). f32-accurate products on the
+# tensor cores take three TF32 products each (hi.hi + hi.lo + lo.hi), so K9's
+# f32 bounds count 3 x its f32 flops at this rate: the least time for
+# f32-accurate attention on this card, below the FFMA figure (its f32 flops
+# at H100_FP32_OPS_PER_S), which the lines keep beside it.
+H100_TF32_OPS_PER_S = 495e12
+TF32_PRODUCTS = 3
 # INT32: an SM issues 64 INT32 results a clock (half its 128 FP32 lanes;
 # Hopper white paper), on 132 SMs at the 1,980 MHz boost clock that also
 # gives the FP32 figure (128 x 2 x 132 x 1.98e9 = 67e12): 16.7e12 a second.
@@ -1168,15 +1175,17 @@ def check_kernel_api(cfg, inp, out, counts, k9_kernels, card):
     from repro_torch.kernels import radix_sort as rs
     want = {"neuron_step": 2 * cfg.rate_period,
             "radix_argsort": len(inp["k6"]), "bh_gauss_probs": 1,
-            "flash_attention": len(inp["k9"])}
+            "flash_attention": sum(fa.launches_per_call(q.dtype, q.shape[3])
+                                   for _, (q, _, _), _ in inp["k9"])}
     for name, k in want.items():
         if counts[name] != k:
             fail(f"{name} launched {counts[name]} times on the kernel API "
                  f"path, not {k}")
     chosen = {}
     for _, (q, _, _), _ in inp["k9"]:
-        kernel = fa.kernel_for(q.dtype, q.shape[3])
-        chosen[kernel] = chosen.get(kernel, 0) + 1
+        for kernel, n in fa.kernel_launches(q.dtype, q.shape[3]).items():
+            if n:
+                chosen[kernel] = chosen.get(kernel, 0) + n
     if {k: v for k, v in k9_kernels.items() if v} != chosen:
         fail(f"K9's source counted {k9_kernels} launches, not {chosen}")
     entries, lines = {}, []
@@ -1315,8 +1324,10 @@ def check_kernel_api(cfg, inp, out, counts, k9_kernels, card):
         ran = {nm: n for nm, n in fa.device_launches(reset=True).items()
                if n}
         kernel = fa.kernel_for(q.dtype, q.shape[3])
-        if ran != {kernel: 1}:
-            fail(f"K9 ({label}): one call launched {ran}, not {kernel} once")
+        per_call = {nm: n for nm, n in fa.kernel_launches(
+            q.dtype, q.shape[3]).items() if n}
+        if ran != per_call:
+            fail(f"K9 ({label}): one call launched {ran}, not {per_call}")
         del plain, diff, lim
         worst = max(worst, err)
         ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True,
@@ -1340,9 +1351,13 @@ def check_kernel_api(cfg, inp, out, counts, k9_kernels, card):
         bq, hq, sq, d = q.shape
         pairs = bq * hq * attention_pairs(sq, k.shape[2], window)
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        rate = H100_BF16_OPS_PER_S if q.dtype == torch.bfloat16 \
-            else H100_FP32_OPS_PER_S
-        b = bound(nbytes, fp_ops=4 * d * pairs, fp_ops_per_s=rate)
+        bf16 = q.dtype == torch.bfloat16
+        # f32: three TF32 products to the product on the tensor cores; the
+        # FFMA figure beside it
+        b = bound(nbytes, fp_ops=(1 if bf16 else TF32_PRODUCTS) * 4 * d *
+                  pairs, fp_ops_per_s=H100_BF16_OPS_PER_S if bf16
+                  else H100_TF32_OPS_PER_S)
+        b_ffma = None if bf16 else bound(nbytes, fp_ops=4 * d * pairs)
         lines.append({"kernel": "K9 flash_attention", "shape": label,
                       "device_kernel": kernel,
                       "device_launches_per_call": sum(ran.values()),
@@ -1354,7 +1369,9 @@ def check_kernel_api(cfg, inp, out, counts, k9_kernels, card):
                       "device_ms": dev_ms, "plain_ms": plain_ms,
                       "library_ms": library_ms,
                       "library_device_ms": library_dev_ms, "bound_ms": b[0],
-                      "bound_by": b[1]})
+                      "bound_by": b[1],
+                      "bound_ffma_ms": None if b_ffma is None else b_ffma[0],
+                      "device_ms_over_bound": dev_ms / b[0]})
         if not ok or not det:
             fail(f"K9 ({label}): max |kernel - plain| {err}, at most "
                  f"{ratio} times the tolerance ({tol}), deterministic {det}")
@@ -1364,6 +1381,14 @@ def check_kernel_api(cfg, inp, out, counts, k9_kernels, card):
                                  extra={"device_kernel": kernel,
                                         "device_launches_per_call":
                                         sum(ran.values())})
+        elif kernel == "wgmma_tf32x3":
+            entries["K9 tf32"] = dict(
+                label=label, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bound=b, library_ms=library_ms, max_abs_err=err,
+                extra={"device_kernels": per_call,
+                       "bound_ffma_ms": b_ffma[0],
+                       "shape": {"B": bq, "Hq": hq, "Hkv": k.shape[1],
+                                 "S": sq, "D": d, "window": window}})
     entries["K9"]["max_abs_err"] = worst
     emit({"phase": "kernel_api", "card": card, "launches": counts,
           "flash_attention_kernels": k9_kernels, "checks": lines})
@@ -4106,6 +4131,8 @@ BWD_SHAPES = (
     ("whisper-base encoder", 16, 8, 8, 1500, 1500, 64, "bfloat16", False, 0),
     ("whisper-base cross", 16, 8, 8, 64, 1500, 64, "bfloat16", False, 0),
     ("qwen2-7b f32", 1, 28, 4, 1024, 1024, 128, "float32", True, 0),
+    ("whisper-base encoder f32", 16, 8, 8, 1500, 1500, 64, "float32", False,
+     0),
 )
 
 
@@ -4176,9 +4203,12 @@ def k9_bwd_check(label, b, hq, hkv, sq, skv, d, dtype, causal, window):
     device launches those ``bwd_kernel_launches`` names (the kernels
     ``bwd_kernel_for`` picks); call ms, device ms, the plain version's ms,
     SDPA's backward ms and the bound (five products of 2 D flops a valid
-    pair and head at the dtype's peak, or q, k, v, dO, lse read and dq, dk,
-    dv written once), and the wgmma design's own work at the bf16 peak
-    (12 products); the SM clock under back-to-back calls."""
+    pair and head at the bf16 peak, in f32 three TF32 products each at the
+    TF32 peak with the FFMA figure beside, or q, k, v, dO, lse read and dq,
+    dk, dv written once), and the design's own work (the bf16 wgmma
+    kernels' 12 products at the bf16 peak; the TF32 kernels' 11 products of
+    three TF32 ones each at the TF32 peak); the SM clock under
+    back-to-back calls."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     dt = getattr(torch, dtype)
@@ -4215,19 +4245,25 @@ def k9_bwd_check(label, b, hq, hkv, sq, skv, d, dtype, causal, window):
     nbytes = el * (3 * q.numel() + 2 * k.numel() + 2 * v.numel()) + \
         4 * lse.numel()
     ops = 5 * 2 * d * _bwd_pairs(sq, skv, causal, window) * hq * b
-    rate = H100_BF16_OPS_PER_S if dtype == "bfloat16" else \
-        H100_FP32_OPS_PER_S
-    bms, by = bound(nbytes, fp_ops=ops, fp_ops_per_s=rate)
+    bf16 = dtype == "bfloat16"
+    rate = H100_BF16_OPS_PER_S if bf16 else H100_TF32_OPS_PER_S
+    bms, by = bound(nbytes, fp_ops=ops * (1 if bf16 else TF32_PRODUCTS),
+                    fp_ops_per_s=rate)
     kernel = fa.bwd_kernel_for(dt, d)
     out = {"label": label, "shape": {"B": b, "Hq": hq, "Hkv": hkv, "Sq": sq,
                                      "Skv": skv, "D": d, "dtype": dtype,
                                      "causal": causal, "window": window},
            "kernel": kernel,
-           "source": "src/repro_torch/csrc/" + (
-               "flash_attention_bwd_wgmma.cu" if kernel == "wgmma_bf16"
-               else "flash_attention_bwd.cu"),
+           "source": "src/repro_torch/csrc/" + {
+               "wgmma_bf16": "flash_attention_bwd_wgmma.cu",
+               "wgmma_tf32x3": "flash_attention_tf32.cu"}.get(
+                   kernel, "flash_attention_bwd.cu"),
            "design_12_products_ms": (ops * 12 / 5 / rate * 1e3
                                      if kernel == "wgmma_bf16" else None),
+           "design_11_tf32x3_products_ms": (
+               ops * 11 / 5 * TF32_PRODUCTS / rate * 1e3
+               if kernel == "wgmma_tf32x3" else None),
+           "bound_ffma_ms": None if bf16 else bound(nbytes, fp_ops=ops)[0],
            "max_abs_err": max(errs), "err": dict(zip(("dq", "dk", "dv"),
                                                      errs)),
            "tolerance": dict(zip(("dq", "dk", "dv"), tol)),
@@ -4239,16 +4275,26 @@ def k9_bwd_check(label, b, hq, hkv, sq, skv, d, dtype, causal, window):
     return out
 
 
+def _kernel_named(key: str, name: str) -> bool:
+    """A profiler key (a kernel's demangled name) is kernel ``name``'s, not
+    one whose name merely starts with it (group_sum, group_sum_f32)."""
+    return f"::{name}(" in key or f"::{name}<" in key or key == name
+
+
 def k9_bwd_split(label, b, hq, hkv, sq, skv, d, dtype, causal, window):
     """K9's backward at one shape by kernel: each backward kernel's device
-    ms a call from a ``torch.profiler`` trace of three calls (the sum of
-    its kernel's durations over 3) and the device's span over them (first
-    kernel's start to last kernel's end, over 3), right after the SM clock
+    ms a call from a ``torch.profiler`` trace of three calls, each after
+    256 MB written to flush the L2 (the sum of its kernel's durations over
+    3) and the device's span over them (first kernel's start to last
+    kernel's end, over 3, the flushes included), right after the SM clock
     under back-to-back calls (``sm_clock_mhz``), beside a bound of its
     own: dq three
     products (Q K^T, dO V^T, dS K), dkdv four (K Q^T, V dO^T, P^T dO, dS^T
-    Q), each of 2 D flops a valid pair and head at the bf16 peak; the group
-    sum its bytes (the f32 partials read, the bf16 dK and dV written)."""
+    Q), each of 2 D flops a valid pair and head at the bf16 peak (TF32:
+    three TF32 products each at the TF32 peak); the group sum its bytes
+    (the f32 partials read, dK and dV written); the TF32 pre-pass its bytes
+    (q, k, v, dO read; their hi and lo halves written, k, q and dO also
+    transposed)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import flash_attention as fa
@@ -4258,8 +4304,12 @@ def k9_bwd_split(label, b, hq, hkv, sq, skv, d, dtype, causal, window):
     _, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
     clock = sm_clock_mhz(lambda: fa.flash_attention_bwd(q, k, v, lse, do,
                                                         **kw))
+    # 256 MB written before each call: its inputs come from device memory,
+    # not the 50 MB L2, as the bytes bounds assume
+    flush = torch.empty(2 ** 26, device=DEV)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
+            flush.zero_()
             fa.flash_attention_bwd(q, k, v, lse, do, **kw)
         torch.cuda.synchronize()
     ms = {}
@@ -4268,7 +4318,7 @@ def k9_bwd_split(label, b, hq, hkv, sq, skv, d, dtype, causal, window):
         if t is None:
             t = e.cuda_time_total
         for name in fa.BWD_KERNELS:
-            if name in e.key:
+            if _kernel_named(e.key, name):
                 ms[name] = ms.get(name, 0.0) + t / 3 / 1e3
     # the device's span over the three calls: the kernels and the gaps
     # between them
@@ -4278,11 +4328,25 @@ def k9_bwd_split(label, b, hq, hkv, sq, skv, d, dtype, causal, window):
     span = (max(r.end for r in ranges) - min(r.start for r in ranges)) / \
         3 / 1e3 if ranges else None
     pairs = _bwd_pairs(sq, skv, causal, window) * hq * b
-    per_product = 2 * d * pairs / H100_BF16_OPS_PER_S * 1e3
-    part_bytes = 2 * b * hq * skv * d * 4 + 2 * k.numel() * 2
-    bounds = {"dq_wgmma": (3 * per_product, "operations"),
-              "dkdv_wgmma": (4 * per_product, "operations"),
-              "group_sum": bound(part_bytes)}
+    el = q.element_size()
+    part_bytes = 2 * b * hq * skv * d * 4 + 2 * k.numel() * el
+    if dtype == "bfloat16":
+        per_product = 2 * d * pairs / H100_BF16_OPS_PER_S * 1e3
+        bounds = {"dq_wgmma": (3 * per_product, "operations"),
+                  "dkdv_wgmma": (4 * per_product, "operations"),
+                  "group_sum": bound(part_bytes)}
+    else:
+        per_product = TF32_PRODUCTS * 2 * d * pairs / \
+            H100_TF32_OPS_PER_S * 1e3
+        pad = lambda n: (n + 7) // 8 * 8  # noqa: E731
+        halves = 2 * 4 * (2 * q.numel() + 2 * k.numel() + k.numel() // skv *
+                          pad(skv) + 2 * q.numel() // sq * pad(sq))
+        bounds = {"dq_tf32x3": (3 * per_product, "operations"),
+                  "dkdv_tf32x3": (4 * per_product, "operations"),
+                  "group_sum_f32": bound(part_bytes),
+                  "split_tf32": bound(4 * (2 * q.numel() + 2 * k.numel()) +
+                                      halves)}
+    del flush
     out = {"label": label, "device_span_ms_per_call": span,
            "sm_clock_mhz": clock,
            "launches_per_call": fa.bwd_kernel_launches(dt, d, hq // hkv),
@@ -4628,8 +4692,12 @@ def lm_train_cell(arch: str, batch: int, seq: int, card: str):
         peak_gb=first["peak_gb"], ln_v=lnv)
     # after every timed step: a profiler session slows the host's launches
     # for the rest of the process
-    res["k9_backward_split"] = [k9_bwd_split(*c) for c in BWD_SHAPES
-                                if c[7] == "bfloat16"]
+    # split by kernel where the backward runs on wgmma or TF32
+    from repro_torch.kernels import flash_attention as fa
+    res["k9_backward_split"] = [
+        k9_bwd_split(*c) for c in BWD_SHAPES
+        if fa.bwd_kernel_for(getattr(torch, c[7]), c[6]) in (
+            "wgmma_bf16", "wgmma_tf32x3")]
     return res
 
 
@@ -5151,6 +5219,20 @@ def main() -> int:
             "plain_ms": e["plain_ms"],
             "bound_ms": e["bound"][0], "bound_by": e["bound"][1],
             "library_ms": e["library_ms"], **e.get("extra", {})})
+    # K9's f32 forward on TF32 (the kernel_api path's f32 shape): its
+    # launches there, the pre-pass's with it
+    e = api["K9 tf32"]
+    kernels.append({
+        "name": f"flash_attention ({e['label']}, wgmma_tf32x3)",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_tf32.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:94",
+        "launches": k9_kernels["wgmma_tf32x3"],
+        "split_tf32_launches": k9_kernels["split_tf32"],
+        "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+        "device_ms": e["device_ms"], "plain_ms": e["plain_ms"],
+        "bound_ms": e["bound"][0], "bound_by": e["bound"][1],
+        "library_ms": e["library_ms"], **e["extra"]})
     # K9 on the LM serving path: its launches a prefill (none a decode
     # step) and its times at each model's first attention layer
     for e in kernels:
@@ -5214,7 +5296,9 @@ def main() -> int:
             "plain_ms": bw["plain_ms"], "bound_ms": bw["bound_ms"],
             "bound_by": bw["bound_by"], "library_ms": bw["library_ms"],
             "design_12_products_ms": bw["design_12_products_ms"],
-            "shape": bw["shape"]})
+            "design_11_tf32x3_products_ms":
+                bw["design_11_tf32x3_products_ms"],
+            "bound_ffma_ms": bw["bound_ffma_ms"], "shape": bw["shape"]})
     # each backward kernel apart (a profiled call's device ms), at the
     # training path's shape with its launches there, at the others with 0
     whole = {bw["label"]: bw for bw in tcell["k9_backward"]}

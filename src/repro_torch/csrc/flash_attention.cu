@@ -46,15 +46,22 @@
 //   K and V tiles (64 keys) are loaded synchronously into shared memory, V
 //   transposed so that its B fragments are 32-bit loads; row strides padded
 //   by 8 elements keep the fragment loads free of bank conflicts.
-//   f32 (flash_f32): no tensor cores (TF32 would lose the 2e-5 agreement).
-//   256 threads over a 64-row tile, each owns 4 rows x 4 keys of S
-//   (explicit fmaf from transposed Q and K tiles, float4 loads) and the same
-//   4 rows x D/16 columns of O; P goes through shared memory.
+//   f32 at D = 64 and 128: csrc/flash_attention_tf32.cu, TF32 wgmma with
+//   three products to the product (one TF32 product would lose the 2e-5
+//   agreement; hi.hi + hi.lo + lo.hi of operands split in two keeps it),
+//   bounded by those products at 495 TFLOP/s.
+//   f32 at other D (flash_f32): FFMA, no tensor cores; at D = 256 the TF32
+//   design's hi and lo tiles do not fit shared memory. 256 threads over a
+//   64-row tile, each owns 4 rows x 4 keys of S (explicit fmaf from
+//   transposed Q and K tiles, float4 loads) and the same 4 rows x D/16
+//   columns of O; P goes through shared memory.
 // In flash_bf16 and flash_f32 D is a runtime value, a multiple of 16 in
 // [16, 256]; the register arrays are sized by the next of 64, 128, 192, 256.
 //
 // Bound on the H100: operations. 4 D flops per unmasked (q, k) pair (two
-// products) against 989 TFLOP/s (bf16 tensor cores) or 67 TFLOP/s (f32);
+// products) against 989 TFLOP/s (bf16 tensor cores) or, for flash_f32,
+// 67 TFLOP/s (FFMA; f32-accurate attention's own bound is three TF32
+// products each at 495 TFLOP/s, which flash_attention_tf32.cu takes);
 // q, k, v and out are read or written once. In the wgmma kernel each
 // warpgroup runs S, softmax and P V in turn; the softmax overlaps only the
 // other warpgroup's products, and blocks do not stay resident across q

@@ -34,19 +34,26 @@
 //   transposed, for the B operands of dS K, dS^T Q and P^T dO. At D > 128
 //   dK and dV do not fit one thread's registers together: dkdv runs twice,
 //   once for each.
-// f32 (dq_f32, dkdv_f32): FFMA, 256 threads over 32 x 32 tiles, two rows x
-//   two columns of each score tile a thread, rows of shared memory padded
-//   by one float; P and dS go through shared memory.
+// f32 (dq_f32, dkdv_f32): FFMA, for f32 at D other than 64 and 128 (at D
+//   = 256 the TF32 design's hi and lo tiles do not fit shared memory); at
+//   D = 64 and 128 f32 runs on csrc/flash_attention_tf32.cu, TF32 wgmma
+//   with three products to the product, bounded by those products at 495
+//   TFLOP/s. 256 threads over 32 x 32 tiles, two rows x two columns of
+//   each score tile a thread, rows of shared memory padded by one float; P
+//   and dS go through shared memory.
 // Rows with no valid key (a window with q_pos >= Skv + window - 1) are
 // refused by the wrapper: the forward gives them the mean of V, which no
 // logsumexp of the valid keys describes.
 //
 // Bound on the H100: operations. Five matrix products of 2 D flops a valid
 // (q, k) pair and head (Q K^T, dO V^T, P^T dO, dS K, dS^T Q) against 989
-// TFLOP/s (bf16) or 67 TFLOP/s (f32). These kernels do more: Q K^T and
-// dO V^T twice (once in each kernel) and once more for Dr, and the split
-// products twice, 12 products in all; mma.sync and synchronous loads reach
-// a fraction of the wgmma rate. wgmma and TMA are later work.
+// TFLOP/s (bf16) or 67 TFLOP/s (FFMA f32; f32-accurate products on the
+// tensor cores, three TF32 ones each at 495 TFLOP/s, bound f32 attention
+// below that, and flash_attention_tf32.cu takes them). These kernels do
+// more: Q K^T and dO V^T twice (once in each kernel) and once more for Dr,
+// and the split products twice, 12 products in all; mma.sync and
+// synchronous loads reach a fraction of the wgmma rate (bf16 at D = 64, 128
+// and 256 runs on flash_attention_bwd_wgmma.cu).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>

@@ -84,6 +84,9 @@ SIGNATURES = {
     "repro_flash_attention_bwd_device_launches": [I, I],
     "repro_flash_attention_bwd_wgmma": [P] * 10 + [I] * 8 + [F, P],
     "repro_flash_attention_bwd_wgmma_device_launches": [I, I],
+    "repro_flash_attention_tf32x3": [P] * 7 + [I] * 8 + [F, P],
+    "repro_flash_attention_bwd_tf32x3": [P] * 17 + [I] * 8 + [F, P],
+    "repro_flash_attention_tf32x3_device_launches": [I, I],
 }
 
 

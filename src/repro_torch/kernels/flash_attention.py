@@ -11,9 +11,12 @@ f32/bf16, or a head dimension that is not a multiple of 16 in [16, 256]); on
 a CPU tensor it runs the plain version. ``kernel_for`` picks the kernel from
 the dtype and head dimension alone, before any launch: bf16 at D = 64, 128
 or 256 runs on ``wgmma`` with TMA loads, other bf16 head dimensions on
-``mma.sync``, f32 on FFMA. ``scale`` multiplies the scores (1/sqrt(D) when
-None): the LM's prefill passes a q it pre-scaled and rounded as the JAX
-model does, with ``scale=1.0``.
+``mma.sync``; f32 at D = 64 or 128 on TF32 ``wgmma`` with three products to
+the product (``csrc/flash_attention_tf32.cu``, after its pre-pass
+``split_tf32``), other f32 head dimensions on FFMA. ``kernel_launches``
+gives each kernel's launches a call. ``scale`` multiplies the scores
+(1/sqrt(D) when None): the LM's prefill passes a q it pre-scaled and rounded
+as the JAX model does, with ``scale=1.0``.
 
 K9's backward (``flash_attention_bwd``) is new in the port: the JAX package
 differentiates its plain attention, so no TPU kernel stands behind it. It
@@ -24,8 +27,10 @@ takes the row logsumexp that the forward writes when asked
 picks its kernels from the dtype and head dimension alone, as
 ``kernel_for`` does: bf16 at D = 64, 128 or 256 on ``wgmma`` with TMA loads
 (``csrc/flash_attention_bwd_wgmma.cu``: dq, dkdv a block per q head, and
-the group sum when Hq > Hkv), other bf16 head dimensions on ``mma.sync``
-and f32 on FFMA (``csrc/flash_attention_bwd.cu``). ``flash_attention``
+the group sum when Hq > Hkv), f32 at D = 64 or 128 on TF32 ``wgmma``
+(``csrc/flash_attention_tf32.cu``: the pre-pass, dq, dkdv, the group sum
+when Hq > Hkv), other bf16 head dimensions on ``mma.sync`` and other f32
+ones on FFMA (``csrc/flash_attention_bwd.cu``). ``flash_attention``
 runs the forward and backward as one ``torch.autograd.Function`` when a
 gradient is wanted.
 """
@@ -42,54 +47,86 @@ NEG = -1e30
 launches = _build.LaunchCounter("flash_attention")
 bwd_launches = _build.LaunchCounter("flash_attention_bwd")
 WGMMA_HEAD_DIMS = (64, 128, 256)
-KERNELS = ("wgmma_bf16", "mma_sync_bf16", "ffma_f32")
+TF32_HEAD_DIMS = (64, 128)
+KERNELS = ("wgmma_bf16", "mma_sync_bf16", "ffma_f32", "wgmma_tf32x3",
+           "split_tf32")
 BWD_KERNELS = ("dq_bf16", "dkdv_bf16", "dq_f32", "dkdv_f32", "dq_wgmma",
-               "dkdv_wgmma", "group_sum")
+               "dkdv_wgmma", "group_sum", "split_tf32", "dq_tf32x3",
+               "dkdv_tf32x3", "group_sum_f32")
 
 
 def kernel_for(dtype, d: int) -> str:
     """The kernel that takes q of this dtype and head dimension."""
     if dtype == torch.float32:
-        return "ffma_f32"
+        return "wgmma_tf32x3" if d in TF32_HEAD_DIMS else "ffma_f32"
     return "wgmma_bf16" if d in WGMMA_HEAD_DIMS else "mma_sync_bf16"
+
+
+def kernel_launches(dtype, d: int) -> dict:
+    """Each forward kernel's launches a call (``KERNELS``' names): the
+    kernel ``kernel_for`` names, after its pre-pass ``split_tf32`` on
+    TF32."""
+    kernel = kernel_for(dtype, d)
+    per = {kernel: 1}
+    if kernel == "wgmma_tf32x3":
+        per["split_tf32"] = 1
+    return {name: per.get(name, 0) for name in KERNELS}
+
+
+def launches_per_call(dtype, d: int) -> int:
+    """The forward's kernel launches a call (``kernel_launches``)."""
+    return sum(kernel_launches(dtype, d).values())
 
 
 def device_launches(*, reset: bool = False) -> dict:
     """Launches of each kernel on the card, counted in
-    ``csrc/flash_attention.cu`` beside each launch (not by this wrapper);
-    ``reset`` sets the counts to 0 after reading them."""
+    ``csrc/flash_attention.cu`` (the first three of ``KERNELS``) and
+    ``csrc/flash_attention_tf32.cu`` (the last two) beside each launch (not
+    by this wrapper); ``reset`` sets the counts to 0 after reading them."""
     lib = _build.library()
-    return {name: int(lib.repro_flash_attention_device_launches(i, int(reset)))
-            for i, name in enumerate(KERNELS)}
+    counts = [lib.repro_flash_attention_device_launches(i, int(reset))
+              for i in range(3)]
+    counts += [lib.repro_flash_attention_tf32x3_device_launches(
+        i, int(reset)) for i in (1, 0)]
+    return {name: int(n) for name, n in zip(KERNELS, counts)}
 
 
 def bwd_device_launches(*, reset: bool = False) -> dict:
     """Launches of each backward kernel on the card, counted in
-    ``csrc/flash_attention_bwd.cu`` (the first four of ``BWD_KERNELS``) and
-    ``csrc/flash_attention_bwd_wgmma.cu`` (the last three); ``reset`` as
+    ``csrc/flash_attention_bwd.cu`` (the first four of ``BWD_KERNELS``),
+    ``csrc/flash_attention_bwd_wgmma.cu`` (the next three) and
+    ``csrc/flash_attention_tf32.cu`` (the last four); ``reset`` as
     ``device_launches``."""
     lib = _build.library()
     counts = [lib.repro_flash_attention_bwd_device_launches(i, int(reset))
               for i in range(4)]
     counts += [lib.repro_flash_attention_bwd_wgmma_device_launches(
         i, int(reset)) for i in range(3)]
+    counts += [lib.repro_flash_attention_tf32x3_device_launches(
+        i, int(reset)) for i in range(2, 6)]
     return {name: int(n) for name, n in zip(BWD_KERNELS, counts)}
 
 
 def bwd_kernel_for(dtype, d: int) -> str:
     """The backward kernels that take q of this dtype and head dimension,
     by the forward's names: ``wgmma_bf16`` (dq_wgmma, dkdv_wgmma,
-    group_sum), ``mma_sync_bf16`` (dq_bf16, dkdv_bf16) or ``ffma_f32``."""
+    group_sum), ``mma_sync_bf16`` (dq_bf16, dkdv_bf16), ``wgmma_tf32x3``
+    (split_tf32, dq_tf32x3, dkdv_tf32x3, group_sum_f32) or ``ffma_f32``
+    (dq_f32, dkdv_f32)."""
     return kernel_for(dtype, d)
 
 
 def bwd_kernel_launches(dtype, d: int, group: int = 1) -> dict:
     """Each backward kernel's launches a call (``BWD_KERNELS``' names):
     dQ, then dK and dV; on wgmma a group sum when ``group`` (Hq / Hkv) > 1,
-    on mma.sync at D > 128 dK and dV apart."""
+    on TF32 also the pre-pass first, on mma.sync at D > 128 dK and dV
+    apart."""
     kernel = bwd_kernel_for(dtype, d)
     if kernel == "wgmma_bf16":
         per = {"dq_wgmma": 1, "dkdv_wgmma": 1, "group_sum": int(group > 1)}
+    elif kernel == "wgmma_tf32x3":
+        per = {"split_tf32": 1, "dq_tf32x3": 1, "dkdv_tf32x3": 1,
+               "group_sum_f32": int(group > 1)}
     elif kernel == "mma_sync_bf16":
         per = {"dq_bf16": 1, "dkdv_bf16": 2 if d > 128 else 1}
     else:
@@ -100,6 +137,26 @@ def bwd_kernel_launches(dtype, d: int, group: int = 1) -> dict:
 def bwd_launches_per_call(dtype, d: int, group: int = 1) -> int:
     """The backward's kernel launches a call (``bwd_kernel_launches``)."""
     return sum(bwd_kernel_launches(dtype, d, group).values())
+
+
+def _pad8(n: int) -> int:
+    return (n + 7) // 8 * 8
+
+
+def _tf32_scratch(device, *shapes):
+    """One f32 allocation cut into views of the given shapes (each a
+    multiple of 4 elements, so each view's base stays 16-byte aligned): the
+    TF32 kernels' hi and lo halves."""
+    sizes = [math.prod(s) for s in shapes]
+    flat = torch.empty(sum(sizes), dtype=torch.float32, device=device)
+    return [v.view(s) for v, s in zip(flat.split(sizes), shapes)]
+
+
+def _aligned(*ts):
+    """TMA and float4 loads read from 16-byte aligned bases only: a view
+    that starts mid-row is copied (the allocator's own tensors are
+    aligned)."""
+    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in ts]
 
 
 def _window(window, s: int) -> int:
@@ -175,9 +232,14 @@ def bwd_tolerance(q, k, v, dout, *, causal=True, window=0, scale=None):
     """How far K9's backward may lie from the exact gradient: for each of
     dq, dk, dv, twice the plain version's own largest error against its
     float64 evaluation on the same inputs (the plain version sums in f32
-    and rounds once to the inputs' dtype; the kernel's split bf16 products
-    leave it about the same final rounding). Returns (the float64
-    gradients, the three tolerances)."""
+    and rounds once to the inputs' dtype). In bf16 the kernels' split bf16
+    products leave about the same final rounding. In f32 it covers the
+    TF32 kernels' three products to the product (hi.hi + hi.lo + lo.hi of
+    operands split into two TF32 halves, about 2^-22 relative each; each k8
+    slice summed on the tensor cores, the slices with FADD) as it covers the
+    FFMA kernels: both stay near the plain version's own error, and one TF32
+    product (2^-11) would lie hundreds of times outside. Returns (the
+    float64 gradients, the three tolerances)."""
     kw = dict(causal=causal, window=window, scale=scale)
     plain = flash_attention_plain_bwd(q, k, v, dout, **kw)
     exact = flash_attention_plain_bwd(
@@ -245,27 +307,31 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, scale=None,
     b, hq, s, d = q.shape
     _, hkv, skv, _ = k.shape
     qc, kc, vc = (t.contiguous() for t in (q, k, v))
-    if kernel == "wgmma_bf16":
-        # TMA reads from 16-byte aligned bases only: a view that starts
-        # mid-row is copied (the allocator's own tensors are aligned)
-        qc, kc, vc = (t if t.data_ptr() % 16 == 0 else t.clone()
-                      for t in (qc, kc, vc))
+    if kernel in ("wgmma_bf16", "wgmma_tf32x3"):
+        qc, kc, vc = _aligned(qc, kc, vc)
     out = torch.empty_like(qc)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device) \
         if return_lse else None
     _build.require_cuda("flash_attention", qc, kc, vc, out)
     lib = _build.library()
-    args = (qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), b,
-            hq, hkv, s, skv, d, int(bool(causal)), _window(window, s),
+    ptrs = (qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr())
+    dims = (b, hq, hkv, s, skv, d, int(bool(causal)), _window(window, s),
             1.0 / math.sqrt(d) if scale is None else float(scale))
     if kernel == "wgmma_bf16":
-        rc = lib.repro_flash_attention_wgmma(*args, _build.stream())
+        rc = lib.repro_flash_attention_wgmma(*ptrs, *dims, _build.stream())
+    elif kernel == "wgmma_tf32x3":
+        # the pre-pass's hi and lo halves: k as it is, v transposed (the
+        # kernel splits q itself)
+        ks, vt = _tf32_scratch(q.device, (2, b, hkv, skv, d),
+                               (2, b, hkv, d, _pad8(skv)))
+        rc = lib.repro_flash_attention_tf32x3(
+            *ptrs, ks.data_ptr(), vt.data_ptr(), *dims, _build.stream())
     else:
         rc = lib.repro_flash_attention(
-            *args, int(q.dtype == torch.bfloat16), _build.stream())
+            *ptrs, *dims, int(q.dtype == torch.bfloat16), _build.stream())
     _build.check(rc, "flash_attention")
-    launches.add()
+    launches.add(launches_per_call(q.dtype, d))
     return (out, lse) if return_lse else out
 
 
@@ -295,10 +361,8 @@ def flash_attention_bwd(q, k, v, lse, dout, *, causal=True, window=0,
         raise ValueError(f"flash_attention_bwd: lse must be ({b}, {hq}, "
                          f"{s}) float32, got {tuple(lse.shape)} {lse.dtype}")
     qc, kc, vc, lc, oc = (t.contiguous() for t in (q, k, v, lse, dout))
-    if kernel == "wgmma_bf16":
-        # TMA reads from 16-byte aligned bases only, as in the forward
-        qc, kc, vc, oc = (t if t.data_ptr() % 16 == 0 else t.clone()
-                          for t in (qc, kc, vc, oc))
+    if kernel in ("wgmma_bf16", "wgmma_tf32x3"):
+        qc, kc, vc, oc = _aligned(qc, kc, vc, oc)
     dq, dk, dv = (torch.empty_like(t) for t in (qc, kc, vc))
     dsum = torch.empty_like(lc)
     _build.require_cuda("flash_attention_bwd", qc, kc, vc, lc, oc, dq, dk,
@@ -309,12 +373,24 @@ def flash_attention_bwd(q, k, v, lse, dout, *, causal=True, window=0,
             dv.data_ptr())
     dims = (b, hq, hkv, s, skv, d, int(bool(causal)), w,
             1.0 / math.sqrt(d) if scale is None else float(scale))
+    # wgmma and TF32: each q head's dK and dV in f32 when Hq > Hkv, summed
+    # over the group after
+    part = torch.empty((2, b, hq, skv, d), dtype=torch.float32,
+                       device=q.device) \
+        if kernel in ("wgmma_bf16", "wgmma_tf32x3") and hq > hkv else None
+    part_ptr = None if part is None else part.data_ptr()
     if kernel == "wgmma_bf16":
-        # each q head's dK and dV in f32, summed over the group after
-        part = torch.empty((2, b, hq, skv, d), dtype=torch.float32,
-                           device=q.device) if hq > hkv else None
-        rc = lib.repro_flash_attention_bwd_wgmma(
-            *ptrs, None if part is None else part.data_ptr(), *dims,
+        rc = lib.repro_flash_attention_bwd_wgmma(*ptrs, part_ptr, *dims,
+                                                 _build.stream())
+    elif kernel == "wgmma_tf32x3":
+        # the pre-pass's hi and lo halves: q, dout, k, v as they are; k, q
+        # and dout transposed
+        halves = _tf32_scratch(
+            q.device, (2, b, hq, s, d), (2, b, hq, s, d), (2, b, hkv, skv, d),
+            (2, b, hkv, skv, d), (2, b, hkv, d, _pad8(skv)),
+            (2, b, hq, d, _pad8(s)), (2, b, hq, d, _pad8(s)))
+        rc = lib.repro_flash_attention_bwd_tf32x3(
+            *ptrs, part_ptr, *(h.data_ptr() for h in halves), *dims,
             _build.stream())
     else:
         rc = lib.repro_flash_attention_bwd(

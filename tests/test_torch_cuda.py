@@ -939,15 +939,19 @@ def test_neuron_step_rejects_what_it_does_not_take(dev):
 @pytest.mark.parametrize("s,skv,causal,window", [
     (200, 200, True, 0), (130, 300, True, 64), (300, 130, False, 0)])
 def test_flash_attention_equals_plain(dev, d, dtype, s, skv, causal, window):
-    """GQA 3:1 over ragged tiles, Skv above and below S, a window."""
+    """GQA 3:1 over ragged tiles, Skv above and below S, a window; the
+    kernels launched, counted in the sources, those ``kernel_launches``
+    names (f32 at D 64 / 128 on TF32 after its pre-pass)."""
     g = torch.Generator(device=dev).manual_seed(11)
     q = torch.randn(2, 3, s, d, generator=g, device=dev).to(dtype)
     k = torch.randn(2, 1, skv, d, generator=g, device=dev).to(dtype)
     v = torch.randn(2, 1, skv, d, generator=g, device=dev).to(dtype)
     before = fa.launches.count
+    fa.device_launches(reset=True)
     got = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    assert fa.device_launches(reset=True) == fa.kernel_launches(dtype, d)
     want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
-    assert fa.launches.count == before + 1
+    assert fa.launches.count == before + fa.launches_per_call(dtype, d)
     assert got.dtype == dtype and got.shape == q.shape
     if dtype == torch.bfloat16:
         lim = fa.bf16_error_bound(want, q, k, v, causal=causal, window=window)
@@ -1009,42 +1013,52 @@ def test_flash_attention_wgmma_tiles(dev, d, ratio, s, skv, window):
     (64, torch.bfloat16, "wgmma_bf16"), (128, torch.bfloat16, "wgmma_bf16"),
     (256, torch.bfloat16, "wgmma_bf16"), (192, torch.bfloat16,
                                           "mma_sync_bf16"),
-    (32, torch.bfloat16, "mma_sync_bf16"), (128, torch.float32, "ffma_f32")])
+    (32, torch.bfloat16, "mma_sync_bf16"), (64, torch.float32, "wgmma_tf32x3"),
+    (128, torch.float32, "wgmma_tf32x3"), (256, torch.float32, "ffma_f32"),
+    (48, torch.float32, "ffma_f32")])
 def test_flash_attention_kernel_per_shape(dev, d, dtype, kernel):
-    """Each shape launches the kernel ``kernel_for`` names, once, as the
-    launches counted in csrc/flash_attention.cu show."""
+    """Each shape launches the kernel ``kernel_for`` names, once (on TF32
+    after its pre-pass ``split_tf32``, once), as the launches counted in
+    csrc/flash_attention.cu and csrc/flash_attention_tf32.cu show."""
     q = torch.randn(1, 2, 64, d, device=dev).to(dtype)
     fa.device_launches(reset=True)
     fa.flash_attention_fwd(q, q, q)
     assert fa.device_launches(reset=True) == {
-        k: int(k == kernel) for k in fa.KERNELS}
+        k: int(k == kernel or (k == "split_tf32" and
+                               kernel == "wgmma_tf32x3"))
+        for k in fa.KERNELS}
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("offset", [1, 8])
-def test_flash_attention_wgmma_takes_unaligned_views(dev, offset):
+def test_flash_attention_wgmma_takes_unaligned_views(dev, offset, dtype):
     """TMA needs 16-byte aligned bases: q, k and v that start ``offset``
-    bf16 elements into their storage give the aligned inputs' output,
-    bitwise, on the wgmma kernel."""
+    elements into their storage give the aligned inputs' output, bitwise,
+    on the wgmma kernel (bf16) and the TF32 one (f32)."""
     g = torch.Generator(device=dev).manual_seed(13)
-    bf = torch.bfloat16
     n = 2 * 4 * 200 * 128
+    size = torch.empty((), dtype=dtype).element_size()
 
     def view(heads):
         base = torch.randn(offset + n // 4 * heads, generator=g,
-                           device=dev).to(bf)
+                           device=dev).to(dtype)
         return base[offset:].view(2, heads, 200, 128)
 
     q, k, v = view(4), view(1), view(1)
-    assert q.data_ptr() % 16 == 2 * offset % 16
+    assert q.data_ptr() % 16 == size * offset % 16
+    kernel = fa.kernel_for(dtype, 128)
     fa.device_launches(reset=True)
     got = fa.flash_attention_fwd(q, k, v, causal=True)
-    assert fa.device_launches(reset=True)["wgmma_bf16"] == 1
+    assert fa.device_launches(reset=True)[kernel] == 1
     want = fa.flash_attention_fwd(q.clone(), k.clone(), v.clone(),
                                   causal=True)
     assert torch.equal(got, want)
     plain = fa.flash_attention_plain(q, k, v, causal=True)
-    lim = fa.bf16_error_bound(plain, q, k, v, causal=True)
-    assert bool(((got.float() - plain.float()).abs() <= lim).all())
+    if dtype == torch.bfloat16:
+        lim = fa.bf16_error_bound(plain, q, k, v, causal=True)
+        assert bool(((got.float() - plain.float()).abs() <= lim).all())
+    else:
+        torch.testing.assert_close(got, plain, rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.parametrize("d,dtype", [(24, torch.float32), (272, torch.float32),
@@ -1083,7 +1097,8 @@ def test_flash_attention_bwd_equals_plain(dev, d, dtype, s, skv, causal,
     float64 evaluation (``flash_attention.bwd_tolerance``); the kernels
     launched, counted in the sources, those ``bwd_kernel_for`` names
     (bf16 at D 64 / 128 / 256 on wgmma with the group sum at G > 1, at D
-    96 / 192 on mma.sync, f32 on FFMA)."""
+    96 / 192 on mma.sync; f32 at D 64 / 128 on TF32 with its pre-pass and
+    the group sum at G > 1, at D 256 on FFMA)."""
     q, k, v, do = _bwd_inputs(dev, 2, 2 * group, 2, s, skv, d, dtype,
                               s + skv + d + group)
     kw = dict(causal=causal, window=window)
@@ -1116,25 +1131,64 @@ def test_flash_attention_bwd_is_deterministic(dev, dtype):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("group", [1, 7, 10])
+@pytest.mark.parametrize("s,skv,causal,window", [
+    (127, 127, True, 0), (128, 128, True, 0), (129, 129, True, 0),
+    (129, 127, True, 0), (127, 129, False, 0), (300, 300, True, 100),
+    (64, 1500, False, 0)])
+def test_flash_attention_tf32_tiles(dev, d, group, s, skv, causal, window):
+    """The TF32 kernels around their tiles (the forward's 128-row q tiles
+    and 32-key K tiles, 64 at D 64; the backward's 64-row and 64-key
+    blocks and 32-row rings, 64 at D 64; the transposed copies padded to 8
+    rows) at GQA groups 1, 7 and 10, B = 2: the forward within 2e-5 of the
+    plain version, dq, dk, dv within ``bwd_tolerance``, the launches that
+    ``kernel_launches`` and ``bwd_kernel_launches`` name, and a second
+    call of each bitwise equal."""
+    q, k, v, do = _bwd_inputs(dev, 2, 2 * group, 2, s, skv, d,
+                              torch.float32, s * 1000 + skv + d + group)
+    kw = dict(causal=causal, window=window)
+    fa.device_launches(reset=True)
+    out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    assert fa.device_launches(reset=True) == fa.kernel_launches(
+        torch.float32, d)
+    torch.testing.assert_close(
+        out, fa.flash_attention_plain(q, k, v, **kw), rtol=2e-5, atol=2e-5)
+    again = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    fa.bwd_device_launches(reset=True)
+    got = fa.flash_attention_bwd(q, k, v, lse, do, **kw)
+    assert fa.bwd_device_launches(reset=True) == fa.bwd_kernel_launches(
+        torch.float32, d, group)
+    exact, tol = fa.bwd_tolerance(q, k, v, do, **kw)
+    for name, x, e, t in zip("qkv", got, exact, tol):
+        err = float((x.double() - e).abs().max())
+        assert err <= t, (name, err, t)
+    for a, b in zip(got, fa.flash_attention_bwd(q, k, v, lse, do, **kw)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("offset", [1, 8])
-def test_flash_attention_bwd_takes_unaligned_views(dev, offset):
+def test_flash_attention_bwd_takes_unaligned_views(dev, offset, dtype):
     """TMA needs 16-byte aligned bases: q, k, v and dout that start
-    ``offset`` bf16 elements into their storage give their clones' grads,
-    bitwise, on the wgmma backward."""
+    ``offset`` elements into their storage give their clones' grads,
+    bitwise, on the wgmma backward (bf16) and the TF32 one (f32)."""
     g = torch.Generator(device=dev).manual_seed(17)
-    bf = torch.bfloat16
+    size = torch.empty((), dtype=dtype).element_size()
 
     def view(heads):
         base = torch.randn(offset + 2 * heads * 200 * 128, generator=g,
-                           device=dev).to(bf)
+                           device=dev).to(dtype)
         return base[offset:].view(2, heads, 200, 128)
 
     q, k, v, do = view(4), view(1), view(1), view(4)
-    assert q.data_ptr() % 16 == 2 * offset % 16
+    assert q.data_ptr() % 16 == size * offset % 16
     _, lse = fa.flash_attention_fwd(q, k, v, return_lse=True)
     fa.bwd_device_launches(reset=True)
     got = fa.flash_attention_bwd(q, k, v, lse, do)
-    assert fa.bwd_device_launches(reset=True)["dq_wgmma"] == 1
+    dq_kernel = "dq_wgmma" if dtype == torch.bfloat16 else "dq_tf32x3"
+    assert fa.bwd_device_launches(reset=True)[dq_kernel] == 1
     want = fa.flash_attention_bwd(q.clone(), k.clone(), v.clone(), lse,
                                   do.clone())
     for a, b in zip(got, want):
@@ -1145,7 +1199,9 @@ def test_flash_attention_bwd_takes_unaligned_views(dev, offset):
                                      (128, torch.bfloat16),
                                      (256, torch.bfloat16),
                                      (96, torch.bfloat16),
-                                     (128, torch.float32)])
+                                     (64, torch.float32),
+                                     (128, torch.float32),
+                                     (256, torch.float32)])
 def test_flash_attention_fwd_logsumexp(dev, d, dtype):
     """Each forward kernel writes the rows' logsumexp when asked (the
     plain ``lse_plain`` within 1e-5 relative plus 1e-4), and its output
@@ -1157,21 +1213,28 @@ def test_flash_attention_fwd_logsumexp(dev, d, dtype):
         lse, fa.lse_plain(q, k, window=100), rtol=1e-5, atol=1e-4)
 
 
-def test_flash_attention_autograd_runs_both_kernels(dev):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_autograd_runs_both_kernels(dev, dtype):
     """``flash_attention`` (and the model's fused ``chunked_attention``)
     with a gradient wanted: one forward (with its logsumexp) and one
     backward call, whose grads are ``flash_attention_bwd``'s bitwise; under
-    ``no_grad`` one forward and no backward."""
+    ``no_grad`` one forward and no backward (bf16 on the wgmma kernels, f32
+    on the TF32 ones)."""
     from repro_torch.models import attention as attn
-    q, k, v, do = _bwd_inputs(dev, 1, 8, 2, 260, 260, 128,
-                              torch.bfloat16, 3)
+    q, k, v, do = _bwd_inputs(dev, 1, 8, 2, 260, 260, 128, dtype, 3)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     _build.reset_launch_counts()
+    fa.device_launches(reset=True)
+    fa.bwd_device_launches(reset=True)
     out = fa.flash_attention(*leaves, causal=True)
     out.backward(do)
     counts = _build.launch_counts()
-    per_call = fa.bwd_launches_per_call(torch.bfloat16, 128, 4)
-    assert counts["flash_attention"] == 1
+    per_call = fa.bwd_launches_per_call(dtype, 128, 4)
+    fwd_per_call = fa.launches_per_call(dtype, 128)
+    assert fa.device_launches(reset=True) == fa.kernel_launches(dtype, 128)
+    assert fa.bwd_device_launches(reset=True) == fa.bwd_kernel_launches(
+        dtype, 128, 4)
+    assert counts["flash_attention"] == fwd_per_call
     assert counts["flash_attention_bwd"] == per_call
     _, lse = fa.flash_attention_fwd(q, k, v, return_lse=True)
     for t, want in zip(leaves, fa.flash_attention_bwd(q, k, v, lse, do)):
@@ -1184,7 +1247,7 @@ def test_flash_attention_autograd_runs_both_kernels(dev):
     _build.reset_launch_counts()
     with torch.no_grad():
         attn.chunked_attention(qq, k, v)
-    assert _build.launch_counts()["flash_attention"] == 1
+    assert _build.launch_counts()["flash_attention"] == fwd_per_call
     assert _build.launch_counts()["flash_attention_bwd"] == 0
 
 
@@ -2117,7 +2180,7 @@ def test_lm_chunked_attention_runs_k9_on_a_prescaled_q(dev, b, hq, hkv, d,
     fa.device_launches(reset=True)
     got = attn.chunked_attention(q, k, v, causal=True, window=window)
     assert fa.device_launches(reset=True) == {
-        "wgmma_bf16": 1, "mma_sync_bf16": 0, "ffma_f32": 0}
+        name: int(name == "wgmma_bf16") for name in fa.KERNELS}
     ref = attn.chunked_attention(q, k, v, causal=True, window=window,
                                  impl="reference")
     assert not any(fa.device_launches(reset=True).values())
@@ -2341,7 +2404,7 @@ def test_lm_chunked_attention_k9_at_whisper_shapes(dev, b, h, d, sq, skv,
     fa.device_launches(reset=True)
     got = attn.chunked_attention(q, k, v, causal=causal)
     assert fa.device_launches(reset=True) == {
-        "wgmma_bf16": 1, "mma_sync_bf16": 0, "ffma_f32": 0}
+        name: int(name == "wgmma_bf16") for name in fa.KERNELS}
     ref = attn.chunked_attention(q, k, v, causal=causal, impl="reference")
     pre = attn.prescale(q)
     plain = fa.flash_attention_plain(pre, k, v, causal=causal, scale=1.0)

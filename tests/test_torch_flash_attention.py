@@ -12,11 +12,16 @@ tiles and, in bf16, rounds p to bf16 before P V. A bf16 input is the same
 round-to-nearest-even of the numpy f32 values on both sides. In bf16 each
 element of the JAX kernel's output is also held within
 ``flash_attention.bf16_error_bound`` of the port's plain version, the
-bound the card tests hold the CUDA kernel to. The last test holds the
-bound itself: a torch emulation of the bf16 kernel's arithmetic lies within
-it, and the same emulation with a dropped or mis-scaled tile does not.
+bound the card tests hold the CUDA kernel to. A test holds the bound
+itself: a torch emulation of the bf16 kernel's arithmetic lies within it,
+and the same emulation with a dropped or mis-scaled tile does not. The last
+test holds the f32 TF32 kernels' arithmetic (each f32 product as three TF32
+products) against the tolerances the card tests hold them to, 2e-5 for the
+forward and ``flash_attention.bwd_tolerance`` for the backward, and one
+TF32 product outside both.
 """
 import functools
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -202,12 +207,17 @@ def test_bf16_error_bound_admits_rounding_and_flags_faults(window, kernel,
     (256, torch.bfloat16, "wgmma_bf16"),
     (192, torch.bfloat16, "mma_sync_bf16"),
     (48, torch.bfloat16, "mma_sync_bf16"),
-    (128, torch.float32, "ffma_f32"), (256, torch.float32, "ffma_f32")])
+    (64, torch.float32, "wgmma_tf32x3"), (128, torch.float32, "wgmma_tf32x3"),
+    (256, torch.float32, "ffma_f32"), (48, torch.float32, "ffma_f32")])
 def test_kernel_choice_depends_on_dtype_and_head_dim_only(d, dtype, kernel):
     """The wrapper picks the card's kernel from the dtype and D alone, so a
-    shape's kernel is the same on every call, and a CPU tensor launches
-    none of them."""
+    shape's kernel is the same on every call (on TF32 after its pre-pass,
+    ``split_tf32``), and a CPU tensor launches none of them."""
     assert fa.kernel_for(dtype, d) == kernel
+    want = {kernel: 1, "split_tf32": int(kernel == "wgmma_tf32x3")}
+    assert fa.kernel_launches(dtype, d) == {
+        name: want.get(name, 0) for name in fa.KERNELS}
+    assert fa.launches_per_call(dtype, d) == sum(want.values())
     before = fa.launches.count
     q = torch.zeros(1, 2, 8, d, dtype=dtype)
     ops.flash_attention(q, q, q)
@@ -226,13 +236,19 @@ def test_kernel_choice_depends_on_dtype_and_head_dim_only(d, dtype, kernel):
     (96, torch.bfloat16, 4, "mma_sync_bf16", {"dq_bf16": 1, "dkdv_bf16": 1}),
     (192, torch.bfloat16, 1, "mma_sync_bf16",
      {"dq_bf16": 1, "dkdv_bf16": 2}),
-    (128, torch.float32, 7, "ffma_f32", {"dq_f32": 1, "dkdv_f32": 1}),
+    (64, torch.float32, 1, "wgmma_tf32x3",
+     {"split_tf32": 1, "dq_tf32x3": 1, "dkdv_tf32x3": 1}),
+    (128, torch.float32, 7, "wgmma_tf32x3",
+     {"split_tf32": 1, "dq_tf32x3": 1, "dkdv_tf32x3": 1,
+      "group_sum_f32": 1}),
+    (48, torch.float32, 4, "ffma_f32", {"dq_f32": 1, "dkdv_f32": 1}),
     (256, torch.float32, 1, "ffma_f32", {"dq_f32": 1, "dkdv_f32": 1})])
 def test_bwd_kernel_choice_depends_on_dtype_head_dim_and_group_only(
         d, dtype, group, kernel, per_call):
     """The backward's kernels, and each one's launches a call, follow from
     the dtype, D and the group size alone (the group sum only on wgmma with
-    Hq > Hkv), and a CPU tensor launches none of them."""
+    Hq > Hkv; on TF32 the pre-pass first), and a CPU tensor launches none
+    of them."""
     assert fa.bwd_kernel_for(dtype, d) == kernel
     want = {name: per_call.get(name, 0) for name in fa.BWD_KERNELS}
     assert fa.bwd_kernel_launches(dtype, d, group) == want
@@ -243,3 +259,79 @@ def test_bwd_kernel_choice_depends_on_dtype_head_dim_and_group_only(
     lse = fa.lse_plain(q, k)
     fa.flash_attention_bwd(q, k, k, lse, q)
     assert fa.bwd_launches.count == before
+
+
+def _tf32(x):
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to nearest, ties
+    away from zero, the low 13 mantissa bits cleared (adding half their
+    unit to the sign-magnitude bits carries into the kept ones)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(a, b, terms):
+    """a @ b in f32 as the TF32 kernels take it: with ``terms`` 3, each
+    operand split into hi = tf32(x) and lo = tf32(x - hi) and the product
+    the f32 sum of lo.hi + hi.lo, then hi.hi (TF32 products are exact in
+    f32); with ``terms`` 1, hi.hi alone."""
+    ah, bh = _tf32(a), _tf32(b)
+    if terms == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _attention_tf32(q, k, v, do, causal, window, terms):
+    """The plain attention forward and its backward with every matrix
+    product through ``_mm_tf32``: (out, (dq, dk, dv))."""
+    b, hq, s, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    kr, vr = (torch.repeat_interleave(x, g, 1) for x in (k, v))
+    scale = 1.0 / math.sqrt(d)
+    sc = _mm_tf32(q, kr.transpose(-1, -2), terms) * scale
+    qpos, kpos = torch.arange(s)[:, None], torch.arange(skv)[None, :]
+    ok = torch.ones(s, skv, dtype=torch.bool)
+    if causal:
+        ok &= kpos <= qpos
+    if window:
+        ok &= qpos - kpos < window
+    p = torch.softmax(torch.where(ok, sc, torch.tensor(fa.NEG)), -1)
+    out = _mm_tf32(p, vr, terms)
+    dp = _mm_tf32(do, vr.transpose(-1, -2), terms)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    dq = _mm_tf32(ds, kr, terms) * scale
+    dk = (_mm_tf32(ds.transpose(-1, -2), q, terms) * scale).view(
+        b, hkv, g, skv, d).sum(2)
+    dv = _mm_tf32(p.transpose(-1, -2), do, terms).view(
+        b, hkv, g, skv, d).sum(2)
+    return out, (dq, dk, dv)
+
+
+@pytest.mark.parametrize("terms", [3, 1])
+@pytest.mark.parametrize("shape,causal,window", [
+    ((1, 4, 2, 128, 128, 64), True, 0), ((1, 4, 2, 160, 160, 64), True, 48),
+    ((2, 2, 1, 64, 96, 32), False, 0)])
+def test_tf32x3_arithmetic_meets_the_f32_tolerances(shape, causal, window,
+                                                    terms):
+    """Three TF32 products to the product, in the plain attention forward
+    and backward: the output within 2e-5 (absolute + relative) of
+    ``flash_attention_plain``, dq, dk, dv within ``bwd_tolerance`` of the
+    float64 gradient. One TF32 product lies outside every one of them (some
+    1,000 times its tolerance), which shows that the check can fail."""
+    b, hq, hkv, s, skv, d = shape
+    rng = np.random.default_rng(s + skv + d)
+    q, do = (torch.from_numpy(rng.normal(size=(b, hq, s, d)).astype(
+        np.float32)) for _ in range(2))
+    k, v = (torch.from_numpy(rng.normal(size=(b, hkv, skv, d)).astype(
+        np.float32)) for _ in range(2))
+    out, grads = _attention_tf32(q, k, v, do, causal, window, terms)
+    plain = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    fwd = float(((out - plain).abs() / (2e-5 + 2e-5 * plain.abs())).max())
+    exact, tol = fa.bwd_tolerance(q, k, v, do, causal=causal, window=window)
+    bwd = [float((x.double() - e).abs().max()) / t
+           for x, e, t in zip(grads, exact, tol)]
+    if terms == 3:
+        assert fwd <= 1.0 and max(bwd) <= 1.0, (fwd, bwd)
+    else:
+        assert fwd > 10.0 and min(bwd) > 10.0, (fwd, bwd)

@@ -12,13 +12,15 @@ child process under a time limit:
   ragged tiles, G = 1, 4 and 7: dq, dk, dv within
   ``flash_attention.bwd_tolerance`` of the float64 gradient, a second call
   bitwise equal, the device launches those ``bwd_kernel_launches`` names;
-- ``shapes`` (not with ``--quick``): the same checks at ``chip_smoke.
+- ``shapes`` (not with ``--quick``, which keeps ``small`` and
+  ``--parent``): the same checks at ``chip_smoke.
   BWD_SHAPES``' bf16 shapes, and each shape's device ms (calls queued
   behind a device-side sleep, ``chip_smoke.device_ms``) in turns with the
   mma.sync kernels of ``csrc/flash_attention_bwd.cu`` called through their
   C entry on the same inputs: mma.sync, wgmma, wgmma, mma.sync;
-- ``--parent``: K9's forward output with its logsumexp at the wgmma head
-  dimensions in this checkout and in the parent's, bitwise;
+- ``--parent``: K9's bf16 forward output with its logsumexp, and the
+  backward's dq, dk, dv from them, at the wgmma head dimensions in this
+  checkout and in the parent's, bitwise;
 - ``--compare [DIR...]``: the bf16 ``BWD_SHAPES``' times of this
   checkout's backward and of each other checkout's (each built under its
   own ``build/``), in turns: this, the others, the others reversed, this
@@ -199,12 +201,16 @@ def part_time(fa, torch):
 
 
 def part_fwd_dump(fa, torch, path):
+    """The bf16 forward (output, logsumexp) and the backward's (dq, dk, dv)
+    at ``FWD_SHAPES``, saved to ``path``."""
     outs = []
     for i, (b, hq, hkv, sq, skv, d, causal, window) in enumerate(FWD_SHAPES):
-        q, k, v, _ = _inputs(torch, b, hq, hkv, sq, skv, d, 7 + i)
+        q, k, v, do = _inputs(torch, b, hq, hkv, sq, skv, d, 7 + i)
         o, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
                                         window=window, return_lse=True)
-        outs.append((o.cpu(), lse.cpu()))
+        grads = fa.flash_attention_bwd(q, k, v, lse, do, causal=causal,
+                                       window=window)
+        outs.append((o.cpu(), lse.cpu(), *(g.cpu() for g in grads)))
     torch.save(outs, path)
     return 0
 
@@ -268,9 +274,10 @@ def main() -> int:
             return 1
     _build.build()
     rc = run_child(["child", "small", str(ROOT / "src")], 300)
-    if rc or args.quick:
+    if rc:
         return rc
-    rc = run_child(["child", "shapes", str(ROOT / "src")], 600)
+    if not args.quick:
+        rc = run_child(["child", "shapes", str(ROOT / "src")], 600)
     others = [t.resolve() for t in args.compare or []]
     turns = [] if args.compare is None else [ROOT, *others, *others[::-1],
                                              ROOT]
@@ -284,11 +291,14 @@ def main() -> int:
             rc |= run_child(["child", "fwd", str(tree / "src"), str(path)],
                             600)
             dumps.append(torch.load(path))
-        same = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-                   for a, b in zip(*dumps))
-        print(json.dumps({"part": "forward_bitwise_to_parent",
-                          "shapes": FWD_SHAPES, "equal": same}), flush=True)
-        rc |= not same
+        fwd = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                  for a, b in zip(*dumps))
+        bwd = all(all(torch.equal(x, y) for x, y in zip(a[2:], b[2:]))
+                  for a, b in zip(*dumps))
+        print(json.dumps({"part": "bitwise_to_parent", "shapes": FWD_SHAPES,
+                          "forward_equal": fwd, "backward_equal": bwd}),
+              flush=True)
+        rc |= not (fwd and bwd)
     return rc
 
 
