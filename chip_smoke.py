@@ -97,7 +97,19 @@ neurons, S=32):
   recurrentgemma-2b's and whisper-base's shapes and one f32 shape within
   twice the plain version's error against float64; step ms, tokens a
   second, the share of the bf16 peak, the step's split, peak GB and a
-  profiled step.
+  profiled step;
+- the LM on meshes of ranks (``lm_mesh_path``, a process of its own),
+  every rank on the one card behind the baton (``dist.LocalMesh``): K9
+  and its backward at the per-rank shapes; moonshot-v1-16b-a3b at full
+  width and depth on (data 1, model 4) under ``move_compute``,
+  ``move_data`` and ``auto``, prefill and 32 split-KV decode steps
+  teacher-forced, the routing pinned, within 2**-5 max |logits| of the
+  mesh-free model, flips near-ties, K9 on each rank's heads; qwen2-7b at
+  full width, 4 layers, on (pod 2, data 1, model 2), the vocab-parallel
+  loss and the Delta = 4 pod sync: every gradient against mesh-free, int8
+  within 0.05, Delta = 1 in f32 equal to the direct step, a second run
+  bitwise; ``pipeline_apply`` over 4 stages; ``remesh_restore`` onto
+  (1, 2) bitwise; the bytes each collective moves.
 
 For the kernel API and each path it checks the kernels really ran there (the
 launch counts are set to 0 just before and read just after; for K9, which of
@@ -4359,13 +4371,14 @@ def k9_bwd_split(label, b, hq, hkv, sq, skv, d, dtype, causal, window):
     return out
 
 
-def k9_fwd_lse_check(b, hq, hkv, s, d):
+def k9_fwd_lse_check(b, hq, hkv, s, d, with_lse: bool = True):
     """K9's forward with its logsumexp (``return_lse=True``, as the
     training step's ``FlashAttention`` calls it) at the training shape,
     causal, bf16: the output within ``bf16_error_bound`` of the plain
     version, the logsumexp within 1e-5 relative plus 1e-4 of ``lse_plain``;
     call ms, device ms, the plain version's ms (output and logsumexp),
-    SDPA's forward ms and the bound (4 D flops a valid pair and head)."""
+    SDPA's forward ms and the bound (4 D flops a valid pair and head).
+    ``with_lse=False``: the forward alone (a prefill's)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -4375,7 +4388,10 @@ def k9_fwd_lse_check(b, hq, hkv, s, d):
     k, v = (torch.randn(b, hkv, s, d, generator=g, device=DEV).to(bf)
             for _ in range(2))
     fa.device_launches(reset=True)
-    out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True)
+    if with_lse:
+        out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True)
+    else:
+        out, lse = fa.flash_attention_fwd(q, k, v), fa.lse_plain(q, k)
     ran = fa.device_launches(reset=True)
     plain = fa.flash_attention_plain(q, k, v)
     lim = fa.bf16_error_bound(plain, q, k, v)
@@ -4391,17 +4407,19 @@ def k9_fwd_lse_check(b, hq, hkv, s, d):
     del plain, lim, diff
     torch.cuda.empty_cache()
     call = lambda: fa.flash_attention_fwd(q, k, v,  # noqa: E731
-                                          return_lse=True)
+                                          return_lse=with_lse)
     plain_call = lambda: (fa.flash_attention_plain(q, k, v),  # noqa: E731
-                          fa.lse_plain(q, k))
+                          fa.lse_plain(q, k) if with_lse else None)
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
         q, k, v, is_causal=True, enable_gqa=True)
     pairs = b * hq * attention_pairs(s, s, 0)
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + 4 * lse.numel()
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + \
+        4 * lse.numel() * with_lse
     bms, by = bound(nbytes, fp_ops=4 * d * pairs,
                     fp_ops_per_s=H100_BF16_OPS_PER_S)
     res = {"shape": {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d,
-                     "causal": True, "dtype": "bfloat16"},
+                     "causal": True, "dtype": "bfloat16",
+                     "logsumexp": with_lse},
            "device_launches_per_call": ran, "max_abs_err": err,
            "max_err_over_bound": ratio, "lse_err_over_tolerance": lse_err,
            "ms": cuda_ms(call, 5), "device_ms": device_ms(call, 5),
@@ -4739,6 +4757,705 @@ def lm_train_child(arch: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------- LM on a mesh
+# the serving cell: moonshot-v1-16b-a3b at full width and depth on a (data 1,
+# model 4) mesh, B=8, a 1,024-token prompt, 32 decode steps
+MESH_SERVE = ("moonshot-v1-16b-a3b", (1, 4), 8, 1024, 32)
+MESH_STRATEGIES = ("move_compute", "move_data", "auto")
+# the capacity factors the serving comparison tries for each strategy, in
+# order (the moonshot config's 1.25 first)
+MESH_CAPACITIES = (1.25, 1.5, 2.0, 2.5, 3.0, 4.0, 6.0, 8.0)
+
+
+def _mesh_capacity(cfg, calls, model: int, strategy: str):
+    """The least of ``MESH_CAPACITIES`` (or experts / top_k) at which no
+    buffer of ``strategy`` on ``model`` ranks, each taking T / model tokens
+    of a call, drops a slot for the routing ``calls`` (each call's (T, k)
+    expert ids, the whole batch's): ``move_data``'s (an expert's over a
+    rank's tokens), ``move_compute``'s (a peer's over a rank's, an owner's
+    expert's over what the peers send). The mesh-free reference runs at
+    experts / top_k, where no buffer drops; a drop on the mesh would make
+    another function, which no rounding explains, and a random model's
+    deep layers route unevenly, so the factor is read from the routing.
+    Returns (factor, worst load over capacity at it)."""
+    import torch
+    from repro_torch.models import moe
+    e, k = cfg.num_experts, cfg.top_k
+    e_loc = e // model
+    loads = []
+    for ids in calls:
+        t_m = ids.shape[0] // model
+        per_rank = ids.reshape(model, t_m * k).long()
+        ex = torch.zeros((model, e), dtype=torch.long, device=ids.device)
+        ex.scatter_add_(1, per_rank, torch.ones_like(per_rank))
+        loads.append((t_m, int(ex.sum(0).max()), int(ex.max()),
+                      int(ex.reshape(model, model, e_loc).sum(-1).max())))
+    for cf in MESH_CAPACITIES + (e / k,):
+        worst = 0.0
+        for t_m, whole, local, peer in loads:
+            if strategy == "move_data":
+                worst = max(worst, local / moe._capacity(t_m, k, e, cf))
+            else:
+                cap_p = moe._capacity(t_m, k, model, cf)
+                worst = max(worst, peer / cap_p, whole / moe._capacity(
+                    model * cap_p, 1, e_loc, cf))
+        if worst <= 1.0:
+            return cf, worst
+    fail(f"lm_mesh_path: {strategy} drops a slot at every capacity")
+
+
+# the training cell: qwen2-7b at full width on (pod 2, data 1, model 2), a
+# row a pod, S=4,096, its depth cut to what fits (PERF.md section 4)
+MESH_TRAIN = ("qwen2-7b", (2, 1, 2), 2, 4096)
+MESH_TRAIN_LAYERS = 4
+MESH_DELTA = 4
+MESH_SYNC_CHECK = (2, 1024)        # the f32 Delta = 1 check: layers, seq
+# the pipeline: stages, qwen2-7b layers a stage, microbatches, rows and
+# tokens a microbatch
+MESH_PIPE = (4, 2, 8, 1, 512)
+MESH_TIMEOUT_S = 600
+MESH_CKPT = os.path.join(CKPT_ROOT, "mesh")
+
+
+class _MeshRouting:
+    """``moe.topk_routing`` in each rank thread of a ``LocalMesh``, as
+    ``_Routing`` records and pins it, per rank: with ``replay`` (the
+    mesh-free run's ids, one tensor a call in call order) rank r's i-th call
+    routes to its rows of the i-th replayed call (model rank m of
+    ``model`` takes rows [m t, (m+1) t): the MoE's split of the tokens over
+    ``model``), its gates and aux the run's own probabilities there. Each
+    call records (ids, router logits in f32, the run's own top-k)."""
+
+    def __init__(self, replay, model: int):
+        self.replay, self.model = replay, model
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self._moe, self._real, self.calls = moe, moe.topk_routing, {}
+
+        def rec(r, x, k):
+            rank = _rank_of_thread()
+            mine = self.calls.setdefault(rank, [])
+            logits = x.float() @ r
+            t = x.shape[0]
+            m = rank % self.model
+            ids = self.replay[len(mine)][m * t:(m + 1) * t]
+            probs = torch.softmax(logits, dim=-1)
+            own = torch.sort(probs, dim=-1, descending=True,
+                             stable=True).indices[:, :k].to(torch.int32)
+            gates = probs.gather(1, ids.long())
+            gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True),
+                                            1e-9)
+            e = r.shape[1]
+            top1 = torch.zeros(e, dtype=torch.float32,
+                               device=x.device).scatter_add_(
+                0, ids[:, 0].long(), torch.ones(ids.shape[0],
+                                                device=x.device))
+            aux = e * torch.sum(probs.mean(0) * top1 / ids.shape[0])
+            mine.append((ids, logits, own))
+            return gates, ids, aux
+        moe.topk_routing = rec
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.topk_routing = self._real
+
+    def assembled(self):
+        """Each call over the whole batch: the model ranks' rows in order
+        (data 1: ranks 0 .. model - 1)."""
+        import torch
+        ranks = [self.calls[r] for r in range(self.model)]
+        return [tuple(torch.cat([rk[i][j] for rk in ranks])
+                      for j in range(3)) for i in range(len(ranks[0]))]
+
+
+def _mesh_fingerprint(tree) -> list:
+    """``_fingerprint`` of a tree of ``Sharded`` leaves, each assembled
+    whole one at a time."""
+    import torch
+    from repro_torch.optim.optimizer import leaves
+    out = []
+    for x in leaves(tree):
+        whole = x.full() if hasattr(x, "full") else x
+        out += _fingerprint([whole])
+        del whole
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_mesh_serve(card: str):
+    """(a) moonshot-v1-16b-a3b at full width and depth, bf16, on a (data 1,
+    model 4) mesh, each strategy at its least capacity factor with no drop
+    (``_mesh_capacity``; the mesh-free reference at experts / top_k):
+    every rank on the one card behind the baton
+    (``launch/mesh.py::make_mesh``), the params each rank's blocks by the
+    rules, views of one copy (``shard_params(copy=False)``). First the
+    mesh-free model (the serving path's), greedy: its tokens and logits
+    kept on the host, its routing recorded. Then, for ``move_compute``,
+    ``move_data`` and ``auto``: the prefill and 32 split-KV decode steps
+    teacher-forced with the mesh-free tokens, the routing pinned to the
+    mesh-free run's (``_MeshRouting``). Checks: K9 on every rank's 4 query
+    and 4 KV heads of every prefill attention (4 x 48 launches) and none
+    in a decode step; the logits of every step within 2**-5 max |logits|
+    of the mesh-free run's; every routing flip (a token whose own top-k
+    differs from the pinned one) a near-tie, its router-logit gap at most
+    twice its layer's largest |mesh - mesh-free| router logit over the
+    prefill and the steps; the greedy
+    tokens (each step's argmax) equal but for counted near-ties of the
+    mesh-free logits. Reports prefill ms, decode ms a step, tokens a
+    second, peak GB, the MoE's bytes a step and device by collective beside
+    ``moe_strategy_cost``'s, and the strategy ``auto`` picks."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve_lm
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models import moe
+    from repro_torch.parallel import sharding as shd
+    arch, shape, batch, prompt, steps = MESH_SERVE
+    base = get_config(arch)
+    # the mesh-free reference at a capacity no token overflows (every
+    # expert's buffer holds the whole batch), so its routing has no drop
+    cfg = base.replace(capacity_factor=base.num_experts / base.top_k)
+    n_layers = cfg.num_layers
+    model = shape[1]
+    pad = prompt + steps
+    api = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(0, device=DEV)
+    torch.cuda.synchronize()
+    res = {"arch": arch, "mesh": {"data": shape[0], "model": shape[1]},
+           "batch": batch, "prompt": prompt, "decode_steps": steps,
+           "layers": n_layers, "d_model": cfg.d_model,
+           "experts": [cfg.num_experts, cfg.top_k],
+           "vocab": cfg.vocab_size, "init_s": time.perf_counter() - t0,
+           "card": card}
+    batch_in = serve_lm.make_batch(cfg, batch, prompt, DEV, seed=1)
+    with torch.no_grad(), _Routing() as rec:
+        logits, state = api.prefill(params, batch_in, pad_cache_to=pad)
+        ref_logits, toks = [logits], [torch.argmax(logits, -1).to(
+            torch.int32)]
+        for _ in range(steps):
+            logits, state = api.decode_step(params, state, toks[-1])
+            ref_logits.append(logits)
+            toks.append(torch.argmax(logits, -1).to(torch.int32))
+    del state
+    ref_toks = torch.stack(toks, 1)
+    ref_ids = rec.ids()
+    ref_router = [c[1] for c in rec.calls]
+    del rec
+    res["capacity_factor"] = {"mesh_free_reference": cfg.capacity_factor}
+    ref_host = [x.float().cpu() for x in ref_logits]
+    del ref_logits
+    tol = 2.0 ** -5 * max(float(x.abs().max()) for x in ref_host)
+    res["tolerance"] = {"logits": tol, "rule": "2**-5 max|mesh-free logits|"}
+    mesh = make_mesh(shape, ("data", "model"))
+    sp = shd.shard_params(params, mesh, copy=False)
+    del params
+    torch.cuda.empty_cache()
+    t_local = {"prefill": batch * prompt // mesh.size,
+               "decode": batch // mesh.size}
+    res["auto_picks"] = {k: moe.choose_strategy(cfg, t, model)
+                         for k, t in t_local.items()}
+    res["strategies"] = {}
+    for strategy in MESH_STRATEGIES:
+        picked = strategy if strategy != "auto" else \
+            res["auto_picks"]["decode"]
+        cf, worst = _mesh_capacity(cfg, ref_ids, model, picked)
+        c = cfg.replace(capacity_factor=cf,
+                        parallel=cfg.parallel.replace(moe_strategy=strategy))
+        sapi = build_model(c)
+        out = {"capacity_factor": cf, "worst_load_over_capacity": worst}
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        with torch.no_grad(), _MeshRouting(ref_ids, model) as mr:
+            _build.reset_launch_counts()
+            fa.device_launches(reset=True)
+            mesh.bytes.clear()
+
+            def pre(cm):
+                with shd.use_mesh(cm):
+                    return sapi.prefill(shd.local_tree(sp, cm.rank),
+                                        batch_in, cm, pad_cache_to=pad)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ev[0].record()
+            outs = mesh.run(pre, device=DEV)
+            ev[1].record()
+            torch.cuda.synchronize()
+            out["prefill_ms"] = ev[0].elapsed_time(ev[1])
+            out["prefill_wall_ms"] = (time.perf_counter() - t1) * 1e3
+            out["prefill_bytes_per_device"] = {
+                f"{sc or 'other'}:{k}": v / mesh.size
+                for (sc, k), v in mesh.bytes.items()}
+            launches = {"prefill": _build.launch_counts()["flash_attention"],
+                        "prefill_device": fa.device_launches(reset=True)}
+            logits = [outs[0][0]]
+            states = [o[1] for o in outs]
+            del outs
+            mesh.bytes.clear()
+            step_ms = []
+            for i in range(steps):
+                tok = ref_toks[:, i]
+
+                def dec(cm, tok=tok):
+                    with shd.use_mesh(cm):
+                        return sapi.decode_step(shd.local_tree(sp, cm.rank),
+                                                states[cm.rank], tok, cm)
+                ev[0].record()
+                outs = mesh.run(dec, device=DEV)
+                ev[1].record()
+                torch.cuda.synchronize()
+                step_ms.append(ev[0].elapsed_time(ev[1]))
+                logits.append(outs[0][0])
+                states = [o[1] for o in outs]
+            launches["decode"] = _build.launch_counts()["flash_attention"] \
+                - launches["prefill"]
+            launches["decode_device"] = fa.device_launches(reset=True)
+            per_step = {f"{sc or 'other'}:{k}": v / mesh.size / steps
+                        for (sc, k), v in mesh.bytes.items()}
+            del states
+        want = {n: (mesh.size * n_layers if n == "wgmma_bf16" else 0)
+                for n in fa.KERNELS}
+        if launches["prefill"] != mesh.size * n_layers or \
+                launches["prefill_device"] != want or launches["decode"] or \
+                any(launches["decode_device"].values()):
+            fail(f"lm_mesh_path {strategy}: K9 launches {launches}, not "
+                 f"{mesh.size * n_layers} wgmma_bf16 a prefill and none a "
+                 f"decode step")
+        calls = mr.assembled()
+        # a layer's near-tie bound: twice its largest |mesh - mesh-free|
+        # router logit over the prefill and the steps (routed alike)
+        bounds = [0.0] * n_layers
+        for i, (c_, r_) in enumerate(zip(calls, ref_router)):
+            bounds[i % n_layers] = max(bounds[i % n_layers], 2.0 * float(
+                (c_[1] - r_).abs().max()))
+        census = _lm_census(arch, calls, n_layers, bounds,
+                            f"the mesh ({strategy}) against mesh-free")
+        del calls, mr
+        errs = [float((x.float().cpu() - y).abs().max())
+                for x, y in zip(logits, ref_host)]
+        err = max(errs)
+        if err > tol:
+            fail(f"lm_mesh_path {strategy}: logits {err} from mesh-free, "
+                 f"above {tol} (prefill {errs[0]}, steps {errs[1:]}; "
+                 f"routing {census})")
+        got_toks = torch.stack([torch.argmax(x, -1).to(torch.int32)
+                                for x in logits], 1)
+        ties, compared, _ = _greedy_agreement(got_toks.cpu(), ref_toks.cpu(),
+                                              ref_host, tol)
+        del logits
+        med = sorted(step_ms)[len(step_ms) // 2]
+        cost = moe.moe_strategy_cost(cfg, t_local["decode"], model)
+        out.update(
+            k9_launches=launches, logits_max_abs_err=err,
+            logits_max_abs_err_by_step={"prefill": errs[0],
+                                        "decode_max": max(errs[1:])},
+            routing={"near_tie_bound_per_layer": {"min": min(bounds),
+                                                  "max": max(bounds)},
+                     **census},
+            greedy={"decisions": compared, "near_ties": ties},
+            decode_step_ms={"median": med, "min": min(step_ms),
+                            "max": max(step_ms)},
+            tokens_per_s=batch * 1e3 / med,
+            bytes_per_step_per_device=per_step,
+            moe_bytes_per_step_per_device={
+                k.split(":")[1]: v for k, v in per_step.items()
+                if k.startswith("moe:")},
+            predicted_moe_bytes_per_step_per_device={
+                "move_data": cost["move_data"] * n_layers,
+                "move_compute": cost["move_compute"] * n_layers,
+                "this_run": cost[picked] * n_layers},
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        res["strategies"][strategy] = out
+        emit({"phase": "lm_mesh_path serve", "strategy": strategy,
+              "card": card, **{k: out[k] for k in (
+                  "prefill_ms", "decode_step_ms", "tokens_per_s", "peak_gb",
+                  "moe_bytes_per_step_per_device",
+                  "predicted_moe_bytes_per_step_per_device")}})
+        torch.cuda.empty_cache()
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del sp, ref_ids, ref_router
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _mesh_leaf_grads_check(mesh, acc, want, tols):
+    """Each leaf's gradient of the mesh's first accumulation (the mean of
+    the pods' accumulators, assembled one leaf at a time) against the
+    mesh-free model's (``want``, on the host) within ``tols``."""
+    import torch
+    from repro_torch.optim.optimizer import leaves
+    worst, rows = 0.0, 0
+    for a, w, tol in zip(leaves(acc), want, tols):
+        got = a.full().mean(0)
+        err = float((got - w.to(got.device).float()).abs().max())
+        if not err <= tol:
+            fail(f"lm_mesh_path train: a leaf's gradient {err} from "
+                 f"mesh-free, above {tol}")
+        worst = max(worst, err / tol if tol > 0 else 0.0)
+        rows += 1
+        del got
+    return {"leaves": rows, "worst_share_of_tolerance": worst}
+
+
+def lm_mesh_train(card: str):
+    """(b) qwen2-7b at full width, ``MESH_TRAIN_LAYERS`` layers, bf16, on a
+    (pod 2, data 1, model 2) mesh, a row a pod, S=4,096, the vocab-parallel
+    loss, the Delta = 4 periodic sync (``optim/periodic.py``), a bf16 AdamW
+    state (the config's knob, as the training path). First the mesh-free
+    model on the same params and batch: its gradient, and the tolerance, 2
+    max |reference lowering - its f32 evaluation| a leaf (the training
+    path's rule). Then a Delta period (4 accumulations, a sync) exact,
+    again (bitwise: losses, params, m and v), and with int8 compression.
+    Checks: every leaf's gradient of the first accumulation within the
+    tolerance; K9's forward and backward on every rank's 14 query and 2 KV
+    heads (4 ranks x the layers a step, no remat on the baton); the int8
+    mean of the pods' gradients within 0.05 of the exact mean; an f32 run
+    at ``MESH_SYNC_CHECK`` layers: Delta = 1 sync against the mesh's direct
+    step within 2e-5. Reports the accumulation step's ms and tokens a
+    second, the sync's ms, peak GB, K9's launches a step; returns the
+    exact run's final state for (d)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import optimizer as topt
+    from repro_torch.optim import periodic
+    from repro_torch.optim.optimizer import leaves, tree_map
+    from repro_torch.parallel import compress
+    from repro_torch.parallel import sharding as shd
+    arch, shape, batch, seq = MESH_TRAIN
+    base = get_config(arch)
+    cfg = base.replace(num_layers=MESH_TRAIN_LAYERS,
+                       parallel=base.parallel.replace(
+                           ce_mode="vocab_parallel",
+                           opt_state_dtype="bfloat16"))
+    api = build_model(cfg)
+    mesh = make_mesh(shape, ("pod", "data", "model"))
+    opt_cfg = tsteps.opt_config_for(cfg)
+    data = TokenPipeline(DataConfig(cfg.vocab_size, seq, batch, seed=0),
+                         device=DEV)
+    batches = [next(data) for _ in range(MESH_DELTA)]
+    data.close()
+    res = {"arch": arch, "mesh": dict(zip(("pod", "data", "model"), shape)),
+           "layers": cfg.num_layers, "batch": batch, "seq": seq,
+           "delta": MESH_DELTA, "ce_mode": "vocab_parallel",
+           "opt_state_dtype": "bfloat16", "card": card,
+           "cut": f"layers 28 -> {MESH_TRAIN_LAYERS}"}
+    # the mesh-free gradient and its tolerance
+    params = api.init(0, device=DEV)
+    _, _, gf = tsteps.loss_and_grads(api, params, batches[0])
+    want = [g.cpu() for g in leaves(gf)]
+    del gf
+    _, _, gr = tsteps.loss_and_grads(build_model(cfg.replace(
+        attention_impl="reference")), params, batches[0])
+    gr = [g.cpu() for g in leaves(gr)]
+    p32 = tree_map(lambda t: t.detach().float(), params)
+    del params
+    _, _, g32 = tsteps.loss_and_grads(build_model(cfg.replace(
+        dtype="float32", attention_impl="reference")), p32, batches[0])
+    tols = [2.0 * float((a.float() - b.cpu()).abs().max())
+            for a, b in zip(gr, leaves(g32))]
+    del gr, g32, p32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    per_call = {k: v for k, v in _bwd_per_call(cfg).items()}
+    n_fwd = mesh.size * cfg.num_layers
+
+    def period(int8: bool, checks: bool):
+        params = api.init(0, device=DEV)
+        sp = shd.shard_params(params, mesh)
+        del params
+        torch.cuda.empty_cache()
+        opt = topt.init_opt_state(sp, opt_cfg)
+        acc = periodic.init_accumulator(sp, mesh)
+        accum, sync = periodic.make_periodic_steps(api, mesh, opt_cfg,
+                                                   compress_int8=int8)
+        torch.cuda.reset_peak_memory_stats()
+        out = {"losses": [], "step_ms": [], "launches": []}
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        for i, b in enumerate(batches):
+            _reset_train_counts()
+            ev[0].record()
+            acc, m = accum(sp, acc, b)
+            ev[1].record()
+            out["losses"].append(float(m["loss"]))
+            torch.cuda.synchronize()
+            out["step_ms"].append(ev[0].elapsed_time(ev[1]))
+            out["launches"].append(_train_counts())
+            if checks and i == 0:
+                out["grads"] = _mesh_leaf_grads_check(mesh, acc, want, tols)
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        for n in out["launches"]:
+            bwd = {k: n_fwd * v for k, v in per_call.items()}
+            if n["forward"] != n_fwd or n["backward_device"] != bwd:
+                fail(f"lm_mesh_path train: K9 launches {n} a step, not "
+                     f"{n_fwd} forwards and backward {bwd}")
+        err = periodic.init_error(sp, mesh) if int8 else None
+        if int8:          # the int8 mean against the exact one, leaf by leaf
+            def both(cm):
+                worst = 0.0
+                for a in leaves(shd.local_tree(acc, cm.rank)):
+                    got, _ = compress.allreduce_int8(
+                        a[0], torch.zeros_like(a[0]), "pod", cm)
+                    exact = cm.pmean(a[0], "pod")
+                    scale = float(exact.abs().max())
+                    if scale > 0:
+                        worst = max(worst, float(
+                            (got - exact).abs().max()) / scale)
+                return worst
+            out["int8_rel_err"] = max(mesh.run(both, device=DEV))
+            if not out["int8_rel_err"] <= 0.05:
+                fail(f"lm_mesh_path train: int8 sync {out['int8_rel_err']} "
+                     f"relative to the exact one")
+        ev[0].record()
+        sp, opt, acc, err, stats = sync(sp, opt, acc, err)
+        ev[1].record()
+        torch.cuda.synchronize()
+        out["sync_ms"] = ev[0].elapsed_time(ev[1])
+        out["grad_norm"] = float(stats["grad_norm"])
+        del acc, err
+        out["fingerprint"] = _mesh_fingerprint({"params": sp, "opt": opt})
+        return out, sp, opt
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    first = period(False, True)[0]
+    free()
+    int8 = period(True, False)[0]
+    free()
+    res["delta1_f32"] = _mesh_delta1_check(base, mesh, batches[0])
+    free()
+    again, sp, opt = period(False, False)
+    state = {"params": sp, "opt": opt, "fingerprint": again["fingerprint"]}
+    if first["losses"] != again["losses"] or \
+            first["fingerprint"] != again["fingerprint"]:
+        fail(f"lm_mesh_path train: a second run differs: losses "
+             f"{again['losses']} against {first['losses']}")
+    timed = sorted(first["step_ms"][1:] + again["step_ms"][1:])
+    med = timed[len(timed) // 2]
+    for run in (first, again, int8):
+        run.pop("fingerprint")
+    res.update(exact=first, exact_again_losses=again["losses"],
+               bitwise_second_run=True, int8=int8, step_ms_median=med,
+               tokens_per_s=batch * seq / (med / 1e3),
+               k9_per_step=first["launches"][-1],
+               peak_gb=max(first["peak_gb"], int8["peak_gb"]))
+    emit({"phase": "lm_mesh_path train", "card": card,
+          "step_ms_median": med, "tokens_per_s": res["tokens_per_s"],
+          "sync_ms": {"exact": first["sync_ms"], "int8": int8["sync_ms"]},
+          "peak_gb": res["peak_gb"], "grads": first["grads"],
+          "int8_rel_err": int8["int8_rel_err"],
+          "delta1_f32": res["delta1_f32"],
+          "k9_per_step": res["k9_per_step"]})
+    return res, state
+
+
+def _mesh_delta1_check(base, mesh, batch):
+    """f32, ``MESH_SYNC_CHECK`` layers and tokens, the vocab-parallel loss:
+    a Delta = 1 periodic sync against the mesh's direct train step from
+    the same params, every param within 2e-5 (the JAX package's own
+    test's bound; lr 3e-4, no clipping, no warm-up)."""
+    import torch
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models import build_model
+    from repro_torch.optim import optimizer as topt
+    from repro_torch.optim import periodic
+    from repro_torch.optim.optimizer import leaves
+    from repro_torch.parallel import sharding as shd
+    layers, sseq = MESH_SYNC_CHECK
+    c32 = base.replace(num_layers=layers, dtype="float32",
+                       parallel=base.parallel.replace(
+                           ce_mode="vocab_parallel"))
+    a32 = build_model(c32)
+    oc = topt.OptimizerConfig(grad_clip=0.0, warmup_steps=0)
+    b32 = {"tokens": batch["tokens"][:, :sseq]}
+    sp32 = shd.shard_params(a32.init(0, device=DEV), mesh)
+    sp32, _, _ = tsteps.make_train_step(a32, mesh, oc)(
+        sp32, topt.init_opt_state(sp32, oc), b32)
+    direct = [x.full().cpu() for x in leaves(sp32)]
+    del sp32
+    gc.collect()
+    torch.cuda.empty_cache()
+    sp32 = shd.shard_params(a32.init(0, device=DEV), mesh)
+    acc = periodic.init_accumulator(sp32, mesh)
+    accum, sync = periodic.make_periodic_steps(a32, mesh, oc)
+    acc, _ = accum(sp32, acc, b32)
+    sp32, _, acc, _, _ = sync(sp32, topt.init_opt_state(sp32, oc), acc, None)
+    d1 = 0.0
+    for x, w in zip(leaves(sp32), direct):
+        d1 = max(d1, float((x.full().cpu() - w).abs().max()))
+    del sp32, acc, direct
+    if not d1 < 2e-5:
+        fail(f"lm_mesh_path train: Delta = 1 sync {d1} from the direct step")
+    return {"layers": layers, "seq": sseq, "max_abs_diff_vs_direct": d1,
+            "bound": 2e-5}
+
+
+def lm_mesh_pipeline(card: str):
+    """(c) ``pipeline_apply`` over a ``stage`` axis of 4, two qwen2-7b
+    layers (full width, bf16, K9 on their attention) a stage, 8
+    microbatches of 1 x 512 tokens: every stage's outputs within 2**-5
+    max |out| of the 8 layers run in sequence on each microbatch."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel import pipeline
+    from repro_torch.parallel import sharding as shd
+    stages, per, m, mb, s = MESH_PIPE
+    cfg = get_config("qwen2-7b").replace(num_layers=stages * per)
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    layers = tfm.init_layer(gen, cfg, "attn", DEV, (stages * per,))
+    xs = torch.randn((m, mb, s, cfg.d_model), generator=gen,
+                     device=DEV).to(torch.bfloat16)
+    pos = torch.arange(s, device=DEV)
+
+    def layer_fn(lp, x):
+        return tfm.apply_layer_full(lp, cfg, "attn", x, pos)[0]
+    mesh = make_mesh((stages,), ("stage",))
+    specs = shd._map_named(lambda _, x: shd.P("stage"), layers)
+    sp = shd.shard_params(layers, mesh, specs=specs, copy=False)
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = mesh.run(lambda cm: pipeline.pipeline_apply(
+            layer_fn, shd.local_tree(sp, cm.rank), xs, cm, axis="stage"),
+            device=DEV)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        k9 = _build.launch_counts()["flash_attention"]
+        seq = []
+        for i in range(m):
+            x = xs[i]
+            for j in range(stages * per):
+                x = layer_fn(tfm._index(layers, j), x)
+            seq.append(x)
+        seq = torch.stack(seq)
+    tol = 2.0 ** -5 * float(seq.float().abs().max())
+    err = max(float((o.float() - seq.float()).abs().max()) for o in outs)
+    want_k9 = (m + stages - 1) * stages * per
+    if err > tol or k9 != want_k9:
+        fail(f"lm_mesh_path pipeline: {err} from sequential (tolerance "
+             f"{tol}), K9 launched {k9} times, not {want_k9}")
+    del layers, sp, outs, seq, xs
+    torch.cuda.empty_cache()
+    return {"stages": stages, "layers_per_stage": per, "microbatches": m,
+            "microbatch": [mb, s], "max_abs_err": err, "tolerance": tol,
+            "k9_launches": k9, "wall_ms": ms, "card": card}
+
+
+def lm_mesh_remesh(state, card: str):
+    """(d) (b)'s final state (the exact run's params and AdamW state on
+    (pod 2, data 1, model 2)) saved whole (``checkpoint.manager``) and
+    restored onto a (data 1, model 2) mesh by ``elastic.remesh_restore``:
+    every leaf bitwise (the fingerprints of the whole leaves)."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import manager
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import elastic
+    shutil.rmtree(MESH_CKPT, ignore_errors=True)
+    tree = {"params": state["params"], "opt": state["opt"]}
+    t0 = time.perf_counter()
+    manager.save(MESH_CKPT, 1, tree)
+    save_s = time.perf_counter() - t0
+    mb = _ckpt_mb(os.path.join(MESH_CKPT, "step_1"))
+    t0 = time.perf_counter()
+    step, new, _ = elastic.remesh_restore(
+        MESH_CKPT, tree, make_mesh((1, 2), ("data", "model")))
+    restore_s = time.perf_counter() - t0
+    del tree, state["params"], state["opt"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp = _mesh_fingerprint(new)
+    shutil.rmtree(MESH_CKPT, ignore_errors=True)
+    if step != 1 or fp != state["fingerprint"]:
+        fail("lm_mesh_path remesh: the restored state differs")
+    del new
+    torch.cuda.empty_cache()
+    return {"from": "(pod 2, data 1, model 2)", "to": "(data 1, model 2)",
+            "leaves": len(fp), "bitwise_equal": True, "checkpoint_mb": mb,
+            "save_s": save_s, "restore_s": restore_s, "card": card}
+
+
+def lm_mesh_cell(card: str):
+    """The child of ``lm_mesh_path``: K9 at the per-rank shapes, then (a)
+    serving, (b) training, (c) the pipeline, (d) re-meshing."""
+    k9 = {"serve_prefill": k9_fwd_lse_check(8, 4, 4, 1024, 128,
+                                            with_lse=False),
+          "train_forward": k9_fwd_lse_check(1, 14, 2, 4096, 128),
+          "train_backward": k9_bwd_check("qwen2-7b per rank, model 2", 1,
+                                         14, 2, 4096, 4096, 128, "bfloat16",
+                                         True, 0)}
+    t0 = time.perf_counter()
+    serve = lm_mesh_serve(card)
+    t1 = time.perf_counter()
+    train, state = lm_mesh_train(card)
+    t2 = time.perf_counter()
+    pipe = lm_mesh_pipeline(card)
+    t3 = time.perf_counter()
+    remesh = lm_mesh_remesh(state, card)
+    t4 = time.perf_counter()
+    return {"k9": k9, "serve": serve, "train": train, "pipeline": pipe,
+            "remesh": remesh, "seconds": {"serve": t1 - t0,
+                                          "train": t2 - t1,
+                                          "pipeline": t3 - t2,
+                                          "remesh": t4 - t3}}
+
+
+def lm_mesh_path(card: str):
+    """The mesh cell in a process of its own (``python3 chip_smoke.py
+    lm_mesh_path mesh``), as ``lm_train_path`` runs its cell. Emits the
+    phase line and returns it."""
+    # the serving cell's buffers come and go in sizes the allocator's
+    # fixed segments would fragment
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    out = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "lm_mesh_path", "mesh"],
+        capture_output=True, text=True, timeout=MESH_TIMEOUT_S, env=env)
+    if out.returncode != 0:
+        fail(f"lm_mesh_path: exit {out.returncode}\n"
+             f"{out.stdout[-3000:]}\n{out.stderr[-6000:]}")
+    for ln in out.stdout.strip().splitlines()[:-1]:
+        print(ln, flush=True)          # the parts' lines
+    cell = json.loads(out.stdout.strip().splitlines()[-1])
+    line = {"phase": "lm_mesh_path", "card": card, **cell}
+    emit(line)
+    return line
+
+
+def lm_mesh_child() -> int:
+    """The child of ``lm_mesh_path``: the cell, its result as the last
+    line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    emit(lm_mesh_cell(smi))
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4883,6 +5600,11 @@ def main() -> int:
     # ---- LM training: qwen2-7b at full width and depth, K9 forward and
     # its backward on every attention of a step (a process of its own) ----
     train = lm_train_path(card)
+
+    # ---- the LM on meshes of ranks on the one card: moonshot-v1-16b-a3b
+    # served on (1, 4), qwen2-7b trained on (2, 1, 2), a 4-stage pipeline,
+    # a re-mesh (a process of its own) ------------------------------------
+    mesh_line = lm_mesh_path(card)
 
     # ---- fused == reference on the card, small size --------------------
     exact_kernels = k1["exact"] and k1s["exact"] and k2_err == 0
@@ -5319,6 +6041,48 @@ def main() -> int:
                 "plain_is": "the whole backward's plain version",
                 "bound_ms": kt["bound_ms"], "bound_by": kt["bound_by"],
                 "library_ms": None})
+    # K9 on the mesh path: each rank's heads, its launches there (a
+    # prefill of the serving cell under each strategy; a training step's
+    # forwards and backward calls, no remat on the baton)
+    mserve, mtrain = mesh_line["serve"], mesh_line["train"]
+    mesh_fwd = mtrain["k9_per_step"]
+    mesh_steps = 3 * MESH_DELTA
+    for e in kernels:
+        if e["name"] == "flash_attention":
+            e["lm_mesh_path_launches"] = {
+                "serve_prefill": {s: r["k9_launches"]["prefill"]
+                                  for s, r in mserve["strategies"].items()},
+                "serve_decode": 0,
+                "train_forward_per_step": mesh_fwd["forward"]}
+    for key, label, lch in (
+            ("serve_prefill", f"{MESH_SERVE[0]} prefill, a rank of model "
+             f"{MESH_SERVE[1][1]}", sum(r["k9_launches"]["prefill"] for r in
+                                    mserve["strategies"].values())),
+            ("train_forward", f"{MESH_TRAIN[0]} training, a rank of model "
+             f"{MESH_TRAIN[1][2]}, with its logsumexp",
+             mesh_fwd["forward"] * mesh_steps)):
+        k = mesh_line["k9"][key]
+        kernels.append({
+            "name": f"flash_attention ({label})", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:94",
+            "launches": lch, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": k["library_ms"], "shape": k["shape"]})
+    bw = mesh_line["k9"]["train_backward"]
+    kernels.append({
+        "name": f"flash_attention_bwd ({bw['label']})", "route": "cuda",
+        "source": bw["source"], "device_kernels": bw["kernel"],
+        "replaces": bwd_replaces,
+        "launches": mesh_fwd["backward_calls"] * mesh_steps,
+        "launches_per_train_step": mesh_fwd["backward_device"],
+        "device_launches_per_call": bw["device_launches_per_call"],
+        "max_abs_err": bw["max_abs_err"], "tolerance": bw["tolerance"],
+        "ms": bw["ms"], "device_ms": bw["device_ms"],
+        "plain_ms": bw["plain_ms"], "bound_ms": bw["bound_ms"],
+        "bound_by": bw["bound_by"], "library_ms": bw["library_ms"],
+        "shape": bw["shape"]})
     # the service's launches: its R=1 poisoned run (the K0 draws by mode;
     # the old algorithms' variants do not run in the service cells) and its
     # R=4 runs
@@ -5346,6 +6110,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["lm_mesh_path"]:
+        sys.exit(lm_mesh_child())
     if sys.argv[1:2] == ["lm_serve_path"]:
         sys.exit(lm_child(sys.argv[2]))
     if sys.argv[1:2] == ["lm_train_path"]:

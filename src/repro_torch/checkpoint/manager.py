@@ -23,8 +23,10 @@ tuple by index; ``None`` is no leaf. So the port's ``BrainState`` gives
 ``.neurons/.v``, ..., ``.chunk``, ``.stats/counters/<name>``, ... in the JAX
 package's file order.
 
-Leaves are torch tensors, numpy arrays or Python ints (the port's host
-chunk counter: written as an int32 of shape (), read back as an int). numpy
+Leaves are torch tensors, numpy arrays, Python ints (the port's host
+chunk counter: written as an int32 of shape (), read back as an int) or a
+mesh's ``Sharded`` leaves (``parallel/sharding.py``: written whole, and
+restored whole into their structure for the caller to place). numpy
 has no bfloat16 of its own: a bf16 tensor is written as 2-byte void elements
 with the manifest dtype ``bfloat16`` (what numpy writes for the JAX
 package's ``ml_dtypes`` arrays) and read back as its uint16 bits, viewed as
@@ -43,6 +45,8 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.parallel.sharding import Sharded
 
 
 class CorruptCheckpointError(RuntimeError):
@@ -111,7 +115,7 @@ def map_leaves(fn, tree):
 
 # ------------------------------------------------------------ leaves
 def _dtype_name(leaf) -> str:
-    if isinstance(leaf, torch.Tensor):
+    if isinstance(leaf, (torch.Tensor, Sharded)):
         return str(leaf.dtype).replace("torch.", "")
     if isinstance(leaf, int):
         return "int32"
@@ -119,7 +123,10 @@ def _dtype_name(leaf) -> str:
 
 
 def _to_numpy(leaf) -> np.ndarray:
-    """A host leaf as the array written to disk."""
+    """A host leaf as the array written to disk (a mesh's ``Sharded`` leaf
+    as the whole array)."""
+    if isinstance(leaf, Sharded):
+        leaf = leaf.full()
     if isinstance(leaf, torch.Tensor):
         x = leaf.detach().cpu()
         if x.dtype == torch.bfloat16:
@@ -139,6 +146,8 @@ def host_copy(tree):
     devices = set()
 
     def copy(_, x):
+        if isinstance(x, Sharded):          # a mesh's leaf: the whole array
+            x = x.full()
         if isinstance(x, torch.Tensor):
             if x.is_cuda:
                 devices.add(x.device)
@@ -249,7 +258,7 @@ def as_leaf(arr: np.ndarray, target, dtype: str):
     """A loaded array in the kind of ``target``: a CPU tensor for a tensor
     (bf16 bits viewed as ``torch.bfloat16``), an int for an int, else the
     array."""
-    if isinstance(target, torch.Tensor):
+    if isinstance(target, (torch.Tensor, Sharded)):
         t = torch.from_numpy(arr)
         return t.view(torch.bfloat16) if dtype == "bfloat16" else t
     if isinstance(target, int):

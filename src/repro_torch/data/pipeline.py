@@ -15,7 +15,12 @@ with a non-blocking copy: the host does not wait for the stream (a
 and a buffer is refilled only after the copy out of it has completed (an
 event recorded behind the copy), so a batch is never overwritten while the
 card still reads it. Sharding across processes (``num_shards``) takes every
-``num_shards``-th row, as the JAX pipeline does.
+``num_shards``-th row, as the JAX pipeline does. With ``sharding`` (the
+batch's spec on a mesh, ``parallel.sharding.batch_sharding``) the rows are
+block ``shard_index`` of ``num_shards``, the block the model itself would
+slice from the whole batch, and the tokens carry the spec, so the model
+takes them as that rank's rows. Either way a row's tokens depend only on
+(seed, step, row), so the token stream does not change with the mesh.
 """
 from __future__ import annotations
 
@@ -84,12 +89,17 @@ class TokenPipeline:
 
     def __init__(self, cfg: DataConfig, shard_index: int = 0,
                  num_shards: int = 1, start_step: int = 0, prefetch: int = 2,
-                 device=None):
+                 device=None, sharding=None):
         assert cfg.global_batch % num_shards == 0
         self.cfg = cfg
-        self.rows = np.arange(cfg.global_batch)[
-            shard_index::num_shards] if num_shards > 1 else \
-            np.arange(cfg.global_batch)
+        rows = np.arange(cfg.global_batch)
+        if sharding is not None:
+            n = cfg.global_batch // num_shards
+            self.rows = rows[shard_index * n:(shard_index + 1) * n]
+        else:
+            self.rows = rows[shard_index::num_shards] if num_shards > 1 \
+                else rows
+        self.sharding = sharding
         self.step = start_step
         self.device = resolve_device(device)
         self._staging = []
@@ -115,6 +125,13 @@ class TokenPipeline:
         return self
 
     def __next__(self) -> dict:
+        out = self._next()
+        if self.sharding is not None:
+            from repro_torch.parallel import sharding as shd
+            shd.set_spec(out["tokens"], self.sharding)
+        return out
+
+    def _next(self) -> dict:
         step, batch = self._q.get()
         self.step = step + 1
         if self.device.type != "cuda":

@@ -33,12 +33,41 @@ Three transports:
   machine with several cards.
 
 Collective outputs are read, never written in place, as jax's arrays.
+
+The LM stack's sharded paths run on a mesh of named axes (``pod``,
+``data``, ``model``, ``stage``), as the JAX package's ``shard_map`` code
+does (``repro/models/moe.py``, ``models/attention.py``,
+``models/transformer.py``, ``optim/periodic.py``, ``parallel/pipeline.py``).
+A ``Mesh`` is the shape and the axis names, ranks numbered row-major (the
+last axis fastest, as jax reshapes its device array); a ``MeshComm`` is one
+rank's view of it, with jax's collectives over an axis or a tuple of axes
+(the tuple's ranks in the tuple's order, the first axis slowest):
+``all_gather`` (tiled), ``all_to_all`` (tiled), ``psum``, ``pmax``,
+``pmean``, ``psum_scatter`` (tiled), ``ppermute`` and ``axis_index``. An
+axis line is the set of ranks that differ only along the named axes.
+
+Two transports: ``LocalMesh`` runs every rank in this process on today's
+baton (each rank deposits (op, axes, x); the last to arrive computes each
+axis line's result; ranks that reach different ops raise), and
+``ProcessMesh`` is this process's rank, one ``torch.distributed.new_group``
+a line. Under autograd a collective is differentiated as ``shard_map``
+transposes it: ``all_gather``'s backward is a reduce-scatter,
+``all_to_all``'s the inverse ``all_to_all``, ``psum``'s a ``psum``,
+``ppermute``'s the inverse permutation (``pmax`` is not differentiated).
+On the baton the exchange is one autograd node over every rank's tensor,
+so one ``torch.autograd.backward`` over all ranks' losses runs the whole
+backward in the calling thread, with no rank waiting on another
+(``backward_ranks``).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
+import itertools
+import math
 import threading
-from typing import Callable, List, Sequence
+from typing import Callable, List, Sequence, Tuple, Union
 
 import torch
 from torch.profiler import record_function
@@ -118,12 +147,17 @@ class LocalComm:
     order. ``comm(r)`` is rank ``r``'s ``Comm`` (hand it to that rank's
     code)."""
 
-    def __init__(self, num_ranks: int):
+    def __init__(self, num_ranks: int, mesh: "Mesh" = None):
         if num_ranks < 1:
             raise ValueError(f"LocalComm: {num_ranks} ranks")
         self.num_ranks = num_ranks
+        self.mesh = mesh
         self._comms = [_LocalRankComm(self, r) for r in range(num_ranks)]
+        # one lock, a condition a rank: handing the baton on wakes only the
+        # rank whose turn it is
         self._cv = threading.Condition()
+        self._cvs = [threading.Condition(self._cv._lock)
+                     for _ in range(num_ranks)]
         self._running = False
 
     def comm(self, rank: int) -> Comm:
@@ -133,7 +167,8 @@ class LocalComm:
     # deposited at the current collective, ``_results`` the last exchange's
     def _wait_turn(self, rank: int) -> None:
         with record_function("repro.comm.wait"):
-            self._cv.wait_for(lambda: self._turn == rank or self._error)
+            self._cvs[rank].wait_for(lambda: self._turn == rank or
+                                     self._error)
         if self._error:
             raise _Aborted()
 
@@ -148,11 +183,13 @@ class LocalComm:
                     raise RuntimeError(
                         "LocalComm: the ranks reached different collectives "
                         f"({[s[0] for s in self._slots]})")
+                parts = [s[1] for s in self._slots]
                 with record_function("repro.comm.exchange"):
-                    self._results = _OPS[op]([s[1] for s in self._slots])
+                    self._results = _OPS[op](parts) if isinstance(op, str) \
+                        else _mesh_exchange(self.mesh, op, parts)
                 self._slots = [None] * self.num_ranks
             self._turn = (rank + 1) % self.num_ranks
-            self._cv.notify_all()
+            self._cvs[self._turn].notify()
             if op == _EXIT:
                 return None
             self._wait_turn(rank)
@@ -162,7 +199,8 @@ class LocalComm:
         with self._cv:
             if not self._error:
                 self._error.append(err)
-            self._cv.notify_all()
+            for cv in self._cvs:
+                cv.notify_all()
 
     def run(self, fns: Sequence[Callable[[], object]], device=None) -> list:
         """Call ``fns[r]()`` as rank ``r`` for every rank, one at a time
@@ -276,3 +314,444 @@ class ProcessGroupComm(Comm):
         out = x.clone()
         self._dist.all_reduce(out, group=self.group)
         return out
+
+
+# ====================================================== meshes of named axes
+Axes = Union[str, Tuple[str, ...], None]
+
+
+def _axes(axes: Axes) -> Tuple[str, ...]:
+    if axes is None:
+        return ()
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+class Mesh:
+    """The shape of a mesh and its axis names; rank ``r`` sits at
+    ``coords(r)``, row-major. ``shape`` maps each name to its size, as
+    jax's ``Mesh.shape``."""
+
+    def __init__(self, shape, axis_names):
+        shape, axis_names = tuple(int(s) for s in shape), tuple(axis_names)
+        if len(shape) != len(axis_names) or len(set(axis_names)) != \
+                len(axis_names) or min(shape, default=1) < 1:
+            raise ValueError(f"Mesh: shape {shape} for axes {axis_names}")
+        self.axis_names = axis_names
+        self.shape = dict(zip(axis_names, shape))
+        self.size = math.prod(shape)
+        # bytes reaching each rank, by (comm_scope, collective), summed over
+        # this process's ranks
+        self.bytes = {}
+        self._lines = {}
+
+    def __repr__(self):
+        return f"Mesh({self.shape})"
+
+    def coords(self, rank: int) -> Tuple[int, ...]:
+        out = []
+        for n in reversed(list(self.shape.values())):
+            out.append(rank % n)
+            rank //= n
+        return tuple(reversed(out))
+
+    def rank_of(self, coords) -> int:
+        r = 0
+        for c, n in zip(coords, self.shape.values()):
+            r = r * n + c
+        return r
+
+    def axis_size(self, axes: Axes) -> int:
+        return math.prod(self.shape[a] for a in _axes(axes))
+
+    def axis_index(self, rank: int, axes: Axes) -> int:
+        """``rank``'s position along ``axes`` (the first axis slowest)."""
+        c = dict(zip(self.axis_names, self.coords(rank)))
+        i = 0
+        for a in _axes(axes):
+            i = i * self.shape[a] + c[a]
+        return i
+
+    def line(self, rank: int, axes: Axes) -> List[int]:
+        """The ranks of ``rank``'s line along ``axes``, by their position
+        along them."""
+        axes = _axes(axes)
+        for a in axes:
+            if a not in self.shape:
+                raise ValueError(f"{self}: no axis {a!r}")
+        base = list(self.coords(rank))
+        pos = [self.axis_names.index(a) for a in axes]
+        out = []
+        for idx in itertools.product(*(range(self.shape[a]) for a in axes)):
+            c = list(base)
+            for p, i in zip(pos, idx):
+                c[p] = i
+            out.append(self.rank_of(c))
+        return out
+
+    def lines(self, axes: Axes) -> List[List[int]]:
+        """Every line along ``axes``, each once, by its first rank."""
+        key = _axes(axes)
+        if key not in self._lines:
+            seen, out = set(), []
+            for r in range(self.size):
+                ln = self.line(r, key)
+                if ln[0] not in seen:
+                    seen.add(ln[0])
+                    out.append(ln)
+            self._lines[key] = out
+        return self._lines[key]
+
+
+# the collectives on a line, as functions of the line's tensors in line
+# order; each returns the line's results in that order
+def _line_all_gather(xs, dim):
+    out = torch.cat(list(xs), dim)
+    return [out] * len(xs)
+
+
+def _line_psum_scatter(xs, dim):
+    total = torch.stack(list(xs)).sum(0)
+    return list(torch.chunk(total, len(xs), dim))
+
+
+def _line_all_to_all(xs, split, concat):
+    n = len(xs)
+    parts = [torch.chunk(x, n, split) for x in xs]
+    return [torch.cat([parts[s][d] for s in range(n)], concat)
+            for d in range(n)]
+
+
+def _line_psum(xs):
+    out = torch.stack(list(xs)).sum(0)       # summed in line order
+    return [out] * len(xs)
+
+
+def _line_pmax(xs):
+    out = torch.stack(list(xs)).amax(0)
+    return [out] * len(xs)
+
+
+def _line_ppermute(xs, perm):
+    out = [torch.zeros_like(x) for x in xs]
+    for src, dst in perm:
+        out[dst] = xs[src]
+    return out
+
+
+def _line_op(kind: str, params, xs):
+    if kind == "all_gather":
+        return _line_all_gather(xs, params[0])
+    if kind == "psum_scatter":
+        return _line_psum_scatter(xs, params[0])
+    if kind == "all_to_all":
+        return _line_all_to_all(xs, *params)
+    if kind == "psum":
+        return _line_psum(xs)
+    if kind == "pmean":
+        return [y / len(xs) for y in _line_psum(xs)]
+    if kind == "pmax":
+        return _line_pmax(xs)
+    if kind == "ppermute":
+        return _line_ppermute(xs, params[0])
+    raise ValueError(f"unknown collective {kind!r}")
+
+
+def _transpose(kind: str, params):
+    """The collective that ``kind``'s backward runs on the cotangents."""
+    if kind == "all_gather":
+        return "psum_scatter", params
+    if kind == "psum_scatter":
+        return "all_gather", params
+    if kind == "all_to_all":
+        return "all_to_all", (params[1], params[0])
+    if kind in ("psum", "pmean"):
+        return kind, params
+    if kind == "ppermute":
+        return "ppermute", (tuple((d, s) for s, d in params[0]),)
+    raise RuntimeError(f"{kind} is not differentiated")
+
+
+def _mesh_apply(mesh: Mesh, kind, axes, params, parts):
+    """Every rank's result of one collective: each line computed alone."""
+    out = [None] * mesh.size
+    for ln in mesh.lines(axes):
+        res = _line_op(kind, params, [parts[r] for r in ln])
+        for r, y in zip(ln, res):
+            out[r] = y
+    return out
+
+
+class _MeshExchange(torch.autograd.Function):
+    """One collective over every rank's tensor: one node, so the backward
+    of all ranks runs as one (the transposed collective)."""
+
+    @staticmethod
+    def forward(ctx, mesh, kind, axes, params, *parts):
+        ctx.mesh, ctx.kind, ctx.axes, ctx.params = mesh, kind, axes, params
+        out, seen = [], {id(p) for p in parts}
+        for y in _mesh_apply(mesh, kind, axes, params, parts):
+            # a tensor of its own a rank: a node's outputs must be
+            # distinct, and none of them an input
+            out.append(y.clone() if id(y) in seen else y)
+            seen.add(id(y))
+        if kind == "pmax":
+            ctx.mark_non_differentiable(*out)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        kind, params = _transpose(ctx.kind, ctx.params)
+        return (None, None, None, None) + tuple(_mesh_apply(
+            ctx.mesh, kind, ctx.axes, params, list(cts)))
+
+
+def _mesh_exchange(mesh: Mesh, op, parts):
+    _, kind, axes, params = op
+    if torch.is_grad_enabled() and any(p.requires_grad for p in parts):
+        return list(_MeshExchange.apply(mesh, kind, axes, params, *parts))
+    return _mesh_apply(mesh, kind, axes, params, parts)
+
+
+_scope_var: contextvars.ContextVar = contextvars.ContextVar("repro_scope",
+                                                            default="")
+
+
+@contextlib.contextmanager
+def comm_scope(name: str):
+    """Count the collectives inside under ``name`` (``Mesh.bytes``)."""
+    tok = _scope_var.set(name)
+    try:
+        yield
+    finally:
+        _scope_var.reset(tok)
+
+
+def _arriving_bytes(kind: str, n: int, nbytes: int) -> int:
+    """Bytes reaching a rank from the others of its line of ``n``: a
+    gather, a reduction or a permutation moves (n-1) blocks of the
+    operand's size in, an all_to_all or reduce-scatter (n-1)/n of it."""
+    if kind in ("all_to_all", "psum_scatter"):
+        return nbytes * (n - 1) // n
+    if kind == "ppermute":
+        return nbytes
+    return nbytes * (n - 1)
+
+
+class MeshComm:
+    """One rank's view of a mesh: ``shape``, ``axis_names``, ``size``,
+    ``rank`` and the collectives over named axes. Model code takes it as its
+    ``mesh`` argument, where the JAX package takes a ``Mesh``. An empty
+    tuple of axes, or axes of size 1, makes a collective the identity (as
+    under ``shard_map``)."""
+
+    def __init__(self, mesh: Mesh, rank: int, transport):
+        self.mesh = mesh
+        self.rank = rank
+        self.shape = mesh.shape
+        self.axis_names = mesh.axis_names
+        self.size = mesh.size
+        self._t = transport
+
+    def __repr__(self):
+        return f"MeshComm(rank {self.rank} of {self.mesh})"
+
+    def without(self, axes: Axes) -> "MeshComm":
+        """This rank's view of the mesh with ``axes`` hidden: its sub-mesh
+        along the others (the code inside sees only those, as JAX code
+        inside a ``shard_map`` manual over ``axes``)."""
+        drop = set(_axes(axes))
+        out = MeshComm(self.mesh, self.rank, self._t)
+        out.axis_names = tuple(a for a in self.axis_names if a not in drop)
+        out.shape = {a: self.shape[a] for a in out.axis_names}
+        out.size = math.prod(out.shape.values())
+        return out
+
+    @property
+    def one_process(self) -> bool:
+        """Whether every rank runs in this process (a ``LocalMesh``)."""
+        return isinstance(self._t, LocalMesh)
+
+    def axis_index(self, axes: Axes) -> int:
+        return self.mesh.axis_index(self.rank, axes)
+
+    def axis_size(self, axes: Axes) -> int:
+        return self.mesh.axis_size(axes)
+
+    def _run(self, kind, axes, params, x):
+        axes = _axes(axes)
+        n = self.mesh.axis_size(axes)
+        if n > 1:
+            key = (_scope_var.get(), kind)
+            self.mesh.bytes[key] = self.mesh.bytes.get(key, 0) + \
+                _arriving_bytes(kind, n, x.numel() * x.element_size())
+        if n == 1:
+            if kind == "ppermute":
+                return x if (0, 0) in params[0] else torch.zeros_like(x)
+            return x
+        return self._t.collective(self.rank, kind, axes, params, x)
+
+    def all_gather(self, x, axes: Axes, dim: int = 0):
+        """The line's ``x`` concatenated along ``dim`` in line order
+        (``jax.lax.all_gather(..., axis=dim, tiled=True)``)."""
+        return self._run("all_gather", axes, (dim % x.dim(),), x)
+
+    def psum_scatter(self, x, axes: Axes, dim: int = 0):
+        """The line's sum, this rank's block of it along ``dim``
+        (``jax.lax.psum_scatter(..., scatter_dimension=dim, tiled=True)``)."""
+        return self._run("psum_scatter", axes, (dim % x.dim(),), x)
+
+    def all_to_all(self, x, axes: Axes, split_dim: int = 0,
+                   concat_dim: int = 0):
+        """Block ``d`` of ``x`` along ``split_dim`` goes to the line's rank
+        ``d``, which concatenates what it receives along ``concat_dim`` in
+        line order (``jax.lax.all_to_all(..., tiled=True)``)."""
+        return self._run("all_to_all", axes,
+                         (split_dim % x.dim(), concat_dim % x.dim()), x)
+
+    def psum(self, x, axes: Axes):
+        return self._run("psum", axes, (), x)
+
+    def pmean(self, x, axes: Axes):
+        return self._run("pmean", axes, (), x)
+
+    def pmax(self, x, axes: Axes):
+        return self._run("pmax", axes, (), x)
+
+    def ppermute(self, x, axis: Axes, perm):
+        """``perm``: (source, destination) positions along ``axis``; a rank
+        that is no destination gets zeros (``jax.lax.ppermute``, which
+        numbers the positions along a tuple of axes in the mesh's order of
+        them)."""
+        names = _axes(axis)
+        axis = tuple(a for a in self.axis_names if a in names)
+        return self._run("ppermute", axis,
+                         (tuple((int(s), int(d)) for s, d in perm),), x)
+
+
+class LocalMesh(Mesh):
+    """Every rank of the mesh in this process, on one device, behind
+    ``LocalComm``'s baton: ``run(fn)`` calls ``fn(comm(r))`` for every
+    rank ``r`` and returns the results in rank order."""
+
+    def __init__(self, shape, axis_names):
+        super().__init__(shape, axis_names)
+        self.group = LocalComm(self.size, mesh=self)
+        self._comms = [MeshComm(self, r, self) for r in range(self.size)]
+        self.ranks = list(range(self.size))
+
+    def comm(self, rank: int) -> MeshComm:
+        return self._comms[rank]
+
+    def collective(self, rank, kind, axes, params, x):
+        return self.group._collective(rank, ("mesh", kind, axes, params), x)
+
+    def run(self, fn: Callable[[MeshComm], object], device=None) -> list:
+        if self.size == 1:
+            return [fn(self._comms[0])]
+        return self.group.run([functools.partial(fn, c) for c in self._comms],
+                              device=device)
+
+
+class _ProcExchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, kind, axes, params, x):
+        ctx.mesh, ctx.kind, ctx.axes, ctx.params = mesh, kind, axes, params
+        out = mesh._raw(kind, axes, params, x)
+        if kind == "pmax":
+            ctx.mark_non_differentiable(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        kind, params = _transpose(ctx.kind, ctx.params)
+        return None, None, None, None, ctx.mesh._raw(kind, ctx.axes, params,
+                                                     ct.contiguous())
+
+
+class ProcessMesh(Mesh):
+    """This process's rank of a mesh over ``torch.distributed`` (the world
+    is the mesh, rank for rank): one group a line, made by every process in
+    the same order the first time an axis tuple is used. ``run(fn)`` is
+    ``[fn(comm)]``. gloo on CPU tensors; NCCL on one card a process is
+    untried here."""
+
+    def __init__(self, shape, axis_names):
+        import torch.distributed as tdist
+        super().__init__(shape, axis_names)
+        if not tdist.is_initialized():
+            raise RuntimeError("ProcessMesh: call torch.distributed."
+                               "init_process_group first")
+        if tdist.get_world_size() != self.size:
+            raise ValueError(f"ProcessMesh: {self.size} ranks in a world of "
+                             f"{tdist.get_world_size()}")
+        self._dist = tdist
+        self.rank = tdist.get_rank()
+        self.ranks = [self.rank]
+        self._comm = MeshComm(self, self.rank, self)
+        self._groups = {}
+
+    def comm(self, rank: int) -> MeshComm:
+        if rank != self.rank:
+            raise ValueError(f"rank {rank} is not this process's "
+                             f"({self.rank})")
+        return self._comm
+
+    def run(self, fn, device=None) -> list:
+        return [fn(self._comm)]
+
+    def _group(self, axes):
+        if axes not in self._groups:
+            mine = None
+            for ln in self.lines(axes):    # every process makes every group
+                g = self._dist.new_group(ln)
+                if self.rank in ln:
+                    mine = (g, ln)
+            self._groups[axes] = mine
+        return self._groups[axes]
+
+    def collective(self, rank, kind, axes, params, x):
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _ProcExchange.apply(self, kind, axes, params, x)
+        return self._raw(kind, axes, params, x)
+
+    def _gathered(self, x, group, line):
+        """Every line member's ``x`` in line order."""
+        parts = [torch.empty_like(x) for _ in line]
+        self._dist.all_gather(parts, x.contiguous(), group=group)
+        order = sorted(line)                 # a group's ranks are sorted
+        return [parts[order.index(r)] for r in line]
+
+    def _raw(self, kind, axes, params, x):
+        group, line = self._group(axes)
+        me = line.index(self.rank)
+        if kind in ("psum", "pmean", "pmax", "psum_scatter"):
+            out = x.contiguous().clone()
+            op = self._dist.ReduceOp.MAX if kind == "pmax" else \
+                self._dist.ReduceOp.SUM
+            self._dist.all_reduce(out, op=op, group=group)
+            if kind == "pmean":
+                out = out / len(line)
+            if kind == "psum_scatter":
+                out = torch.chunk(out, len(line), params[0])[me].contiguous()
+            return out
+        parts = self._gathered(x, group, line)
+        if kind == "all_gather":
+            return torch.cat(parts, params[0])
+        if kind == "all_to_all":
+            split, concat = params
+            return torch.cat([torch.chunk(p, len(line), split)[me]
+                              for p in parts], concat)
+        if kind == "ppermute":
+            for src, dst in params[0]:
+                if dst == me:
+                    return parts[src].clone()
+            return torch.zeros_like(x)
+        raise ValueError(f"unknown collective {kind!r}")
+
+
+def backward_ranks(losses, scale: float):
+    """The backward of every rank's loss at once, in the calling thread:
+    each seeded with ``scale`` (1 / the mesh's rank count is the cotangent
+    ``shard_map`` gives a replicated output)."""
+    torch.autograd.backward(list(losses), [torch.full_like(x, scale)
+                                           for x in losses])

@@ -22,9 +22,9 @@ of the same math". Here the lowering is chosen explicitly
 Both pre-scale q by 1/sqrt(D) in float32 and round it back to q's dtype, as
 JAX does; K9 then takes ``scale=1.0``, so it computes what the JAX module
 computes. ``decode_attention`` is plain torch on every device: the JAX
-package has no kernel for it. ``combine_partial`` (the split-KV psum
-combine) needs a collective and waits for the sharded slice (ROADMAP
-Queue 1 item 14f).
+package has no kernel for it. ``combine_partial`` merges split-KV partials
+across a mesh axis (``pmax`` and two ``psum``s of a rank's
+``dist.MeshComm``).
 """
 from __future__ import annotations
 
@@ -160,6 +160,23 @@ def decode_attention(q, k, v, kv_positions, cache_len, *, window=0,
     l = torch.sum(p, dim=-1)
     out = torch.einsum("bhgk,bhkd->bhgd", p.to(v.dtype).to(F32), v.to(F32))
     return out.reshape(b, hq, d), m.reshape(b, hq), l.reshape(b, hq)
+
+
+def combine_partial(out, m, l, axis_name, mesh=None):
+    """Combine split-KV partial attention (out = unnormalized p@v, m, l)
+    across ``axis_name`` of ``mesh`` (a rank's ``dist.MeshComm``; the
+    context's, ``sharding.use_mesh``, when None) with a numerically-stable
+    softmax merge. Only (o, m, l) crosses the link, never the KV cache."""
+    if mesh is None:
+        from repro_torch.parallel import sharding as shd
+        mesh = shd.current_mesh()
+    m_g = mesh.pmax(m, axis_name)
+    w = torch.exp(m - m_g)
+    # the two sums in one psum
+    both = mesh.psum(torch.cat([out * w[..., None], (l * w)[..., None]], -1),
+                     axis_name)
+    out, l = both[..., :-1], both[..., -1]
+    return out / torch.clamp_min(l, 1e-30)[..., None]
 
 
 def finalize_partial(out, m, l):

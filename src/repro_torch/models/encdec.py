@@ -15,6 +15,10 @@ self- and cross-attention are the plain ``decode_attention``, as in JAX;
 its position embedding is computed on the device at the clamped ``pos``
 (JAX's ``dynamic_slice`` of the table), and its k and v are written into
 the caches in place, as ``decode.attn_block_decode`` writes them.
+
+A ``mesh`` is taken and otherwise ignored, as JAX's ``encdec`` ignores it:
+the params of a rank (its blocks, ``parallel/sharding.py``) are gathered
+whole and every rank computes the whole batch.
 """
 from __future__ import annotations
 
@@ -26,9 +30,10 @@ from repro_torch.models.decode import _pad_full
 from repro_torch.models.layers import (apply_mlp, apply_norm, dtype_of,
                                        embed_tokens, init_embedding,
                                        init_lm_head, init_mlp, init_norm,
-                                       lm_logits, no_mesh, sinusoidal_at,
+                                       lm_logits, sinusoidal_at,
                                        sinusoidal_positions)
 from repro_torch.models.transformer import _project_qkv, init_attn_weights
+from repro_torch.parallel import sharding as shd
 
 F32 = torch.float32
 
@@ -131,7 +136,7 @@ def forward(params, cfg: ModelConfig, frames, tokens, *, mesh=None,
     """Teacher-forced decoder over the full token sequence. -> (logits,
     aux = 0); with ``return_hidden`` the final normed hidden state
     (B,S,d) in place of the logits."""
-    no_mesh(mesh)
+    params = shd.gathered(params, mesh)
     mem = encode(params, cfg, frames)
     x, _ = _decoder(params, cfg, mem, tokens)
     x = apply_norm(cfg, params["final_norm"], x)
@@ -159,7 +164,7 @@ def prefill(params, cfg: ModelConfig, frames, tokens, *, mesh=None,
             pad_cache_to=0):
     """Encode the audio and run the decoder over the prompt, building all
     caches. Returns (last-position logits (B,V), state)."""
-    no_mesh(mesh)
+    params = shd.gathered(params, mesh)
     mem = encode(params, cfg, frames)
     s = tokens.shape[1]
     x, kvs = _decoder(params, cfg, mem, tokens, keep_kv=True)
@@ -182,7 +187,7 @@ def _decode_attend(p, cfg: ModelConfig, x, q, k, v, kv_pos, cache_len):
 def decode_step(params, cfg: ModelConfig, state, tokens, *, mesh=None):
     """One token for every sequence. tokens: (B,) integer -> (logits (B,V),
     state), the self-attention caches written in place."""
-    no_mesh(mesh)
+    params = shd.gathered(params, mesh)
     pos = state["pos"]
     b = tokens.shape[0]
     x = embed_tokens(params["embed"], tokens)

@@ -9,6 +9,13 @@ device (``None`` on the ``meta`` device, which allocates nothing): the same
 tree keys, shapes, dtypes and scales as the JAX init, but not its numbers
 (``jax.random`` is another generator). ``lead`` prepends axes to every leaf,
 as the JAX package's ``vmap`` over stacked layers does.
+
+Under a mesh (``mesh``: a rank's ``dist.MeshComm``) the weights are the
+rank's blocks (``parallel/sharding.py``): ``apply_mlp`` runs column-parallel
+(``model`` on d_ff) with a ``psum`` over ``model`` after the down
+projection, or on the gathered weights; ``embed_tokens`` looks a table with
+``model`` on its vocab up vocab-parallel (each rank its rows, a ``psum``);
+``lm_logits`` computes this rank's vocab columns and gathers them.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel import sharding as shd
 
 F32 = torch.float32
 # a leaf with more elements than this (a float32 draw above 16 GiB:
@@ -25,16 +33,6 @@ F32 = torch.float32
 # leading slice at a time into the target dtype; smaller leaves in one draw
 SLICE_ELEMENTS = 2 ** 32
 
-
-# what a later slice of the port takes on
-LATER = {"mesh": "ROADMAP Queue 1 item 14f (the sharded paths)"}
-
-
-def no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            f"the port runs the LM on one device without a mesh; sharded "
-            f"layouts are {LATER['mesh']}")
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -164,13 +162,37 @@ def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def apply_mlp(p, cfg: ModelConfig, x):
+def _mlp(p, cfg: ModelConfig, x):
     up = x @ p["w_up"]
     if cfg.mlp_gated:
         h = F.silu(x @ p["w_gate"]) * up
     else:
         h = gelu(up)
     return h @ p["w_down"]
+
+
+def model_size(mesh) -> int:
+    return 1 if mesh is None else mesh.shape.get("model", 1)
+
+
+def tensor_parallel(mesh) -> bool:
+    """Whether the ``model`` ranks share their rows and split the weights
+    (the ``tp`` layout; under ``fsdp`` ``model`` is a batch axis)."""
+    return model_size(mesh) > 1 and "model" not in shd.batch_axes(mesh)
+
+
+def apply_mlp(p, cfg: ModelConfig, x, mesh=None):
+    """The MLP; under a mesh column-parallel where ``w_up`` holds its
+    ``model`` block of d_ff (``w_down`` then row-parallel, a ``psum`` over
+    ``model``), else on the weights gathered whole."""
+    if mesh is None:
+        return _mlp(p, cfg, x)
+    if tensor_parallel(mesh) and shd.model_split(p["w_up"], -1):
+        col, row = shd.P(None, "model"), shd.P("model", None)
+        q = {k: shd.as_spec(w, mesh, row if k == "w_down" else col)
+             for k, w in p.items()}
+        return mesh.psum(_mlp(q, cfg, x), "model")
+    return _mlp(shd.gathered(p, mesh), cfg, x)
 
 
 # ---------------------------------------------------------------- embeddings
@@ -180,8 +202,20 @@ def init_embedding(gen, cfg: ModelConfig, device):
     return {"table": emb}
 
 
-def embed_tokens(p, tokens):
-    return F.embedding(tokens, p["table"])
+def embed_tokens(p, tokens, mesh=None):
+    table = p["table"]
+    if mesh is None:
+        return F.embedding(tokens, table)
+    if tensor_parallel(mesh) and shd.model_split(table, 0):
+        # vocab-parallel: this rank's rows, the others' zero, summed
+        t = shd.as_spec(table, mesh, shd.P("model", None))
+        v_loc = t.shape[0]
+        local = tokens.long() - mesh.axis_index("model") * v_loc
+        ok = (local >= 0) & (local < v_loc)
+        e = F.embedding(torch.where(ok, local, 0), t) * ok[..., None].to(
+            t.dtype)
+        return mesh.psum(e, "model")
+    return F.embedding(tokens, shd.whole(table, mesh))
 
 
 def init_lm_head(gen, cfg: ModelConfig, device):
@@ -192,7 +226,27 @@ def init_lm_head(gen, cfg: ModelConfig, device):
     return {"w": w}
 
 
-def lm_logits(head_p, embed_p, cfg: ModelConfig, x):
-    if cfg.tie_embeddings:
-        return x @ embed_p["table"].T
-    return x @ head_p["w"]
+def head_weight(head_p, embed_p, cfg: ModelConfig, mesh=None,
+                vocab_split: bool = False):
+    """The (d, V) output projection (the table transposed when tied): under
+    a mesh this rank's ``model`` block of V with ``vocab_split``, else
+    whole."""
+    w = embed_p["table"] if cfg.tie_embeddings else head_p["w"]
+    vdim = 0 if cfg.tie_embeddings else 1
+    if mesh is not None:
+        spec = [None, None]
+        spec[vdim] = "model" if vocab_split else None
+        w = shd.as_spec(w, mesh, shd.P(*spec))
+    return w.T if cfg.tie_embeddings else w
+
+
+def lm_logits(head_p, embed_p, cfg: ModelConfig, x, mesh=None):
+    """Logits over the whole vocab; under a mesh whose head holds its
+    ``model`` block of V, this rank's columns computed and gathered."""
+    if mesh is None:
+        return x @ head_weight(head_p, embed_p, cfg)
+    w = embed_p["table"] if cfg.tie_embeddings else head_p["w"]
+    split = tensor_parallel(mesh) and shd.model_split(
+        w, 0 if cfg.tie_embeddings else 1)
+    out = x @ head_weight(head_p, embed_p, cfg, mesh, split)
+    return mesh.all_gather(out, "model", -1) if split else out

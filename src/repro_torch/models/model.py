@@ -7,8 +7,14 @@ The port of the JAX package's ``repro/models/model.py`` for every family
 carries ``frames``). ``init(seed, device=None)`` runs on the card unless
 the caller names another device (``device.resolve_device``); the other
 entry points run where the params lie. ``loss`` is the forward pass, its
-cross-entropy and the MoE aux term only: training, with its backward, is
-ROADMAP Queue 1 item 14e.
+cross-entropy and the MoE aux term; ``launch/steps.py`` differentiates it.
+
+Under a mesh (``mesh``: a rank's ``dist.MeshComm``, the params its blocks)
+``loss`` chooses by ``ce_mode`` as JAX's does: ``vocab_parallel`` (on a
+``model`` axis, the ``tp`` layout) takes the final hidden state and
+``transformer.vocab_parallel_cross_entropy``; else the dense loss of this
+rank's rows, averaged over the batch axes. Every rank returns the same
+loss.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from repro_torch.models import decode as decode_lib
 from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import dtype_of
+from repro_torch.parallel import sharding as shd
 
 AUX_WEIGHT = 0.01  # MoE load-balance loss weight
 FAMILIES = ("dense", "vlm", "hybrid", "moe", "ssm", "audio")
@@ -73,9 +80,22 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
     def loss(params, batch, mesh=None):
         tokens, extra = _split_batch(cfg, batch)
         n_patch = 0 if extra is None else extra.shape[1]
-        logits, aux = tfm.forward(params, cfg, tokens, extra_embeds=extra,
-                                  mesh=mesh)
-        ce = tfm.cross_entropy(logits[:, n_patch:-1, :], tokens[:, 1:])
+        labels = tokens if mesh is None else shd.constrain(
+            tokens, ("batch", None), mesh)
+        if cfg.parallel.ce_mode == "vocab_parallel" and mesh is not None \
+                and mesh.shape.get("model", 1) > 1 \
+                and cfg.parallel.layout == "tp":
+            hidden, aux = tfm.forward(params, cfg, tokens, extra_embeds=extra,
+                                      mesh=mesh, return_hidden=True)
+            h = hidden[:, n_patch:-1, :]
+            ce = tfm.vocab_parallel_cross_entropy(
+                h, params["embed"], params["head"], cfg, labels[:, 1:], mesh)
+        else:
+            logits, aux = tfm.forward(params, cfg, tokens, extra_embeds=extra,
+                                      mesh=mesh)
+            ce = tfm.cross_entropy(logits[:, n_patch:-1, :], labels[:, 1:])
+            if mesh is not None:
+                ce = mesh.pmean(ce, shd.batch_axes(mesh))
         total = ce + AUX_WEIGHT * aux
         return total, {"ce": ce, "aux": aux}
 

@@ -77,13 +77,22 @@ def lr_at(cfg: OptimizerConfig, step):
     return torch.where(step < cfg.warmup_steps, warm, cfg.lr * cos)
 
 
+def _zeros(p, dt):
+    """Zeros like ``p`` in ``dt``: a ``Sharded`` leaf's like its shards."""
+    from repro_torch.parallel.sharding import Sharded
+    if isinstance(p, Sharded):
+        return p.map(lambda s: torch.zeros(s.shape, dtype=dt,
+                                           device=s.device))
+    return torch.zeros(p.shape, dtype=dt, device=p.device)
+
+
 def init_opt_state(params, cfg: OptimizerConfig):
+    """m and v like the params (a mesh's ``Sharded`` leaves block by block,
+    as the params: no ZeRO split across pods), and the step."""
     dt = getattr(torch, cfg.state_dtype)
     first = next(x for x in leaves(params) if x is not None)
-    return {"m": tree_map(lambda p: torch.zeros(p.shape, dtype=dt,
-                                                device=p.device), params),
-            "v": tree_map(lambda p: torch.zeros(p.shape, dtype=dt,
-                                                device=p.device), params),
+    return {"m": tree_map(lambda p: _zeros(p, dt), params),
+            "v": tree_map(lambda p: _zeros(p, dt), params),
             "step": torch.zeros((), dtype=torch.int32, device=first.device)}
 
 
@@ -96,14 +105,33 @@ def _slices(x):
         yield flat[i:i + SLICE]
 
 
-def global_norm(tree):
+def global_norm(tree, mesh=None, specs=None):
     """sqrt of the sum of every element's square, in f32 (a None leaf
-    counts as zeros)."""
-    xs = [x for x in leaves(tree) if x is not None]
-    total = torch.zeros((), dtype=F32, device=xs[0].device)
-    for x in xs:
+    counts as zeros). Under a mesh (a rank's ``dist.MeshComm``; ``specs``
+    the leaves' specs in flatten order) each leaf is a rank's block: the
+    squares are summed by the axes the blocks split, and one ``psum`` over
+    each set of axes gives the whole tree's norm on every rank."""
+    xs = leaves(tree)
+    first = next(x for x in xs if x is not None)
+    if mesh is None:
+        specs = [()] * len(xs)
+    groups = {}
+    for x, spec in zip(xs, specs):
+        if x is None:
+            continue
+        named = {a for e in spec if e for a in ((e,) if isinstance(e, str)
+                                               else e)}
+        axes = tuple(a for a in (mesh.axis_names if mesh is not None else ())
+                     if a in named)
+        total = groups.get(axes, torch.zeros((), dtype=F32,
+                                             device=first.device))
         for part in _slices(x):
             total = total + torch.sum(torch.square(part.to(F32)))
+        groups[axes] = total
+    total = torch.zeros((), dtype=F32, device=first.device)
+    for axes in sorted(groups):
+        part = groups[axes]
+        total = total + (mesh.psum(part, axes) if axes else part)
     return torch.sqrt(total)
 
 
@@ -123,12 +151,15 @@ def _update(p, g, m, v, scale, lr, c1, c2, cfg: OptimizerConfig,
 
 
 @torch.no_grad()
-def adamw_update(params, grads, opt_state, cfg: OptimizerConfig):
+def adamw_update(params, grads, opt_state, cfg: OptimizerConfig, mesh=None):
     """Returns (params, new_opt_state, stats): params, m and v updated in
     place (a None grad is a zero one), the state's step one on. ``grads``
-    is a tree like ``params`` or the list of its leaves in flatten order."""
+    is a tree like ``params`` or the list of its leaves in flatten order.
+    Under a mesh (a rank's ``dist.MeshComm``) the trees are the rank's
+    blocks and the clipping norm is the whole tree's."""
     step = opt_state["step"]
-    gn = global_norm(grads)
+    gn = global_norm(grads, mesh, [getattr(p, "repro_spec", None) or ()
+                                   for p in leaves(params)])
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0) \
         if cfg.grad_clip > 0 else torch.ones((), dtype=F32, device=gn.device)
     lr = lr_at(cfg, step)

@@ -1,15 +1,70 @@
-"""Elastic resume of a brain checkpoint on fewer ranks: the port's copy of
-the brain half of the JAX package's ``repro/runtime/elastic.py``.
+"""Elastic re-meshing: resume a run on a different rank count. The port of
+the JAX package's ``repro/runtime/elastic.py``: its LM half
+(``best_mesh_shape``, ``make_elastic_mesh``, ``remesh_restore``) and its
+brain half (``remesh_restore_brain``).
 
-Checkpoints hold full logical arrays in gid order (``checkpoint.manager``),
-so a new rank count is a question of which rows each rank takes and of the
-rank-local exchange state, which is derived again rather than resharded.
+Checkpoints hold full logical arrays (``checkpoint.manager``), so for the
+LM a new mesh is purely a sharding question: build the mesh, compute the
+rules for it (they depend only on the axis sizes) and give each rank its
+blocks of each restored array. For the brain, gids fix each neuron's row,
+so a new rank count is a question of which rows each rank takes and of
+the rank-local exchange state, which is derived again rather than
+resharded.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 
+from repro_torch import dist
 from repro_torch.checkpoint import manager
+from repro_torch.parallel import sharding as shd
+
+
+def best_mesh_shape(n_devices: int, model_parallel: int = 0):
+    """Factor n_devices into (data, model); model defaults to the largest
+    power of two <= sqrt(n)."""
+    if model_parallel <= 0:
+        model_parallel = 1
+        while model_parallel * 2 <= int(math.sqrt(n_devices)) and \
+                n_devices % (model_parallel * 2) == 0:
+            model_parallel *= 2
+    assert n_devices % model_parallel == 0
+    return (n_devices // model_parallel, model_parallel)
+
+
+def make_elastic_mesh(n_ranks: int, model_parallel: int = 0):
+    """A ('data', 'model') ``dist.LocalMesh`` of ``n_ranks`` ranks (the
+    survivors' count), shaped by ``best_mesh_shape``."""
+    da, mo = best_mesh_shape(n_ranks, model_parallel)
+    return dist.LocalMesh((da, mo), ("data", "model"))
+
+
+def remesh_restore(ckpt_dir: str, target_tree, new_mesh, layout=None):
+    """Load the latest checkpoint of a ``{"params", "opt"}`` tree and give
+    every rank of ``new_mesh`` its blocks of each leaf. ``target_tree``
+    gives the structure, shapes, dtypes and device (tensors or ``Sharded``
+    leaves, of any mesh). The params and the optimizer's m and v are split
+    by the params' rule (the port keeps m and v as the params), the step
+    whole. Returns (step, tree, specs)."""
+    step = manager.latest_step(ckpt_dir)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+    tree, _ = manager.restore(ckpt_dir, step, target_tree)
+    dev = next(x for _, x in manager._flatten(target_tree)).device
+    tree = manager.map_leaves(lambda _, x: x.to(dev), tree)
+    specs = shd.param_specs(tree["params"], new_mesh, layout=layout)
+    out = {"params": shd.shard_params(tree["params"], new_mesh,
+                                      specs=specs),
+           "opt": {"m": shd.shard_params(tree["opt"]["m"], new_mesh,
+                                         specs=specs),
+                   "v": shd.shard_params(tree["opt"]["v"], new_mesh,
+                                         specs=specs),
+                   "step": tree["opt"]["step"]}}
+    shardings = {"params": specs, "opt": {"m": specs, "v": specs,
+                                          "step": shd.replicated(new_mesh)}}
+    return step, out, shardings
 
 
 def _latest_valid(ckpt_dir: str):

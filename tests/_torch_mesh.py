@@ -1,0 +1,55 @@
+"""Shared helpers of the mesh tests (``tests/test_torch_mesh_*.py``): the
+JAX reference runs in one subprocess a file with 8 host devices (the XLA
+flag must be set before jax starts), its meshes from
+``repro.launch.mesh.make_mesh`` (Auto axes), and writes its results to an
+npz that the port's tests read. The port runs every rank in the test
+process (``dist.LocalMesh``) on the same numpy inputs.
+
+Tolerances, stated once: float32 results 2e-3 absolute and relative (the
+LM tests' ``F32_TOL``), bf16 losses 2e-3; integer results (expert ids,
+positions, drops, int8 payloads) bit-equal; the pod sync at Delta = 1 the
+JAX package's own 2e-5 against the direct step.
+"""
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+
+SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
+TESTS = os.path.abspath(os.path.dirname(__file__))
+F32_TOL = 2e-3
+
+
+def run_jax(code: str, out_path: str, devices: int = 8, timeout=300):
+    """Run ``code`` (which saves its results with ``np.savez(OUT, ...)``)
+    with ``devices`` host devices; returns the saved arrays."""
+    env = dict(os.environ)
+    # LLVM's optimisation level 0 compiles the references' many small
+    # programs faster; the programs and their operations are the same
+    env["XLA_FLAGS"] = (f"--xla_force_host_platform_device_count={devices} "
+                        f"--xla_backend_optimization_level=0")
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = os.pathsep.join([SRC, TESTS])
+    head = f"OUT = {out_path!r}\n"
+    proc = subprocess.run([sys.executable, "-c", head + textwrap.dedent(code)],
+                          capture_output=True, text=True, timeout=timeout,
+                          env=env)
+    assert proc.returncode == 0, proc.stdout[-3000:] + "\n" + \
+        proc.stderr[-6000:]
+    with np.load(out_path) as f:
+        return {k: f[k] for k in f.files}
+
+
+def flat_names(tree, path=()):
+    """(name, leaf) of every leaf of nested dicts and lists, the JAX
+    package's flatten order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from flat_names(tree[k], path + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from flat_names(v, path + (str(i),))
+    else:
+        yield "/".join(path), tree

@@ -2493,3 +2493,90 @@ def test_lm_arctic_smoke_fused_against_reference(dev, dtype):
         tol = 2.0 * float((r_out[0].float() - l32).abs().max())
     for f, r in zip(f_out, r_out):
         assert float((f[keep].float() - r[keep].float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("threshold", [None, 0])
+def test_lm_mesh_prefill_and_decode_k9_per_rank(dev, threshold, monkeypatch):
+    """The qwen2-7b smoke model in f32 on a (data 1, model 2) mesh on the
+    card, every rank behind the baton: K9 on each rank's heads in the
+    prefill (one launch a rank and layer), split-KV decode, the logits
+    within 2e-3 of the mesh-free model's; with a threshold of 0 every leaf
+    is split and the attention column-parallel."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.parallel import sharding as shd
+    if threshold is not None:
+        monkeypatch.setattr(shd, "_REPLICATE_BELOW", threshold)
+    cfg = get_smoke_config("qwen2-7b").replace(dtype="float32")
+    api = build_model(cfg)
+    params = api.init(0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=g,
+                         device=dev, dtype=torch.int32)
+    with torch.no_grad():
+        want, wst = api.prefill(params, {"tokens": toks}, pad_cache_to=68)
+        want_d, _ = api.decode_step(params, wst, toks[:, 0])
+    mesh = make_mesh((1, 2), ("data", "model"))
+    sp = shd.shard_params(params, mesh, copy=False)
+    _build.reset_launch_counts()
+
+    def body(c):
+        with shd.use_mesh(c), torch.no_grad():
+            p = shd.local_tree(sp, c.rank)
+            lg, st = api.prefill(p, {"tokens": toks}, c, pad_cache_to=68)
+            return lg, api.decode_step(p, st, toks[:, 0], c)[0]
+    outs = mesh.run(body, device=dev)
+    assert _build.launch_counts()["flash_attention"] == 2 * cfg.num_layers
+    for lg, ld in outs:
+        assert float((lg - want).abs().max()) <= 2e-3 * (
+            1 + float(want.abs().max()))
+        assert float((ld - want_d).abs().max()) <= 2e-3 * (
+            1 + float(want_d.abs().max()))
+
+
+def test_lm_mesh_train_step_and_pod_sync(dev):
+    """The qwen2-7b smoke model (bf16, vocab-parallel loss) on a (pod 2,
+    data 1, model 2) mesh on the card: a Delta = 2 periodic sync, exact and
+    int8, K9's forward and backward on every rank's attention (one of each
+    a rank, layer and step: no remat on the baton), the params finite after
+    the sync; the mesh's direct train step runs."""
+    import math
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import optimizer as topt
+    from repro_torch.optim import periodic
+    from repro_torch.parallel import sharding as shd
+    cfg = get_smoke_config("qwen2-7b")
+    cfg = cfg.replace(parallel=cfg.parallel.replace(ce_mode="vocab_parallel"))
+    api = build_model(cfg)
+    params = api.init(0, device=dev)
+    mesh = make_mesh((2, 1, 2), ("pod", "data", "model"))
+    g = torch.Generator(device=dev).manual_seed(4)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 64), generator=g,
+                                     device=dev, dtype=torch.int32)}
+    opt_cfg = topt.OptimizerConfig()
+    for int8 in (False, True):
+        sp = shd.shard_params(params, mesh)
+        opt = topt.init_opt_state(sp, opt_cfg)
+        acc = periodic.init_accumulator(sp, mesh)
+        err = periodic.init_error(sp, mesh)
+        accum, sync = periodic.make_periodic_steps(api, mesh, opt_cfg,
+                                                   compress_int8=int8)
+        _build.reset_launch_counts()
+        for _ in range(2):
+            acc, m = accum(sp, acc, batch)
+            assert math.isfinite(float(m["loss"]))
+        counts = _build.launch_counts()
+        assert counts["flash_attention"] == 2 * 4 * cfg.num_layers
+        assert counts["flash_attention_bwd"] == 2 * 4 * cfg.num_layers
+        sp, opt, acc, err, _ = sync(sp, opt, acc, err)
+        assert int(opt["step"]) == 1
+        assert all(bool(torch.isfinite(x).all())
+                   for x in topt.leaves(shd.unshard(sp)))
+    sp = shd.shard_params(params, mesh)
+    _, _, m = make_train_step(api, mesh, opt_cfg)(
+        sp, topt.init_opt_state(sp, opt_cfg), batch)
+    assert math.isfinite(float(m["loss"]))

@@ -230,21 +230,31 @@ def test_converters_round_trip_bf16_bits():
 @pytest.mark.parametrize("strategy", ["move_data", "move_compute"])
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "arctic-480b"])
 def test_moe_on_a_mesh_raises_naming_its_item(arch, strategy):
-    """The moe family is served; its sharded strategies wait for item 14f:
-    ``apply_moe`` under a mesh raises naming the strategy and the item,
-    the model's prefill too."""
+    """The moe family's sharded strategies (item 14f) run on a (1, 2)
+    mesh: ``apply_moe`` under each gives the rank's rows and a positive
+    aux, and the model's prefill, with a capacity that drops nothing, the
+    mesh-free logits within F32_TOL (its aux, a mean over each rank's
+    tokens, is no part of the logits)."""
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import moe as tmoe
-    _, cfg = configs(arch, dtype="float32")
+    from repro_torch.parallel import sharding as shd
+    _, cfg = configs(arch, dtype="float32", capacity_factor=8.0)
     cfg = cfg.replace(parallel=cfg.parallel.replace(moe_strategy=strategy))
     api = build_model(cfg)
     params = api.init(0, device="cpu")
     p = ttfm.layer_params(params, 0)["moe"]
-    x = torch.zeros((1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError, match=f"{strategy}.*item 14f"):
-        tmoe.apply_moe(p, cfg, x, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 14f"):
-        api.prefill(params, {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
-                    mesh=object())
+    x = torch.randn((1, 4, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(0))
+    mesh = make_mesh((1, 2), ("data", "model"))
+    for y, aux in mesh.run(lambda c: tmoe.apply_moe(p, cfg, x, mesh=c)):
+        assert y.shape == x.shape and float(aux) > 0.0
+    toks = {"tokens": torch.arange(8, dtype=torch.int32).reshape(2, 4)}
+    want, _ = api.prefill(params, toks)
+    sp = shd.shard_params(params, mesh, copy=False)
+    for got, _ in mesh.run(lambda c: api.prefill(shd.local_tree(sp, c.rank),
+                                                 toks, c)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=F32_TOL,
+                                   atol=F32_TOL)
     y, aux = tmoe.apply_moe(p, cfg, x)          # no mesh: moe_local
     assert y.shape == x.shape and float(aux) > 0.0
 
@@ -254,8 +264,14 @@ def test_a_mesh_raises_and_the_lowering_is_checked():
     api = build_model(cfg)
     params = api.init(0, device="cpu")
     toks = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="item 14f"):
-        api.prefill(params, toks, mesh=object())
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import sharding as shd
+    mesh = make_mesh((1, 2), ("data", "model"))
+    sp = shd.shard_params(params, mesh)
+    for got, _ in mesh.run(lambda c: api.prefill(shd.local_tree(sp, c.rank),
+                                                 toks, c)):
+        np.testing.assert_allclose(got.numpy(), api.prefill(params, toks)[0]
+                                   .numpy(), rtol=F32_TOL, atol=F32_TOL)
     with pytest.raises(ValueError, match="attention_impl"):
         cfg.replace(attention_impl="pallas")
     ref = build_model(cfg.replace(attention_impl="reference"))

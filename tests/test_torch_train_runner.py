@@ -188,9 +188,8 @@ def test_train_driver_smoke_on_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "status=done steps=20" in out and runner.step == 20
     assert all(np.isfinite(runner.history))
-    try:
-        ttrain.main(["--arch", "qwen2-7b", "--smoke", "--mesh", "2x1"])
-    except NotImplementedError as e:
-        assert "14f" in str(e)
-    else:
-        raise AssertionError("--mesh 2x1 did not raise")
+    # item 14f: the same driver on a 2x1 mesh (two data ranks)
+    runner = ttrain.main(["--arch", "qwen2-7b", "--smoke", "--device", "cpu",
+                          "--steps", "4", "--batch", "2", "--seq", "32",
+                          "--mesh", "2x1", "--ckpt", str(tmp_path / "mesh")])
+    assert runner.step == 4 and all(np.isfinite(runner.history))

@@ -107,19 +107,53 @@ def test_periodic_delta_4_matches_jax_no_pod():
 
 
 def test_periodic_refuses_a_mesh_and_int8():
+    """The pod axis and its int8 sync (item 14f) run: on a (2, 1, 1) pod
+    mesh the accumulator has the pods' leading axis, and a Delta = 1 sync,
+    exact or int8, moves the params as the mesh-free step does (the int8
+    one within 0.05 of the update's size); the mesh's train step runs."""
     from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_mesh as tmake_mesh
     from repro_torch.models import build_model
-    tapi = build_model(get_smoke_config("qwen2-7b"))
+    from repro_torch.parallel import sharding as shd
+    tapi = build_model(get_smoke_config("qwen2-7b").replace(dtype="float32"))
     tp = tapi.init(0, device="cpu")
-    cfg = topt.OptimizerConfig()
-    with pytest.raises(NotImplementedError, match="14f"):
-        tperiodic.make_periodic_steps(tapi, _mesh(), cfg)
-    with pytest.raises(NotImplementedError, match="14f"):
-        tperiodic.make_periodic_steps(tapi, None, cfg, compress_int8=True)
-    with pytest.raises(NotImplementedError, match="14f"):
-        tperiodic.init_accumulator(tp, _mesh())
-    with pytest.raises(NotImplementedError, match="14f"):
-        tsteps.make_train_step(tapi, _mesh(), cfg)
+    cfg = topt.OptimizerConfig(grad_clip=0.0, warmup_steps=0)
+    batch = {"tokens": torch.cat(_batches(tapi.cfg, 2), 0)}
+    mesh = tmake_mesh((2, 1, 1), ("pod", "data", "model"))
+    ref_tree = shd._map_named(lambda _, x: x.detach().clone(), tp)
+    tsteps.make_train_step(tapi, None, cfg)(
+        ref_tree, topt.init_opt_state(ref_tree, cfg), batch)
+    ref = [x.detach() for x in leaves(ref_tree)]
+    from repro_torch.parallel import compress
+    for int8 in (False, True):
+        sp = shd.shard_params(tp, mesh)
+        acc = tperiodic.init_accumulator(sp, mesh)
+        assert all(a.shape[0] == 2 for a in leaves(acc))
+        accum, sync = tperiodic.make_periodic_steps(tapi, mesh, cfg,
+                                                    compress_int8=int8)
+        acc, _ = accum(sp, acc, batch)
+        if int8:    # the int8 mean of the pods' sums against the exact one
+            def both(c):
+                out = []
+                for a in leaves(shd.local_tree(acc, c.rank)):
+                    got, _ = compress.allreduce_int8(
+                        a[0], torch.zeros_like(a[0]), "pod", c)
+                    out.append((got, c.pmean(a[0], "pod")))
+                return out
+            for got, want in mesh.run(both)[0]:
+                scale = float(want.abs().max())
+                assert float((got - want).abs().max()) <= 0.05 * scale
+        sp, opt, acc, _, _ = sync(sp, topt.init_opt_state(sp, cfg), acc,
+                                  tperiodic.init_error(sp, mesh))
+        assert int(opt["step"]) == 1
+        for g, w in zip(leaves(shd.unshard(sp)), ref):
+            assert bool(torch.isfinite(g).all())
+            if not int8:
+                assert float((g - w).abs().max()) <= 2e-5
+    sp = shd.shard_params(tp, mesh)
+    _, _, m = tsteps.make_train_step(tapi, mesh, cfg)(
+        sp, topt.init_opt_state(sp, cfg), batch)
+    assert np.isfinite(float(m["loss"]))
 
 
 def test_prefill_and_decode_steps_run_without_grad():
@@ -144,6 +178,15 @@ def test_prefill_and_decode_steps_run_without_grad():
     with torch.no_grad():
         assert torch.equal(nxt, api.decode_step(params, want_state, tok)[0])
     assert not nxt.requires_grad
-    for make in (tsteps.make_prefill_step, tsteps.make_decode_step):
-        with pytest.raises(NotImplementedError, match="14f"):
-            make(api, _mesh())
+    # on a (1, 2) mesh: the same logits, the ranks' states
+    from repro_torch.launch.mesh import make_mesh as tmake_mesh
+    from repro_torch.parallel import sharding as shd
+    mesh = tmake_mesh((1, 2), ("data", "model"))
+    sp = shd.shard_params(params, mesh)
+    got, states = tsteps.make_prefill_step(api, mesh)(sp, {"tokens": toks})
+    assert not got.requires_grad and len(states) == 2
+    assert torch.equal(got, want)
+    # split-KV: the softmax partials merged across the two ranks (bf16)
+    got, _ = tsteps.make_decode_step(api, mesh)(sp, states, tok)
+    assert float((got.float() - nxt.float()).abs().max()) <= \
+        2.0 ** -5 * float(nxt.float().abs().max())
