@@ -109,7 +109,14 @@ neurons, S=32):
   loss and the Delta = 4 pod sync: every gradient against mesh-free, int8
   within 0.05, Delta = 1 in f32 equal to the direct step, a second run
   bitwise; ``pipeline_apply`` over 4 stages; ``remesh_restore`` onto
-  (1, 2) bitwise; the bytes each collective moves.
+  (1, 2) bitwise; the bytes each collective moves, held key for key
+  against the same cells traced on a ``dist.ShapeMesh`` of every rank;
+- the dry run (``dryrun_path``, a process of its own): the brain's row,
+  rank 0 of R through ``dist.LoneComm`` (``launch/dryrun.py``) at the
+  paper's four runs at R=256 and run (a) at R=512, all fused, a warm-up
+  and a counted chunk each with equal collectives, their bytes by kind and
+  roofline term, the chunk's ms; and the one-card LM cells traced on a
+  (1, 1) ``ShapeMesh`` on ``meta`` beside this run's measured ms and peak.
 
 For the kernel API and each path it checks the kernels really ran there (the
 launch counts are set to 0 just before and read just after; for K9, which of
@@ -4884,6 +4891,33 @@ def _mesh_fingerprint(tree) -> list:
     return out
 
 
+def _shape_mesh_bytes(shape, axes, fn) -> list:
+    """``fn(shape_mesh)`` for every rank's ``dist.ShapeMesh`` of ``shape``
+    (the step traced on ``meta``); ``fn`` returns a list of byte dicts (one
+    a part of the step, each ``Mesh.bytes`` taken after that part). Returns
+    each part's bytes summed over the ranks, by (scope, kind), as the
+    ``LocalMesh`` of every rank counts them."""
+    import math as _math
+    from repro_torch import dist
+    total = None
+    for r in range(_math.prod(shape)):
+        parts = fn(dist.ShapeMesh(shape, axes, rank=r))
+        if total is None:
+            total = [dict() for _ in parts]
+        for t, part in zip(total, parts):
+            for k, v in part.items():
+                t[k] = t.get(k, 0) + v
+    return total
+
+
+def _check_traced_bytes(what: str, real: dict, traced: dict) -> None:
+    """The real run's bytes by (scope, kind) against the ``ShapeMesh``
+    traces', key for key and byte for byte; fails otherwise."""
+    if real != traced:
+        fail(f"lm_mesh_path {what}: the ShapeMesh traces count {traced} "
+             f"bytes, the real run {real}")
+
+
 def lm_mesh_serve(card: str):
     """(a) moonshot-v1-16b-a3b at full width and depth, bf16, on a (data 1,
     model 4) mesh, each strategy at its least capacity factor with no drop
@@ -4912,7 +4946,7 @@ def lm_mesh_serve(card: str):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import serve_lm
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, param_specs
     from repro_torch.models import moe
     from repro_torch.parallel import sharding as shd
     arch, shape, batch, prompt, steps = MESH_SERVE
@@ -4991,6 +5025,7 @@ def lm_mesh_serve(card: str):
             out["prefill_bytes_per_device"] = {
                 f"{sc or 'other'}:{k}": v / mesh.size
                 for (sc, k), v in mesh.bytes.items()}
+            prefill_raw = dict(mesh.bytes)
             launches = {"prefill": _build.launch_counts()["flash_attention"],
                         "prefill_device": fa.device_launches(reset=True)}
             logits = [outs[0][0]]
@@ -5017,7 +5052,39 @@ def lm_mesh_serve(card: str):
             launches["decode_device"] = fa.device_launches(reset=True)
             per_step = {f"{sc or 'other'}:{k}": v / mesh.size / steps
                         for (sc, k), v in mesh.bytes.items()}
+            decode_raw = dict(mesh.bytes)
             del states
+        # the same cell traced on a ShapeMesh of each rank: one prefill and
+        # one decode step, the bytes the real run counted
+        t_trace = time.perf_counter()
+        pspecs = param_specs(c)
+
+        def trace(sm):
+            sp_m = shd.shard_params(pspecs, sm)
+            cm = sm.comm(sm.rank)
+            b_m = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                   for k, v in batch_in.items()}
+            with torch.no_grad(), shd.use_mesh(cm):
+                loc = shd.local_tree(sp_m, sm.rank)
+                _, st = sapi.prefill(loc, b_m, cm, pad_cache_to=pad)
+                pre_b = dict(sm.bytes)
+                sm.bytes.clear()
+                sapi.decode_step(loc, st, torch.empty(
+                    (batch,), dtype=torch.int32, device="meta"), cm)
+            return [pre_b, dict(sm.bytes)]
+        tr_pre, tr_dec = _shape_mesh_bytes(shape, ("data", "model"), trace)
+        _check_traced_bytes(f"{strategy} prefill", prefill_raw, tr_pre)
+        _check_traced_bytes(f"{strategy} decode", decode_raw,
+                            {k: v * steps for k, v in tr_dec.items()})
+        out["shape_mesh_check"] = {
+            "equal": True, "ranks_traced": mesh.size,
+            "prefill_bytes_per_device": {
+                f"{sc or 'other'}:{k}": v / mesh.size
+                for (sc, k), v in tr_pre.items()},
+            "decode_step_bytes_per_device": {
+                f"{sc or 'other'}:{k}": v / mesh.size
+                for (sc, k), v in tr_dec.items()},
+            "seconds": time.perf_counter() - t_trace}
         want = {n: (mesh.size * n_layers if n == "wgmma_bf16" else 0)
                 for n in fa.KERNELS}
         if launches["prefill"] != mesh.size * n_layers or \
@@ -5074,7 +5141,7 @@ def lm_mesh_serve(card: str):
         emit({"phase": "lm_mesh_path serve", "strategy": strategy,
               "card": card, **{k: out[k] for k in (
                   "prefill_ms", "decode_step_ms", "tokens_per_s", "peak_gb",
-                  "moe_bytes_per_step_per_device",
+                  "shape_mesh_check", "moe_bytes_per_step_per_device",
                   "predicted_moe_bytes_per_step_per_device")}})
         torch.cuda.empty_cache()
     res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -5125,7 +5192,7 @@ def lm_mesh_train(card: str):
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.launch import steps as tsteps
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, param_specs
     from repro_torch.optim import optimizer as topt
     from repro_torch.optim import periodic
     from repro_torch.optim.optimizer import leaves, tree_map
@@ -5184,9 +5251,12 @@ def lm_mesh_train(card: str):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         for i, b in enumerate(batches):
             _reset_train_counts()
+            mesh.bytes.clear()
             ev[0].record()
             acc, m = accum(sp, acc, b)
             ev[1].record()
+            if checks and i == 0:
+                out["accum_bytes"] = dict(mesh.bytes)
             out["losses"].append(float(m["loss"]))
             torch.cuda.synchronize()
             out["step_ms"].append(ev[0].elapsed_time(ev[1]))
@@ -5232,6 +5302,30 @@ def lm_mesh_train(card: str):
 
     first = period(False, True)[0]
     free()
+    # the accumulation step traced on a ShapeMesh of each rank (remat off,
+    # as on the baton): the bytes the real run counted
+    t_trace = time.perf_counter()
+    cfg_n = cfg.replace(parallel=cfg.parallel.replace(remat="none"))
+    api_n = build_model(cfg_n)
+    pspecs = param_specs(cfg_n)
+
+    def trace(sm):
+        sp_m = shd.shard_params(pspecs, sm)
+        acc_m = periodic.init_accumulator(sp_m, sm)
+        accum_m, _ = periodic.make_periodic_steps(api_n, sm, opt_cfg)
+        accum_m(sp_m, acc_m, {k: torch.empty(v.shape, dtype=v.dtype,
+                                             device="meta")
+                              for k, v in batches[0].items()})
+        return [dict(sm.bytes)]
+    traced = _shape_mesh_bytes(shape, ("pod", "data", "model"), trace)[0]
+    _check_traced_bytes("train accumulation", first.pop("accum_bytes"),
+                        traced)
+    res["shape_mesh_check"] = {
+        "equal": True, "ranks_traced": mesh.size,
+        "accumulation_step_bytes_per_device": {
+            f"{sc or 'other'}:{k}": v / mesh.size
+            for (sc, k), v in traced.items()},
+        "seconds": time.perf_counter() - t_trace}
     int8 = period(True, False)[0]
     free()
     res["delta1_f32"] = _mesh_delta1_check(base, mesh, batches[0])
@@ -5257,6 +5351,7 @@ def lm_mesh_train(card: str):
           "peak_gb": res["peak_gb"], "grads": first["grads"],
           "int8_rel_err": int8["int8_rel_err"],
           "delta1_f32": res["delta1_f32"],
+          "shape_mesh_check": res["shape_mesh_check"],
           "k9_per_step": res["k9_per_step"]})
     return res, state
 
@@ -5456,6 +5551,180 @@ def lm_mesh_child() -> int:
     return 0
 
 
+# ------------------------------------------------------------ the dry run
+# the brain rows: rank 0 of R (dist.LoneComm) at brain_64k, all lowerings
+# fused, the paper's four runs at R=256 and (a) at R=512
+DRYRUN_BRAIN = (("a", 256, ()), ("b", 256, ("connectivity_alg=old",)),
+                ("c", 256, ("rate_exchange=sparse",)),
+                ("d", 256, ("spike_alg=old",)), ("a", 512, ()))
+# the calibration rows: the one-card cells the other phases time, traced on
+# a (1, 1) ShapeMesh: (arch, kind, batch, seq, overrides); a decode step
+# against the serving cells' cache of prompt + steps
+DRYRUN_CALIB = (("qwen2-7b", "train", 1, 4096,
+                 {"opt_state_dtype": "bfloat16"}),
+                ("qwen2-7b", "prefill", 8, 1024, {}),
+                ("qwen2-7b", "decode", 8, 1024 + 32, {}),
+                ("moonshot-v1-16b-a3b", "prefill", 8, 1024, {}),
+                ("moonshot-v1-16b-a3b", "decode", 8, 1024 + 32, {}))
+DRYRUN_TIMEOUT_S = 300
+
+
+def dryrun_brain_row(label: str, ranks: int, sets, card: str):
+    """One brain row (``launch/dryrun.py::brain_chunks``): a warm-up and a
+    counted chunk of rank 0 of ``ranks`` on the card. Fails if the two
+    chunks' collectives differ, if a kernel of the path launched no time
+    (K1 but under the old spikes, whose activity is the reference
+    lowering's), or if a plain Threefry or leaf sum ran on a CUDA
+    tensor."""
+    import torch
+    from repro_torch.connectome import tree as ctree
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import hash as chash
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import roofline as rl
+    cfg = dr.brain_config("brain_64k", list(sets))
+    _build.reset_launch_counts()
+    chash.plain_cuda_calls(reset=True)
+    ctree.plain_cuda_calls(reset=True)
+    comm, counter, warm, recs, timing = dr.brain_chunks(cfg, ranks, DEV)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    if warm != recs:
+        fail(f"dryrun_path brain ({label}, R={ranks}): the warm-up chunk's "
+             f"{len(warm)} collectives differ from the counted chunk's "
+             f"{len(recs)}")
+    if chash.plain_cuda_calls(reset=True) or \
+            ctree.plain_cuda_calls(reset=True):
+        fail(f"dryrun_path brain ({label}): a plain version ran on the card")
+    want = [k for k in PATH_KERNELS if k != "edge_priority" and not (
+        k == "activity_window" and cfg.activity_impl != "fused")]
+    missing = [k for k in want if counts[k] < 2]
+    if missing:
+        fail(f"dryrun_path brain ({label}, R={ranks}): {missing} not "
+             f"launched in each chunk ({counts})")
+    ana = rl.analyze(recs, counter)
+    terms = rl.roofline_terms(ana["dot_flops"], max(ana["dot_flops"], 1.0),
+                              ana["collective_wire_bytes_by_link"])
+    row = {"run": label, "ranks": ranks, "overrides": list(sets),
+           "neurons_per_rank": cfg.neurons_per_rank,
+           "logical_bytes": ana["collective_logical_bytes"],
+           "wire_bytes": ana["collective_wire_bytes"],
+           "wire_bytes_by_link": ana["collective_wire_bytes_by_link"],
+           "arriving_bytes": ana["collective_arriving_bytes"],
+           "collectives": ana["collective_count"],
+           "t_collective_s": terms["t_collective_s"],
+           "chunk_ms": timing["chunk_ms"],
+           "device_ms": timing["device_ms"], "launches": counts}
+    emit({"phase": "dryrun_path brain", "card": card, **row})
+    del comm, warm, recs
+    torch.cuda.empty_cache()
+    return row
+
+
+def dryrun_calibration_row(arch, kind, batch, seq, sets):
+    """A one-card cell traced on a (1, 1) ``ShapeMesh`` (``meta``, no
+    device): its dot flops, the three terms and the trace's peak bytes."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import roofline as rl
+    base = get_config(arch)
+    cfg = base.replace(parallel=base.parallel.replace(**sets)) if sets \
+        else base
+    shape = ShapeConfig(f"{kind}_{seq}", seq, batch, kind)
+    t0 = time.perf_counter()
+    mesh, counter, mem, trees = dr.trace_cell(cfg, shape, (1, 1),
+                                              ("data", "model"))
+    mem_bytes, _ = dr.analytic_memory(cfg, shape, 1, trees["params"],
+                                      trees.get("opt"), trees.get("state"))
+    terms = rl.roofline_terms(counter.dot_flops, mem_bytes, 0.0)
+    return {"arch": arch, "kind": kind, "batch": batch, "seq": seq,
+            "overrides": sets, "dot_flops": counter.dot_flops,
+            "mem_bytes": mem_bytes,
+            **{k: terms[k] for k in ("t_compute_s", "t_memory_s",
+                                     "dominant")},
+            "bound_ms": 1e3 * max(terms["t_compute_s"], terms["t_memory_s"]),
+            "trace_peak_gb": mem["peak_bytes"] / 1e9,
+            "trace_s": time.perf_counter() - t0}
+
+
+def dryrun_cell(card: str):
+    """The child of ``dryrun_path``: the brain rows on the card, then the
+    calibration rows on ``meta``."""
+    t0 = time.perf_counter()
+    brain = [dryrun_brain_row(label, ranks, sets, card)
+             for label, ranks, sets in DRYRUN_BRAIN]
+    t1 = time.perf_counter()
+    a256 = next(r for r in brain if r["run"] == "a" and r["ranks"] == 256)
+    ratios = {}
+    for label in ("b", "d"):
+        r = next(x for x in brain if x["run"] == label)
+        ratios[f"{label}/a"] = {
+            "logical": sum(r["logical_bytes"].values()) / max(
+                sum(a256["logical_bytes"].values()), 1),
+            "wire": sum(r["wire_bytes"].values()) / max(
+                sum(a256["wire_bytes"].values()), 1)}
+    calib = [dryrun_calibration_row(*c) for c in DRYRUN_CALIB]
+    t2 = time.perf_counter()
+    return {"brain": brain, "ratios_R256": ratios, "calibration": calib,
+            "seconds": {"brain": t1 - t0, "calibration": t2 - t1,
+                        "total": t2 - t0}}
+
+
+def dryrun_path(card: str, lm, train):
+    """The dry-run phase in a process of its own (``python3 chip_smoke.py
+    dryrun_path``): the brain rows through ``dist.LoneComm`` on the card and
+    the one-card cells traced on ``meta``, each calibration row beside this
+    run's own measured ms and peak GB of that cell (``lm_serve_path``,
+    ``lm_train_path``). Emits the phase line and returns it."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "dryrun_path"],
+        capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S,
+        env=dict(os.environ))
+    if out.returncode != 0:
+        fail(f"dryrun_path: exit {out.returncode}\n"
+             f"{out.stdout[-3000:]}\n{out.stderr[-6000:]}")
+    for ln in out.stdout.strip().splitlines()[:-1]:
+        print(ln, flush=True)
+    cell = json.loads(out.stdout.strip().splitlines()[-1])
+    cells = {c["arch"]: c for c in lm["cells"]}
+    tcell = train["cells"][0]
+    for row in cell["calibration"]:
+        if row["kind"] == "train":
+            row["measured_ms"] = tcell["step_ms_median"]
+            row["measured_peak_gb"] = tcell["peak_gb"]
+        else:
+            c = cells[row["arch"]]
+            row["measured_ms"] = c["prefill_ms"] if row["kind"] == \
+                "prefill" else c["decode_step_ms"]["median"]
+            row["measured_peak_gb"] = c["peak_gb"]
+        row["bound_share_of_measured"] = row["bound_ms"] / row["measured_ms"]
+    line = {"phase": "dryrun_path", "card": card, **cell,
+            "phase_seconds": time.perf_counter() - t0}
+    emit(line)
+    return line
+
+
+def dryrun_child() -> int:
+    """The child of ``dryrun_path``: the cell, its result as the last
+    line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    emit(dryrun_cell(smi))
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5605,6 +5874,11 @@ def main() -> int:
     # served on (1, 4), qwen2-7b trained on (2, 1, 2), a 4-stage pipeline,
     # a re-mesh (a process of its own) ------------------------------------
     mesh_line = lm_mesh_path(card)
+
+    # ---- the dry run: the brain's rows through dist.LoneComm at R=256 and
+    # 512 on the card, the one-card LM cells traced on meta (a process of
+    # its own) --------------------------------------------------------------
+    dryrun_path(card, lm, train)
 
     # ---- fused == reference on the card, small size --------------------
     exact_kernels = k1["exact"] and k1s["exact"] and k2_err == 0
@@ -6110,6 +6384,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["dryrun_path"]:
+        sys.exit(dryrun_child())
     if sys.argv[1:2] == ["lm_mesh_path"]:
         sys.exit(lm_mesh_child())
     if sys.argv[1:2] == ["lm_serve_path"]:

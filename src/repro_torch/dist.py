@@ -58,11 +58,22 @@ On the baton the exchange is one autograd node over every rank's tensor,
 so one ``torch.autograd.backward`` over all ranks' losses runs the whole
 backward in the calling thread, with no rank waiting on another
 (``backward_ranks``).
+
+Two transports count rather than move (the dry run, ``launch/dryrun.py``):
+``ShapeMesh`` runs one rank of a mesh on ``meta`` tensors, its collectives
+computing only their output's shape; ``LoneComm`` is one real rank of a
+brain group whose other ranks are absent (zeros in their rows). Each keeps
+a ``Collective`` record of every op it runs, forward and backward, with the
+op's line size, operand and result bytes and whether its line stays inside
+one node of ``NODE_SIZE`` consecutive ranks. ``repeat(n)`` makes what is
+recorded inside count ``n`` times, and ``repeated(n, fn, ...)`` a step
+under autograd, its backward too (a loop traced for one step).
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
 import functools
 import itertools
 import math
@@ -71,6 +82,7 @@ from typing import Callable, List, Sequence, Tuple, Union
 
 import torch
 from torch.profiler import record_function
+from torch.utils import _pytree as pytree
 
 
 class Comm:
@@ -755,3 +767,220 @@ def backward_ranks(losses, scale: float):
     ``shard_map`` gives a replicated output)."""
     torch.autograd.backward(list(losses), [torch.full_like(x, scale)
                                            for x in losses])
+
+
+# ============================================= transports that only count
+NODE_SIZE = 8      # ranks a node (8 GPUs an NVLink domain); row-major ranks
+
+_times_var: contextvars.ContextVar = contextvars.ContextVar("repro_times",
+                                                            default=1)
+
+
+def count_times() -> int:
+    """How many times what is counted now counts (``repeat``)."""
+    return _times_var.get()
+
+
+@contextlib.contextmanager
+def repeat(n: int):
+    """What is counted inside (collective records, ``StepCounter``'s ops)
+    counts ``n`` times: a loop of ``n`` equal steps traced for one."""
+    tok = _times_var.set(_times_var.get() * int(n))
+    try:
+        yield
+    finally:
+        _times_var.reset(tok)
+
+
+def _keep(x):
+    return x
+
+
+class _Repeated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, n, fn, spec, holder, *flat):
+        ins = [x.detach().requires_grad_(x.requires_grad)
+               if isinstance(x, torch.Tensor) else x for x in flat]
+        # the inner graph keeps what it saves: a checkpoint's hooks around
+        # it would recompute the whole region at each inner unpack
+        with torch.enable_grad(), repeat(n), \
+                torch.autograd.graph.saved_tensors_hooks(_keep, _keep):
+            out = fn(*pytree.tree_unflatten(ins, spec))
+        outs, out_spec = pytree.tree_flatten(out)
+        holder.append(out_spec)
+        ctx.n, ctx.ins, ctx.outs = n, ins, outs
+        return tuple(o.detach() for o in outs)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        pairs = [(o, c) for o, c in zip(ctx.outs, cts)
+                 if o.requires_grad and c is not None]
+        want = [i for i, x in enumerate(ctx.ins)
+                if isinstance(x, torch.Tensor) and x.requires_grad]
+        grads = [None] * len(ctx.ins)
+        if pairs and want:
+            with repeat(ctx.n):
+                got = torch.autograd.grad(
+                    [o for o, _ in pairs], [ctx.ins[i] for i in want],
+                    [c for _, c in pairs], allow_unused=True)
+            for i, g in zip(want, got):
+                grads[i] = g
+        return (None, None, None, None) + tuple(grads)
+
+
+def repeated(n: int, fn, *args):
+    """``fn(*args)`` (tensors in nested dicts / lists / tuples) counted as
+    ``n`` calls: forward under ``repeat(n)`` and, where a gradient is
+    wanted, its backward too. For a loop of ``n`` equal steps traced on
+    ``meta`` for one step."""
+    flat, spec = pytree.tree_flatten(args)
+    if not torch.is_grad_enabled() or not any(
+            isinstance(x, torch.Tensor) and x.requires_grad for x in flat):
+        with repeat(n):
+            return fn(*args)
+    holder = []
+    outs = _Repeated.apply(n, fn, spec, holder, *flat)
+    return pytree.tree_unflatten(list(outs), holder[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class Collective:
+    """One collective as a rank ran it. ``kind`` is the port's name
+    (``all_gather``, ``psum_scatter``, ``all_to_all``, ``psum``, ``pmean``,
+    ``pmax``, ``ppermute``); ``n`` its line's size; ``arriving`` the bytes
+    ``Mesh.bytes`` counts for it; ``times`` the ``repeat`` factor it ran
+    under; ``backward`` whether autograd ran it."""
+    kind: str
+    axes: Tuple[str, ...]
+    n: int
+    operand_bytes: int
+    result_bytes: int
+    arriving: int
+    intra_node: bool
+    scope: str
+    times: int = 1
+    backward: bool = False
+
+
+def _intra_node(line) -> bool:
+    return min(line) // NODE_SIZE == max(line) // NODE_SIZE
+
+
+def _out_shape(kind: str, params, shape, n: int) -> tuple:
+    """The shape of a collective's result on a line of ``n`` ranks."""
+    shape = list(shape)
+    if kind == "all_gather":
+        shape[params[0]] *= n
+    elif kind == "psum_scatter":
+        shape[params[0]] //= n
+    elif kind == "all_to_all":
+        split, concat = params
+        shape[split] //= n
+        shape[concat] *= n
+    return tuple(shape)
+
+
+class _ShapeExchange(torch.autograd.Function):
+    """A ``ShapeMesh`` collective under autograd: its backward records and
+    shapes the transposed collective, as ``_ProcExchange`` runs it."""
+
+    @staticmethod
+    def forward(ctx, mesh, kind, axes, params, x):
+        ctx.mesh, ctx.kind, ctx.axes, ctx.params = mesh, kind, axes, params
+        out = mesh._shape_op(kind, axes, params, x, False)
+        if kind == "pmax":
+            ctx.mark_non_differentiable(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        kind, params = _transpose(ctx.kind, ctx.params)
+        return None, None, None, None, ctx.mesh._shape_op(
+            kind, ctx.axes, params, ct, True)
+
+
+class ShapeMesh(Mesh):
+    """One rank (``rank``) of a mesh, run alone on ``meta`` tensors: every
+    collective returns zeros of its result's shape on its operand's device
+    (an empty ``meta`` tensor there) and appends a ``Collective`` to
+    ``records``; ``run(fn)`` is ``[fn(comm)]``. ``MeshComm._run`` counts
+    its ``Mesh.bytes`` as on any mesh. The ranks of an SPMD step run the
+    same ops on blocks of the same shapes, so one rank's records are a
+    device's."""
+
+    def __init__(self, shape, axis_names, rank: int = 0):
+        super().__init__(shape, axis_names)
+        if not 0 <= rank < self.size:
+            raise ValueError(f"ShapeMesh: rank {rank} of {self.size}")
+        self.rank = rank
+        self.ranks = [rank]
+        self.records: List[Collective] = []
+        self._comm = MeshComm(self, rank, self)
+        self._intra = {}
+
+    def comm(self, rank: int) -> MeshComm:
+        if rank != self.rank:
+            raise ValueError(f"ShapeMesh: rank {rank} is not {self.rank}")
+        return self._comm
+
+    def run(self, fn, device=None) -> list:
+        return [fn(self._comm)]
+
+    def collective(self, rank, kind, axes, params, x):
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _ShapeExchange.apply(self, kind, axes, params, x)
+        return self._shape_op(kind, axes, params, x, False)
+
+    def _shape_op(self, kind, axes, params, x, backward: bool):
+        n = self.axis_size(axes)
+        out = x.new_zeros(_out_shape(kind, params, x.shape, n))
+        if axes not in self._intra:
+            self._intra[axes] = _intra_node(self.line(self.rank, axes))
+        ob = x.numel() * x.element_size()
+        self.records.append(Collective(
+            kind, tuple(axes), n, ob, out.numel() * out.element_size(),
+            _arriving_bytes(kind, n, ob), self._intra[axes],
+            _scope_var.get(), count_times(), backward))
+        return out
+
+
+class LoneComm(Comm):
+    """Rank ``rank`` of a brain group of ``num_ranks`` whose other ranks are
+    absent: ``all_gather`` returns the (R·n, ...) rows with this rank's in
+    place and zeros for the others, ``all_to_all`` this rank's own block in
+    place and zeros for the others, ``psum`` its operand; every call appends
+    a ``Collective`` (axes ``("ranks",)``) to ``records``. The brain's
+    buffers have static shapes, so the records are the real rank's whatever
+    the others would have sent; the results are not a simulation's."""
+
+    def __init__(self, num_ranks: int, rank: int = 0):
+        if not 0 <= rank < num_ranks:
+            raise ValueError(f"LoneComm: rank {rank} of {num_ranks}")
+        self.num_ranks = num_ranks
+        self.rank = rank
+        self.records: List[Collective] = []
+        self._intra = _intra_node(range(num_ranks))
+
+    def _record(self, kind, x, out):
+        ob = x.numel() * x.element_size()
+        self.records.append(Collective(
+            kind, ("ranks",), self.num_ranks, ob,
+            out.numel() * out.element_size(),
+            _arriving_bytes(kind, self.num_ranks, ob), self._intra,
+            _scope_var.get(), count_times(), False))
+        return out
+
+    def all_gather(self, x):
+        n = x.shape[0]
+        out = x.new_zeros((self.num_ranks * n,) + tuple(x.shape[1:]))
+        out[self.rank * n:(self.rank + 1) * n] = x
+        return self._record("all_gather", x, out)
+
+    def all_to_all(self, buf):
+        _check_rows(buf, self.num_ranks)
+        out = torch.zeros_like(buf)
+        out[self.rank] = buf[self.rank]
+        return self._record("all_to_all", buf, out)
+
+    def psum(self, x):
+        return self._record("psum", x, x)

@@ -148,16 +148,42 @@ def synapse_apply(edges, msg_lid, msg_gid, msg_valid, req_lid, req_src,
     return out, accept
 
 
+def route_groups(flat_other, flat_mine, *, n: int, num_ranks: int,
+                 cap: int, build):
+    """``route_build`` over more than ``MAX_RANKS`` destinations, the
+    buckets the kernel holds: one ``build`` call a group of ``MAX_RANKS``
+    ranks, each over the entries bound for the group (their partner gids
+    shifted into it, every other entry passed as empty), its rows' gids
+    shifted back. An entry keeps its place among its destination's (the
+    order is the flat index's in every call), so the rows are the plain
+    version's; the dropped counts add up."""
+    bufs, dropped = [], None
+    for g0 in range(0, num_ranks, MAX_RANKS):
+        r = min(MAX_RANKS, num_ranks - g0)
+        lo = g0 * n
+        inside = (flat_other >= lo) & (flat_other < lo + r * n)
+        buf, drop = build(torch.where(inside, flat_other - lo, -1),
+                          flat_mine, n=n, num_ranks=r, cap=cap)
+        gid = buf[..., 0]
+        bufs.append(torch.stack([torch.where(gid >= 0, gid + lo, gid),
+                                 buf[..., 1]], -1))
+        dropped = drop if dropped is None else dropped + drop
+    return torch.cat(bufs), dropped
+
+
 def route_build(flat_other, flat_mine, *, n: int, num_ranks: int, cap: int):
     """Deletion-notification buffers over the flattened (n*S,) (partner gid,
-    my gid) pairs (K5). Returns (buf (num_ranks, cap, 2) int32, dropped (1,)
+    my gid) pairs (K5; above ``MAX_RANKS`` ranks one launch a group of them,
+    ``route_groups``). Returns (buf (num_ranks, cap, 2) int32, dropped (1,)
     f32)."""
     if flat_other.device.type != "cuda":
         return route_build_plain(flat_other, flat_mine, n=n,
                                  num_ranks=num_ranks, cap=cap)
-    if not 1 <= num_ranks <= MAX_RANKS:
-        raise ValueError(f"route_build: {num_ranks} ranks outside "
-                         f"[1, {MAX_RANKS}]")
+    if num_ranks > MAX_RANKS:
+        return route_groups(flat_other, flat_mine, n=n, num_ranks=num_ranks,
+                            cap=cap, build=route_build)
+    if num_ranks < 1:
+        raise ValueError(f"route_build: {num_ranks} ranks")
     if cap < 0 or num_ranks * cap > MAX_SLOTS:
         raise ValueError(f"route_build: {num_ranks} x {cap} slots outside "
                          f"[0, {MAX_SLOTS}]")

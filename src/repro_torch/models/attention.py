@@ -17,7 +17,9 @@ of the same math". Here the lowering is chosen explicitly
   On a CPU tensor it runs the plain mirror below.
 - ``reference``: the plain mirror of the JAX function on any device: the
   same chunk sizes (``_fit``: 1500 -> 750), the same online softmax, p cast
-  to v's dtype before P V.
+  to v's dtype before P V. On ``meta`` (the dry run, which computes no
+  value) it traces one row of one tile, counted as all of them
+  (``dist.repeated``): every tile has the same shapes.
 
 Both pre-scale q by 1/sqrt(D) in float32 and round it back to q's dtype, as
 JAX does; K9 then takes ``scale=1.0``, so it computes what the JAX module
@@ -30,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.dist import repeated
 from repro_torch.kernels import flash_attention as fa
 
 NEG_INF = -1e30
@@ -109,32 +112,46 @@ def _chunked_plain(q, k, v, causal, window, q_positions, kv_positions,
     q_chunk = _fit(sq, q_chunk)
     kv_chunk = _fit(skv, kv_chunk)
     nq, nk = sq // q_chunk, skv // kv_chunk
+    meta = dev.type == "meta"
 
-    qg = prescale(_split_heads(q, hkv))            # (B,Hkv,G,Sq,D)
-    g = qg.shape[2]
-    outs = []
-    for i in range(nq):
-        qs = slice(i * q_chunk, (i + 1) * q_chunk)
-        qi = qg[:, :, :, qs].to(F32)               # exact products in f32
-        qp = q_positions[qs]
+    def tile(qi, qp, kj, vj, kp, m, l, acc):
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qi, kj.to(F32))
+        s = _softcap(s, softcap)
+        s = s + _mask_bias(qp, kp, causal, window)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + torch.sum(p, dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhgqk,bhkd->bhgqd", p.to(vj.dtype).to(F32), vj.to(F32))
+        return m_new, l, acc
+
+    def row(qi, qp, k, v):
+        qi = qi.to(F32)                            # exact products in f32
+        g = qi.shape[2]
         m = torch.full((b, hkv, g, q_chunk), NEG_INF, dtype=F32, device=dev)
         l = torch.zeros((b, hkv, g, q_chunk), dtype=F32, device=dev)
         acc = torch.zeros((b, hkv, g, q_chunk, d), dtype=F32, device=dev)
-        for j in range(nk):
-            ks = slice(j * kv_chunk, (j + 1) * kv_chunk)
-            vi = v[:, :, ks]
-            s = torch.einsum("bhgqd,bhkd->bhgqk", qi, k[:, :, ks].to(F32))
-            s = _softcap(s, softcap)
-            s = s + _mask_bias(qp, kv_positions[ks], causal, window)
-            m_new = torch.maximum(m, torch.amax(s, dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + torch.sum(p, dim=-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bhgqk,bhkd->bhgqd", p.to(vi.dtype).to(F32), vi.to(F32))
-            m = m_new
+        if meta:         # the dry run: one tile counted as the row's nk
+            m, l, acc = repeated(nk, tile, qi, qp, k[:, :, :kv_chunk],
+                                 v[:, :, :kv_chunk], kv_positions[:kv_chunk],
+                                 m, l, acc)
+        else:
+            for j in range(nk):
+                ks = slice(j * kv_chunk, (j + 1) * kv_chunk)
+                m, l, acc = tile(qi, qp, k[:, :, ks], v[:, :, ks],
+                                 kv_positions[ks], m, l, acc)
         out = acc / torch.clamp_min(l, 1e-30)[..., None]
-        outs.append(out.to(q.dtype))               # (B,Hkv,G,qc,D)
+        return out.to(q.dtype)                     # (B,Hkv,G,qc,D)
+
+    qg = prescale(_split_heads(q, hkv))            # (B,Hkv,G,Sq,D)
+    if meta:             # the dry run: one row counted as the nq rows
+        outs = [repeated(nq, row, qg[:, :, :, :q_chunk],
+                         q_positions[:q_chunk], k, v)] * nq
+    else:
+        outs = [row(qg[:, :, :, i * q_chunk:(i + 1) * q_chunk],
+                    q_positions[i * q_chunk:(i + 1) * q_chunk], k, v)
+                for i in range(nq)]
     return torch.cat(outs, dim=3).reshape(b, hq, sq, d)
 
 

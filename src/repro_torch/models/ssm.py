@@ -8,7 +8,9 @@ float32, and the outputs are cast to x's dtype where JAX casts. With
 ``return_state`` a scan also returns its final carry, the decode state
 after the last position (JAX's prefill replays the step form over the
 sequence for it, ``decode._mlstm_final_state`` / ``_slstm_final_state``).
-Decode carries an O(1) state.
+Decode carries an O(1) state. On ``meta`` (the dry run, which computes no
+value) a scan traces its first two steps, the second counted as the other
+``S - 1`` (``dist.repeated``).
 
 State layout (per block):
   mlstm: C (B,H,hd,hd), n (B,H,hd), m (B,H)
@@ -20,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import repeated
 from repro_torch.models.layers import (apply_rmsnorm, dtype_of,
                                        init_rmsnorm, normal)
 from repro_torch.models.rglru import softplus
@@ -100,10 +103,18 @@ def mlstm_scan(p, cfg: ModelConfig, x, *, return_state=False):
     st = mlstm_init_state(cfg, b, x.device)
     hs = torch.empty((b, s, cfg.num_heads, cfg.head_dim), dtype=x.dtype,
                      device=x.device)
-    for t in range(s):
-        ht, st = _mlstm_cell(q[:, t], k[:, t], v[:, t], i_log[:, t],
-                             log_f[:, t], st)
-        hs[:, t] = ht.to(x.dtype)
+    if x.device.type == "meta" and s > 1:
+        # the dry run: the first step (its carry holds no gradient), then
+        # the second counted as the other s - 1
+        for t, n in ((0, 1), (1, s - 1)):
+            ht, st = repeated(n, _mlstm_cell, q[:, t], k[:, t], v[:, t],
+                              i_log[:, t], log_f[:, t], st)
+            hs[:, t] = ht.to(x.dtype)
+    else:
+        for t in range(s):
+            ht, st = _mlstm_cell(q[:, t], k[:, t], v[:, t], i_log[:, t],
+                                 log_f[:, t], st)
+            hs[:, t] = ht.to(x.dtype)
     out = _mlstm_out(p, cfg, x, hs.reshape(b, s, inner), z)
     return (out, st) if return_state else out
 
@@ -175,9 +186,17 @@ def slstm_scan(p, cfg: ModelConfig, x, *, return_state=False):
     wx = _slstm_in(p, cfg, x)                             # (B,S,4d)
     carry = slstm_init_state(cfg, b, d, x.device)
     hs = torch.empty((b, s, d), dtype=x.dtype, device=x.device)
-    for t in range(s):
-        carry = _slstm_cell(p, cfg, wx[:, t], carry)
-        hs[:, t] = carry["h"].reshape(b, d).to(x.dtype)
+    if x.device.type == "meta" and s > 1:
+        # the dry run: the first step, then the second counted as s - 1
+        for t, n in ((0, 1), (1, s - 1)):
+            carry = repeated(n, lambda p_, w_, c_: _slstm_cell(p_, cfg, w_,
+                                                               c_),
+                             p, wx[:, t], carry)
+            hs[:, t] = carry["h"].reshape(b, d).to(x.dtype)
+    else:
+        for t in range(s):
+            carry = _slstm_cell(p, cfg, wx[:, t], carry)
+            hs[:, t] = carry["h"].reshape(b, d).to(x.dtype)
     out = _slstm_out(p, cfg, x, hs)
     return (out, carry) if return_state else out
 

@@ -718,6 +718,22 @@ def test_route_build_equals_plain(dev, monkeypatch, case):
         assert torch.equal(a, b) and torch.equal(a, d)
 
 
+@pytest.mark.parametrize("ranks,cap", [(65, 300), (256, 64), (512, 3)])
+def test_route_build_above_the_kernels_buckets_equals_plain(dev, ranks, cap):
+    """Above ``MAX_RANKS`` destinations (the brain's dry-run rows at R=256
+    and 512): one launch a group of 64 ranks (``route_groups``), bit-equal
+    to the plain version over all of them."""
+    n = 256
+    other, mine = _route_case(dev, 200 * 32, n, ranks, "half")
+    kw = dict(n=n, num_ranks=ranks, cap=cap)
+    before = sa.route_launches.count
+    got = sa.route_build(other, mine, **kw)
+    assert sa.route_launches.count == before + -(-ranks // sa.MAX_RANKS)
+    want = sa.route_build_plain(other, mine, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("name", sorted(library.SCENARIOS))
 def test_all_fused_lowerings_equal_reference_under_scenarios(dev, name):
     scn = library.get_scenario(name)
