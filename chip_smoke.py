@@ -101,14 +101,17 @@ neurons, S=32):
 - the LM on meshes of ranks (``lm_mesh_path``, a process of its own),
   every rank on the one card behind the baton (``dist.LocalMesh``): K9
   and its backward at the per-rank shapes; moonshot-v1-16b-a3b at full
-  width and depth on (data 1, model 4) under ``move_compute``,
-  ``move_data`` and ``auto``, prefill and 32 split-KV decode steps
-  teacher-forced, the routing pinned, within 2**-5 max |logits| of the
-  mesh-free model, flips near-ties, K9 on each rank's heads; qwen2-7b at
-  full width, 4 layers, on (pod 2, data 1, model 2), the vocab-parallel
-  loss and the Delta = 4 pod sync: every gradient against mesh-free, int8
-  within 0.05, Delta = 1 in f32 equal to the direct step, a second run
-  bitwise; ``pipeline_apply`` over 4 stages; ``remesh_restore`` onto
+  width, 12 of its 48 layers, on (data 1, model 4) under
+  ``move_compute``, ``move_data`` and ``auto``, prefill and 32 split-KV
+  decode steps teacher-forced, the routing pinned, within 2**-5 max
+  |logits| of the mesh-free model, flips near-ties, K9 on each rank's
+  heads; qwen2-7b at full width, 4 layers, on (pod 2, data 1, model 2),
+  ``remat="full"`` on the baton, m and v split over ``pod`` (ZeRO), the
+  vocab-parallel loss and the Delta = 4 pod sync: every gradient against
+  mesh-free, int8 within 0.05, Delta = 1 in f32 equal to the direct step,
+  a second run bitwise, remat none with m and v as the params against it
+  (bitwise or one bf16 step), both peaks, the deepest model that fits;
+  ``pipeline_apply`` over 4 stages; ``remesh_restore`` onto
   (1, 2) bitwise; the bytes each collective moves, held key for key
   against the same cells traced on a ``dist.ShapeMesh`` of every rank;
 - the dry run (``dryrun_path``, a process of its own): the brain's row,
@@ -4765,9 +4768,12 @@ def lm_train_child(arch: str) -> int:
 
 
 # ---------------------------------------------------------------- LM on a mesh
-# the serving cell: moonshot-v1-16b-a3b at full width and depth on a (data 1,
-# model 4) mesh, B=8, a 1,024-token prompt, 32 decode steps
+# the serving cell: moonshot-v1-16b-a3b at full width on a (data 1, model
+# 4) mesh, B=8, a 1,024-token prompt, 32 decode steps, its depth cut from
+# 48 layers to MESH_SERVE_LAYERS (a step's time is the baton's collective
+# rounds, which the layers set; PERF.md section 4)
 MESH_SERVE = ("moonshot-v1-16b-a3b", (1, 4), 8, 1024, 32)
+MESH_SERVE_LAYERS = 12
 MESH_STRATEGIES = ("move_compute", "move_data", "auto")
 # the capacity factors the serving comparison tries for each strategy, in
 # order (the moonshot config's 1.25 first)
@@ -4812,9 +4818,13 @@ def _mesh_capacity(cfg, calls, model: int, strategy: str):
 
 
 # the training cell: qwen2-7b at full width on (pod 2, data 1, model 2), a
-# row a pod, S=4,096, its depth cut to what fits (PERF.md section 4)
+# row a pod, S=4,096, its depth cut (PERF.md section 4); MESH_TRAIN_DEEP
+# layers, one accumulation and a sync: the deepest that fits the card with
+# remat and ZeRO, and the peak reckoned for it from the code's bytes
 MESH_TRAIN = ("qwen2-7b", (2, 1, 2), 2, 4096)
 MESH_TRAIN_LAYERS = 4
+MESH_TRAIN_DEEP = 11
+MESH_TRAIN_DEEP_GB = 82.4
 MESH_DELTA = 4
 MESH_SYNC_CHECK = (2, 1024)        # the f32 Delta = 1 check: layers, seq
 # the pipeline: stages, qwen2-7b layers a stage, microbatches, rows and
@@ -4919,8 +4929,10 @@ def _check_traced_bytes(what: str, real: dict, traced: dict) -> None:
 
 
 def lm_mesh_serve(card: str):
-    """(a) moonshot-v1-16b-a3b at full width and depth, bf16, on a (data 1,
-    model 4) mesh, each strategy at its least capacity factor with no drop
+    """(a) moonshot-v1-16b-a3b at full width, ``MESH_SERVE_LAYERS`` of its
+    48 layers (the cut weakens the check: the routing census and mesh ==
+    mesh-free cover those layers only), bf16, on a (data 1, model 4) mesh,
+    each strategy at its least capacity factor with no drop
     (``_mesh_capacity``; the mesh-free reference at experts / top_k):
     every rank on the one card behind the baton
     (``launch/mesh.py::make_mesh``), the params each rank's blocks by the
@@ -4930,7 +4942,7 @@ def lm_mesh_serve(card: str):
     ``move_data`` and ``auto``: the prefill and 32 split-KV decode steps
     teacher-forced with the mesh-free tokens, the routing pinned to the
     mesh-free run's (``_MeshRouting``). Checks: K9 on every rank's 4 query
-    and 4 KV heads of every prefill attention (4 x 48 launches) and none
+    and 4 KV heads of every prefill attention (4 x 12 launches) and none
     in a decode step; the logits of every step within 2**-5 max |logits|
     of the mesh-free run's; every routing flip (a token whose own top-k
     differs from the pinned one) a near-tie, its router-logit gap at most
@@ -4950,7 +4962,8 @@ def lm_mesh_serve(card: str):
     from repro_torch.models import moe
     from repro_torch.parallel import sharding as shd
     arch, shape, batch, prompt, steps = MESH_SERVE
-    base = get_config(arch)
+    full = get_config(arch)
+    base = full.replace(num_layers=MESH_SERVE_LAYERS)
     # the mesh-free reference at a capacity no token overflows (every
     # expert's buffer holds the whole batch), so its routing has no drop
     cfg = base.replace(capacity_factor=base.num_experts / base.top_k)
@@ -4967,7 +4980,7 @@ def lm_mesh_serve(card: str):
            "layers": n_layers, "d_model": cfg.d_model,
            "experts": [cfg.num_experts, cfg.top_k],
            "vocab": cfg.vocab_size, "init_s": time.perf_counter() - t0,
-           "card": card}
+           "cut": f"layers {full.num_layers} -> {n_layers}", "card": card}
     batch_in = serve_lm.make_batch(cfg, batch, prompt, DEV, seed=1)
     with torch.no_grad(), _Routing() as rec:
         logits, state = api.prefill(params, batch_in, pad_cache_to=pad)
@@ -5170,40 +5183,110 @@ def _mesh_leaf_grads_check(mesh, acc, want, tols):
     return {"leaves": rows, "worst_share_of_tolerance": worst}
 
 
+def _mesh_opt(cfg, mesh, opt_cfg, zero: bool):
+    """A mesh run's AdamW state: m and v held as the params
+    (``init_opt_state``) or, with ``zero``, split by the optimizer-state
+    rule (ZeRO across pods, ``optimizer.shard_opt_state``), each rank's
+    zeros made on the card from the rule's blocks (no whole copy)."""
+    import torch
+    from repro_torch.models import param_specs
+    from repro_torch.optim import optimizer as topt
+    from repro_torch.optim.optimizer import tree_map
+    from repro_torch.parallel import sharding as shd
+    meta = topt.init_opt_state(param_specs(cfg), opt_cfg)
+    blocks = topt.shard_opt_state(meta, mesh) if zero else {
+        k: shd.shard_params(meta[k], mesh) for k in ("m", "v")}
+
+    def zeros(x):
+        return x.map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                           device=DEV))
+    return {"m": tree_map(zeros, blocks["m"]),
+            "v": tree_map(zeros, blocks["v"]),
+            "step": torch.zeros((), dtype=torch.int32, device=DEV)}
+
+
+def _mesh_state_close(got, host):
+    """The state ``got`` (``Sharded`` leaves) against ``host`` (the whole
+    leaves on the host, the same order), leaf by leaf: bitwise, or each
+    element within 2**-7 of the larger magnitude (one bf16 step at most).
+    Returns the counts; fails beyond the tolerance."""
+    import torch
+    from repro_torch.optim.optimizer import leaves
+    out = {"leaves": 0, "leaves_bitwise": 0, "elements": 0,
+           "elements_differing": 0, "max_abs_diff": 0.0,
+           "max_rel_diff": 0.0}
+    for x, h in zip(leaves(got), host):
+        a = x.full() if hasattr(x, "full") else x
+        b = h.to(a.device)
+        out["leaves"] += 1
+        out["elements"] += a.numel()
+        if torch.equal(a, b):
+            out["leaves_bitwise"] += 1
+            continue
+        a, b = a.float(), b.float()
+        diff = (a - b).abs()
+        big = torch.maximum(a.abs(), b.abs())
+        out["elements_differing"] += int((diff > 0).sum())
+        out["max_abs_diff"] = max(out["max_abs_diff"], float(diff.max()))
+        out["max_rel_diff"] = max(out["max_rel_diff"], float(
+            (diff / big.clamp_min(1e-30)).max()))
+        if bool((diff > 2.0 ** -7 * big).any()):
+            fail(f"lm_mesh_path train (a): a leaf {float(diff.max())} "
+                 f"from the remat-none run, beyond one bf16 step")
+        del a, b, diff, big
+    out["mode"] = "bitwise" if out["leaves_bitwise"] == out["leaves"] \
+        else "one bf16 step (2**-7 of the larger magnitude)"
+    return out
+
+
 def lm_mesh_train(card: str):
     """(b) qwen2-7b at full width, ``MESH_TRAIN_LAYERS`` layers, bf16, on a
     (pod 2, data 1, model 2) mesh, a row a pod, S=4,096, the vocab-parallel
     loss, the Delta = 4 periodic sync (``optim/periodic.py``), a bf16 AdamW
-    state (the config's knob, as the training path). First the mesh-free
-    model on the same params and batch: its gradient, and the tolerance, 2
-    max |reference lowering - its f32 evaluation| a leaf (the training
-    path's rule). Then a Delta period (4 accumulations, a sync) exact,
-    again (bitwise: losses, params, m and v), and with int8 compression.
-    Checks: every leaf's gradient of the first accumulation within the
-    tolerance; K9's forward and backward on every rank's 14 query and 2 KV
-    heads (4 ranks x the layers a step, no remat on the baton); the int8
-    mean of the pods' gradients within 0.05 of the exact mean; an f32 run
-    at ``MESH_SYNC_CHECK`` layers: Delta = 1 sync against the mesh's direct
-    step within 2e-5. Reports the accumulation step's ms and tokens a
-    second, the sync's ms, peak GB, K9's launches a step; returns the
-    exact run's final state for (d)."""
+    state (the config's knob, as the training path), the config's
+    ``remat="full"`` (every rank's layer recomputed together behind the
+    baton, ``dist.LocalMesh.checkpoint``) and m and v split over ``pod``
+    (ZeRO across pods: the optimizer-state rule, the sync's gradient
+    reduce-scattered over ``pod``, the params gathered back). First the
+    mesh-free model on the same params and batch: its gradient, and the
+    tolerance, 2 max |reference lowering - its f32 evaluation| a leaf (the
+    training path's rule). Then a Delta period (4 accumulations, a sync)
+    exact, again (bitwise: losses, params, m and v), and with int8
+    compression. Checks: every leaf's gradient of the first accumulation
+    within the tolerance; K9's forward on every rank's 14 query and 2 KV
+    heads twice a layer and step (the recompute) and its backward once
+    (4 ranks x the layers a step); the int8 mean of the pods' gradients
+    within 0.05 of the exact mean; an f32 run at ``MESH_SYNC_CHECK``
+    layers, both in the ZeRO layout: Delta = 1 sync against the mesh's
+    direct step within 2e-5. (a) The exact period once more with
+    ``remat="none"`` and m and v held as the params: its losses and
+    accumulator bitwise the first run's, its params, m and v after the
+    sync bitwise or each within one bf16 step (the clipping norm sums the
+    pods' halves of a ZeRO leaf's squares apart, another order; the mode
+    reported). (c) Both runs' peak GB, the remat + ZeRO one below. (d) One
+    accumulation and a sync at ``MESH_TRAIN_DEEP`` layers, the deepest that
+    fits the card with remat and ZeRO, and its peak GB. Reports the
+    accumulation step's ms and tokens a second, the sync's ms, K9's
+    launches a step and in all; returns the exact run's final state for
+    the re-mesh."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.launch import steps as tsteps
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import build_model, param_specs
-    from repro_torch.optim import optimizer as topt
     from repro_torch.optim import periodic
     from repro_torch.optim.optimizer import leaves, tree_map
     from repro_torch.parallel import compress
     from repro_torch.parallel import sharding as shd
     arch, shape, batch, seq = MESH_TRAIN
     base = get_config(arch)
-    cfg = base.replace(num_layers=MESH_TRAIN_LAYERS,
-                       parallel=base.parallel.replace(
-                           ce_mode="vocab_parallel",
-                           opt_state_dtype="bfloat16"))
+
+    def config(layers, remat):
+        return base.replace(num_layers=layers, parallel=base.parallel.replace(
+            ce_mode="vocab_parallel", opt_state_dtype="bfloat16",
+            remat=remat))
+    cfg = config(MESH_TRAIN_LAYERS, base.parallel.remat)
     api = build_model(cfg)
     mesh = make_mesh(shape, ("pod", "data", "model"))
     opt_cfg = tsteps.opt_config_for(cfg)
@@ -5214,8 +5297,9 @@ def lm_mesh_train(card: str):
     res = {"arch": arch, "mesh": dict(zip(("pod", "data", "model"), shape)),
            "layers": cfg.num_layers, "batch": batch, "seq": seq,
            "delta": MESH_DELTA, "ce_mode": "vocab_parallel",
-           "opt_state_dtype": "bfloat16", "card": card,
-           "cut": f"layers 28 -> {MESH_TRAIN_LAYERS}"}
+           "opt_state_dtype": "bfloat16", "remat": cfg.parallel.remat,
+           "opt_state_layout": "m and v split over pod (ZeRO across pods)",
+           "card": card, "cut": f"layers 28 -> {MESH_TRAIN_LAYERS}"}
     # the mesh-free gradient and its tolerance
     params = api.init(0, device=DEV)
     _, _, gf = tsteps.loss_and_grads(api, params, batches[0])
@@ -5235,21 +5319,27 @@ def lm_mesh_train(card: str):
     torch.cuda.empty_cache()
 
     per_call = {k: v for k, v in _bwd_per_call(cfg).items()}
-    n_fwd = mesh.size * cfg.num_layers
+    totals = {"forward": 0, "backward_calls": 0}
 
-    def period(int8: bool, checks: bool):
-        params = api.init(0, device=DEV)
+    def period(c, zero: bool, int8=False, checks=False, n_acc=MESH_DELTA,
+               keep=False):
+        """A period of ``n_acc`` accumulations and a sync of config ``c``;
+        (out, params, opt, the final state's whole leaves on the host with
+        ``keep``)."""
+        a = build_model(c)
+        params = a.init(0, device=DEV)
         sp = shd.shard_params(params, mesh)
         del params
         torch.cuda.empty_cache()
-        opt = topt.init_opt_state(sp, opt_cfg)
+        opt = _mesh_opt(c, mesh, opt_cfg, zero)
         acc = periodic.init_accumulator(sp, mesh)
-        accum, sync = periodic.make_periodic_steps(api, mesh, opt_cfg,
+        accum, sync = periodic.make_periodic_steps(a, mesh, opt_cfg,
                                                    compress_int8=int8)
         torch.cuda.reset_peak_memory_stats()
-        out = {"losses": [], "step_ms": [], "launches": []}
+        out = {"layers": c.num_layers, "remat": c.parallel.remat,
+               "zero": zero, "losses": [], "step_ms": [], "launches": []}
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        for i, b in enumerate(batches):
+        for i, b in enumerate(batches[:n_acc]):
             _reset_train_counts()
             mesh.bytes.clear()
             ev[0].record()
@@ -5263,20 +5353,27 @@ def lm_mesh_train(card: str):
             out["launches"].append(_train_counts())
             if checks and i == 0:
                 out["grads"] = _mesh_leaf_grads_check(mesh, acc, want, tols)
-        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        n_fwd = mesh.size * c.num_layers
+        want_fwd = (2 if c.parallel.remat != "none" else 1) * n_fwd
         for n in out["launches"]:
             bwd = {k: n_fwd * v for k, v in per_call.items()}
-            if n["forward"] != n_fwd or n["backward_device"] != bwd:
+            if n["forward"] != want_fwd or n["backward_device"] != bwd:
                 fail(f"lm_mesh_path train: K9 launches {n} a step, not "
-                     f"{n_fwd} forwards and backward {bwd}")
+                     f"{want_fwd} forwards and backward {bwd}")
+            totals["forward"] += n["forward"]
+            totals["backward_calls"] += n["backward_calls"]
+        if not all(math.isfinite(x) for x in out["losses"]):
+            fail(f"lm_mesh_path train: losses {out['losses']}")
+        if not int8:
+            out["acc_fingerprint"] = _mesh_fingerprint(acc)
         err = periodic.init_error(sp, mesh) if int8 else None
         if int8:          # the int8 mean against the exact one, leaf by leaf
             def both(cm):
                 worst = 0.0
-                for a in leaves(shd.local_tree(acc, cm.rank)):
+                for a_ in leaves(shd.local_tree(acc, cm.rank)):
                     got, _ = compress.allreduce_int8(
-                        a[0], torch.zeros_like(a[0]), "pod", cm)
-                    exact = cm.pmean(a[0], "pod")
+                        a_[0], torch.zeros_like(a_[0]), "pod", cm)
+                    exact = cm.pmean(a_[0], "pod")
                     scale = float(exact.abs().max())
                     if scale > 0:
                         worst = max(worst, float(
@@ -5292,27 +5389,31 @@ def lm_mesh_train(card: str):
         torch.cuda.synchronize()
         out["sync_ms"] = ev[0].elapsed_time(ev[1])
         out["grad_norm"] = float(stats["grad_norm"])
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         del acc, err
-        out["fingerprint"] = _mesh_fingerprint({"params": sp, "opt": opt})
-        return out, sp, opt
+        state = {"params": sp, "opt": opt}
+        out["fingerprint"] = _mesh_fingerprint(state)
+        host = [(x.full() if hasattr(x, "full") else x).cpu()
+                for x in leaves(state)] if keep else None
+        return out, sp, opt, host
 
     def free():
         gc.collect()
         torch.cuda.empty_cache()
 
-    first = period(False, True)[0]
+    first, sp, opt, host = period(cfg, True, checks=True, keep=True)
+    del sp, opt
     free()
-    # the accumulation step traced on a ShapeMesh of each rank (remat off,
-    # as on the baton): the bytes the real run counted
+    # the accumulation step traced on a ShapeMesh of each rank, the
+    # config's remat (its recompute in the backward): the bytes the real
+    # run counted
     t_trace = time.perf_counter()
-    cfg_n = cfg.replace(parallel=cfg.parallel.replace(remat="none"))
-    api_n = build_model(cfg_n)
-    pspecs = param_specs(cfg_n)
+    pspecs = param_specs(cfg)
 
     def trace(sm):
         sp_m = shd.shard_params(pspecs, sm)
         acc_m = periodic.init_accumulator(sp_m, sm)
-        accum_m, _ = periodic.make_periodic_steps(api_n, sm, opt_cfg)
+        accum_m, _ = periodic.make_periodic_steps(api, sm, opt_cfg)
         accum_m(sp_m, acc_m, {k: torch.empty(v.shape, dtype=v.dtype,
                                              device="meta")
                               for k, v in batches[0].items()})
@@ -5322,15 +5423,47 @@ def lm_mesh_train(card: str):
                         traced)
     res["shape_mesh_check"] = {
         "equal": True, "ranks_traced": mesh.size,
+        "remat": cfg.parallel.remat,
         "accumulation_step_bytes_per_device": {
             f"{sc or 'other'}:{k}": v / mesh.size
             for (sc, k), v in traced.items()},
         "seconds": time.perf_counter() - t_trace}
-    int8 = period(True, False)[0]
+    # (a) remat none, m and v as the params
+    none, sp, opt, _ = period(config(MESH_TRAIN_LAYERS, "none"), False)
+    if none["losses"] != first["losses"] or \
+            none["acc_fingerprint"] != first["acc_fingerprint"]:
+        fail(f"lm_mesh_path train (a): remat none's losses "
+             f"{none['losses']} or accumulator differ from remat full's "
+             f"{first['losses']}")
+    res["remat_none_check"] = {
+        "losses_bitwise": True, "accumulator_bitwise": True,
+        "grad_norm": {"remat_zero": first["grad_norm"],
+                      "none": none["grad_norm"]},
+        "state_after_sync": _mesh_state_close({"params": sp, "opt": opt},
+                                              host)}
+    del sp, opt, host
+    free()
+    # (c) the peak of each
+    res["peak_gb_4_layers"] = {"remat_zero": first["peak_gb"],
+                               "none": none["peak_gb"]}
+    if not first["peak_gb"] < none["peak_gb"]:
+        fail(f"lm_mesh_path train (c): remat and ZeRO peak at "
+             f"{first['peak_gb']} GB, none at {none['peak_gb']}")
+    int8, sp, opt, _ = period(cfg, True, int8=True)
+    del sp, opt
     free()
     res["delta1_f32"] = _mesh_delta1_check(base, mesh, batches[0])
     free()
-    again, sp, opt = period(False, False)
+    # (d) the deepest that fits, one accumulation and a sync
+    deep, sp, opt, _ = period(config(MESH_TRAIN_DEEP, base.parallel.remat),
+                              True, n_acc=1)
+    del sp, opt
+    free()
+    deep.pop("fingerprint")
+    deep.pop("acc_fingerprint")
+    res["deepest"] = {**deep, "reckoned_layers": MESH_TRAIN_DEEP,
+                      "reckoned_peak_gb": MESH_TRAIN_DEEP_GB}
+    again, sp, opt, _ = period(cfg, True)
     state = {"params": sp, "opt": opt, "fingerprint": again["fingerprint"]}
     if first["losses"] != again["losses"] or \
             first["fingerprint"] != again["fingerprint"]:
@@ -5338,29 +5471,42 @@ def lm_mesh_train(card: str):
              f"{again['losses']} against {first['losses']}")
     timed = sorted(first["step_ms"][1:] + again["step_ms"][1:])
     med = timed[len(timed) // 2]
-    for run in (first, again, int8):
+    for run in (first, again, int8, none):
         run.pop("fingerprint")
+        run.pop("acc_fingerprint", None)
     res.update(exact=first, exact_again_losses=again["losses"],
-               bitwise_second_run=True, int8=int8, step_ms_median=med,
-               tokens_per_s=batch * seq / (med / 1e3),
+               bitwise_second_run=True, int8=int8, remat_none=none,
+               step_ms_median=med, tokens_per_s=batch * seq / (med / 1e3),
+               none_step_ms_median=sorted(none["step_ms"][1:])[
+                   len(none["step_ms"][1:]) // 2],
                k9_per_step=first["launches"][-1],
+               k9_per_step_remat_none=none["launches"][-1],
+               k9_launches_total=dict(totals),
                peak_gb=max(first["peak_gb"], int8["peak_gb"]))
     emit({"phase": "lm_mesh_path train", "card": card,
           "step_ms_median": med, "tokens_per_s": res["tokens_per_s"],
-          "sync_ms": {"exact": first["sync_ms"], "int8": int8["sync_ms"]},
-          "peak_gb": res["peak_gb"], "grads": first["grads"],
-          "int8_rel_err": int8["int8_rel_err"],
+          "none_step_ms_median": res["none_step_ms_median"],
+          "sync_ms": {"exact": first["sync_ms"], "int8": int8["sync_ms"],
+                      "none": none["sync_ms"]},
+          "peak_gb_4_layers": res["peak_gb_4_layers"],
+          "remat_none_check": res["remat_none_check"],
+          "deepest": {k: res["deepest"][k] for k in (
+              "layers", "reckoned_layers", "reckoned_peak_gb", "peak_gb",
+              "step_ms", "sync_ms", "losses")},
+          "grads": first["grads"], "int8_rel_err": int8["int8_rel_err"],
           "delta1_f32": res["delta1_f32"],
           "shape_mesh_check": res["shape_mesh_check"],
-          "k9_per_step": res["k9_per_step"]})
+          "k9_per_step": res["k9_per_step"],
+          "k9_per_step_remat_none": res["k9_per_step_remat_none"]})
     return res, state
 
 
 def _mesh_delta1_check(base, mesh, batch):
-    """f32, ``MESH_SYNC_CHECK`` layers and tokens, the vocab-parallel loss:
-    a Delta = 1 periodic sync against the mesh's direct train step from
-    the same params, every param within 2e-5 (the JAX package's own
-    test's bound; lr 3e-4, no clipping, no warm-up)."""
+    """f32, ``MESH_SYNC_CHECK`` layers and tokens, the vocab-parallel loss,
+    the config's remat, m and v split over ``pod`` (ZeRO across pods): a
+    Delta = 1 periodic sync against the mesh's direct train step from the
+    same params, every param within 2e-5 (the JAX package's own test's
+    bound; lr 3e-4, no clipping, no warm-up)."""
     import torch
     from repro_torch.launch import steps as tsteps
     from repro_torch.models import build_model
@@ -5377,7 +5523,7 @@ def _mesh_delta1_check(base, mesh, batch):
     b32 = {"tokens": batch["tokens"][:, :sseq]}
     sp32 = shd.shard_params(a32.init(0, device=DEV), mesh)
     sp32, _, _ = tsteps.make_train_step(a32, mesh, oc)(
-        sp32, topt.init_opt_state(sp32, oc), b32)
+        sp32, _mesh_opt(c32, mesh, oc, True), b32)
     direct = [x.full().cpu() for x in leaves(sp32)]
     del sp32
     gc.collect()
@@ -5386,7 +5532,8 @@ def _mesh_delta1_check(base, mesh, batch):
     acc = periodic.init_accumulator(sp32, mesh)
     accum, sync = periodic.make_periodic_steps(a32, mesh, oc)
     acc, _ = accum(sp32, acc, b32)
-    sp32, _, acc, _, _ = sync(sp32, topt.init_opt_state(sp32, oc), acc, None)
+    sp32, _, acc, _, _ = sync(sp32, _mesh_opt(c32, mesh, oc, True), acc,
+                              None)
     d1 = 0.0
     for x, w in zip(leaves(sp32), direct):
         d1 = max(d1, float((x.full().cpu() - w).abs().max()))
@@ -5394,7 +5541,7 @@ def _mesh_delta1_check(base, mesh, batch):
     if not d1 < 2e-5:
         fail(f"lm_mesh_path train: Delta = 1 sync {d1} from the direct step")
     return {"layers": layers, "seq": sseq, "max_abs_diff_vs_direct": d1,
-            "bound": 2e-5}
+            "bound": 2e-5, "opt_state_layout": "ZeRO across pods"}
 
 
 def lm_mesh_pipeline(card: str):
@@ -5454,9 +5601,11 @@ def lm_mesh_pipeline(card: str):
 
 def lm_mesh_remesh(state, card: str):
     """(d) (b)'s final state (the exact run's params and AdamW state on
-    (pod 2, data 1, model 2)) saved whole (``checkpoint.manager``) and
-    restored onto a (data 1, model 2) mesh by ``elastic.remesh_restore``:
-    every leaf bitwise (the fingerprints of the whole leaves)."""
+    (pod 2, data 1, model 2), m and v split over ``pod``) saved whole
+    (``checkpoint.manager``) and restored onto a (data 1, model 2) mesh by
+    ``elastic.remesh_restore`` (m and v by the optimizer-state rule, there
+    the params' blocks): every leaf bitwise (the fingerprints of the whole
+    leaves)."""
     import shutil
     import torch
     from repro_torch.checkpoint import manager
@@ -5518,16 +5667,20 @@ def lm_mesh_path(card: str):
     # the serving cell's buffers come and go in sizes the allocator's
     # fixed segments would fragment
     env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    t0 = time.perf_counter()
     out = subprocess.run(
         [sys.executable, os.path.abspath(__file__), "lm_mesh_path", "mesh"],
         capture_output=True, text=True, timeout=MESH_TIMEOUT_S, env=env)
+    child_s = time.perf_counter() - t0
     if out.returncode != 0:
         fail(f"lm_mesh_path: exit {out.returncode}\n"
              f"{out.stdout[-3000:]}\n{out.stderr[-6000:]}")
     for ln in out.stdout.strip().splitlines()[:-1]:
         print(ln, flush=True)          # the parts' lines
     cell = json.loads(out.stdout.strip().splitlines()[-1])
-    line = {"phase": "lm_mesh_path", "card": card, **cell}
+    line = {"phase": "lm_mesh_path", "card": card,
+            "child_seconds": child_s, "child_limit_s": MESH_TIMEOUT_S,
+            **cell}
     emit(line)
     return line
 
@@ -6316,11 +6469,12 @@ def main() -> int:
                 "bound_ms": kt["bound_ms"], "bound_by": kt["bound_by"],
                 "library_ms": None})
     # K9 on the mesh path: each rank's heads, its launches there (a
-    # prefill of the serving cell under each strategy; a training step's
-    # forwards and backward calls, no remat on the baton)
+    # prefill of the serving cell under each strategy; the training cell's
+    # forwards, two a layer and rank where it recomputes, and backward
+    # calls, every step it ran)
     mserve, mtrain = mesh_line["serve"], mesh_line["train"]
     mesh_fwd = mtrain["k9_per_step"]
-    mesh_steps = 3 * MESH_DELTA
+    mesh_total = mtrain["k9_launches_total"]
     for e in kernels:
         if e["name"] == "flash_attention":
             e["lm_mesh_path_launches"] = {
@@ -6334,7 +6488,7 @@ def main() -> int:
                                     mserve["strategies"].values())),
             ("train_forward", f"{MESH_TRAIN[0]} training, a rank of model "
              f"{MESH_TRAIN[1][2]}, with its logsumexp",
-             mesh_fwd["forward"] * mesh_steps)):
+             mesh_total["forward"])):
         k = mesh_line["k9"][key]
         kernels.append({
             "name": f"flash_attention ({label})", "route": "cuda",
@@ -6349,7 +6503,7 @@ def main() -> int:
         "name": f"flash_attention_bwd ({bw['label']})", "route": "cuda",
         "source": bw["source"], "device_kernels": bw["kernel"],
         "replaces": bwd_replaces,
-        "launches": mesh_fwd["backward_calls"] * mesh_steps,
+        "launches": mesh_total["backward_calls"],
         "launches_per_train_step": mesh_fwd["backward_device"],
         "device_launches_per_call": bw["device_launches_per_call"],
         "max_abs_err": bw["max_abs_err"], "tolerance": bw["tolerance"],

@@ -57,7 +57,9 @@ transposes it: ``all_gather``'s backward is a reduce-scatter,
 On the baton the exchange is one autograd node over every rank's tensor,
 so one ``torch.autograd.backward`` over all ranks' losses runs the whole
 backward in the calling thread, with no rank waiting on another
-(``backward_ranks``).
+(``backward_ranks``). Remat there is ``MeshComm.checkpoint``: every
+rank's region is recomputed together, behind the baton, when the backward
+first needs it (``LocalMesh``).
 
 Two transports count rather than move (the dry run, ``launch/dryrun.py``):
 ``ShapeMesh`` runs one rank of a mesh on ``meta`` tensors, its collectives
@@ -198,7 +200,7 @@ class LocalComm:
                 parts = [s[1] for s in self._slots]
                 with record_function("repro.comm.exchange"):
                     self._results = _OPS[op](parts) if isinstance(op, str) \
-                        else _mesh_exchange(self.mesh, op, parts)
+                        else _EXCHANGES[op[0]](self.mesh, op, parts)
                 self._slots = [None] * self.num_ranks
             self._turn = (rank + 1) % self.num_ranks
             self._cvs[self._turn].notify()
@@ -413,6 +415,14 @@ class Mesh:
             self._lines[key] = out
         return self._lines[key]
 
+    def checkpoint(self, rank, fn, args, context_fn=None):
+        """Rank ``rank``'s ``fn(*args)`` keeping none of its activations,
+        recomputed in its backward: non-reentrant ``torch.utils.checkpoint``,
+        where each rank runs its own backward (``LocalMesh`` overrides)."""
+        from torch.utils import checkpoint as ckpt
+        return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                               context_fn=context_fn or ckpt.noop_context_fn)
+
 
 # the collectives on a line, as functions of the line's tensors in line
 # order; each returns the line's results in that order
@@ -524,6 +534,104 @@ def _mesh_exchange(mesh: Mesh, op, parts):
     return _mesh_apply(mesh, kind, axes, params, parts)
 
 
+# --------------------------------------------- a checkpoint across the baton
+class _StopRecompute(Exception):
+    """Raised in a rank's recompute once it has saved every tensor its
+    forward saved: what follows (a trailing collective) is not run again."""
+
+
+class _Region:
+    """One rank's call of a ``LocalMesh`` checkpoint. Its forward keeps none
+    of the tensors autograd saves (``pack`` leaves their index) and its
+    recompute saves them again in the same order, stopping after the last
+    one: ``torch.utils.checkpoint``'s non-reentrant scheme, early stop
+    included, so a rank's recompute runs the collectives that a
+    ``ShapeMesh`` or ``ProcessMesh`` rank's runs."""
+
+    def __init__(self, fn, args, contexts):
+        self.fn, self.args = fn, args
+        # the rank's context (its mesh, layout, batch split and comm scope)
+        # for the recompute, which runs in a thread of its own
+        self.context = contextvars.copy_context()
+        self.forward_context, self.recompute_context = contexts
+        self.n_saved = 0
+        self.saved = {}
+        self.checkpoint = None
+
+    def pack(self, x):
+        self.n_saved += 1
+        return self.n_saved - 1
+
+    def unpack(self, i):
+        self.checkpoint.recompute()
+        if i not in self.saved:
+            raise RuntimeError("a LocalMesh checkpoint's saved tensor was "
+                               "read twice: one backward through it only")
+        return self.saved.pop(i)
+
+    def recompute(self) -> None:
+        if not self.n_saved:
+            return
+        n = 0
+
+        def pack(x):
+            nonlocal n
+            if n == self.n_saved:
+                raise RuntimeError("LocalMesh checkpoint: the recompute saves "
+                                   "more tensors than the forward")
+            self.saved[n] = x.detach()
+            n += 1
+            if n == self.n_saved:
+                raise _StopRecompute
+            return None
+
+        def unpack(_):
+            raise RuntimeError("LocalMesh checkpoint: a backward inside the "
+                               "recompute")
+        args = pytree.tree_map_only(
+            torch.Tensor, lambda x: x.detach().requires_grad_(x.requires_grad),
+            self.args)
+        try:
+            with torch.enable_grad(), \
+                    torch.autograd.graph.saved_tensors_hooks(pack, unpack), \
+                    self.recompute_context:
+                self.context.run(self.fn, *args)
+        except _StopRecompute:
+            pass
+        if n != self.n_saved:
+            raise RuntimeError(f"LocalMesh checkpoint: the recompute saved {n} "
+                               f"of the forward's {self.n_saved} tensors")
+
+
+class _Checkpoint:
+    """One checkpoint over every rank of a ``LocalMesh``: the first saved
+    tensor the backward reads recomputes every rank's region together,
+    each in its rank's thread behind the baton, as the forward ran."""
+
+    def __init__(self, mesh, regions):
+        self.mesh, self.regions, self.done = mesh, list(regions), False
+        for r in self.regions:
+            r.checkpoint = self
+
+    def recompute(self) -> None:
+        with self.mesh.recompute_lock:
+            if self.done:
+                return
+            dev = next((x.device for x in pytree.tree_leaves(
+                self.regions[0].args) if isinstance(x, torch.Tensor)), None)
+            self.mesh.group.run([r.recompute for r in self.regions],
+                                device=dev)
+            self.done = True
+
+
+def _join_regions(mesh, op, regions):
+    ck = _Checkpoint(mesh, regions)
+    return [ck] * len(regions)
+
+
+_EXCHANGES = {"mesh": _mesh_exchange, "checkpoint": _join_regions}
+
+
 _scope_var: contextvars.ContextVar = contextvars.ContextVar("repro_scope",
                                                             default="")
 
@@ -577,11 +685,6 @@ class MeshComm:
         out.shape = {a: self.shape[a] for a in out.axis_names}
         out.size = math.prod(out.shape.values())
         return out
-
-    @property
-    def one_process(self) -> bool:
-        """Whether every rank runs in this process (a ``LocalMesh``)."""
-        return isinstance(self._t, LocalMesh)
 
     def axis_index(self, axes: Axes) -> int:
         return self.mesh.axis_index(self.rank, axes)
@@ -639,23 +742,56 @@ class MeshComm:
         return self._run("ppermute", axis,
                          (tuple((int(s), int(d)) for s, d in perm),), x)
 
+    def checkpoint(self, fn, *args, context_fn=None):
+        """``fn(*args)`` keeping none of its activations, recomputed in the
+        backward as the transport does it (``Mesh.checkpoint``; on a
+        ``LocalMesh`` every rank's together). ``context_fn``: as
+        ``torch.utils.checkpoint``'s, a pair of contexts for the forward and
+        the recompute (``create_selective_checkpoint_contexts``)."""
+        return self._t.checkpoint(self.rank, fn, args, context_fn)
+
 
 class LocalMesh(Mesh):
     """Every rank of the mesh in this process, on one device, behind
     ``LocalComm``'s baton: ``run(fn)`` calls ``fn(comm(r))`` for every
-    rank ``r`` and returns the results in rank order."""
+    rank ``r`` and returns the results in rank order.
+
+    ``checkpoint`` is remat on the baton. Every rank's backward runs as one
+    in the calling thread, so rank r's layer cannot be recomputed alone
+    there: its collectives would wait for ranks that never come. Each rank
+    enters the checkpoint (a rendezvous that joins the ranks' regions into
+    one ``_Checkpoint``) and runs ``fn`` keeping no saved tensor; when the
+    backward first reads one, every rank's ``fn`` runs again under
+    ``group.run``, in its thread behind the baton with its own context, and
+    refills what it saved."""
 
     def __init__(self, shape, axis_names):
         super().__init__(shape, axis_names)
         self.group = LocalComm(self.size, mesh=self)
         self._comms = [MeshComm(self, r, self) for r in range(self.size)]
         self.ranks = list(range(self.size))
+        self.recompute_lock = threading.Lock()
 
     def comm(self, rank: int) -> MeshComm:
         return self._comms[rank]
 
     def collective(self, rank, kind, axes, params, x):
         return self.group._collective(rank, ("mesh", kind, axes, params), x)
+
+    def checkpoint(self, rank, fn, args, context_fn=None):
+        if self.size == 1:
+            return super().checkpoint(rank, fn, args, context_fn)
+        if not self.group._running:
+            raise RuntimeError("LocalMesh.checkpoint: call it in a rank of "
+                               "run()")
+        contexts = context_fn() if context_fn is not None else (
+            contextlib.nullcontext(), contextlib.nullcontext())
+        region = _Region(fn, args, contexts)
+        self.group._collective(rank, ("checkpoint",), region)
+        with torch.autograd.graph.saved_tensors_hooks(region.pack,
+                                                      region.unpack), \
+                region.forward_context:
+            return fn(*args)
 
     def run(self, fn: Callable[[MeshComm], object], device=None) -> list:
         if self.size == 1:

@@ -31,10 +31,10 @@ port's names: ``dot_flops_per_dev`` for ``hlo_dot_flops_per_dev``,
 ``trace_s`` for ``lower_s`` / ``compile_s``, ``ops`` (aten ops counted) for
 ``hlo_bytes``. ``memory_analysis`` holds the trace's argument, output and
 temp (the peak of what the step allocated, alive at once) bytes, and the
-rank's own param and (training) optimizer-state bytes: m and v are held
-block for block as the params, copied across pods (no ZeRO over ``pod``,
-``optim/optimizer.py``), so a ZeRO split over the pods would save half of
-``opt_state_bytes`` a device at 2x16x16. The port
+rank's own param and (training) optimizer-state bytes: m and v are split
+by the optimizer-state rule, as JAX's dry run shards them (the params' plus
+``pod`` on the fsdp dim: ZeRO across pods, ``optim/optimizer.py``), so at
+2x16x16 a leaf whose fsdp dim splits holds half the params' block. The port
 adds ``collective_wire_bytes_by_link`` (NVLink inside a node of 8 ranks,
 InfiniBand across), ``collective_arriving`` (``Mesh.bytes``' count by
 ``"scope:kind"``), ``collective_count``, ``materialized_bytes`` and
@@ -70,7 +70,8 @@ from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
 from repro_torch.models import build_model, decode_state_specs, input_specs
 from repro_torch.models import param_specs
 from repro_torch.models.decode import state_shardings
-from repro_torch.optim.optimizer import init_opt_state, leaves
+from repro_torch.optim.optimizer import (init_opt_state, leaves,
+                                         shard_opt_state)
 from repro_torch.parallel import sharding as shd
 
 
@@ -170,8 +171,9 @@ def trace_cell(cfg, shape, mesh_shape, axes, rank: int = 0):
     trees = {"params": params}
     if shape.kind == "train":
         ocfg = opt_config_for(cfg)
-        opt = init_opt_state(sp, ocfg)
         trees["opt"] = init_opt_state(params, ocfg)
+        # m and v as JAX's dry run shards them: ZeRO across pods
+        opt = shard_opt_state(trees["opt"], mesh, layout)
         step = make_train_step(api, mesh, ocfg)
         lopt = _tensors(shd.local_tree(opt, rank))
         mem_opt = _unique_bytes(lopt)

@@ -13,9 +13,12 @@ backward over all of them (``dist.backward_ranks``: each loss seeded with
 1 / the mesh's rank count, the cotangent ``shard_map`` gives a replicated
 output), then each rank's gradients summed over the axes its block is
 copied along (``take_grads``) and its AdamW update, the clipping norm the
-whole tree's. The prefill and decode steps run every rank and return rank
-0's logits (the whole batch's, the same on every rank) and the list of
-every rank's decode state here.
+whole tree's. A leaf whose m and v split over ``pod`` further than the
+param (ZeRO across pods, ``optimizer.shard_opt_state``) has its gradient
+summed over the other axes only, then reduce-scattered over ``pod`` to m's
+block (``optimizer.scatter_grads``). The prefill and decode steps run
+every rank and return rank 0's logits (the whole batch's, the same on
+every rank) and the list of every rank's decode state here.
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ import torch
 from repro_torch import dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.optim.optimizer import (OptimizerConfig, adamw_update,
-                                         leaves, tree_map)
+                                         leaves, pod_dims, scatter_grads,
+                                         tree_map)
 from repro_torch.parallel import sharding as shd
 
 
@@ -57,16 +61,20 @@ def rank_loss(api, comm, params, batch):
         return api.loss(local, batch, comm)
 
 
-def take_grads(comm, params, skip=()):
+def take_grads(comm, params, skip=(), zero=None):
     """Rank ``comm.rank``'s gradients, in flatten order, taken off its
     blocks (``.grad`` set back to None): each summed over the axes its
-    block is copied along (``sharding.replicated_axes``), but ``skip``."""
+    block is copied along (``sharding.replicated_axes``) but ``skip``; a
+    leaf with a dim in ``zero`` (ZeRO across pods, ``optimizer.pod_dims``)
+    not over ``pod`` either, since ``scatter_grads`` reduce-scatters it."""
     out = []
-    for p in leaves(shd.local_tree(params, comm.rank)):
+    local = leaves(shd.local_tree(params, comm.rank))
+    for p, d in zip(local, zero or [None] * len(local)):
         g, p.grad = p.grad, None
         if g is None:
             g = torch.zeros_like(p)
-        axes = shd.replicated_axes(p, comm, skip)
+        axes = shd.replicated_axes(p, comm, skip if d is None else
+                                   tuple(skip) + ("pod",))
         out.append(comm.psum(g, axes) if axes else g)
     return out
 
@@ -102,10 +110,13 @@ def make_train_step(api, mesh, opt_cfg: OptimizerConfig):
         loss, metrics = _detached(outs[0])
 
         def update(comm):
-            grads = take_grads(comm, params)
-            _, new, stats = adamw_update(
-                shd.local_tree(params, comm.rank), grads,
-                shd.local_tree(opt_state, comm.rank), opt_cfg, mesh=comm)
+            lp = shd.local_tree(params, comm.rank)
+            lo = shd.local_tree(opt_state, comm.rank)
+            zero = pod_dims(lp, lo["m"])
+            grads = scatter_grads(comm, take_grads(comm, params, zero=zero),
+                                  lp, lo["m"], zero)
+            _, new, stats = adamw_update(lp, grads, lo, opt_cfg, mesh=comm,
+                                         zero=zero)
             return new["step"], stats
         res = mesh.run(update)
         opt_state = dict(opt_state, step=res[0][0])

@@ -23,10 +23,7 @@ statistics cross the ``model`` axis.
 Training: ``forward`` indexes the stacked tree once (``unstack``: one
 ``torch.unbind`` a leaf), so its backward stacks the layers' gradients once
 instead of adding a zero-filled (L, ...) gradient per layer; and wraps each
-layer in ``_remat`` (``cfg.parallel.remat``) when a gradient is wanted, but
-on a ``LocalMesh`` of several ranks: a layer recomputed in the backward
-would run its collectives there, where every rank's backward is one, so
-those layers keep their activations.
+layer in ``_remat`` (``cfg.parallel.remat``) when a gradient is wanted.
 """
 from __future__ import annotations
 
@@ -303,19 +300,25 @@ def _save_dots(ctx, op, *args, **kwargs):
 def _remat(fn, cfg: ModelConfig, mesh=None):
     """``fn`` under the config's rematerialisation: 'none' keeps every
     activation; 'full' keeps the layer's inputs and recomputes the rest in
-    the backward; 'dots_saveable' keeps the matrix products' outputs too.
-    Non-reentrant ``torch.utils.checkpoint``, as JAX's ``jax.checkpoint``.
-    On a ``LocalMesh`` of several ranks ``fn`` as it is (the module
-    docstring says why)."""
+    the backward; 'dots_saveable' keeps the matrix products' outputs too;
+    any other mode raises. Non-reentrant ``torch.utils.checkpoint``, as
+    JAX's ``jax.checkpoint``; under a mesh its transport's
+    (``MeshComm.checkpoint``: a ``LocalMesh`` recomputes every rank's layer
+    together behind the baton)."""
     mode = cfg.parallel.remat
-    if mode == "none" or (mesh is not None and mesh.one_process
-                          and mesh.size > 1):
+    if mode == "none":
         return fn
-    kw = {"use_reentrant": False}
-    if mode == "dots_saveable":
-        kw["context_fn"] = functools.partial(
-            ckpt.create_selective_checkpoint_contexts, _save_dots)
-    return functools.partial(ckpt.checkpoint, fn, **kw)
+    if mode not in ("full", "dots_saveable"):
+        raise ValueError(f"remat={mode!r}: 'none', 'full' or "
+                         f"'dots_saveable'")
+    context_fn = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                   _save_dots) \
+        if mode == "dots_saveable" else None
+    if mesh is None:
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
+                                 context_fn=context_fn or
+                                 ckpt.noop_context_fn)
+    return functools.partial(mesh.checkpoint, fn, context_fn=context_fn)
 
 
 def embed_inputs(params, cfg: ModelConfig, tokens, extra_embeds=None,

@@ -17,7 +17,11 @@ loss, its gradients reduced inside the pod, added to the pod's block of
 the accumulator, which carries a leading axis of the pod count (each pod's
 block (1, ...)); no collective crosses the pods. ``sync_step`` takes the
 mean over pods (a ``psum`` over ``pod``, or the int8 all-gather), applies
-AdamW and zeroes the accumulator. Without a ``pod`` axis (or without a
+AdamW and zeroes the accumulator. Where m and v split a leaf over ``pod``
+further than the param (ZeRO across pods, ``optimizer.shard_opt_state``),
+the exact sync reduce-scatters that leaf's accumulator over ``pod`` to m's
+block instead, and the int8 one takes m's block of its mean
+(``optimizer.scatter_grads``). Without a ``pod`` axis (or without a
 mesh) every slot of the leading axis holds the globally reduced gradient
 and the sync takes the mean over that axis, as JAX's fallback; int8 then
 does not apply.
@@ -28,7 +32,8 @@ import torch
 
 from repro_torch.launch import steps
 from repro_torch.optim.optimizer import (OptimizerConfig, adamw_update,
-                                         leaves, tree_map)
+                                         leaves, pod_dims, scatter_grads,
+                                         tree_map)
 from repro_torch.parallel import compress
 from repro_torch.parallel import sharding as shd
 
@@ -109,6 +114,9 @@ def make_periodic_steps(api, mesh, opt_cfg: OptimizerConfig, *,
     @torch.no_grad()
     def sync(comm, params, opt_state, acc, err):
         acc_l = leaves(shd.local_tree(acc, comm.rank))
+        p_l = shd.local_tree(params, comm.rank)
+        o_l = shd.local_tree(opt_state, comm.rank)
+        zero = pod_dims(p_l, o_l["m"])
         if has_pod:
             if compress_int8:
                 err_l = leaves(shd.local_tree(err, comm.rank))
@@ -118,17 +126,20 @@ def make_periodic_steps(api, mesh, opt_cfg: OptimizerConfig, *,
                                                          comm)
                     e.copy_(new_e[None])
                     grads.append(red)
+                grads = scatter_grads(comm, grads, p_l, o_l["m"], zero,
+                                      summed=True)
             else:
-                grads = [comm.psum(a, "pod")[0] / comm.shape["pod"]
-                         for a in acc_l]
+                # a ZeRO leaf's accumulator reduce-scattered to m's block
+                grads = scatter_grads(comm, [
+                    a[0] if d is not None else comm.psum(a, "pod")[0]
+                    for a, d in zip(acc_l, zero)], p_l, o_l["m"], zero)
+                grads = [g / comm.shape["pod"] for g in grads]
         else:
             # every slot of the leading axis holds the same reduced gradient
             grads = [a.sum(dim=0) / a.shape[0] for a in acc_l]
-        p_l = shd.local_tree(params, comm.rank)
         grads = [g.to(p.dtype) for g, p in zip(grads, leaves(p_l))]
-        _, new, stats = adamw_update(p_l, grads,
-                                     shd.local_tree(opt_state, comm.rank),
-                                     opt_cfg, mesh=comm)
+        _, new, stats = adamw_update(p_l, grads, o_l, opt_cfg, mesh=comm,
+                                     zero=zero)
         for a in acc_l:
             a.zero_()
         return new["step"], stats

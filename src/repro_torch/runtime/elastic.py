@@ -45,8 +45,9 @@ def remesh_restore(ckpt_dir: str, target_tree, new_mesh, layout=None):
     """Load the latest checkpoint of a ``{"params", "opt"}`` tree and give
     every rank of ``new_mesh`` its blocks of each leaf. ``target_tree``
     gives the structure, shapes, dtypes and device (tensors or ``Sharded``
-    leaves, of any mesh). The params and the optimizer's m and v are split
-    by the params' rule (the port keeps m and v as the params), the step
+    leaves, of any mesh). The params are split by the params' rule, the
+    optimizer's m and v by the optimizer-state rule (``pod`` added on the
+    fsdp dim: ZeRO across pods, as the JAX module places them), the step
     whole. Returns (step, tree, specs)."""
     step = manager.latest_step(ckpt_dir)
     if step is None:
@@ -55,14 +56,16 @@ def remesh_restore(ckpt_dir: str, target_tree, new_mesh, layout=None):
     dev = next(x for _, x in manager._flatten(target_tree)).device
     tree = manager.map_leaves(lambda _, x: x.to(dev), tree)
     specs = shd.param_specs(tree["params"], new_mesh, layout=layout)
+    ospecs = {k: shd.param_specs(tree["opt"][k], new_mesh, opt_state=True,
+                                 layout=layout) for k in ("m", "v")}
     out = {"params": shd.shard_params(tree["params"], new_mesh,
                                       specs=specs),
            "opt": {"m": shd.shard_params(tree["opt"]["m"], new_mesh,
-                                         specs=specs),
+                                         specs=ospecs["m"]),
                    "v": shd.shard_params(tree["opt"]["v"], new_mesh,
-                                         specs=specs),
+                                         specs=ospecs["v"]),
                    "step": tree["opt"]["step"]}}
-    shardings = {"params": specs, "opt": {"m": specs, "v": specs,
+    shardings = {"params": specs, "opt": {**ospecs,
                                           "step": shd.replicated(new_mesh)}}
     return step, out, shardings
 

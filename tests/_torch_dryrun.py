@@ -1,8 +1,9 @@
 """Shared helpers of the dry-run step tests (``tests/test_torch_dryrun.py``
 on (2, 1, 2), ``tests/test_torch_dryrun_mesh.py`` on (2, 4)): a smoke
-config's prefill, decode step and training step (``remat="none"``, as on
-the baton) traced on a ``dist.ShapeMesh`` against every rank of a real
-``LocalMesh`` run: ``Mesh.bytes`` by (scope, kind) a rank
+config's prefill, decode step and training step (``remat="none"``; the
+config's remat and ZeRO across pods in ``check_zero_train``) traced on a
+``dist.ShapeMesh`` against every rank of a real ``LocalMesh`` run:
+``Mesh.bytes`` by (scope, kind) a rank
 (``RankBytesMesh``), dot flops a rank for the prefill and the decode step
 (the counter entered inside each rank's function; dispatch modes are per
 thread) and summed over the ranks for the training step (its backward runs
@@ -34,7 +35,8 @@ from repro_torch.launch import roofline as rl
 from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
                                       make_train_step, opt_config_for)
 from repro_torch.models import build_model
-from repro_torch.optim.optimizer import init_opt_state, leaves
+from repro_torch.optim.optimizer import (init_opt_state, leaves,
+                                         shard_opt_state)
 from repro_torch.parallel import sharding as shd
 
 from _torch_mesh import SRC, TESTS
@@ -244,3 +246,32 @@ def check_steps(arch, par, shape, axes):
             assert got[0] == mesh.of(r), (r0, r)
         traced_fl += len(ranks) * got[2]
     assert traced_fl == real_fl
+
+
+def check_zero_train(arch, par, shape, axes):
+    """A training step with the config's remat (its recompute on every rank
+    behind the baton) and m and v split by the optimizer-state rule (ZeRO
+    across pods: the gradient reduce-scattered over ``pod``, the param
+    all-gathered back): every rank's bytes by (scope, kind) traced on a
+    ``ShapeMesh`` equal the ``LocalMesh`` run's. Returns the real run's
+    kinds of collective."""
+    base = get_smoke_config(arch)
+    cfg = base.replace(capacity_factor=4.0,
+                       parallel=base.parallel.replace(**par))
+    b, s = 4, 16 + cfg.num_patches
+    api = build_model(cfg)
+    params = api.init(0, device="cpu")
+    ocfg = opt_config_for(cfg)
+    batch = _batch(cfg, b, s)
+    mesh = RankBytesMesh(shape, axes)
+    sp = shd.shard_params(params, mesh)
+    make_train_step(api, mesh, ocfg)(
+        sp, shard_opt_state(init_opt_state(params, ocfg), mesh), batch)
+    for r0, ranks in _rank_classes(sp, mesh.size).items():
+        sm = dist.ShapeMesh(shape, axes, rank=r0)
+        make_train_step(api, sm, ocfg)(
+            shd.shard_params(params, sm),
+            shard_opt_state(init_opt_state(params, ocfg), sm), batch)
+        for r in ranks:
+            assert dict(sm.bytes) == mesh.of(r), (r0, r)
+    return {k for _, k in mesh.bytes}

@@ -25,6 +25,12 @@ F32_TOL = 2e-3
 def run_jax(code: str, out_path: str, devices: int = 8, timeout=300):
     """Run ``code`` (which saves its results with ``np.savez(OUT, ...)``)
     with ``devices`` host devices; returns the saved arrays."""
+    return run_jax_side_by_side([(code, out_path)], devices, timeout)
+
+
+def run_jax_side_by_side(jobs, devices: int = 8, timeout=300):
+    """``run_jax`` of every (code, out_path) of ``jobs``, each in its own
+    process and all at once; returns their saved arrays merged."""
     env = dict(os.environ)
     # LLVM's optimisation level 0 compiles the references' many small
     # programs faster; the programs and their operations are the same
@@ -32,14 +38,24 @@ def run_jax(code: str, out_path: str, devices: int = 8, timeout=300):
                         f"--xla_backend_optimization_level=0")
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = os.pathsep.join([SRC, TESTS])
-    head = f"OUT = {out_path!r}\n"
-    proc = subprocess.run([sys.executable, "-c", head + textwrap.dedent(code)],
-                          capture_output=True, text=True, timeout=timeout,
-                          env=env)
-    assert proc.returncode == 0, proc.stdout[-3000:] + "\n" + \
-        proc.stderr[-6000:]
-    with np.load(out_path) as f:
-        return {k: f[k] for k in f.files}
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"OUT = {path!r}\n" + textwrap.dedent(code)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for code, path in jobs]
+    out = {}
+    try:
+        for proc, (_, path) in zip(procs, jobs):
+            stdout, stderr = proc.communicate(timeout=timeout)
+            assert proc.returncode == 0, stdout[-3000:] + "\n" + \
+                stderr[-6000:]
+            with np.load(path) as f:
+                out.update({k: f[k] for k in f.files})
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return out
 
 
 def flat_names(tree, path=()):

@@ -2554,9 +2554,11 @@ def test_lm_mesh_prefill_and_decode_k9_per_rank(dev, threshold, monkeypatch):
 def test_lm_mesh_train_step_and_pod_sync(dev):
     """The qwen2-7b smoke model (bf16, vocab-parallel loss) on a (pod 2,
     data 1, model 2) mesh on the card: a Delta = 2 periodic sync, exact and
-    int8, K9's forward and backward on every rank's attention (one of each
-    a rank, layer and step: no remat on the baton), the params finite after
-    the sync; the mesh's direct train step runs."""
+    int8, K9's forward and backward on every rank's attention (two
+    forwards a rank, layer and step, the config's remat recomputing each
+    layer on the baton, and one backward call, its launches
+    ``bwd_launches_per_call``), the params finite after the sync; the
+    mesh's direct train step runs."""
     import math
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.mesh import make_mesh
@@ -2586,8 +2588,12 @@ def test_lm_mesh_train_step_and_pod_sync(dev):
             acc, m = accum(sp, acc, batch)
             assert math.isfinite(float(m["loss"]))
         counts = _build.launch_counts()
-        assert counts["flash_attention"] == 2 * 4 * cfg.num_layers
-        assert counts["flash_attention_bwd"] == 2 * 4 * cfg.num_layers
+        calls = 2 * 4 * cfg.num_layers
+        assert counts["flash_attention"] == 2 * calls
+        assert counts["flash_attention_bwd"] == \
+            calls * fa.bwd_launches_per_call(
+                torch.bfloat16, cfg.head_dim,
+                cfg.num_heads // cfg.num_kv_heads)
         sp, opt, acc, err, _ = sync(sp, opt, acc, err)
         assert int(opt["step"]) == 1
         assert all(bool(torch.isfinite(x).all())
@@ -2596,3 +2602,71 @@ def test_lm_mesh_train_step_and_pod_sync(dev):
     _, _, m = make_train_step(api, mesh, opt_cfg)(
         sp, topt.init_opt_state(sp, opt_cfg), batch)
     assert math.isfinite(float(m["loss"]))
+
+
+def _mesh_period(api, params, mesh, batch, opt_cfg, zero):
+    """Two accumulations and a sync on the card: (losses, accumulator
+    before the sync, K9's launches, state after the sync), whole."""
+    from repro_torch.optim import optimizer as topt
+    from repro_torch.optim import periodic
+    from repro_torch.parallel import sharding as shd
+    sp = shd.shard_params(params, mesh)
+    opt = topt.shard_opt_state(topt.init_opt_state(params, opt_cfg), mesh) \
+        if zero else topt.init_opt_state(sp, opt_cfg)
+    acc = periodic.init_accumulator(sp, mesh)
+    accum, sync = periodic.make_periodic_steps(api, mesh, opt_cfg)
+    _build.reset_launch_counts()
+    losses = []
+    for _ in range(2):
+        acc, m = accum(sp, acc, batch)
+        losses.append(float(m["loss"]))
+    counts = dict(_build.launch_counts())
+    acc_whole = [a.full() for a in topt.leaves(acc)]
+    sp, opt, _, _, _ = sync(sp, opt, acc, None)
+    state = [x.full() if hasattr(x, "full") else x
+             for x in topt.leaves({"params": sp, "opt": opt})]
+    return losses, acc_whole, counts, state
+
+
+@pytest.mark.parametrize("remat", ["full", "dots_saveable"])
+def test_lm_mesh_remat_zero_against_remat_none(dev, remat, monkeypatch):
+    """The qwen2-7b smoke model (bf16, vocab-parallel loss), every leaf
+    split, on (pod 2, data 1, model 2) on the card: two accumulations and a
+    sync under ``remat`` (every rank's layer recomputed together behind the
+    baton) with m and v split over ``pod`` (ZeRO across pods) against
+    ``remat="none"`` with m and v held as the params: the losses and the
+    accumulator bitwise, K9's forwards doubled and its backward calls
+    equal, and params, m and v after the sync bitwise or each within one
+    bf16 step (the clipping norm sums a ZeRO leaf's halves apart)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import optimizer as topt
+    from repro_torch.parallel import sharding as shd
+    monkeypatch.setattr(shd, "_REPLICATE_BELOW", 0)
+    base = get_smoke_config("qwen2-7b")
+    mesh = make_mesh((2, 1, 2), ("pod", "data", "model"))
+    g = torch.Generator(device=dev).manual_seed(4)
+    batch = {"tokens": torch.randint(0, base.vocab_size, (4, 64),
+                                     generator=g, device=dev,
+                                     dtype=torch.int32)}
+    opt_cfg = topt.OptimizerConfig(state_dtype="bfloat16")
+    runs = {}
+    for mode, zero in ((remat, True), ("none", False)):
+        cfg = base.replace(parallel=base.parallel.replace(
+            ce_mode="vocab_parallel", remat=mode))
+        api = build_model(cfg)
+        runs[mode] = _mesh_period(api, api.init(0, device=dev), mesh, batch,
+                                  opt_cfg, zero)
+    (l1, a1, c1, s1), (l0, a0, c0, s0) = runs[remat], runs["none"]
+    n = 2 * mesh.size * base.num_layers
+    assert c0["flash_attention"] == n and c1["flash_attention"] == 2 * n
+    assert c1["flash_attention_bwd"] == c0["flash_attention_bwd"] == \
+        n * fa.bwd_launches_per_call(torch.bfloat16, base.head_dim,
+                                     base.num_heads // base.num_kv_heads)
+    assert l1 == l0
+    assert all(torch.equal(x, y) for x, y in zip(a1, a0))
+    for x, y in zip(s1, s0):
+        x, y = x.float(), y.float()
+        big = torch.maximum(x.abs(), y.abs())
+        assert bool(((x - y).abs() <= 2.0 ** -7 * big).all())

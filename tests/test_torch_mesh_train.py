@@ -17,8 +17,19 @@ config in f32:
   toolchain, so its direct step is the reference), and at Delta = 4 equal
   to JAX's no-pod ``make_periodic_steps`` within 2e-5;
 - ``remesh_restore``: a state saved from (2, 2) and restored onto (1, 2),
-  every leaf bitwise, and a train step on the new mesh.
+  every leaf bitwise, and a train step on the new mesh; restored onto
+  (2, 2, 2), m and v with the specs of JAX's optimizer-state rule
+  (``make_param_shardings(opt_state=True)``);
+- ZeRO across pods on (pod 2, data 2, model 2), every leaf split: m and v
+  placed by that rule hold half the params' blocks, and two train steps
+  at lr 3e-4 equal JAX's train step jitted with those shardings (the
+  params within 2e-5 absolute, m and v each leaf within 2e-3 of its
+  largest value);
+- remat on the baton: ``full`` and ``dots_saveable`` give the loss and
+  every gradient bitwise ``none``'s, each layer's forward run twice.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -28,16 +39,18 @@ from repro_torch.configs import get_smoke_config as tget
 from repro_torch.launch import steps as tsteps
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import build_model
+from repro_torch.models import transformer as tfm
 from repro_torch.optim import optimizer as topt
 from repro_torch.optim import periodic as tperiodic
 from repro_torch.optim.optimizer import leaves
 from repro_torch.parallel import sharding as shd
 from repro_torch.runtime import elastic as telastic
 
-from _torch_mesh import F32_TOL, run_jax
+from _torch_mesh import F32_TOL, run_jax_side_by_side
 
 CASES = {"tp": ("tp", "dense"), "fsdp": ("fsdp", "dense"),
          "tp_vocab_parallel": ("tp", "vocab_parallel")}
+AXES3 = ("pod", "data", "model")
 
 JAX_CODE = """
 import numpy as np, jax, jax.numpy as jnp
@@ -97,11 +110,56 @@ for i, leaf in enumerate(jax.tree.leaves(p4)):
 np.savez(OUT, **out)
 """ % (CASES,)
 
+# ZeRO's reference runs beside JAX_CODE, in a process of its own: the same
+# params and tokens (the first draws of the same seeds)
+ZERO_CODE = """
+import json
+import numpy as np, jax, jax.numpy as jnp
+from repro.configs import get_smoke_config
+from repro.launch.mesh import make_mesh
+from repro.launch.steps import make_train_step, opt_config_for
+from repro.models import build_model
+from repro.optim.optimizer import init_opt_state
+from repro.parallel import sharding as shd
+out = {}
+rng = np.random.default_rng(5)
+cfg = get_smoke_config("qwen2-7b").replace(dtype="float32")
+api = build_model(cfg)
+params = api.init(jax.random.key(0))
+toks = rng.integers(0, cfg.vocab_size, (5, 8, 32)).astype(np.int32)
+mesh3 = make_mesh((2, 2, 2), ("pod", "data", "model"))
+# ZeRO across pods: the train step jitted with m and v sharded by the
+# optimizer-state rule, as JAX's dry run shards them, on (pod 2, data 2,
+# model 2) with every leaf split; two steps at the pod sync's lr with no
+# warm-up, so the params move by ~lr a step
+shd._REPLICATE_BELOW = 0
+ocfg = opt_config_for(cfg).replace(lr=3e-4, warmup_steps=0)
+pshard = shd.make_param_shardings(params, mesh3)
+oshard = {k: shd.make_param_shardings(params, mesh3, opt_state=True)
+          for k in ("m", "v")}
+oshard["step"] = shd.replicated(mesh3)
+zstep = jax.jit(make_train_step(api, mesh3, ocfg),
+                in_shardings=(pshard, oshard, {"tokens": shd.batch_sharding(
+                    mesh3, 2, batch_size=toks.shape[1])}),
+                out_shardings=(pshard, oshard, None))
+zp, zo = params, init_opt_state(params, ocfg)
+for i in range(2):
+    zp, zo, _ = zstep(zp, zo, {"tokens": jnp.asarray(toks[i])})
+for name, tree in (("p", zp), ("m", zo["m"]), ("v", zo["v"])):
+    for i, leaf in enumerate(jax.tree.leaves(tree)):
+        out[f"zero/{name}{i}"] = np.asarray(leaf)
+out["zero/specs"] = np.array(json.dumps([
+    [list(e) if isinstance(e, tuple) else e for e in s.spec]
+    for s in jax.tree.leaves(oshard["m"])]))
+np.savez(OUT, **out)
+"""
+
 
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
-    path = str(tmp_path_factory.mktemp("mesh") / "train.npz")
-    return run_jax(JAX_CODE, path)
+    tmp = tmp_path_factory.mktemp("mesh")
+    return run_jax_side_by_side([(JAX_CODE, str(tmp / "train.npz")),
+                                 (ZERO_CODE, str(tmp / "zero.npz"))])
 
 
 def _params(ref):
@@ -221,3 +279,154 @@ def test_remesh_restore_bitwise(ref, tmp_path, monkeypatch):
     _, opt2, m = tsteps.make_train_step(api, new, opt_cfg)(
         tree["params"], tree["opt"], batch)
     assert np.isfinite(float(m["loss"])) and int(opt2["step"]) == 2
+    # onto a mesh with pod: m and v by JAX's optimizer-state rule
+    new3 = make_mesh((2, 2, 2), AXES3)
+    step, tree3, _ = telastic.remesh_restore(
+        str(tmp_path), {"params": sp, "opt": opt}, new3)
+    want = json.loads(str(ref["zero/specs"]))
+    for k in ("m", "v"):
+        got = leaves(tree3["opt"][k])
+        assert len(got) == len(want)
+        for x, w in zip(got, want):
+            assert _axes_of(x.spec, x.dim()) == _axes_of(w, x.dim())
+    assert any(m.spec != p.spec for m, p in zip(leaves(tree3["opt"]["m"]),
+                                                leaves(tree3["params"])))
+    for a, b in zip(leaves(shd.unshard({"params": sp, "opt": opt})),
+                    leaves(shd.unshard(tree3))):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    _, opt3, m = tsteps.make_train_step(api, new3, opt_cfg)(
+        tree3["params"], tree3["opt"], batch)
+    assert np.isfinite(float(m["loss"])) and int(opt3["step"]) == 2
+
+
+def _axes_of(spec, ndim):
+    """A spec (the port's ``P`` or JAX's as a list) as one tuple of axes a
+    dim."""
+    spec = list(spec) + [None] * (ndim - len(spec))
+    return tuple(() if e is None else (e,) if isinstance(e, str) else
+                 tuple(e) for e in spec)
+
+
+def _zero_state(ref):
+    """qwen2-7b's smoke model in f32 on (2, 2, 2): the params by their
+    rule, m and v by the optimizer-state rule; the config's optimizer at
+    the pod sync tests' lr, 3e-4, from the first step."""
+    cfg = tget("qwen2-7b").replace(dtype="float32")
+    api = build_model(cfg)
+    ocfg = tsteps.opt_config_for(cfg).replace(lr=3e-4, warmup_steps=0)
+    mesh = make_mesh((2, 2, 2), AXES3)
+    params = _params(ref)
+    sp = shd.shard_params(params, mesh)
+    opt = topt.shard_opt_state(topt.init_opt_state(params, ocfg), mesh)
+    return api, ocfg, mesh, sp, opt
+
+
+def test_zero_m_and_v_half_the_params_blocks(ref, monkeypatch):
+    """Every leaf split by the data axis has m and v split over pod too
+    (JAX's specs), each rank's blocks half its param block; the others are
+    held as the param."""
+    monkeypatch.setattr(shd, "_REPLICATE_BELOW", 0)
+    _, _, mesh, sp, opt = _zero_state(ref)
+    want = json.loads(str(ref["zero/specs"]))
+    split = 0
+    for p, m, v, w in zip(leaves(sp), leaves(opt["m"]), leaves(opt["v"]),
+                          want):
+        assert _axes_of(m.spec, m.dim()) == _axes_of(w, m.dim())
+        assert v.spec == m.spec
+        zero = "data" in {a for e in _axes_of(p.spec, p.dim()) for a in e}
+        assert (m.spec != p.spec) == zero
+        split += zero
+        for r in range(mesh.size):
+            assert m.local(r).numel() * (2 if zero else 1) == \
+                p.local(r).numel()
+            assert v.local(r).shape == m.local(r).shape
+    assert split >= 8
+
+
+def test_zero_train_steps_equal_jax(ref, monkeypatch):
+    """Two train steps with m and v split over pod (the gradient
+    reduce-scattered over pod to m's block, the param gathered back)
+    against JAX's step jitted with the optimizer-state shardings, at lr
+    3e-4 from the first step: the params within 2e-5 absolute (the pod
+    sync's tolerance), each leaf having moved by 5e-4 or more in JAX, so a
+    block of the update not written back shows; m and v each within 2e-3
+    of the leaf's largest value."""
+    monkeypatch.setattr(shd, "_REPLICATE_BELOW", 0)
+    api, ocfg, mesh, sp, opt = _zero_state(ref)
+    p0 = [x.numpy().copy() for x in leaves(_params(ref))]
+    step = tsteps.make_train_step(api, mesh, ocfg)
+    for i in range(2):
+        sp, opt, m = step(sp, opt, {"tokens": torch.from_numpy(
+            ref["tokens"][i])})
+        assert np.isfinite(float(m["loss"]))
+    assert int(opt["step"]) == 2
+    for name, tree in (("p", sp), ("m", opt["m"]), ("v", opt["v"])):
+        for i, x in enumerate(leaves(tree)):
+            w = ref[f"zero/{name}{i}"]
+            got = x.full().numpy()
+            assert got.shape == w.shape, (name, i)
+            err = float(np.abs(got - w).max())
+            if name == "p":
+                assert float(np.abs(w - p0[i]).max()) >= 5e-4, i
+                assert err < 2e-5, (name, i, err)
+            else:
+                assert err <= F32_TOL * float(np.abs(w).max()), (name, i, err)
+
+
+def _remat_grads(ref, mode):
+    """(the ranks' losses, every gradient, the layer forwards run) of
+    qwen2-7b's smoke model in f32 on a (2, 2, 2) ``LocalMesh`` under remat
+    ``mode``, every leaf split."""
+    calls = []
+    real = tfm.apply_layer_full
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+    base = tget("qwen2-7b").replace(dtype="float32")
+    cfg = base.replace(parallel=base.parallel.replace(remat=mode))
+    mesh = make_mesh((2, 2, 2), AXES3)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(shd, "_REPLICATE_BELOW", 0)
+        mp.setattr(tfm, "apply_layer_full", counted)
+        losses, grads = _mesh_grads(
+            build_model(cfg), shd.shard_params(_params(ref), mesh), mesh,
+            {"tokens": torch.from_numpy(ref["tokens"][0])})
+    return losses, grads, len(calls)
+
+
+@pytest.fixture(scope="module")
+def remat_none(ref):
+    return _remat_grads(ref, "none")
+
+
+@pytest.mark.parametrize("mode", ["full", "dots_saveable"])
+def test_remat_on_the_baton_bitwise_none(ref, remat_none, mode):
+    """qwen2-7b's smoke model in f32 on a (2, 2, 2) ``LocalMesh``, every
+    leaf split: under ``mode`` the ranks' losses and every gradient are
+    bitwise ``remat='none'``'s, and each layer's forward runs twice a rank
+    (the recompute, every rank's together behind the baton)."""
+    losses, grads, calls = _remat_grads(ref, mode)
+    assert losses == remat_none[0]
+    assert all(torch.equal(a, b) for a, b in zip(grads, remat_none[1]))
+    assert remat_none[2] == 8 * tget("qwen2-7b").num_layers
+    assert calls == 2 * remat_none[2]
+
+
+@pytest.mark.parametrize("shape", [None, (1, 2)])
+def test_remat_on_the_baton_refuses_other_modes(ref, shape):
+    """A remat mode other than 'none', 'full' and 'dots_saveable' raises,
+    on a ``LocalMesh`` as without a mesh: the layers never keep their
+    activations quietly, nor recompute them under a mode they do not
+    know."""
+    cfg = tget("qwen2-7b").replace(dtype="float32")
+    cfg = cfg.replace(parallel=cfg.parallel.replace(remat="offload"))
+    api = build_model(cfg)
+    params = _params(ref)
+    batch = {"tokens": torch.from_numpy(ref["tokens"][0])}
+    with pytest.raises(ValueError, match="remat='offload'"):
+        if shape is None:
+            tsteps.loss_and_grads(api, params, batch)
+        else:
+            mesh = make_mesh(shape, ("data", "model"))
+            _mesh_grads(api, shd.shard_params(params, mesh), mesh, batch)
